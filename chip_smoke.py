@@ -6,7 +6,8 @@
 Phases, run in this order, each of which raises (exit code != 0) on any
 failure:
   1. env      card name and power limit (nvidia-smi), torch and CUDA versions
-  2. build    nvcc build of every CUDA source of the port, timed
+  2. build    nvcc build of every CUDA source of the port, all sources at
+              once, each timed
   3. kernels  each flash-attention kernel against its plain PyTorch version
               on the card: the GPT-2 training shape (8, 16, 1024, 64) bf16
               causal, plus fp32 shapes with 'key' bias, 'full' bias, ragged
@@ -26,11 +27,35 @@ failure:
               the kernels against the same model with the plain version
               (flash_attention_reference) as its attention, bf16 tolerance;
               a planted fault (diagonal tiles masked) must fail it
+  7. sparse kernels
+              each block-sparse kernel against its plain version: the
+              long-sequence BERT shape (4, 12, 4096, 64) bf16 over the
+              FixedSparsityConfig(12, block 64, local 4, global 1) layout
+              with a key bias, plus fp32 cases (per-head BigBird at block
+              16, an empty layout row, a padded key tail, head_dim 64 to
+              128, blocks 32 and 128); times beside the plain versions, the
+              bound and, as a yardstick only, scaled_dot_product_attention
+              with the layout's token mask; two planted faults (the last
+              active block of every row dropped, one block-row of every
+              output left at zero) must fail the gate
+  8. train (BERT)
+              initialize() -> 10 x train_batch of bert-base (12 layers,
+              full width) at seq 4096 over that layout, micro 4, gas 2:
+              losses finite and falling, every block-sparse kernel launched
+              exactly 12 x 2 x 10 times and no flash kernel
+  9. profile (BERT)
+              two more steps under torch.profiler
+ 10. parity (BERT)
+              2 layers at full width, seq 4096: loss and every gradient
+              against block_sparse_attention_reference as the attention; a
+              planted fault (one active block per row dropped) must fail it
 The line before the last is the kernels JSON; the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card and nvcc.
 """
+import concurrent.futures
 import json
 import os
+import random
 import subprocess
 import sys
 import time
@@ -42,6 +67,23 @@ FLASH_KERNELS = (
     ("flash_bwd_dkdv", "deepspeed_tpu/ops/transformer/flash_attention.py:277"),
     ("flash_bwd_dq", "deepspeed_tpu/ops/transformer/flash_attention.py:343"),
 )
+SPARSE_SOURCE = ("deepspeed_tpu_torch/ops/sparse_attention/csrc/"
+                 "block_sparse_attention.cu")
+_BSK = "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py"
+SPARSE_KERNELS = (
+    ("sparse_fwd", f"{_BSK}:68"),
+    ("sparse_bwd_dq", f"{_BSK}:179"),
+    ("sparse_bwd_dkdv", f"{_BSK}:224"),
+)
+# the long-sequence BERT slice: bert-base over FixedSparsityConfig(12,
+# block 64, local 4, global 1) at seq 4096 (the JAX package's bench.py
+# --model bert-base --sparse 1 --seq 4096)
+BERT_MODEL = "bert-base"
+BERT_SEQ = 4096
+BERT_MICRO = 4
+BERT_GAS = 2
+BERT_STEPS = 10
+BERT_SPARSITY = dict(block=64, num_local_blocks=4, num_global_blocks=1)
 # error allowed against the plain version, element by element relative to
 # the reference's own scale: |a - b| <= TOL * (|b| + rms(b)) (see scaled_err);
 # in the parity phase, ||a - b|| <= TOL * ||b|| per gradient tensor
@@ -80,28 +122,32 @@ def card_peaks(name):
     raise RuntimeError(f"no peak table for card {name!r}")
 
 
-def flash_work(kernel, bh, s_q, s_k, d, elem, causal, bias_bytes):
-    """(operations, bytes) a flash kernel must do and move at this shape:
-    matmul FLOPs over the score pairs the mask keeps; each input read once
-    and each output written once."""
-    pairs = s_q * (s_q + 1) // 2 if causal else s_q * s_k
+def flash_work(kernel, bh, s_q, s_k, d, elem, causal, bias_bytes,
+               pairs=None):
+    """(operations, bytes) an attention kernel (flash_* or sparse_*) must
+    do and move at this shape: matmul FLOPs over the score pairs the mask
+    keeps (``pairs`` per batch*head: the active blocks' pairs for a sparse
+    layout); each input read once and each output written once."""
+    if pairs is None:
+        pairs = s_q * (s_q + 1) // 2 if causal else s_q * s_k
     mat = bh * s_q * d * elem          # one (bh, s, d) tensor
     stats = bh * s_q * 4               # one (bh, s_q) fp32 row statistic
-    if kernel == "flash_fwd":
+    kind = kernel.split("_", 1)[1]
+    if kind == "fwd":
         return 4 * d * pairs * bh, 4 * mat + stats + bias_bytes
-    if kernel == "flash_bwd_dkdv":
+    if kind == "bwd_dkdv":
         return 8 * d * pairs * bh, 6 * mat + 2 * stats + bias_bytes
     return 6 * d * pairs * bh, 5 * mat + 2 * stats + bias_bytes
 
 
-def bound(kernel, name, shape, dtype, causal, bias_bytes=0):
+def bound(kernel, name, shape, dtype, causal, bias_bytes=0, pairs=None):
     import torch
 
     _, (bf16_peak, fp32_peak, bw) = card_peaks(name)
     b, h, s, d = shape
     elem = torch.empty((), dtype=dtype).element_size()
     ops, nbytes = flash_work(kernel, b * h, s, s, d, elem, causal,
-                             bias_bytes)
+                             bias_bytes, pairs)
     peak = bf16_peak if dtype == torch.bfloat16 else fp32_peak
     t_ops, t_bytes = ops / peak * 1e3, nbytes / bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -166,17 +212,28 @@ def phase_env():
 
 
 def phase_build():
+    """One nvcc per source, all started together; each timed."""
     from deepspeed_tpu_torch.ops import op_builder
 
+    def timed(name):
+        t0 = time.perf_counter()
+        path, report = op_builder.build(name, verbose=True)
+        return path, report, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    path, report = op_builder.build(verbose=True)
-    secs = time.perf_counter() - t0
-    log(f"build {FLASH_SOURCE}: {path}")
-    for ln in report.splitlines():
-        if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
-            log(f"  {ln.strip()}")
-    log(f"build seconds: {secs:.2f}")
-    return secs
+    with concurrent.futures.ThreadPoolExecutor(len(op_builder.SOURCES)) as ex:
+        futures = {name: ex.submit(timed, name)
+                   for name in op_builder.SOURCES}
+        results = {name: f.result() for name, f in futures.items()}
+    for name, (path, report, secs) in results.items():
+        log(f"build {os.path.relpath(op_builder.SOURCES[name], HERE)}: "
+            f"{path}")
+        for ln in report.splitlines():
+            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
+                log(f"  {ln.strip()}")
+        log(f"build seconds ({name}): {secs:.2f}")
+    log(f"build seconds (all sources, in parallel): "
+        f"{time.perf_counter() - t0:.2f}")
 
 
 def _flash_case(shape, dtype, causal, bias_kind, dropout, seed, main):
@@ -421,20 +478,13 @@ def _slice_batch(vocab, gas, micro, seq, seed):
     return {"input_ids": ids, "labels": ids.clone()}
 
 
-def phase_train(env):
-    import torch
-
-    from deepspeed_tpu_torch import initialize
-    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
-    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
-
-    cfg = gpt2_config(SLICE_MODEL, n_positions=SLICE_SEQ,
-                      dtype=torch.bfloat16, remat=False)
-    model = GPT2Model(cfg)
-    ds_config = {
-        "train_batch_size": SLICE_MICRO * SLICE_GAS,
-        "train_micro_batch_size_per_gpu": SLICE_MICRO,
-        "gradient_accumulation_steps": SLICE_GAS,
+def _ds_config(micro, gas):
+    """bf16 over fp32 master weights, Adam lr 1e-4, WarmupLR, clipping 1.0
+    (the JAX package's bench.py settings)."""
+    return {
+        "train_batch_size": micro * gas,
+        "train_micro_batch_size_per_gpu": micro,
+        "gradient_accumulation_steps": gas,
         "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
         "scheduler": {"type": "WarmupLR",
                       "params": {"warmup_min_lr": 0.0, "warmup_max_lr": 1e-4,
@@ -443,40 +493,70 @@ def phase_train(env):
         "bf16": {"enabled": True},
         "steps_per_print": 10 ** 9,
     }
+
+
+def phase_train(env):
+    import torch
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
+
+    cfg = gpt2_config(SLICE_MODEL, n_positions=SLICE_SEQ,
+                      dtype=torch.bfloat16, remat=False)
+    model = GPT2Model(cfg)
+    ds_config = _ds_config(SLICE_MICRO, SLICE_GAS)
     engine, _, _, _ = initialize(model=model, config_params=ds_config)
-    n_params = sum(p.numel() for p in engine.module.parameters())
     batch = _slice_batch(cfg.vocab_size, SLICE_GAS, SLICE_MICRO, SLICE_SEQ,
                          seed=0)
+    want = {name: cfg.n_layer * SLICE_GAS * SLICE_STEPS
+            for name, _ in FLASH_KERNELS}
+    want.update({name: 0 for name, _ in SPARSE_KERNELS})
+    return _train_steps(env, engine, batch, SLICE_MODEL, SLICE_SEQ,
+                        SLICE_MICRO, SLICE_GAS, SLICE_STEPS, want)
+
+
+def _train_steps(env, engine, batch, model_name, seq, micro, gas, steps,
+                 want):
+    """``steps`` train_batch calls with every kernel count set to 0 just
+    before and read just after; raises unless the losses are finite and
+    falling and each kernel launched exactly ``want[kernel]`` times."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bsk
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    n_params = sum(p.numel() for p in engine.module.parameters())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fa.reset_launch_counts()
+    bsk.reset_launch_counts()
     losses, step_ms = [], []
-    for _ in range(SLICE_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         loss = engine.train_batch(batch=batch)
         losses.append(float(loss))          # syncs the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(fa.LAUNCHES)
+    launches = dict(fa.LAUNCHES, **bsk.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    log(f"train {SLICE_MODEL} ({n_params / 1e6:.1f}M params) seq "
-        f"{SLICE_SEQ} micro {SLICE_MICRO} gas {SLICE_GAS}: losses "
+    log(f"train {model_name} ({n_params / 1e6:.1f}M params) seq "
+        f"{seq} micro {micro} gas {gas}: losses "
         f"{[round(x, 4) for x in losses]}")
     log(f"  grad_norm {float(engine._last_metrics['grad_norm']):.4f} "
         f"lr {engine.get_lr()[0]:.3e} launches {launches}")
     steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
-    tokens = SLICE_MICRO * SLICE_GAS * SLICE_SEQ
-    log(f"  step ms (median of steps 2..{SLICE_STEPS}) {steady:.1f}, first "
-        f"step {step_ms[0]:.1f} ms, tokens/s {tokens / steady * 1e3:.0f}, "
-        f"max_memory_allocated {peak / 2 ** 30:.2f} GiB on {env['smi']}")
+    tokens = micro * gas * seq
+    log(f"  step ms (median of steps 2..{steps}) {steady:.1f} on "
+        f"{env['smi']}; first step {step_ms[0]:.1f} ms; tokens/s "
+        f"{tokens / steady * 1e3:.0f} on {env['smi']}; max_memory_allocated "
+        f"{peak / 2 ** 30:.2f} GiB on {env['smi']}")
     if not all(x == x and abs(x) != float("inf") for x in losses):
         raise RuntimeError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise RuntimeError(f"loss did not fall: {losses}")
-    want = cfg.n_layer * SLICE_GAS * SLICE_STEPS
-    for name, n in launches.items():
-        if n != want:
-            raise RuntimeError(f"{name} launched {n} times in the slice, "
-                               f"expected {want}")
+    if launches != want:
+        raise RuntimeError(f"{model_name}: kernels launched {launches}, "
+                           f"expected {want}")
     return {"launches": launches, "step_ms": steady, "losses": losses,
             "tokens_per_s": tokens / steady * 1e3, "peak_bytes": peak,
             "engine": engine, "batch": batch}
@@ -486,6 +566,8 @@ def _kernel_group(name):
     low = name.lower()
     if "flash_" in low:
         return "flash attention (this port's kernels)"
+    if "bsa_" in low:
+        return "block-sparse attention (this port's kernels)"
     if any(t in low for t in ("gemm", "xmma", "nvjet", "cutlass", "cublas")):
         return "GEMM (cuBLAS)"
     if "memcpy" in low or "memset" in low:
@@ -493,7 +575,7 @@ def _kernel_group(name):
     return "other (elementwise, norms, reductions, optimizer)"
 
 
-def phase_profile(env, train, steps=2):
+def phase_profile(env, train, label, steps=2):
     """Device time by kernel over ``steps`` more train_batch steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -519,7 +601,8 @@ def phase_profile(env, train, steps=2):
     for name, us in by_name.items():
         g = _kernel_group(name)
         groups[g] = groups.get(g, 0.0) + us
-    log(f"profile ({steps} steps under torch.profiler, {env['smi']}): "
+    log(f"profile {label} ({steps} steps under torch.profiler, "
+        f"{env['smi']}): "
         f"wall {wall_us / steps / 1e3:.1f} ms/step, device busy "
         f"{busy / steps / 1e3:.1f} ms/step, idle share "
         f"{1 - busy / wall_us:.3f}")
@@ -604,6 +687,371 @@ def phase_parity():
         raise RuntimeError("the parity gate passes a planted fault")
 
 
+# ---------------------------------------------------------------------------
+# block-sparse attention: kernels, BERT train step, profile, parity
+# ---------------------------------------------------------------------------
+def _fixed_layout(heads, seq):
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+
+    return FixedSparsityConfig(num_heads=heads,
+                               **BERT_SPARSITY).make_layout(seq)
+
+
+def _drop_last_active(layout):
+    """The layout with the last active block of every row removed."""
+    import numpy as np
+
+    faulty = np.array(layout, copy=True)
+    for h in range(faulty.shape[0]):
+        for row in faulty[h]:
+            idx = np.flatnonzero(row)
+            if len(idx):
+                row[idx[-1]] = 0
+    return faulty
+
+
+def _sparse_case(shape, dtype, layout, block, bias_kind, seed, main):
+    """Every block-sparse kernel against its plain version on one case;
+    returns {kernel: {"err", "max_abs_err"}}, plus "ms", "plain_ms" and
+    "fault_err" when ``main`` (the slice's shape: timed there, and the gate
+    shown to fail two planted faults). Rows with no active block must give
+    out 0 and lse -1e30 exactly; lse is gated on the other rows."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bsk
+
+    b, h, s, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*sz):
+        return torch.randn(*sz, generator=gen, device="cuda")
+
+    q, k, v, do = (randn(b * h, s, d).to(dtype) for _ in range(4))
+    bias = None
+    if bias_kind == "zeros":           # the slice's all-ones attention mask
+        bias = torch.zeros(b, s, device="cuda")
+    elif bias_kind == "padded":
+        bias = (randn(b, s) * 2.0).contiguous()
+        bias[:, -7:] = bsk.NEG_INF         # padded keys
+    luts = bsk.luts_for(layout, "cuda")
+    kw = dict(scale=d ** -0.5, block=block, num_heads=h)
+    out, lse = bsk.sparse_fwd(q, k, v, luts, bias, **kw)
+    out_p, lse_p = bsk.sparse_fwd_plain(q, k, v, luts, bias, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = bsk.sparse_bwd_dq(q, k, v, do, lse, delta, luts, bias, **kw)
+    dq_p = bsk.sparse_bwd_dq_plain(q, k, v, do, lse, delta, luts, bias, **kw)
+    dk, dv = bsk.sparse_bwd_dkdv(q, k, v, do, lse, delta, luts, bias, **kw)
+    dk_p, dv_p = bsk.sparse_bwd_dkdv_plain(q, k, v, do, lse, delta, luts,
+                                           bias, **kw)
+    torch.cuda.synchronize()
+    for t in (out, lse, dq, dk, dv):
+        if not torch.isfinite(t).all():
+            raise RuntimeError(f"non-finite kernel output at {shape}")
+    # rows of query blocks with no active block, (bh, s)
+    empty = torch.as_tensor((np.asarray(layout) != 0).sum(-1) == 0,
+                            device="cuda").repeat_interleave(block, 1)
+    empty = empty.repeat(b, 1)
+    if not (bool((out[empty] == 0).all())
+            and bool((lse[empty] == bsk.NEG_INF).all())):
+        raise RuntimeError("rows with no active block must give out 0 and "
+                           "lse -1e30")
+    full = ~empty
+    plain = {"sparse_fwd": (out_p, lse_p[full]), "sparse_bwd_dq": (dq_p,),
+             "sparse_bwd_dkdv": (dk_p, dv_p)}
+    got = {"sparse_fwd": (out, lse[full]), "sparse_bwd_dq": (dq,),
+           "sparse_bwd_dkdv": (dk, dv)}
+    tol = TOL[str(dtype).split(".")[-1]]
+    summary = {}
+    for name, refs in plain.items():
+        err = max(scaled_err(a, p) for a, p in zip(got[name], refs))
+        abs_err = max(float((a.float() - p.float()).abs().max())
+                      for a, p in zip(got[name], refs))
+        summary[name] = {"err": err, "max_abs_err": abs_err}
+        log(f"  {name:15s} {tuple(shape)} {str(dtype)[6:]:8s} block {block} "
+            f"bias={bias_kind} empty rows {int(empty.sum()) // max(1, block)}"
+            f" blocks: scaled err {err:.3e} max abs err {abs_err:.3e} "
+            f"(tol {tol:g})")
+        if not err <= tol:
+            raise RuntimeError(f"{name} disagrees with its plain version at "
+                               f"{shape} {dtype} block {block}: {err:.3e} > "
+                               f"{tol:g}")
+    if not main:
+        return summary
+
+    # planted faults: the last active block of every row dropped from the
+    # LUTs, and one block-row of every output left at zero
+    faulty = bsk.luts_for(_drop_last_active(layout), "cuda")
+    f_out, f_lse = bsk.sparse_fwd_plain(q, k, v, faulty, bias, **kw)
+    dropped = {
+        "sparse_fwd": (f_out, f_lse[full]),
+        "sparse_bwd_dq": (bsk.sparse_bwd_dq_plain(q, k, v, do, lse, delta,
+                                                  faulty, bias, **kw),),
+        "sparse_bwd_dkdv": bsk.sparse_bwd_dkdv_plain(q, k, v, do, lse, delta,
+                                                     faulty, bias, **kw),
+    }
+    rows = slice(s // 2, s // 2 + block)
+    zero_row = {"sparse_fwd": (out_p.clone(), lse_p.clone()),
+                "sparse_bwd_dq": (dq_p.clone(),),
+                "sparse_bwd_dkdv": (dk_p.clone(), dv_p.clone())}
+    for name, refs in plain.items():
+        for t in zero_row[name]:
+            t[:, rows] = 0
+        zeroed = zero_row[name]
+        if name == "sparse_fwd":
+            zeroed = (zeroed[0], zeroed[1][full])
+        readings = {
+            "block dropped": max(scaled_err(f, p)
+                                 for f, p in zip(dropped[name], refs)),
+            "zero block-row": max(scaled_err(z, p)
+                                  for z, p in zip(zeroed, refs)),
+        }
+        summary[name]["fault_err"] = readings
+        log(f"  {name:15s} planted faults: " + ", ".join(
+            f"{f} {e:.3e}" for f, e in readings.items())
+            + f" (gate {tol:g}, kernel {summary[name]['err']:.3e})")
+        if not min(readings.values()) > tol:
+            raise RuntimeError(f"{name}: a planted fault passes the gate "
+                               f"{tol:g}: {readings}")
+    del dropped, zero_row, f_out, f_lse
+
+    calls = {
+        "sparse_fwd": (
+            lambda: bsk.sparse_fwd(q, k, v, luts, bias, **kw),
+            lambda: bsk.sparse_fwd_plain(q, k, v, luts, bias, **kw)),
+        "sparse_bwd_dq": (
+            lambda: bsk.sparse_bwd_dq(q, k, v, do, lse, delta, luts, bias,
+                                      **kw),
+            lambda: bsk.sparse_bwd_dq_plain(q, k, v, do, lse, delta, luts,
+                                            bias, **kw)),
+        "sparse_bwd_dkdv": (
+            lambda: bsk.sparse_bwd_dkdv(q, k, v, do, lse, delta, luts, bias,
+                                        **kw),
+            lambda: bsk.sparse_bwd_dkdv_plain(q, k, v, do, lse, delta, luts,
+                                              bias, **kw)),
+    }
+    # kernel and plain in turns: kernel, plain, plain, kernel
+    for name, (kern, plain_fn) in calls.items():
+        k1 = cuda_ms(kern)
+        p1 = cuda_ms(plain_fn, iters=3, warmup=1)
+        p2 = cuda_ms(plain_fn, iters=3, warmup=1)
+        k2 = cuda_ms(kern)
+        summary[name]["ms"] = (k1 + k2) / 2
+        summary[name]["plain_ms"] = (p1 + p2) / 2
+        log(f"  {name:15s} kernel {k1:.3f}/{k2:.3f} ms, plain "
+            f"{p1:.3f}/{p2:.3f} ms")
+    return summary
+
+
+def _sparse_library_ms(shape, dtype, layout, block):
+    """scaled_dot_product_attention with the layout's boolean token mask,
+    which computes the same function here (no row of the layout is empty),
+    as a yardstick only: (forward ms, forward + whole backward ms)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deepspeed_tpu_torch.ops.sparse_attention import layout_to_token_mask
+
+    b, h, s, d = shape
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+                   .to(dtype) for _ in range(4))
+    mask = layout_to_token_mask(layout, block, "cuda")[None]
+    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                         attn_mask=mask))
+    qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    return fwd, cuda_ms(fwd_bwd)
+
+
+def phase_sparse_kernels(env):
+    import torch
+
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        BigBirdSparsityConfig, FixedSparsityConfig)
+
+    log("block-sparse kernels against their plain versions on the card:")
+    main_shape = (BERT_MICRO, 12, BERT_SEQ, 64)
+    block = BERT_SPARSITY["block"]
+    layout = _fixed_layout(12, BERT_SEQ)
+    main = _sparse_case(main_shape, torch.bfloat16, layout, block, "zeros",
+                        11, main=True)
+    # per-head BigBird at block 16: ragged nnz, random blocks (seeded)
+    random.seed(0)
+    bigbird = BigBirdSparsityConfig(num_heads=4, block=16,
+                                    different_layout_per_head=True,
+                                    num_random_blocks=2).make_layout(512)
+    _sparse_case((2, 4, 512, 64), torch.float32, bigbird, 16, "padded", 12,
+                 False)
+    # an empty layout row, head_dim 128, padded key tail
+    holed = FixedSparsityConfig(num_heads=2, block=32,
+                                num_local_blocks=2).make_layout(256)
+    holed[:, 3] = 0
+    _sparse_case((2, 2, 256, 128), torch.float32, holed, 32, "padded", 13,
+                 False)
+    # a 128 block (two 64-row tiles per block), head_dim 96, no bias
+    wide = FixedSparsityConfig(num_heads=2, block=128, num_local_blocks=2,
+                               attention="unidirectional").make_layout(512)
+    _sparse_case((1, 2, 512, 96), torch.float32, wide, 128, "none", 14,
+                 False)
+    _sparse_case((2, 2, 512, 64), torch.bfloat16, bigbird[:2], 16, "padded",
+                 15, False)
+    lib_fwd, lib_all = _sparse_library_ms(main_shape, torch.bfloat16, layout,
+                                          block)
+    log(f"  library yardstick (scaled_dot_product_attention with the token "
+        f"mask) at {main_shape} bf16: fwd {lib_fwd:.3f} ms, fwd + whole bwd "
+        f"{lib_all:.3f} ms")
+    b, h = main_shape[:2]
+    # score pairs the layout keeps, per batch*head (the heads' mean)
+    pairs = int((layout != 0).sum()) * block * block / h
+    rows = []
+    for name, replaces in SPARSE_KERNELS:
+        bms, by = bound(name, env["name"], main_shape, torch.bfloat16, False,
+                        bias_bytes=b * BERT_SEQ * 4, pairs=pairs)
+        r = main[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": SPARSE_SOURCE,
+            "replaces": replaces, "launches": None,
+            "max_abs_err": r["max_abs_err"], "scaled_err": r["err"],
+            "planted_fault_err": r["fault_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
+            # one library call computes the forward; none computes the dQ
+            # or the dK/dV sweep alone
+            "library_ms": lib_fwd if name == "sparse_fwd" else None,
+            "library_fwd_bwd_ms": lib_all,
+            "shape": list(main_shape), "dtype": "bfloat16",
+            "layout": "FixedSparsityConfig(12, block=64, num_local_blocks=4,"
+                      " num_global_blocks=1)",
+            "active_blocks_per_head": int((layout != 0).sum()) // h,
+            "card": env["smi"],
+        })
+        log(f"  {name:15s} {r['ms']:.3f} ms vs bound {bms:.4f} ms ({by}) on "
+            f"{env['smi']}")
+    return rows
+
+
+def _bert_batch(vocab, gas, micro, seq, seed):
+    """input_ids, an all-ones attention mask and 15 % MLM labels (the rest
+    -100), from a numpy seed (the JAX package's bench.py batch)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, vocab, (gas, micro, seq))
+    labels = np.where(rng.random((gas, micro, seq)) < 0.15, ids, -100)
+    return {"input_ids": torch.as_tensor(ids),
+            "attention_mask": torch.ones((gas, micro, seq),
+                                         dtype=torch.int32),
+            "masked_lm_labels": torch.as_tensor(labels)}
+
+
+def _bert_config(**overrides):
+    import torch
+
+    from deepspeed_tpu_torch.models.bert import bert_config
+    from deepspeed_tpu_torch.ops.sparse_attention import FixedSparsityConfig
+
+    return bert_config(
+        BERT_MODEL, max_position_embeddings=BERT_SEQ, dtype=torch.bfloat16,
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+        sparsity_config=FixedSparsityConfig(num_heads=12, **BERT_SPARSITY),
+        **overrides)
+
+
+def phase_train_bert(env):
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.bert import BertForPreTraining
+
+    cfg = _bert_config()
+    engine, _, _, _ = initialize(model=BertForPreTraining(cfg),
+                                 config_params=_ds_config(BERT_MICRO,
+                                                          BERT_GAS))
+    batch = _bert_batch(cfg.vocab_size, BERT_GAS, BERT_MICRO, BERT_SEQ,
+                        seed=0)
+    want = {name: 0 for name, _ in FLASH_KERNELS}
+    want.update({name: cfg.num_hidden_layers * BERT_GAS * BERT_STEPS
+                 for name, _ in SPARSE_KERNELS})
+    return _train_steps(env, engine, batch, f"{BERT_MODEL} sparse", BERT_SEQ,
+                        BERT_MICRO, BERT_GAS, BERT_STEPS, want)
+
+
+def phase_parity_bert():
+    """2 layers at full width: the kernels against the same model with
+    block_sparse_attention_reference (autograd through the plain forward)
+    as its attention; a planted fault (the last active block of every row
+    dropped from the reference's LUTs) must fail the same gate."""
+    import torch
+    from unittest import mock
+
+    from deepspeed_tpu_torch.models.bert import BertForPreTraining
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bsk
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        sparse_self_attention as ssa
+
+    tol = TOL["bfloat16"]
+    # weights at std 0.05, not 0.02: at 0.02 the scores are so flat that
+    # each of a row's 19 active blocks carries about 1/19 of its attention,
+    # and dropping one moves the gradients by no more than the gate allows;
+    # sharper scores let the planted fault show
+    model = BertForPreTraining(_bert_config(num_hidden_layers=2,
+                                            initializer_range=0.05)).cuda()
+    model.init_weights(torch.Generator().manual_seed(11))
+    batch = {k: v[0].cuda() for k, v in _bert_batch(
+        model.config.vocab_size, 1, 2, BERT_SEQ, seed=1).items()}
+    faulty = _drop_last_active(_fixed_layout(12, BERT_SEQ))
+
+    def reference(fault=False):
+        def attend(q, k, v, layout, block, scale=None, key_bias=None):
+            return bsk.block_sparse_attention_reference(
+                q, k, v, faulty if fault else layout, block, scale=scale,
+                key_bias=key_bias)
+        return attend
+
+    def loss_and_grads():
+        model.zero_grad(set_to_none=True)
+        before = dict(bsk.LAUNCHES)
+        loss, _ = model.loss(batch, train=True)
+        loss.backward()
+        launched = {n: bsk.LAUNCHES[n] - before[n] for n in before}
+        # the pooler and NSP head get no gradient from an MLM-only batch
+        return loss.item(), {n: p.grad.clone() for n, p in
+                             model.named_parameters()
+                             if p.grad is not None}, launched
+
+    runs = {"kernels": loss_and_grads()}
+    for label, attend in (("plain", reference()),
+                          ("planted fault", reference(fault=True))):
+        with mock.patch.object(ssa, "pallas_block_sparse_attention", attend):
+            runs[label] = loss_and_grads()
+    for label, (_, _, launched) in runs.items():
+        each = model.config.num_hidden_layers if label == "kernels" else 0
+        if launched != {n: each for n in launched}:
+            raise RuntimeError(f"the {label} run launched {launched}, "
+                               f"expected {each} of each kernel")
+    lp, gp, _ = runs["plain"]
+    errs = {}
+    for label in ("kernels", "planted fault"):
+        loss, grads, _ = runs[label]
+        loss_err = abs(loss - lp) / abs(lp)
+        worst = max((rel_l2(grads[n], gp[n]), n) for n in gp)
+        errs[label] = max(loss_err, worst[0])
+        log(f"parity BERT (2 layers, hidden 768, seq {BERT_SEQ}, sparse, "
+            f"bf16) {label} vs plain: loss {loss:.6f} vs {lp:.6f}, rel "
+            f"{loss_err:.3e}; worst gradient {worst[1]} rel l2 "
+            f"{worst[0]:.3e} (tol {tol:g}, {len(gp)} tensors)")
+    if not errs["kernels"] <= tol:
+        raise RuntimeError("block-sparse kernels disagree with the plain "
+                           "version")
+    if not errs["planted fault"] > tol:
+        raise RuntimeError("the BERT parity gate passes a planted fault")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "deepspeed_tpu_torch")):
         print("chip_smoke.py: the deepspeed_tpu_torch package is not beside "
@@ -621,9 +1069,19 @@ def main():
     train = phase_train(env)
     for row in rows:
         row["launches"] = train["launches"][row["name"]]
-    phase_profile(env, train)
+    phase_profile(env, train, SLICE_MODEL)
+    del train
     phase_parity()
-    print(json.dumps({"kernels": rows}), flush=True)
+    sparse_rows = phase_sparse_kernels(env)
+    torch.cuda.empty_cache()
+    bert = phase_train_bert(env)
+    for row in sparse_rows:
+        row["launches"] = bert["launches"][row["name"]]
+    phase_profile(env, bert, f"{BERT_MODEL} sparse")
+    del bert
+    torch.cuda.empty_cache()
+    phase_parity_bert()
+    print(json.dumps({"kernels": rows + sparse_rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,5 @@
-"""Parameters of the JAX package's GPT-2 -> this package's state_dict.
+"""Parameters of the JAX package's GPT-2 and BERT -> this package's
+state_dicts.
 
 The JAX GPT2LMHead keeps its parameters as a nested dict (deepspeed_tpu
 models/gpt2.py:220-275): ``wte``, ``wpe``, ``ln_f``, and the blocks either
@@ -6,7 +7,9 @@ unrolled as ``h_{i}`` or scan-stacked under ``h/block`` with a leading (L,)
 axis. Handed over as nested dicts of numpy arrays, they map onto
 ``GPT2Model``'s names: a flax Dense ``kernel`` (in, out) becomes a Linear
 ``weight`` (out, in), a LayerNorm ``scale`` becomes ``weight``, and ``wte``
-keeps its padded vocab rows.
+keeps its padded vocab rows. The JAX BERT's tree (deepspeed_tpu
+models/bert.py) maps the same way onto ``BertForPreTraining``
+(``bert_params_from_jax``).
 """
 import numpy as np
 import torch
@@ -53,4 +56,56 @@ def params_from_jax(tree, cfg):
     if out["wte"].shape[0] != cfg.padded_vocab_size:
         raise ValueError(f"wte has {out['wte'].shape[0]} rows, the config "
                          f"pads the vocab to {cfg.padded_vocab_size}")
+    return out
+
+
+_BERT_BODY_NORMS = ("attn_ln", "ffn_ln")
+_BERT_BODY_DENSE = ("qkv", "attn_out", "ffn_inter", "ffn_out")
+
+
+def _norm(node, prefix, out):
+    out[f"{prefix}.weight"] = _tensor(node["scale"])
+    out[f"{prefix}.bias"] = _tensor(node["bias"])
+
+
+def _dense(node, prefix, out):
+    out[f"{prefix}.weight"] = _tensor(node["kernel"]).t().contiguous()
+    out[f"{prefix}.bias"] = _tensor(node["bias"])
+
+
+def transformer_layer_params_from_jax(tree, prefix=""):
+    """state_dict entries for ``DeepSpeedTransformerLayer`` from the JAX
+    layer's tree ``{"body": {...}}``, each name under ``prefix``."""
+    body = tree["body"]
+    out = {}
+    for name in _BERT_BODY_NORMS:
+        _norm(body[name], f"{prefix}body.{name}", out)
+    for name in _BERT_BODY_DENSE:
+        _dense(body[name], f"{prefix}body.{name}", out)
+    return out
+
+
+def bert_params_from_jax(tree, cfg):
+    """state_dict for ``BertForPreTraining(cfg)`` from the JAX BERT's
+    parameter tree ``tree`` (nested dicts of numpy arrays): embeddings,
+    ``encoder/layer_{i}/body/*``, ``encoder/final_ln`` (pre-LN), and the
+    MLM and NSP heads. The padded vocab rows are kept."""
+    emb = tree["embeddings"]
+    out = {f"embeddings.{name}": _tensor(emb[name]) for name in (
+        "word_embeddings", "position_embeddings", "token_type_embeddings")}
+    _norm(emb["ln"], "embeddings.ln", out)
+    for i in range(cfg.num_hidden_layers):
+        out.update(transformer_layer_params_from_jax(
+            tree["encoder"][f"layer_{i}"], f"encoder.layers.{i}."))
+    if cfg.pre_layer_norm:
+        _norm(tree["encoder"]["final_ln"], "encoder.final_ln", out)
+    for name in ("mlm_transform", "pooler", "nsp"):
+        _dense(tree[name], name, out)
+    _norm(tree["mlm_ln"], "mlm_ln", out)
+    out["mlm_bias"] = _tensor(tree["mlm_bias"])
+    if out["embeddings.word_embeddings"].shape[0] != cfg.padded_vocab_size:
+        raise ValueError(f"word_embeddings has "
+                         f"{out['embeddings.word_embeddings'].shape[0]} rows, "
+                         f"the config pads the vocab to "
+                         f"{cfg.padded_vocab_size}")
     return out

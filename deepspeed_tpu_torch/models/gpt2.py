@@ -11,7 +11,6 @@ Size table mirrors the reference perf harness configs
 (tests/model/Megatron_GPT2/run_perf_test.py:18-84).
 """
 import dataclasses
-import math
 from typing import Any, Optional
 
 import torch
@@ -24,6 +23,9 @@ from deepspeed_tpu_torch.models.api import (chunked_lm_cross_entropy,
                                             pad_to_multiple)
 from deepspeed_tpu_torch.ops.transformer.functional import (
     dropout, gelu, scaled_dot_product_attention)
+from deepspeed_tpu_torch.ops.transformer.transformer import (Dense,
+                                                            LayerNorm,
+                                                            replayable)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,55 +98,13 @@ def _check_supported(cfg: GPT2Config):
             "(ROADMAP A15)")
 
 
-def _trunc_normal_(t, std, generator):
-    """Normal(0, std) truncated at +-2 std (flax's lecun_normal draws a
-    truncated normal): out-of-range draws are redrawn."""
-    with torch.no_grad():
-        x = torch.empty(t.shape).normal_(generator=generator)
-        bad = x.abs() > 2.0
-        while bad.any():
-            x[bad] = torch.empty(int(bad.sum())).normal_(generator=generator)
-            bad = x.abs() > 2.0
-        t.copy_(x * std)
-
-
-class _Dense(nn.Linear):
-    """Linear layer whose fp32 parameters are cast to the compute dtype at
-    use. Initialized like flax's Dense: lecun_normal kernel, zero bias."""
-
-    def reset_with(self, generator):
-        fan_in = self.in_features
-        # flax's variance_scaling(1, fan_in, truncated_normal) stddev
-        std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-        _trunc_normal_(self.weight, std, generator)
-        with torch.no_grad():
-            self.bias.zero_()
-
-    def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
-
-
-class _LayerNorm(nn.LayerNorm):
-    """LayerNorm with fp32 statistics, output in the input's dtype."""
-
-    def forward(self, x):
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                         self.bias, self.eps)
-        return y.to(x.dtype)
-
-    def reset_with(self, generator):
-        with torch.no_grad():
-            self.weight.fill_(1.0)
-            self.bias.zero_()
-
-
 class CausalSelfAttention(nn.Module):
     def __init__(self, config: GPT2Config):
         super().__init__()
         self.config = config
         e = config.n_embd
-        self.c_attn = _Dense(e, 3 * e)
-        self.c_proj = _Dense(e, e)
+        self.c_attn = Dense(e, 3 * e)
+        self.c_proj = Dense(e, e)
 
     def forward(self, x, train, generator):
         cfg = self.config
@@ -170,8 +130,8 @@ class MLP(nn.Module):
     def __init__(self, config: GPT2Config):
         super().__init__()
         self.config = config
-        self.c_fc = _Dense(config.n_embd, 4 * config.n_embd)
-        self.c_proj = _Dense(4 * config.n_embd, config.n_embd)
+        self.c_fc = Dense(config.n_embd, 4 * config.n_embd)
+        self.c_proj = Dense(4 * config.n_embd, config.n_embd)
 
     def forward(self, x, train, generator):
         h = self.c_proj(gelu(self.c_fc(x), approximate=True))
@@ -184,29 +144,14 @@ class Block(nn.Module):
     def __init__(self, config: GPT2Config):
         super().__init__()
         eps = config.layer_norm_epsilon
-        self.ln_1 = _LayerNorm(config.n_embd, eps=eps)
+        self.ln_1 = LayerNorm(config.n_embd, eps=eps)
         self.attn = CausalSelfAttention(config)
-        self.ln_2 = _LayerNorm(config.n_embd, eps=eps)
+        self.ln_2 = LayerNorm(config.n_embd, eps=eps)
         self.mlp = MLP(config)
 
     def forward(self, x, train, generator):
         x = x + self.attn(self.ln_1(x), train, generator)
         return x + self.mlp(self.ln_2(x), train, generator)
-
-
-def _replayable(block, generator):
-    """block(x, train) that draws the same dropout randomness when the
-    backward recomputes it: the generator's state is rewound to where the
-    forward found it (torch.utils.checkpoint only replays the default
-    generators)."""
-    state = None if generator is None else generator.get_state()
-
-    def run(x, train):
-        if generator is not None:
-            generator.set_state(state)
-        return block(x, train, generator)
-
-    return run
 
 
 class GPT2Model(nn.Module):
@@ -226,7 +171,7 @@ class GPT2Model(nn.Module):
         self.wte = nn.Parameter(torch.empty(config.padded_vocab_size, e))
         self.wpe = nn.Parameter(torch.empty(config.n_positions, e))
         self.h = nn.ModuleList(Block(config) for _ in range(config.n_layer))
-        self.ln_f = _LayerNorm(e, eps=config.layer_norm_epsilon)
+        self.ln_f = LayerNorm(e, eps=config.layer_norm_epsilon)
         self.init_weights(generator if generator is not None
                           else torch.Generator().manual_seed(0))
 
@@ -240,7 +185,7 @@ class GPT2Model(nn.Module):
             self.wpe.copy_(torch.empty(self.wpe.shape).normal_(
                 generator=generator) * 0.01)
         for m in self.modules():
-            if isinstance(m, (_Dense, _LayerNorm)):
+            if isinstance(m, (Dense, LayerNorm)):
                 m.reset_with(generator)
 
     def hidden(self, input_ids, train=False, generator=None):
@@ -254,7 +199,7 @@ class GPT2Model(nn.Module):
             x = dropout(x, generator, cfg.dropout)
         for block in self.h:
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(_replayable(block, generator), x, train,
+                x = checkpoint(replayable(block, generator), x, train,
                                use_reentrant=False)
             else:
                 x = block(x, train, generator)

@@ -1,11 +1,12 @@
-"""Build the port's CUDA source with nvcc and load it with ctypes.
+"""Build the port's CUDA sources with nvcc and load them with ctypes.
 
-``csrc/flash_attention.cu`` compiles into one shared library with a plain C
-interface (no PyTorch headers in the build, so a build takes seconds), for
+Each source in ``SOURCES`` compiles into its own shared library with a plain
+C interface (no PyTorch headers in the build, so a build takes seconds), for
 ``sm_90a`` (Hopper), at first use, into ``build/deepspeed_tpu_torch/``
-beside the package. The library's file name carries a hash of the source
-and flags, so an edited source is rebuilt and concurrent builders never
-write the same file.
+beside the package. A library's file name carries a hash of its source and
+flags, so an edited source is rebuilt and concurrent builds never write
+the same file. Sources build independently: ``build(name)`` for each name
+may run at the same time.
 """
 import ctypes
 import hashlib
@@ -19,11 +20,39 @@ from deepspeed_tpu_torch.utils.logging import logger
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "deepspeed_tpu_torch")
-SOURCE = os.path.join(_PKG_DIR, "ops", "transformer", "csrc",
-                      "flash_attention.cu")
+SOURCES = {
+    "flash_attention": os.path.join(_PKG_DIR, "ops", "transformer", "csrc",
+                                    "flash_attention.cu"),
+    "block_sparse_attention": os.path.join(_PKG_DIR, "ops",
+                                           "sparse_attention", "csrc",
+                                           "block_sparse_attention.cu"),
+}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
-_lib = None
+_libs = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_U = ctypes.c_uint
+# C signatures of each library: {function: argtypes}; every one returns int
+_FLASH_TAIL = [_I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _U, _F, _U, _P]
+_BSA_TAIL = [_I, _I, _I, _I, _I, _I, _I, _F, _P]
+SIGNATURES = {
+    "flash_attention": {
+        # (dtype, head_dim, bh, heads, s_q, s_k, scale, causal, bias_kind,
+        #  use_dropout, threshold, inv_keep, seed, stream)
+        "ds_flash_fwd": [_P] * 6 + _FLASH_TAIL,
+        "ds_flash_bwd_dkdv": [_P] * 9 + _FLASH_TAIL,
+        "ds_flash_bwd_dq": [_P] * 8 + _FLASH_TAIL,
+    },
+    "block_sparse_attention": {
+        # (dtype, head_dim, bh, heads, seq, block, max_nnz, scale, stream)
+        "ds_bsa_fwd": [_P] * 8 + _BSA_TAIL,
+        "ds_bsa_bwd_dq": [_P] * 10 + _BSA_TAIL,
+        "ds_bsa_bwd_dkdv": [_P] * 11 + _BSA_TAIL,
+    },
+}
 
 
 def find_nvcc():
@@ -38,28 +67,27 @@ def find_nvcc():
                        "the CUDA kernels are built from source at first use")
 
 
-def so_path():
+def so_path(name):
     digest = hashlib.sha256()
-    with open(SOURCE, "rb") as f:
+    with open(SOURCES[name], "rb") as f:
         digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR,
-                        f"flash_attention-{digest.hexdigest()[:12]}.so")
+    return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 
 
-def build(verbose=False):
-    """Compile if the library for this source is missing. Returns (path,
+def build(name, verbose=False):
+    """Compile source ``name`` if its library is missing. Returns (path,
     ptxas report); ``verbose`` adds ``-Xptxas -v``, whose report lists the
     registers, shared memory and spills of every kernel ("" when the
     library was already built)."""
-    so = so_path()
+    so = so_path(name)
     if os.path.exists(so):
         return so, ""
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp.{os.getpid()}"
     # -Xptxas -v only reports; the library is the same either way
     extra = ["-Xptxas", "-v"] if verbose else []
-    cmd = [find_nvcc()] + NVCC_FLAGS + extra + [SOURCE, "-o", tmp]
+    cmd = [find_nvcc()] + NVCC_FLAGS + extra + [SOURCES[name], "-o", tmp]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -70,25 +98,14 @@ def build(verbose=False):
     return so, proc.stderr
 
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-_U = ctypes.c_uint
-
-
-def load():
-    """The loaded library, built on first use, with its C signatures."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build()[0])
-        # (dtype, head_dim, bh, heads, s_q, s_k, scale, causal, bias_kind,
-        #  use_dropout, threshold, inv_keep, seed, stream)
-        tail = [_I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _U, _F, _U, _P]
-        lib.ds_flash_fwd.argtypes = [_P] * 6 + tail
-        lib.ds_flash_bwd_dkdv.argtypes = [_P] * 9 + tail
-        lib.ds_flash_bwd_dq.argtypes = [_P] * 8 + tail
-        for fn in (lib.ds_flash_fwd, lib.ds_flash_bwd_dkdv,
-                   lib.ds_flash_bwd_dq):
+def load(name):
+    """The loaded library of source ``name``, built on first use, with its C
+    signatures."""
+    if name not in _libs:
+        lib = ctypes.CDLL(build(name)[0])
+        for fn_name, argtypes in SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
             fn.restype = _I
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]

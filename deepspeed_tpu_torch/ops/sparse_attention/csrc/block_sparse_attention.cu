@@ -1,0 +1,520 @@
+// Block-sparse attention for Hopper (sm_90a): forward, dQ sweep and dK/dV sweep.
+//
+// Replaces the Pallas TPU kernels of deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py:
+//   bsa_fwd_kernel       <- _fwd_kernel       (launched by _sparse_fwd)
+//   bsa_bwd_dq_kernel    <- _bwd_dq_kernel    (launched by _sparse_bwd)
+//   bsa_bwd_dkdv_kernel  <- _bwd_dkdv_kernel  (launched by _sparse_bwd)
+//
+// Each kernel computes the whole function of its Pallas counterpart. A (H, nb, nb)
+// block layout is handed over as lookup tables built on the host (build_luts):
+//   cols[h, qb, a]   the a'th active key block of query block qb (a < nnz[h, qb])
+//   rows_t[h, kb, a] the a'th query block that attends to key block kb (a < nnz_t[h, kb])
+// Scores are (q . k) * scale plus an optional additive per-key bias (B, S) (key
+// padding, -1e30 for a padded key), over the active blocks only; an online
+// softmax with fp32 running max and denominator, initial max -1e30. A row with no
+// active block writes 0 and lse = -1e30, bit for bit as the Pallas kernel. Both
+// products are taken in fp32 from the stored (bf16 or fp32) inputs, as the Pallas
+// kernels upcast q, k and v before their dots; p stays fp32.
+//
+// Layout: q, k, v, out, dout, dq, dk, dv are (B*H, S, D) contiguous in the storage
+// dtype; lse and delta are compact (B*H, S) fp32; the LUTs are int32.
+//
+// Design. The TPU grid (bh, q block, a) runs its last axis in order with
+// pl.when(a < nnz) skipping padded entries; here blocks run in parallel in no
+// order, so the walk over the LUT is a loop inside one thread block, reading
+// the block indices from global memory (no padded entry is visited):
+//   fwd   one block per (bh, q tile), walking cols;
+//   dQ    one block per (bh, q tile), walking cols;
+//   dK/dV one block per (bh, k tile), walking rows_t.
+// Every output has one writer, so no atomics are needed. A tile is TQ = min(block, 64)
+// rows; a layout block of 128 is two tiles, and the loops visit both halves of
+// every active block. Tiles are staged in shared memory as fp32 (row pitch D+1, so
+// the 16 threads of a half-warp reading 16 different rows hit 16 different
+// banks). 256 threads form a 16x16 grid; each owns a (TQ/16) x (TQ/16) patch of
+// the TQ x TQ score tile (rows ty+16i, columns tx+16j) and a (TQ/16) x (D/16) patch
+// of the fp32 accumulators. Row reductions are 16-lane shuffles in a half-warp.
+//
+// Bound. At the long-sequence BERT shape (B*H = 48, S = 4096, D = 64, block 64,
+// 19 active blocks per row) each kernel does 60-120 GFLOP against 100-150 MB
+// moved, far above the card's bytes/operations balance point, so it is bound by
+// operations. This first version multiplies with scalar fp32 FMAs, not tensor
+// cores, so its time is far above that bound. The LUT of the dK/dV sweep is
+// uneven (a global key block is walked by every query block, a local one by a
+// few), so its blocks differ in work; the next steps are mma.sync / wgmma on the
+// same tiling and splitting the long dK/dV rows.
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;      // 16 x 16 thread grid
+constexpr float kNegInf = -1e30f;  // the Pallas kernels' NEG_INF
+
+struct BsaParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* bias;   // nullptr or (B, S) fp32, additive per key
+  const void* dout;
+  const float* lse;    // (B*H, S)
+  const float* delta;  // (B*H, S)
+  const int* lut;      // cols (H, nb, max_nnz) or rows_t (H, nb, max_nnz_t)
+  const int* nnz;      // nnz or nnz_t, (H, nb)
+  void* out;
+  float* lse_out;
+  void* dq;
+  void* dk;
+  void* dv;
+  int heads;
+  int seq;
+  int block;           // layout block, a multiple of the tile
+  int max_nnz;         // row stride of the LUT
+  float scale;
+};
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// rows [row0, row0 + TQ) of a (S, D) matrix into a (TQ, D+1) fp32 tile; S is a
+// multiple of the tile, so every row is in range
+template <typename T, int D, int TQ>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int row0, int tid) {
+  for (int idx = tid; idx < TQ * D; idx += kThreads) {
+    const int r = idx / D;
+    const int c = idx - r * D;
+    dst[r * (D + 1) + c] = to_float(src[(size_t)(row0 + r) * D + c]);
+  }
+}
+
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// s[i][j] = sum_d A[ty+16i][d] * B[tx+16j][d] over two (TQ, D+1) tiles
+template <int D, int R>
+__device__ __forceinline__ void tile_dot(float (&s)[R][R], const float* A, const float* B, int ty, int tx) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float a[R], b[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) a[i] = A[(ty + 16 * i) * (D + 1) + d];
+#pragma unroll
+    for (int j = 0; j < R; ++j) b[j] = B[(tx + 16 * j) * (D + 1) + d];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < R; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
+  }
+}
+
+// acc[i][jj] += sum_c P[row_i][c] * X[c][tx+16jj], P a (TQ, TQ+1) tile read at
+// rows ty+16i (transposed: P[c][ty+16i] when kTransposeP), X a (TQ, D+1) tile
+template <int D, int TQ, bool kTransposeP>
+__device__ __forceinline__ void tile_acc(float (&acc)[TQ / 16][D / 16], const float* P, const float* X,
+                                         int ty, int tx) {
+  constexpr int R = TQ / 16;
+  constexpr int PP = TQ + 1;
+#pragma unroll 4
+  for (int c = 0; c < TQ; ++c) {
+    float a[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) a[i] = kTransposeP ? P[c * PP + ty + 16 * i] : P[(ty + 16 * i) * PP + c];
+#pragma unroll
+    for (int jj = 0; jj < D / 16; ++jj) {
+      const float x = X[c * (D + 1) + tx + 16 * jj];
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc[i][jj] = fmaf(a[i], x, acc[i][jj]);
+    }
+  }
+}
+
+template <typename T, int D, int TQ>
+__global__ void __launch_bounds__(kThreads) bsa_fwd_kernel(BsaParams p) {
+  extern __shared__ float smem[];
+  constexpr int R = TQ / 16, NJ = D / 16, PP = TQ + 1;
+  float* Qs = smem;
+  float* Ks = Qs + TQ * (D + 1);
+  float* Vs = Ks + TQ * (D + 1);
+  float* Ps = Vs + TQ * (D + 1);
+
+  const int q0 = blockIdx.x * TQ;
+  const int bh = blockIdx.y;
+  const int h = bh % p.heads;
+  const int nb = p.seq / p.block;
+  const int row = h * nb + q0 / p.block;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const size_t off = (size_t)bh * p.seq * D;
+  const T* k = static_cast<const T*>(p.k) + off;
+  const T* v = static_cast<const T*>(p.v) + off;
+  const float* bias = p.bias ? p.bias + (size_t)(bh / p.heads) * p.seq : nullptr;
+
+  load_tile<T, D, TQ>(Qs, static_cast<const T*>(p.q) + off, q0, tid);
+
+  float acc[R][NJ];
+  float m[R], l[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) acc[i][jj] = 0.f;
+  }
+
+  const int n_active = p.nnz[row];
+  const int* cols = p.lut + (size_t)row * p.max_nnz;
+  const int subtiles = p.block / TQ;
+  for (int a = 0; a < n_active; ++a) {
+    const int kb = cols[a];
+    for (int st = 0; st < subtiles; ++st) {
+      const int k0 = kb * p.block + st * TQ;
+      __syncthreads();  // the previous tile's readers are done
+      load_tile<T, D, TQ>(Ks, k, k0, tid);
+      load_tile<T, D, TQ>(Vs, v, k0, tid);
+      __syncthreads();
+
+      float s[R][R];
+      tile_dot<D, R>(s, Qs, Ks, ty, tx);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          s[i][j] *= p.scale;
+          if (bias != nullptr) s[i][j] += bias[k0 + tx + 16 * j];
+          mx = fmaxf(mx, s[i][j]);
+        }
+        const float m_new = fmaxf(m[i], half_warp_max(mx));
+        const float alpha = expf(m[i] - m_new);
+        float row_sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const float pr = expf(s[i][j] - m_new);
+          row_sum += pr;
+          Ps[(ty + 16 * i) * PP + tx + 16 * j] = pr;
+        }
+        l[i] = l[i] * alpha + half_warp_sum(row_sum);
+        m[i] = m_new;
+#pragma unroll
+        for (int jj = 0; jj < NJ; ++jj) acc[i][jj] *= alpha;
+      }
+      __syncthreads();
+      tile_acc<D, TQ, false>(acc, Ps, Vs, ty, tx);
+    }
+  }
+
+  T* out = static_cast<T*>(p.out) + off;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + ty + 16 * i;
+    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+    // a row with no active block writes zeros
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj)
+      out[(size_t)qi * D + tx + 16 * jj] = from_float<T>(l[i] > 0.f ? acc[i][jj] / l_safe : 0.f);
+    if (tx == 0) p.lse_out[(size_t)bh * p.seq + qi] = m[i] + logf(l_safe);
+  }
+}
+
+// p = exp(s - lse) and ds = p * (dO.v^T - delta) * scale for one TQ x TQ tile
+// of query rows q0.. against key rows k0..; writes p to Pd when Pd is not null
+// and ds to Ds
+template <int D, int TQ>
+__device__ __forceinline__ void bwd_tile(const BsaParams& p, const float* bias, const float* Qs,
+                                         const float* Ks, const float* Vs, const float* dOs,
+                                         const float* lse_s, const float* delta_s, float* Pd, float* Ds,
+                                         int k0, int ty, int tx) {
+  constexpr int R = TQ / 16, PP = TQ + 1;
+  float s[R][R], dp[R][R];
+  tile_dot<D, R>(s, Qs, Ks, ty, tx);
+  tile_dot<D, R>(dp, dOs, Vs, ty, tx);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int r = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int c = tx + 16 * j;
+      float x = s[i][j] * p.scale;
+      if (bias != nullptr) x += bias[k0 + c];
+      const float pr = expf(x - lse_s[r]);
+      if (Pd != nullptr) Pd[r * PP + c] = pr;
+      Ds[r * PP + c] = pr * (dp[i][j] - delta_s[r]) * p.scale;
+    }
+  }
+}
+
+template <typename T, int D, int TQ>
+__global__ void __launch_bounds__(kThreads) bsa_bwd_dq_kernel(BsaParams p) {
+  extern __shared__ float smem[];
+  constexpr int R = TQ / 16, NJ = D / 16, PP = TQ + 1;
+  float* Qs = smem;
+  float* dOs = Qs + TQ * (D + 1);
+  float* Ks = dOs + TQ * (D + 1);
+  float* Vs = Ks + TQ * (D + 1);
+  float* Ds = Vs + TQ * (D + 1);
+  float* lse_s = Ds + TQ * PP;
+  float* delta_s = lse_s + TQ;
+
+  const int q0 = blockIdx.x * TQ;
+  const int bh = blockIdx.y;
+  const int h = bh % p.heads;
+  const int nb = p.seq / p.block;
+  const int row = h * nb + q0 / p.block;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const size_t off = (size_t)bh * p.seq * D;
+  const T* k = static_cast<const T*>(p.k) + off;
+  const T* v = static_cast<const T*>(p.v) + off;
+  const float* bias = p.bias ? p.bias + (size_t)(bh / p.heads) * p.seq : nullptr;
+
+  load_tile<T, D, TQ>(Qs, static_cast<const T*>(p.q) + off, q0, tid);
+  load_tile<T, D, TQ>(dOs, static_cast<const T*>(p.dout) + off, q0, tid);
+  if (tid < TQ) {
+    lse_s[tid] = p.lse[(size_t)bh * p.seq + q0 + tid];
+    delta_s[tid] = p.delta[(size_t)bh * p.seq + q0 + tid];
+  }
+
+  float dq[R][NJ];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) dq[i][jj] = 0.f;
+
+  const int n_active = p.nnz[row];
+  const int* cols = p.lut + (size_t)row * p.max_nnz;
+  const int subtiles = p.block / TQ;
+  for (int a = 0; a < n_active; ++a) {
+    const int kb = cols[a];
+    for (int st = 0; st < subtiles; ++st) {
+      const int k0 = kb * p.block + st * TQ;
+      __syncthreads();
+      load_tile<T, D, TQ>(Ks, k, k0, tid);
+      load_tile<T, D, TQ>(Vs, v, k0, tid);
+      __syncthreads();
+      bwd_tile<D, TQ>(p, bias, Qs, Ks, Vs, dOs, lse_s, delta_s, nullptr, Ds, k0, ty, tx);
+      __syncthreads();
+      tile_acc<D, TQ, false>(dq, Ds, Ks, ty, tx);  // dq += ds . k
+    }
+  }
+
+  T* dq_out = static_cast<T*>(p.dq) + off;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int qi = q0 + ty + 16 * i;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) dq_out[(size_t)qi * D + tx + 16 * jj] = from_float<T>(dq[i][jj]);
+  }
+}
+
+template <typename T, int D, int TQ>
+__global__ void __launch_bounds__(kThreads) bsa_bwd_dkdv_kernel(BsaParams p) {
+  extern __shared__ float smem[];
+  constexpr int R = TQ / 16, NJ = D / 16, PP = TQ + 1;
+  float* Ks = smem;
+  float* Vs = Ks + TQ * (D + 1);
+  float* Qs = Vs + TQ * (D + 1);
+  float* dOs = Qs + TQ * (D + 1);
+  float* Ps = dOs + TQ * (D + 1);
+  float* Ds = Ps + TQ * PP;
+  float* lse_s = Ds + TQ * PP;
+  float* delta_s = lse_s + TQ;
+
+  const int k0 = blockIdx.x * TQ;
+  const int bh = blockIdx.y;
+  const int h = bh % p.heads;
+  const int nb = p.seq / p.block;
+  const int col = h * nb + k0 / p.block;
+  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const size_t off = (size_t)bh * p.seq * D;
+  const T* q = static_cast<const T*>(p.q) + off;
+  const T* dout = static_cast<const T*>(p.dout) + off;
+  const float* lse = p.lse + (size_t)bh * p.seq;
+  const float* delta = p.delta + (size_t)bh * p.seq;
+  // the bias row of this key tile broadcasts over the query rows
+  const float* bias = p.bias ? p.bias + (size_t)(bh / p.heads) * p.seq : nullptr;
+
+  load_tile<T, D, TQ>(Ks, static_cast<const T*>(p.k) + off, k0, tid);
+  load_tile<T, D, TQ>(Vs, static_cast<const T*>(p.v) + off, k0, tid);
+
+  float dk[R][NJ], dv[R][NJ];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) dk[i][jj] = dv[i][jj] = 0.f;
+
+  const int n_active = p.nnz[col];
+  const int* rows = p.lut + (size_t)col * p.max_nnz;
+  const int subtiles = p.block / TQ;
+  for (int a = 0; a < n_active; ++a) {
+    const int qb = rows[a];
+    for (int st = 0; st < subtiles; ++st) {
+      const int q0 = qb * p.block + st * TQ;
+      __syncthreads();
+      load_tile<T, D, TQ>(Qs, q, q0, tid);
+      load_tile<T, D, TQ>(dOs, dout, q0, tid);
+      if (tid < TQ) {
+        lse_s[tid] = lse[q0 + tid];
+        delta_s[tid] = delta[q0 + tid];
+      }
+      __syncthreads();
+      bwd_tile<D, TQ>(p, bias, Qs, Ks, Vs, dOs, lse_s, delta_s, Ps, Ds, k0, ty, tx);
+      __syncthreads();
+      // dv += p^T . dO ; dk += ds^T . q  (rows of dk/dv are key positions)
+      tile_acc<D, TQ, true>(dv, Ps, dOs, ty, tx);
+      tile_acc<D, TQ, true>(dk, Ds, Qs, ty, tx);
+    }
+  }
+
+  T* dk_out = static_cast<T*>(p.dk) + off;
+  T* dv_out = static_cast<T*>(p.dv) + off;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int kj = k0 + ty + 16 * i;
+#pragma unroll
+    for (int jj = 0; jj < NJ; ++jj) {
+      dk_out[(size_t)kj * D + tx + 16 * jj] = from_float<T>(dk[i][jj]);
+      dv_out[(size_t)kj * D + tx + 16 * jj] = from_float<T>(dv[i][jj]);
+    }
+  }
+}
+
+template <int D, int TQ> constexpr size_t fwd_smem() {
+  return sizeof(float) * (3 * TQ * (D + 1) + TQ * (TQ + 1));
+}
+template <int D, int TQ> constexpr size_t dq_smem() {
+  return sizeof(float) * (4 * TQ * (D + 1) + TQ * (TQ + 1) + 2 * TQ);
+}
+template <int D, int TQ> constexpr size_t dkdv_smem() {
+  return sizeof(float) * (4 * TQ * (D + 1) + 2 * TQ * (TQ + 1) + 2 * TQ);
+}
+
+enum Which { kFwd = 0, kDq = 1, kDkdv = 2 };
+
+template <typename T, int D, int TQ>
+int launch_typed(Which which, const BsaParams& p, int bh, cudaStream_t stream) {
+  void (*kernel)(BsaParams);
+  size_t smem;
+  if (which == kFwd) {
+    kernel = bsa_fwd_kernel<T, D, TQ>;
+    smem = fwd_smem<D, TQ>();
+  } else if (which == kDq) {
+    kernel = bsa_bwd_dq_kernel<T, D, TQ>;
+    smem = dq_smem<D, TQ>();
+  } else {
+    kernel = bsa_bwd_dkdv_kernel<T, D, TQ>;
+    smem = dkdv_smem<D, TQ>();
+  }
+  // above 48 KB a block's dynamic shared memory must be opted into
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(p.seq / TQ, bh), kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// the tile is min(block, 64) rows; a 128 block is walked as two 64-row tiles
+template <typename T, int D>
+int launch_block(Which which, const BsaParams& p, int bh, cudaStream_t stream) {
+  switch (p.block) {
+    case 16: return launch_typed<T, D, 16>(which, p, bh, stream);
+    case 32: return launch_typed<T, D, 32>(which, p, bh, stream);
+    case 64:
+    case 128: return launch_typed<T, D, 64>(which, p, bh, stream);
+    default: return -3;
+  }
+}
+
+template <typename T>
+int launch_dim(Which which, const BsaParams& p, int head_dim, int bh, cudaStream_t stream) {
+  switch (head_dim) {
+    case 64: return launch_block<T, 64>(which, p, bh, stream);
+    case 96: return launch_block<T, 96>(which, p, bh, stream);
+    case 128: return launch_block<T, 128>(which, p, bh, stream);
+    default: return -1;
+  }
+}
+
+int launch(Which which, const BsaParams& p, int dtype, int head_dim, int bh, void* stream) {
+  if (p.block <= 0 || p.seq % p.block != 0) return -4;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_dim<float>(which, p, head_dim, bh, s);
+  if (dtype == 1) return launch_dim<__nv_bfloat16>(which, p, head_dim, bh, s);
+  return -2;
+}
+
+BsaParams make_params(const void* q, const void* k, const void* v, const void* bias, const void* lut,
+                      const void* nnz, int heads, int seq, int block, int max_nnz, float scale) {
+  BsaParams p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.bias = static_cast<const float*>(bias);
+  p.lut = static_cast<const int*>(lut);
+  p.nnz = static_cast<const int*>(nnz);
+  p.heads = heads;
+  p.seq = seq;
+  p.block = block;
+  p.max_nnz = max_nnz;
+  p.scale = scale;
+  return p;
+}
+
+}  // namespace
+
+// Plain C interface (loaded with ctypes). dtype: 0 fp32, 1 bf16. Each function
+// launches on `stream` and returns cudaGetLastError() (0 = launched), -1 for an
+// unsupported head_dim, -2 for an unsupported dtype, -3 for an unsupported
+// block, -4 for a sequence that is not a multiple of the block.
+extern "C" {
+
+int ds_bsa_fwd(const void* q, const void* k, const void* v, const void* bias, const void* cols,
+               const void* nnz, void* out, void* lse, int dtype, int head_dim, int bh, int heads, int seq,
+               int block, int max_nnz, float scale, void* stream) {
+  BsaParams p = make_params(q, k, v, bias, cols, nnz, heads, seq, block, max_nnz, scale);
+  p.out = out;
+  p.lse_out = static_cast<float*>(lse);
+  return launch(kFwd, p, dtype, head_dim, bh, stream);
+}
+
+int ds_bsa_bwd_dq(const void* q, const void* k, const void* v, const void* bias, const void* dout,
+                  const void* lse, const void* delta, const void* cols, const void* nnz, void* dq, int dtype,
+                  int head_dim, int bh, int heads, int seq, int block, int max_nnz, float scale,
+                  void* stream) {
+  BsaParams p = make_params(q, k, v, bias, cols, nnz, heads, seq, block, max_nnz, scale);
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = dq;
+  return launch(kDq, p, dtype, head_dim, bh, stream);
+}
+
+int ds_bsa_bwd_dkdv(const void* q, const void* k, const void* v, const void* bias, const void* dout,
+                    const void* lse, const void* delta, const void* rows_t, const void* nnz_t, void* dk,
+                    void* dv, int dtype, int head_dim, int bh, int heads, int seq, int block, int max_nnz_t,
+                    float scale, void* stream) {
+  BsaParams p = make_params(q, k, v, bias, rows_t, nnz_t, heads, seq, block, max_nnz_t, scale);
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dk = dk;
+  p.dv = dv;
+  return launch(kDkdv, p, dtype, head_dim, bh, stream);
+}
+
+}  // extern "C"

@@ -196,7 +196,7 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, bias, seed, *, scale,
 def _library():
     from deepspeed_tpu_torch.ops.op_builder import load
 
-    return load()
+    return load("flash_attention")
 
 
 def _check_shapes(q, k, v, do, lse, delta, bias, bias_kind, num_heads):

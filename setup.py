@@ -40,7 +40,8 @@ setup(
     packages=find_packages(include=["deepspeed_tpu", "deepspeed_tpu.*",
                                     "deepspeed_tpu_torch",
                                     "deepspeed_tpu_torch.*"]),
-    package_data={"deepspeed_tpu_torch": ["ops/transformer/csrc/*.cu"]},
+    package_data={"deepspeed_tpu_torch": ["ops/transformer/csrc/*.cu",
+                                          "ops/sparse_attention/csrc/*.cu"]},
     include_package_data=True,
     data_files=[("csrc/adam", ["csrc/adam/cpu_adam.cpp"])],
     install_requires=["jax", "flax", "numpy", "ml_dtypes"],

@@ -109,3 +109,126 @@ def test_cuda_attention_raises_instead_of_rerouting(cuda):
     q = torch.zeros(1, 2, 16, 64, device=cuda)
     with pytest.raises(ValueError, match="CPU tensors only"):
         scaled_dot_product_attention(q, q, q, causal=True, use_pallas=False)
+
+
+def _sparse_layout(heads, s, block):
+    """Per-head BigBird (ragged nnz, seeded) with one empty row in head 1."""
+    import random
+
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        BigBirdSparsityConfig
+
+    random.seed(0)
+    layout = BigBirdSparsityConfig(heads, block=block,
+                                   different_layout_per_head=True,
+                                   num_random_blocks=1).make_layout(s)
+    layout[1, s // block // 2] = 0
+    return layout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,s,d,block,padded", [
+    (torch.bfloat16, 512, 64, 64, True),
+    (torch.float32, 256, 128, 16, True),
+    (torch.float32, 512, 96, 128, False),
+    (torch.bfloat16, 256, 64, 32, False),
+])
+def test_sparse_kernels_match_plain_versions(cuda, dtype, s, d, block,
+                                             padded):
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bsk
+
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v, do = (torch.randn(4, s, d, generator=gen, device=cuda)
+                   .to(dtype) for _ in range(4))
+    bias = torch.randn(2, s, generator=gen, device=cuda)
+    if padded:
+        bias[:, -9:] = bsk.NEG_INF
+    luts = bsk.luts_for(_sparse_layout(2, s, block), cuda)
+    kw = dict(scale=d ** -0.5, block=block, num_heads=2)
+    before = dict(bsk.LAUNCHES)
+    out, lse = bsk.sparse_fwd(q, k, v, luts, bias, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = bsk.sparse_bwd_dq(q, k, v, do, lse, delta, luts, bias, **kw)
+    dk, dv = bsk.sparse_bwd_dkdv(q, k, v, do, lse, delta, luts, bias, **kw)
+    assert {n: bsk.LAUNCHES[n] - before[n] for n in before} == {
+        "sparse_fwd": 1, "sparse_bwd_dq": 1, "sparse_bwd_dkdv": 1}
+    ref_out, ref_lse = bsk.sparse_fwd_plain(q, k, v, luts, bias, **kw)
+    ref_dq = bsk.sparse_bwd_dq_plain(q, k, v, do, lse, delta, luts, bias,
+                                     **kw)
+    ref_dk, ref_dv = bsk.sparse_bwd_dkdv_plain(q, k, v, do, lse, delta, luts,
+                                               bias, **kw)
+    # head 1's empty row: zeros and lse -1e30, exactly
+    rows = slice(s // 2, s // 2 + block)
+    assert bool((out[1::2, rows] == 0).all())
+    assert bool((lse[1::2, rows] == bsk.NEG_INF).all())
+    full = ref_lse > bsk.NEG_INF / 2
+    assert torch.equal(lse > bsk.NEG_INF / 2, full)
+    for a, b in ((out, ref_out), (lse[full], ref_lse[full]), (dq, ref_dq),
+                 (dk, ref_dk), (dv, ref_dv)):
+        assert _close(a, b, dtype)
+
+
+@pytest.mark.cuda
+def test_sparse_bert_on_cuda_runs_the_kernels_and_matches_the_cpu(cuda):
+    """A tiny fp32 sparse BERT on the card launches each block-sparse
+    kernel once per layer and no flash kernel, and gives the loss and
+    gradients of the same model on the CPU (masked path)."""
+    from deepspeed_tpu_torch.models.bert import BertConfig, BertForPreTraining
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        FixedSparsityConfig, block_sparse_kernel as bsk)
+
+    cfg = BertConfig(vocab_size=256, hidden_size=128, num_hidden_layers=2,
+                     num_attention_heads=2, intermediate_size=256,
+                     max_position_embeddings=256, hidden_dropout_prob=0.0,
+                     attention_probs_dropout_prob=0.0, dtype=torch.float32,
+                     sparsity_config=FixedSparsityConfig(
+                         2, block=64, num_local_blocks=2))
+    cpu = BertForPreTraining(cfg)
+    gpu = BertForPreTraining(cfg).to(cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(2)
+    ids = torch.randint(0, 256, (2, 256), generator=gen)
+    mask = torch.ones(2, 256, dtype=torch.int32)
+    mask[1, -20:] = 0
+    labels = torch.where(torch.rand(2, 256, generator=gen) < 0.15, ids,
+                         torch.full_like(ids, -100))
+    before = dict(bsk.LAUNCHES, **tfa.LAUNCHES)
+    losses = []
+    for m, dev in ((cpu, "cpu"), (gpu, cuda)):
+        b = {"input_ids": ids.to(dev), "attention_mask": mask.to(dev),
+             "masked_lm_labels": labels.to(dev)}
+        loss, _ = m.loss(b)
+        loss.backward()
+        losses.append(loss.item())
+    after = dict(bsk.LAUNCHES, **tfa.LAUNCHES)
+    assert {n: after[n] - before[n] for n in before} == {
+        "sparse_fwd": 2, "sparse_bwd_dq": 2, "sparse_bwd_dkdv": 2,
+        "flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
+    assert abs(losses[0] - losses[1]) <= 1e-4 * abs(losses[0])
+    for (n, p), q in zip(cpu.named_parameters(), gpu.parameters()):
+        if p.grad is None:        # the pooler and NSP head: an MLM batch
+            assert q.grad is None, n
+            continue
+        assert _close(q.grad.cpu(), p.grad, torch.float32), n
+
+
+@pytest.mark.cuda
+def test_cuda_sparse_attention_raises_instead_of_rerouting(cuda):
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_attention
+
+    layout = np.ones((2, 2, 2))
+    q = torch.zeros(1, 2, 128, 80, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 80"):
+        block_sparse_attention(q, q, q, layout, 64)
+    q = torch.zeros(1, 2, 128, 64, device=cuda)
+    with pytest.raises(ValueError, match="rpe"):
+        block_sparse_attention(q, q, q, layout, 64,
+                               rpe=torch.zeros(128, 128, device=cuda))
+    with pytest.raises(ValueError, match="CPU tensors only"):
+        block_sparse_attention(q, q, q, layout, 64, use_pallas=False)
+    with pytest.raises(ValueError, match="block 8"):
+        block_sparse_attention(q, q, q, np.ones((2, 16, 16)), 8)

@@ -285,12 +285,31 @@ def test_import_does_not_load_jax():
             "deepspeed_tpu_torch.runtime.engine, "
             "deepspeed_tpu_torch.models.gpt2, "
             "deepspeed_tpu_torch.models.convert, "
+            "deepspeed_tpu_torch.models.bert, "
+            "deepspeed_tpu_torch.ops.sparse_attention, "
+            "deepspeed_tpu_torch.ops.transformer, "
             "deepspeed_tpu_torch.ops.op_builder; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'deepspeed_tpu')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("module", [
+    "deepspeed_tpu_torch.ops.sparse_attention",
+    "deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel",
+    "deepspeed_tpu_torch.ops.transformer.transformer",
+    "deepspeed_tpu_torch.models.bert",
+])
+def test_module_imports_first_in_a_fresh_process(module):
+    """Each of these imports on its own (no import cycle between the
+    attention packages, whichever is imported first)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, "-c", f"import {module}"],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
     assert proc.returncode == 0, proc.stderr
 
 
@@ -315,13 +334,32 @@ def test_no_port_file_imports_jax_flax_or_the_jax_package():
 
 
 def test_kernel_sources_ship_with_the_package():
-    from deepspeed_tpu_torch.ops.op_builder import SOURCE
+    from deepspeed_tpu_torch.ops.op_builder import SOURCES
 
-    assert os.path.exists(SOURCE), SOURCE
-    text = open(SOURCE).read()
+    source = SOURCES["flash_attention"]
+    assert os.path.exists(source), source
+    text = open(source).read()
     assert "deepspeed_tpu/ops/transformer/flash_attention.py" in text
     setup = open(os.path.join(REPO, "setup.py")).read()
     assert "deepspeed_tpu_torch" in setup and "csrc/*.cu" in setup
+
+
+def test_every_kernel_source_is_registered_and_ships():
+    """Each CUDA source builds into its own library and names the Pallas
+    functions it replaces; setup.py ships every csrc directory."""
+    from deepspeed_tpu_torch.ops import op_builder
+
+    assert set(op_builder.SOURCES) == {"flash_attention",
+                                       "block_sparse_attention"}
+    assert set(op_builder.SIGNATURES) == set(op_builder.SOURCES)
+    paths = {name: op_builder.so_path(name) for name in op_builder.SOURCES}
+    assert len(set(paths.values())) == 2
+    text = open(op_builder.SOURCES["block_sparse_attention"]).read()
+    assert "deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py" in text
+    for fn in ("_fwd_kernel", "_bwd_dq_kernel", "_bwd_dkdv_kernel"):
+        assert fn in text
+    setup = open(os.path.join(REPO, "setup.py")).read()
+    assert "ops/sparse_attention/csrc/*.cu" in setup
 
 
 def test_chip_smoke_refuses_without_cuda_or_package(tmp_path):
