@@ -7,11 +7,15 @@ Phases, run in this order, each of which raises (exit code != 0) on any
 failure:
   1. env      card name and power limit (nvidia-smi), torch and CUDA versions
   2. build    nvcc build of every CUDA source of the port, all sources at
-              once, each timed
+              once, each timed; cuobjdump -sass of the flash library counts
+              the tensor-core instructions (HGMMA / HMMA) of every kernel
+              instantiation and fails unless each bf16 forward and dK/dV
+              instantiation has some
   3. kernels  each flash-attention kernel against its plain PyTorch version
               on the card: the GPT-2 training shape (8, 16, 1024, 64) bf16
-              causal, plus fp32 shapes with 'key' bias, 'full' bias, ragged
-              sequence lengths and dropout; per-kernel times beside the plain
+              causal, plus bf16 and fp32 shapes at head_dim 64, 96 and 128
+              with 'key' bias (padded keys), 'full' bias, ragged sequence
+              lengths and dropout; per-kernel times beside the plain
               version's, the bound and, as a yardstick only, PyTorch's
               scaled_dot_product_attention (never called by the port); two
               planted faults (diagonal tile skipped, one output tile left
@@ -88,8 +92,9 @@ BERT_SPARSITY = dict(block=64, num_local_blocks=4, num_global_blocks=1)
 # the reference's own scale: |a - b| <= TOL * (|b| + rms(b)) (see scaled_err);
 # in the parity phase, ||a - b|| <= TOL * ||b|| per gradient tensor
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-# tile of the planted faults (the kernels' row and column tile)
-FAULT_TILE = 64
+# tile of the planted faults: the q tile of the bf16 forward and the k tile
+# of the bf16 dK/dV sweep
+FAULT_TILE = 128
 # the slice's model and step
 SLICE_MODEL = "gpt2-350m"
 SLICE_SEQ = 1024
@@ -171,6 +176,38 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def kernel_ms(fn):
+    """cuda_ms over a window of 50 launches for a kernel under 0.5 ms (so
+    that launch gaps and event resolution stay small beside the window),
+    10 otherwise."""
+    probe = cuda_ms(fn, iters=3)
+    return cuda_ms(fn, iters=50 if probe < 0.5 else 10)
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Device time per call of fn(): its kernels' times summed under
+    torch.profiler over iters calls. Unlike an event window it leaves out
+    the gaps between launches, which set the time of a call that launches
+    several kernels from Python (autograd's backward of
+    scaled_dot_product_attention read 0.74 ms in a 50-call event window
+    where its kernels take about 0.2)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    if us <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return us / iters / 1e3
+
+
 def scaled_err(a, b):
     """max over elements of |a - b| / (|b| + rms(b)), in fp32. Rounding
     both sides to bf16 moves an element by at most one ulp, 2**-7 of its
@@ -234,6 +271,37 @@ def phase_build():
         log(f"build seconds ({name}): {secs:.2f}")
     log(f"build seconds (all sources, in parallel): "
         f"{time.perf_counter() - t0:.2f}")
+    return _tensor_core_proof(results["flash_attention"][0])
+
+
+def _tensor_core_proof(library):
+    """{kernel instantiation: (HGMMA, HMMA) count} from cuobjdump -sass of
+    the flash library; raises unless every bf16 forward and dK/dV
+    instantiation (flash_fwd_tc_kernel, flash_bwd_dkdv_tc_kernel, one per
+    head_dim) holds tensor-core instructions."""
+    from deepspeed_tpu_torch.ops import op_builder
+
+    tool = os.path.join(os.path.dirname(op_builder.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, current = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            current = ln.split("Function :")[1].strip()
+            counts[current] = [0, 0]
+        elif current is not None:
+            counts[current][0] += "HGMMA" in ln
+            counts[current][1] += "HMMA" in ln and "HGMMA" not in ln
+    for name, (hgmma, hmma) in sorted(counts.items()):
+        log(f"  sass {name[:110]}: HGMMA {hgmma} HMMA {hmma}")
+    by_kernel = {}
+    for family in ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel"):
+        found = {n: c for n, c in counts.items() if family in n}
+        if len(found) != 3 or not all(sum(c) for c in found.values()):
+            raise RuntimeError(f"{family}: expected 3 instantiations with "
+                               f"tensor-core instructions, got {found}")
+        by_kernel[family] = {n: c[0] + c[1] for n, c in found.items()}
+    return by_kernel
 
 
 def _flash_case(shape, dtype, causal, bias_kind, dropout, seed, main):
@@ -313,10 +381,10 @@ def _flash_case(shape, dtype, causal, bias_kind, dropout, seed, main):
         }
         # kernel and plain in turns: kernel, plain, plain, kernel
         for name, (kern, plain) in calls.items():
-            k1 = cuda_ms(kern)
+            k1 = kernel_ms(kern)
             p1 = cuda_ms(plain, iters=3, warmup=1)
             p2 = cuda_ms(plain, iters=3, warmup=1)
-            k2 = cuda_ms(kern)
+            k2 = kernel_ms(kern)
             summary[name]["ms"] = (k1 + k2) / 2
             summary[name]["plain_ms"] = (p1 + p2) / 2
             log(f"  {name:15s} kernel {k1:.3f}/{k2:.3f} ms, plain "
@@ -372,20 +440,21 @@ def _planted_faults(q, k, v, do, lse, delta, dseed, kw, plain, tol,
                                f"{tol:g}: {readings}")
 
 
-def _dropout_masks_exact(seed=4242, rate=0.25, bh=3, s=128):
+def _dropout_masks_exact(dtype, seed=4242, rate=0.25, bh=3, s=128):
     """Each kernel's dropout keep mask, read out through one-hot inputs,
     equals its plain version's bit for bit. With q = 0 every score is 0 and
     (lse, delta = 0) every p is 1, so: forward with v = I gives out[q, k] =
     keep * inv / s; dK/dV with dO = I gives dv[k, q] = keep * inv; dQ with
     k = v = I and dO = 1 gives dq[q, k] = keep * inv. s = head_dim = 128
-    spans two 64-row tiles on both axes."""
+    spans two 64-row tiles on both axes of the fp32 kernels and two q tiles
+    of the bf16 dK/dV sweep (the tensor-core kernels at bf16)."""
     import torch
 
     from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
-    eye = torch.eye(s, device="cuda").expand(bh, s, s).contiguous()
-    zeros = torch.zeros(bh, s, s, device="cuda")
-    ones = torch.ones(bh, s, s, device="cuda")
+    eye = torch.eye(s, device="cuda").expand(bh, s, s).contiguous().to(dtype)
+    zeros = torch.zeros(bh, s, s, device="cuda", dtype=dtype)
+    ones = torch.ones(bh, s, s, device="cuda", dtype=dtype)
     stat = torch.zeros(bh, s, device="cuda")
     kw = dict(scale=1.0, causal=False, bias_kind="none", num_heads=bh,
               dropout_rate=rate)
@@ -403,7 +472,8 @@ def _dropout_masks_exact(seed=4242, rate=0.25, bh=3, s=128):
     for name, kernel_mask in masks["kernel"].items():
         differ = int((kernel_mask != masks["plain"][name]).sum())
         kept = float(kernel_mask.float().mean())
-        log(f"  {name:15s} dropout keep mask ({bh}, {s}, {s}) rate {rate}: "
+        log(f"  {name:15s} dropout keep mask ({bh}, {s}, {s}) "
+            f"{str(dtype)[6:]} rate {rate}: "
             f"{differ} positions differ from the plain version, kept "
             f"{kept:.4f}")
         if differ or not 0.70 < kept < 0.80:
@@ -413,7 +483,8 @@ def _dropout_masks_exact(seed=4242, rate=0.25, bh=3, s=128):
 
 def _library_ms(shape, dtype):
     """scaled_dot_product_attention at the shape, as a yardstick only:
-    (forward ms, backward ms for dq, dk and dv together)."""
+    (forward ms, backward ms for dq, dk and dv together: device time, see
+    device_ms)."""
     import torch
     import torch.nn.functional as F
 
@@ -421,16 +492,16 @@ def _library_ms(shape, dtype):
     gen = torch.Generator(device="cuda").manual_seed(7)
     q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda")
                    .to(dtype) for _ in range(4))
-    fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v,
-                                                         is_causal=True))
+    fwd = kernel_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                           is_causal=True))
     qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
     out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    bwd = cuda_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
-                                              retain_graph=True))
+    bwd = device_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                                retain_graph=True))
     return fwd, bwd
 
 
-def phase_kernels(env):
+def phase_kernels(env, tensor_cores):
     import torch
 
     log("kernels against their plain versions on the card:")
@@ -443,12 +514,23 @@ def phase_kernels(env):
     _flash_case((2, 4, 256, 64), torch.bfloat16, False, "key", 0.1, 5,
                 False)
     _flash_case((1, 3, 77, 64), torch.bfloat16, True, "none", 0.0, 6, False)
-    _dropout_masks_exact()
+    # bf16 at head_dim 96 (two panels, the second half zero-padded) and
+    # 128: both bias kinds, padded keys, dropout, ragged lengths
+    _flash_case((1, 2, 77, 96), torch.bfloat16, True, "full", 0.0, 7, False)
+    _flash_case((2, 4, 200, 128), torch.bfloat16, False, "key", 0.1, 8,
+                False)
+    _flash_case((2, 2, 333, 96), torch.bfloat16, True, "key", 0.1, 9, False)
+    _flash_case((1, 2, 256, 128), torch.bfloat16, False, "full", 0.1, 10,
+                False)
+    _dropout_masks_exact(torch.float32)
+    _dropout_masks_exact(torch.bfloat16)
     lib_fwd, lib_bwd = _library_ms(main_shape, torch.bfloat16)
     log(f"  library yardstick (scaled_dot_product_attention) at "
         f"{main_shape} bf16 causal: fwd {lib_fwd:.3f} ms, bwd (dq, dk, dv "
         f"together) {lib_bwd:.3f} ms")
     rows = []
+    families = {"flash_fwd": "flash_fwd_tc_kernel",
+                "flash_bwd_dkdv": "flash_bwd_dkdv_tc_kernel"}
     for name, replaces in FLASH_KERNELS:
         bms, by = bound(name, env["name"], main_shape, torch.bfloat16, True)
         r = main[name]
@@ -464,6 +546,9 @@ def phase_kernels(env):
             "library_bwd_all_ms": lib_bwd,
             "shape": list(main_shape), "dtype": "bfloat16", "causal": True,
             "card": env["smi"],
+            # tensor-core instructions in the SASS of each bf16
+            # instantiation (none: the scalar dQ kernel)
+            "tensor_core_sass": tensor_cores.get(families.get(name), {}),
         })
         log(f"  {name:15s} {r['ms']:.3f} ms vs bound {bms:.4f} ms "
             f"({by}) on {env['smi']}")
@@ -833,10 +918,10 @@ def _sparse_case(shape, dtype, layout, block, bias_kind, seed, main):
     }
     # kernel and plain in turns: kernel, plain, plain, kernel
     for name, (kern, plain_fn) in calls.items():
-        k1 = cuda_ms(kern)
+        k1 = kernel_ms(kern)
         p1 = cuda_ms(plain_fn, iters=3, warmup=1)
         p2 = cuda_ms(plain_fn, iters=3, warmup=1)
-        k2 = cuda_ms(kern)
+        k2 = kernel_ms(kern)
         summary[name]["ms"] = (k1 + k2) / 2
         summary[name]["plain_ms"] = (p1 + p2) / 2
         log(f"  {name:15s} kernel {k1:.3f}/{k2:.3f} ms, plain "
@@ -1064,8 +1149,8 @@ def main():
         return 2
     sys.path.insert(0, HERE)
     env = phase_env()
-    phase_build()
-    rows = phase_kernels(env)
+    tensor_cores = phase_build()
+    rows = phase_kernels(env, tensor_cores)
     train = phase_train(env)
     for row in rows:
         row["launches"] = train["launches"][row["name"]]

@@ -3,8 +3,9 @@
 Each source in ``SOURCES`` compiles into its own shared library with a plain
 C interface (no PyTorch headers in the build, so a build takes seconds), for
 ``sm_90a`` (Hopper), at first use, into ``build/deepspeed_tpu_torch/``
-beside the package. A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and concurrent builds never write
+beside the package. A library's file name carries a hash of its source
+directory (the source and the headers it includes from there) and flags,
+so an edited source or header is rebuilt and concurrent builds never write
 the same file. Sources build independently: ``build(name)`` for each name
 may run at the same time.
 """
@@ -68,9 +69,16 @@ def find_nvcc():
 
 
 def so_path(name):
+    """The library path of source ``name``: a hash of every file in the
+    source's directory, names and contents, and of the flags."""
     digest = hashlib.sha256()
-    with open(SOURCES[name], "rb") as f:
-        digest.update(f.read())
+    src_dir = os.path.dirname(SOURCES[name])
+    for fname in sorted(os.listdir(src_dir)):
+        path = os.path.join(src_dir, fname)
+        if os.path.isfile(path):
+            digest.update(fname.encode() + b"\0")
+            with open(path, "rb") as f:
+                digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 

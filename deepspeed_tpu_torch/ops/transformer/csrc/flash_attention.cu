@@ -1,8 +1,10 @@
 // Flash attention for Hopper (sm_90a): forward, dK/dV sweep and dQ sweep.
 //
 // Replaces the Pallas TPU kernels of deepspeed_tpu/ops/transformer/flash_attention.py:
-//   flash_fwd_kernel       <- _fwd_kernel       (launched by _flash_fwd)
-//   flash_bwd_dkdv_kernel  <- _bwd_dkdv_kernel  (launched by _flash_bwd)
+//   flash_fwd_tc_kernel (bf16), flash_fwd_kernel (fp32)
+//                          <- _fwd_kernel       (launched by _flash_fwd)
+//   flash_bwd_dkdv_tc_kernel (bf16), flash_bwd_dkdv_kernel (fp32)
+//                          <- _bwd_dkdv_kernel  (launched by _flash_bwd)
 //   flash_bwd_dq_kernel    <- _bwd_dq_kernel    (launched by _flash_bwd)
 //
 // Each kernel computes the whole function of its Pallas counterpart: scaled
@@ -16,27 +18,59 @@
 // Layout: q, k, v, out, dout, dq, dk, dv are (B*H, S, D) contiguous in the
 // storage dtype (bf16 or fp32); lse and delta are compact (B*H, S_q) fp32.
 //
-// Design. Blocks run in parallel with no order, so the sequential grid axis
-// of the Pallas kernels becomes a loop inside one thread block:
-//   fwd   one block per (bh, 64-row q tile), looping over 64-row k tiles;
-//   dK/dV one block per (bh, 64-row k tile), looping over q tiles;
-//   dQ    one block per (bh, 64-row q tile), looping over k tiles.
-// The two backward sweeps write disjoint outputs, so no atomics are needed.
-// Tiles are staged in shared memory as fp32 (row pitch D+1 so that the 16
-// threads of a half-warp reading 16 different rows hit 16 different banks).
-// 256 threads form a 16x16 grid; each owns a 4x4 patch of the 64x64 score
-// tile (rows ty+16i, columns tx+16j) and a 4 x D/16 patch of the fp32
-// accumulators. Row reductions of the online softmax are 16-lane shuffles
-// inside a half-warp. Ragged edges (any S) are masked in the kernel.
+// Routing, by dtype before launch: bf16 runs the forward and the dK/dV sweep
+// on the tensor cores (flash_fwd_tc_kernel, flash_bwd_dkdv_tc_kernel) and
+// the dQ sweep on the scalar kernel; fp32 runs the three scalar kernels,
+// whose fp32 products are what the Pallas kernels compute at fp32 (TF32
+// tensor cores would not be). At bf16, p and dS enter their second products
+// rounded to bf16, as the Pallas kernels round them (p_acc.astype(v.dtype),
+// p_drop.astype(do.dtype), ds.astype(q.dtype), ds.astype(k.dtype)).
 //
-// Bound. At the GPT-2 training shapes (S=1024, D=64, bf16) the work is a few
-// times above the card's bytes/operations balance point, so the kernels are
-// bound by operations. This first version multiplies with scalar fp32 FMAs,
-// not tensor cores; its time is far above the bf16 tensor-core bound. The
-// next step is mma.sync / wgmma fragments on the same tiling.
+// Blocks run in parallel with no order, so the sequential grid axis of the
+// Pallas kernels becomes a loop inside one thread block, and the two
+// backward sweeps write disjoint outputs, with no atomics.
+//
+// Tensor-core kernels (bf16, sm_90a). Bound at the GPT-2 slice shape
+// (8, 16, 1024, 64) causal: the forward by bytes (0.020 ms), the dK/dV sweep
+// by operations (0.035 ms); both sit at 0.1-0.15 ms, held back by the
+// element-wise softmax work between the products, not by the products or
+// the loads. The design:
+//   - one block per (bh, 128-row tile) with two consumer warpgroups of 64
+//     rows and one producer warp; the forward loops over 128-row k/v tiles,
+//     the dK/dV sweep (one block per 128 k rows) over 64-row q/dO tiles;
+//   - TMA loads (3-D tensor maps over (bh, S, D), 128-byte swizzle, rows and
+//     columns past the tensor arrive as zeros) into a 2-stage ring signalled
+//     by mbarriers; the producer loads while the consumers compute; the
+//     dK/dV producer also stages each q tile's lse and delta;
+//   - wgmma m64n64k16 bf16 with fp32 accumulators: S = Q.K^T (forward) and
+//     S^T = K.Q^T, dP^T = V.dO^T (dK/dV) with both operands in shared
+//     memory; p (forward) and p_drop^T, dS^T (dK/dV) go from the fp32
+//     accumulator registers pairwise to bf16 and are the register A operand
+//     of O += P.V, dV += p_drop^T.dO, dK += dS^T.Q, whose B operands (V, dO,
+//     Q) are read MN-major from the same swizzled tiles: nothing is
+//     transposed and P never goes to shared memory;
+//   - the row statistics are quad shuffles on the accumulator layout; every
+//     warp-uniform branch (bias kind, a tile crossing the diagonal, a ragged
+//     edge, dropout) sits outside the unrolled element loops: a branch per
+//     element doubled both kernels' times;
+//   - causal: tiles wholly above the diagonal are skipped, the forward's
+//     longest q tiles and the dK/dV sweep's longest k tiles start first;
+//   - head_dim 96 is padded to two 64-column panels with zeros.
+//
+// Scalar kernels (fp32, and the bf16 dQ sweep): one block per (bh, 64-row
+// tile), 64x64 tiles staged in shared memory as fp32 (row pitch D+1 so that
+// the 16 threads of a half-warp reading 16 different rows hit 16 different
+// banks), 256 threads as a 16x16 grid each owning a 4x4 patch of the score
+// tile and a 4 x D/16 patch of the fp32 accumulators, row reductions as
+// 16-lane shuffles, scalar fp32 FMAs. Ragged edges (any S) are masked in the
+// kernel.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -265,7 +299,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
 // p = exp(s - lse) and ds = p * (dp' - delta) * scale for one 64x64 tile,
 // where dp' is dO.v^T with the dropout keep mask and 1/(1-rate) applied;
 // writes p (dropped and rescaled) to Pd when Pd is not null and ds to Ds
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void bwd_tile(const FlashParams& p, const float* Qs, const float* Ks,
                                          const float* Vs, const float* dOs, const float* lse_s,
                                          const float* delta_s, float* Pd, float* Ds, int bh, int q0,
@@ -293,8 +327,10 @@ __device__ __forceinline__ void bwd_tile(const FlashParams& p, const float* Qs, 
         }
         ds = pr * (dpv - delta_s[r]) * p.scale;
       }
-      if (Pd != nullptr) Pd[r * kScorePitch + c] = pd;
-      Ds[r * kScorePitch + c] = ds;
+      // both enter their second product in the storage dtype, as the
+      // Pallas kernels' p_drop.astype(do.dtype) / ds.astype(q.dtype)
+      if (Pd != nullptr) Pd[r * kScorePitch + c] = to_float(from_float<T>(pd));
+      Ds[r * kScorePitch + c] = to_float(from_float<T>(ds));
     }
   }
 }
@@ -344,7 +380,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(FlashParams p)
       delta_s[tid] = qi < p.s_q ? delta[qi] : 0.f;
     }
     __syncthreads();
-    bwd_tile<D>(p, Qs, Ks, Vs, dOs, lse_s, delta_s, Ps, Ds, bh, q0, k0, ty, tx);
+    bwd_tile<T, D>(p, Qs, Ks, Vs, dOs, lse_s, delta_s, Ps, Ds, bh, q0, k0, ty, tx);
     __syncthreads();
     // dv += p_drop^T . dO ; dk += ds^T . q  (rows of dk/dv are k positions)
     tile_acc<D, true>(dv, Ps, dOs, ty, tx);
@@ -408,7 +444,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(FlashParams p) {
     load_tile<T, D>(Ks, k, k0, p.s_k, tid);
     load_tile<T, D>(Vs, v, k0, p.s_k, tid);
     __syncthreads();
-    bwd_tile<D>(p, Qs, Ks, Vs, dOs, lse_s, delta_s, nullptr, Ds, bh, q0, k0, ty, tx);
+    bwd_tile<T, D>(p, Qs, Ks, Vs, dOs, lse_s, delta_s, nullptr, Ds, bh, q0, k0, ty, tx);
     __syncthreads();
     tile_acc<D, false>(dq, Ds, Ks, ty, tx);  // dq += ds . k
   }
@@ -423,6 +459,583 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(FlashParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 tensor-core kernels (B1 forward, B2 dK/dV): wgmma + TMA + mbarriers
+// ---------------------------------------------------------------------------
+constexpr int kTcConsumerWarps = 8;                      // two consumer warpgroups
+constexpr int kTcThreads = 32 * kTcConsumerWarps + 32;   // + one producer warp
+constexpr int kTcStages = 2;                             // ring of q or k/v tiles
+constexpr int kFwdRowsQ = 128;                           // fwd: q rows of a block
+constexpr int kFwdRowsK = 128;                           // fwd: k rows of a stage
+constexpr int kBwdRowsK = 128;                           // dK/dV: k rows of a block
+constexpr int kBwdRowsQ = 64;                            // dK/dV: q rows of a stage
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D> __host__ __device__ constexpr int tc_panels() { return (D + hopper::kPanelCols - 1) / hopper::kPanelCols; }
+// bytes of a swizzled tile of `rows` rows at head_dim D (zero-padded to whole panels)
+template <int D> __host__ __device__ constexpr uint32_t tc_tile_bytes(int rows) {
+  return static_cast<uint32_t>(tc_panels<D>() * rows * hopper::kRowBytes);
+}
+
+template <int D> constexpr size_t fwd_tc_smem() {
+  // Q, K/V ring, 5 mbarriers, 1024 bytes to align the tiles
+  return tc_tile_bytes<D>(kFwdRowsQ) + 2 * kTcStages * tc_tile_bytes<D>(kFwdRowsK) + 64 + 1024;
+}
+template <int D> constexpr size_t dkdv_tc_smem() {
+  // K, V, Q/dO ring with lse and delta rows, 5 mbarriers, alignment
+  return 2 * tc_tile_bytes<D>(kBwdRowsK) +
+         kTcStages * (2 * tc_tile_bytes<D>(kBwdRowsQ) + 2 * kBwdRowsQ * sizeof(float)) + 64 + 1024;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// _dropout_keep split in its row and column halves: the row hash of (bh, qi)
+// is computed once per row, the column mix per element
+__device__ __forceinline__ uint32_t dropout_row_hash(const FlashParams& p, int bh, int qi) {
+  return mix32((p.seed + 0x9E3779B9u * (uint32_t)bh) ^ (uint32_t)qi);
+}
+__device__ __forceinline__ bool dropout_keep_row(const FlashParams& p, uint32_t row_hash, int kj) {
+  return mix32(row_hash ^ (0x27D4EB2Fu * (uint32_t)kj)) >= p.drop_threshold;
+}
+
+// column of accumulator register i within its 64 columns (see hopper::wgmma_ss)
+__device__ __forceinline__ int tc_col(int i, int c_off) { return 8 * (i >> 2) + c_off + (i & 1); }
+
+// The 4 A-operand registers of k-step `c` (16 columns) taken from a 64-column
+// fp32 accumulator, each pair rounded to bf16 (see hopper::wgmma_rs).
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&x)[32], int c) {
+  a[0] = hopper::pack_bf16(x[8 * c + 0], x[8 * c + 1]);
+  a[1] = hopper::pack_bf16(x[8 * c + 2], x[8 * c + 3]);
+  a[2] = hopper::pack_bf16(x[8 * c + 4], x[8 * c + 5]);
+  a[3] = hopper::pack_bf16(x[8 * c + 6], x[8 * c + 7]);
+}
+
+// B1. One block per (bh, 128-row q tile): warps 0-7 are two consumer
+// warpgroups of 64 q rows each, warp 8 the producer. The producer loads the
+// q tile once and the k/v tiles (128 rows) into a 2-stage ring by TMA; each
+// consumer warpgroup computes S = Q.K^T by wgmma (both operands in shared
+// memory), the masked online softmax on S's accumulator registers, and
+// O += P.V with P converted to bf16 in registers as the A operand and V read
+// MN-major from shared memory, then frees the stage.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                        const __grid_constant__ CUtensorMap tm_v, FlashParams p) {
+  using namespace hopper;
+  constexpr int NP = tc_panels<D>();  // output / V panels of 64 columns
+  constexpr int KD = D / 16;          // k-steps of Q.K^T
+  constexpr uint32_t kQBytes = tc_tile_bytes<D>(kFwdRowsQ);
+  constexpr uint32_t kKBytes = tc_tile_bytes<D>(kFwdRowsK);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;
+  const uint32_t sKV = sQ + kQBytes;  // stage s: K at sKV + 2 s kKBytes, V after it
+  const uint32_t bars = sKV + 2 * kTcStages * kKBytes;
+  const uint32_t bar_q = bars, bar_full = bars + 8, bar_empty = bars + 8 + 8 * kTcStages;
+
+  const int bh = blockIdx.x;
+  // causal: the longest rows (last q tiles) start first
+  const int qt = p.causal ? (int)gridDim.y - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int q0 = qt * kFwdRowsQ;
+  int n_k_tiles = (p.s_k + kFwdRowsK - 1) / kFwdRowsK;
+  if (p.causal) n_k_tiles = min(n_k_tiles, (q0 + kFwdRowsQ - 1) / kFwdRowsK + 1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kTcConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kTcConsumerWarps) {  // producer
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_q, kQBytes);
+      for (int pp = 0; pp < NP; ++pp)
+        tma_load_3d(sQ + pp * kFwdRowsQ * kRowBytes, &tm_q, bar_q, pp * kPanelCols, q0, bh);
+      for (int it = 0; it < n_k_tiles; ++it) {
+        const int s = it % kTcStages;
+        if (it >= kTcStages) mbar_wait(bar_empty + 8 * s, (it / kTcStages - 1) & 1);
+        const uint32_t sK = sKV + 2 * s * kKBytes, sV = sK + kKBytes;
+        mbar_arrive_expect_tx(bar_full + 8 * s, 2 * kKBytes);
+        for (int pp = 0; pp < NP; ++pp) {
+          tma_load_3d(sK + pp * kFwdRowsK * kRowBytes, &tm_k, bar_full + 8 * s, pp * kPanelCols,
+                      it * kFwdRowsK, bh);
+          tma_load_3d(sV + pp * kFwdRowsK * kRowBytes, &tm_v, bar_full + 8 * s, pp * kPanelCols,
+                      it * kFwdRowsK, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns q rows q0 + 64 wg .. + 63; this thread holds
+  // rows row[h] = q0 + 64 wg + 16 w + lane/4 + 8h and, in each 8-column
+  // group j of an accumulator, columns 8j + c_off + {0, 1}
+  const int wg = warp / 4, w = warp % 4;
+  const int c_off = 2 * (lane % 4);
+  const int wg_q0 = q0 + 64 * wg;
+  int row[2];
+  uint32_t row_hash[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = wg_q0 + 16 * w + lane / 4 + 8 * h;
+    row_hash[h] = p.use_dropout ? dropout_row_hash(p, bh, row[h]) : 0u;
+  }
+  const float* key_bias = p.bias_kind == 1 ? p.bias + (size_t)(bh / p.heads) * p.s_k : nullptr;
+
+  float o[NP][32];
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[pp][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_k_tiles; ++it) {
+    const int s = it % kTcStages;
+    const uint32_t sK = sKV + 2 * s * kKBytes, sV = sK + kKBytes;
+    mbar_wait(bar_full + 8 * s, (it / kTcStages) & 1);
+
+    // S = Q . K^T: two 64-column halves of the 128-row k tile
+    float sc[2][32];
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      const uint32_t col = (kd % 4) * 32;  // 16 bf16 further along the swizzled row
+      const uint64_t da = desc_k_major(sQ + (kd / 4) * kFwdRowsQ * kRowBytes + wg * 64 * kRowBytes + col);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const uint64_t db = desc_k_major(sK + (kd / 4) * kFwdRowsK * kRowBytes + n * 64 * kRowBytes + col);
+        wgmma_ss(sc[n], da, db, kd > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc[0]);
+    fence_regs(sc[1]);
+
+    // scale, bias, masks; then the running max. Every branch is uniform
+    // over the warp and sits outside the element loops: a branch per element
+    // would cut the unrolled loop into short blocks with no overlap between
+    // elements (measured: it doubled this kernel's time).
+    const int k0 = it * kFwdRowsK;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[n][i] *= p.scale;
+    if (p.bias_kind == 1) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[n][i] += key_bias[min(k0 + 64 * n + tc_col(i, c_off), p.s_k - 1)];
+    } else if (p.bias_kind == 2) {
+      const float* rows_bias[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) rows_bias[h] = p.bias + ((size_t)bh * p.s_q + min(row[h], p.s_q - 1)) * p.s_k;
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          sc[n][i] += rows_bias[(i >> 1) & 1][min(k0 + 64 * n + tc_col(i, c_off), p.s_k - 1)];
+    }
+    if (p.causal && k0 + kFwdRowsK - 1 > wg_q0) {  // a tile that crosses the diagonal
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (row[(i >> 1) & 1] < k0 + 64 * n + tc_col(i, c_off)) sc[n][i] = kNegInf;
+    }
+    if (k0 + kFwdRowsK > p.s_k) {  // columns past S_k take no part in the softmax
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          if (k0 + 64 * n + tc_col(i, c_off) >= p.s_k) sc[n][i] = -INFINITY;
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[n][i]);
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = quad_max(mx[h]);
+      alpha[h] = exp2f((m[h] - mx[h]) * kLog2e);
+      m[h] = mx[h];
+    }
+
+    // p = exp(s - m): the undropped p feeds the denominator; p_acc (dropout
+    // applied) goes to bf16 as the A operand of P.V
+    uint32_t pa[8][4];
+    float row_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sc[n][i] = exp2f((sc[n][i] - m[(i >> 1) & 1]) * kLog2e);
+        row_sum[(i >> 1) & 1] += sc[n][i];
+      }
+    if (p.use_dropout) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          sc[n][i] = dropout_keep_row(p, row_hash[(i >> 1) & 1], k0 + 64 * n + tc_col(i, c_off))
+                         ? sc[n][i] * p.drop_inv_keep
+                         : 0.f;
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc_to_a(pa[4 * n + c], sc[n], c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + row_sum[h];  // per-thread share of the row
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[pp][i] *= alpha[(i >> 1) & 1];
+
+    // O += P . V, V MN-major: k-step kk reads k rows 16 kk .. 16 kk + 15
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kFwdRowsK / 16; ++kk)
+#pragma unroll
+      for (int pp = 0; pp < NP; ++pp)
+        wgmma_rs(o[pp], pa[kk], desc_mn_major(sV + pp * kFwdRowsK * kRowBytes + kk * 16 * kRowBytes));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp) fence_regs(o[pp]);
+#pragma unroll
+    for (int kk = 0; kk < kFwdRowsK / 16; ++kk) fence_regs(pa[kk]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+  }
+
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + (size_t)bh * p.s_q * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float lt = quad_sum(l[h]);
+    if (row[h] >= p.s_q) continue;
+    const float l_safe = lt == 0.f ? 1.f : lt;
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * pp + 8 * j + c_off;
+        if (col < D) {
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row[h] * D + col) =
+              __floats2bfloat162_rn(o[pp][4 * j + 2 * h] / l_safe, o[pp][4 * j + 2 * h + 1] / l_safe);
+        }
+      }
+    if (lane % 4 == 0) p.lse_out[(size_t)bh * p.s_q + row[h]] = m[h] + logf(l_safe);
+  }
+}
+
+// B2. One block per (bh, 128-row k tile): warps 0-7 are two consumer
+// warpgroups of 64 k rows each, warp 8 the producer. The producer loads K
+// and V once and the q / dO tiles (64 rows, with their lse and delta) into a
+// 2-stage ring. Each consumer warpgroup computes the transposed products
+// S^T = K.Q^T and dP^T = V.dO^T by wgmma, p^T and dS^T on the accumulator
+// registers, and dV += p_drop^T.dO, dK += dS^T.Q with both converted to bf16
+// as register A operands and dO, Q read MN-major from shared memory. dK and
+// dV stay in fp32 registers and have one writer each.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                             const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                             FlashParams p) {
+  using namespace hopper;
+  constexpr int NP = tc_panels<D>();
+  constexpr int KD = D / 16;
+  constexpr uint32_t kKBytes = tc_tile_bytes<D>(kBwdRowsK);
+  constexpr uint32_t kQBytes = tc_tile_bytes<D>(kBwdRowsQ);
+  constexpr uint32_t kStageBytes = 2 * kQBytes + 2 * kBwdRowsQ * sizeof(float);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t sK = base, sV = sK + kKBytes;
+  const uint32_t sRing = sV + kKBytes;  // stage s: Q, dO, lse[64], delta[64]
+  const uint32_t bars = sRing + kTcStages * kStageBytes;
+  const uint32_t bar_kv = bars, bar_full = bars + 8, bar_empty = bars + 8 + 8 * kTcStages;
+
+  const int bh = blockIdx.x;
+  const int kt = blockIdx.y;  // causal: k tile 0 has the most q tiles and starts first
+  const int k0 = kt * kBwdRowsK;
+  const int n_q_tiles = (p.s_q + kBwdRowsQ - 1) / kBwdRowsQ;
+  // causal: q tiles wholly above this k tile see none of it
+  const int qt_first = p.causal ? k0 / kBwdRowsQ : 0;
+  const int n_iter = max(n_q_tiles - qt_first, 0);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(bar_full + 8 * s, 32);  // the producer warp's 32 lanes
+      mbar_init(bar_empty + 8 * s, kTcConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kTcConsumerWarps) {  // producer
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_kv, 2 * kKBytes);
+      for (int pp = 0; pp < NP; ++pp) {
+        tma_load_3d(sK + pp * kBwdRowsK * kRowBytes, &tm_k, bar_kv, pp * kPanelCols, k0, bh);
+        tma_load_3d(sV + pp * kBwdRowsK * kRowBytes, &tm_v, bar_kv, pp * kPanelCols, k0, bh);
+      }
+    }
+    const float* lse = p.lse + (size_t)bh * p.s_q;
+    const float* delta = p.delta + (size_t)bh * p.s_q;
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % kTcStages;
+      const int q0 = (qt_first + it) * kBwdRowsQ;
+      if (it >= kTcStages) mbar_wait(bar_empty + 8 * s, (it / kTcStages - 1) & 1);
+      const uint32_t sQ = sRing + s * kStageBytes, sDO = sQ + kQBytes;
+      float* stats = reinterpret_cast<float*>(base_ptr + (sDO + kQBytes - base));
+      for (int r = lane; r < kBwdRowsQ; r += 32) {
+        const int qi = q0 + r;
+        stats[r] = qi < p.s_q ? lse[qi] : 0.f;
+        stats[kBwdRowsQ + r] = qi < p.s_q ? delta[qi] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(bar_full + 8 * s, 2 * kQBytes);
+        for (int pp = 0; pp < NP; ++pp) {
+          tma_load_3d(sQ + pp * kBwdRowsQ * kRowBytes, &tm_q, bar_full + 8 * s, pp * kPanelCols, q0, bh);
+          tma_load_3d(sDO + pp * kBwdRowsQ * kRowBytes, &tm_do, bar_full + 8 * s, pp * kPanelCols, q0, bh);
+        }
+      } else {
+        mbar_arrive(bar_full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns k rows k0 + 64 wg .. + 63; this thread holds
+  // rows kr[h] = k0 + 64 wg + 16 w + lane/4 + 8h and, in each 8-column group
+  // j of an accumulator, q columns 8j + c_off + {0, 1}
+  const int wg = warp / 4, w = warp % 4;
+  const int c_off = 2 * (lane % 4);
+  int kr[2];
+  float kbias[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    kr[h] = k0 + 64 * wg + 16 * w + lane / 4 + 8 * h;
+    if (p.bias_kind == 1) kbias[h] = p.bias[(size_t)(bh / p.heads) * p.s_k + min(kr[h], p.s_k - 1)];
+  }
+
+  float dk[NP][32], dv[NP][32];
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk[pp][i] = dv[pp][i] = 0.f;
+
+  mbar_wait(bar_kv, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kTcStages;
+    const int q0 = (qt_first + it) * kBwdRowsQ;
+    const uint32_t sQ = sRing + s * kStageBytes, sDO = sQ + kQBytes;
+    const float* lse_s = reinterpret_cast<const float*>(base_ptr + (sDO + kQBytes - base));
+    const float* delta_s = lse_s + kBwdRowsQ;
+    mbar_wait(bar_full + 8 * s, (it / kTcStages) & 1);
+
+    // S^T = K . Q^T and dP^T = V . dO^T (k rows x 64 q columns)
+    float st[32], dpt[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      const uint32_t a_off = (kd / 4) * kBwdRowsK * kRowBytes + wg * 64 * kRowBytes + (kd % 4) * 32;
+      const uint32_t b_off = (kd / 4) * kBwdRowsQ * kRowBytes + (kd % 4) * 32;
+      wgmma_ss(st, desc_k_major(sK + a_off), desc_k_major(sQ + b_off), kd > 0);
+      wgmma_ss(dpt, desc_k_major(sV + a_off), desc_k_major(sDO + b_off), kd > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // scores, masks, p, dropout and dS, each branch uniform over the warp
+    // and outside the element loops (see the forward)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] *= p.scale;
+    if (p.bias_kind == 1) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] += kbias[(i >> 1) & 1];
+    } else if (p.bias_kind == 2) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        st[i] += p.bias[((size_t)bh * p.s_q + min(q0 + tc_col(i, c_off), p.s_q - 1)) * p.s_k +
+                        min(kr[(i >> 1) & 1], p.s_k - 1)];
+    }
+    if (p.causal && q0 < k0 + 64 * wg + 63) {  // some q row above some k row
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (q0 + tc_col(i, c_off) < kr[(i >> 1) & 1]) st[i] = kNegInf;
+    }
+    // p = exp(s - lse) with expf of the difference, as the plain version
+    // computes it (exp2f of a product with log2(e) adds ~1e-6 relative
+    // error, which moves more dS values across a bf16 rounding boundary);
+    // dS = p (dp - delta) scale, with dropout on p_drop and dp
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = expf(st[i] - lse_s[tc_col(i, c_off)]);
+    if (p.use_dropout) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const bool keep = dropout_keep(p, bh, q0 + tc_col(i, c_off), kr[(i >> 1) & 1]);
+        const float dpv = keep ? dpt[i] * p.drop_inv_keep : 0.f;
+        dpt[i] = st[i] * (dpv - delta_s[tc_col(i, c_off)]) * p.scale;
+        st[i] = keep ? st[i] * p.drop_inv_keep : 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dpt[i] = st[i] * (dpt[i] - delta_s[tc_col(i, c_off)]) * p.scale;
+    }
+    if (q0 + kBwdRowsQ > p.s_q) {  // padding rows of the last q tile
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (q0 + tc_col(i, c_off) >= p.s_q) st[i] = dpt[i] = 0.f;
+    }
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      acc_to_a(pa[c], st, c);
+      acc_to_a(da[c], dpt, c);
+    }
+
+    // dV += p_drop^T . dO and dK += dS^T . Q, dO and Q MN-major: k-step kk
+    // reads q rows 16 kk .. 16 kk + 15
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBwdRowsQ / 16; ++kk)
+#pragma unroll
+      for (int pp = 0; pp < NP; ++pp) {
+        const uint32_t off = pp * kBwdRowsQ * kRowBytes + kk * 16 * kRowBytes;
+        wgmma_rs(dv[pp], pa[kk], desc_mn_major(sDO + off));
+        wgmma_rs(dk[pp], da[kk], desc_mn_major(sQ + off));
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp) {
+      fence_regs(dk[pp]);
+      fence_regs(dv[pp]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(pa[kk]);
+      fence_regs(da[kk]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+  }
+
+  __nv_bfloat16* dk_out = static_cast<__nv_bfloat16*>(p.dk) + (size_t)bh * p.s_k * D;
+  __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(p.dv) + (size_t)bh * p.s_k * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (kr[h] >= p.s_k) continue;
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * pp + 8 * j + c_off;
+        if (col < D) {
+          const size_t at = (size_t)kr[h] * D + col;
+          *reinterpret_cast<__nv_bfloat162*>(dk_out + at) =
+              __floats2bfloat162_rn(dk[pp][4 * j + 2 * h], dk[pp][4 * j + 2 * h + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dv_out + at) =
+              __floats2bfloat162_rn(dv[pp][4 * j + 2 * h], dv[pp][4 * j + 2 * h + 1]);
+        }
+      }
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that the library does not link libcuda itself
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                                       &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+constexpr int kErrTensorMap = -3;  // a tensor map could not be encoded (or a pointer is unaligned)
+
+// a 3-D map over a (bh, rows, D) bf16 tensor whose boxes are (1, box_rows, 64)
+// in 128-byte-swizzled panels; out-of-range rows and columns read as zero
+template <int D>
+int make_tile_map(CUtensorMap* map, const void* ptr, int rows, int bh, int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return kErrTensorMap;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)hopper::kPanelCols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
+}
+
+template <int D>
+int launch_fwd_tc(const FlashParams& p, int bh, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = make_tile_map<D>(&tq, p.q, p.s_q, bh, kFwdRowsQ);
+  if (err == 0) err = make_tile_map<D>(&tk, p.k, p.s_k, bh, kFwdRowsK);
+  if (err == 0) err = make_tile_map<D>(&tv, p.v, p.s_k, bh, kFwdRowsK);
+  if (err != 0) return err;
+  constexpr size_t smem = fwd_tc_smem<D>();
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(bh, (p.s_q + kFwdRowsQ - 1) / kFwdRowsQ);
+  flash_fwd_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkdv_tc(const FlashParams& p, int bh, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_tile_map<D>(&tq, p.q, p.s_q, bh, kBwdRowsQ);
+  if (err == 0) err = make_tile_map<D>(&tk, p.k, p.s_k, bh, kBwdRowsK);
+  if (err == 0) err = make_tile_map<D>(&tv, p.v, p.s_k, bh, kBwdRowsK);
+  if (err == 0) err = make_tile_map<D>(&tdo, p.dout, p.s_q, bh, kBwdRowsQ);
+  if (err != 0) return err;
+  constexpr size_t smem = dkdv_tc_smem<D>();
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(bh, (p.s_k + kBwdRowsK - 1) / kBwdRowsK);
+  flash_bwd_dkdv_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, tdo, p);
+  return (int)cudaGetLastError();
+}
+
 template <int D> constexpr size_t fwd_smem() {
   return sizeof(float) * (3 * kTile * (D + 1) + kTile * kScorePitch);
 }
@@ -435,31 +1048,32 @@ template <int D> constexpr size_t dq_smem() {
 
 enum Which { kFwd = 0, kDkdv = 1, kDq = 2 };
 
-template <typename T, int D>
-int launch_typed(Which which, const FlashParams& p, int bh, cudaStream_t stream) {
-  const int n_q_tiles = (p.s_q + kTile - 1) / kTile;
-  const int n_k_tiles = (p.s_k + kTile - 1) / kTile;
-  void (*kernel)(FlashParams);
-  size_t smem;
-  dim3 grid;
-  if (which == kFwd) {
-    kernel = flash_fwd_kernel<T, D>;
-    smem = fwd_smem<D>();
-    grid = dim3(n_q_tiles, bh);
-  } else if (which == kDkdv) {
-    kernel = flash_bwd_dkdv_kernel<T, D>;
-    smem = dkdv_smem<D>();
-    grid = dim3(n_k_tiles, bh);
-  } else {
-    kernel = flash_bwd_dq_kernel<T, D>;
-    smem = dq_smem<D>();
-    grid = dim3(n_q_tiles, bh);
-  }
+template <typename Kernel>
+int launch_scalar(Kernel kernel, size_t smem, dim3 grid, const FlashParams& p, cudaStream_t stream) {
   // above 48 KB a block's dynamic shared memory must be opted into
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// bf16 forward and dK/dV run on the tensor cores; the bf16 dQ sweep and every
+// fp32 kernel run the scalar kernels (fp32 products, as the Pallas kernels
+// compute them at fp32). Decided by dtype before launch, never by a retry.
+template <typename T, int D>
+int launch_typed(Which which, const FlashParams& p, int bh, cudaStream_t stream) {
+  const int n_q_tiles = (p.s_q + kTile - 1) / kTile;
+  const int n_k_tiles = (p.s_k + kTile - 1) / kTile;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (which == kFwd) return launch_fwd_tc<D>(p, bh, stream);
+    if (which == kDkdv) return launch_dkdv_tc<D>(p, bh, stream);
+    return launch_scalar(flash_bwd_dq_kernel<T, D>, dq_smem<D>(), dim3(n_q_tiles, bh), p, stream);
+  } else {
+    if (which == kFwd) return launch_scalar(flash_fwd_kernel<T, D>, fwd_smem<D>(), dim3(n_q_tiles, bh), p, stream);
+    if (which == kDkdv)
+      return launch_scalar(flash_bwd_dkdv_kernel<T, D>, dkdv_smem<D>(), dim3(n_k_tiles, bh), p, stream);
+    return launch_scalar(flash_bwd_dq_kernel<T, D>, dq_smem<D>(), dim3(n_q_tiles, bh), p, stream);
+  }
 }
 
 template <typename T>
@@ -504,7 +1118,9 @@ FlashParams make_params(const void* q, const void* k, const void* v, const void*
 
 // Plain C interface (loaded with ctypes). dtype: 0 fp32, 1 bf16. Each
 // function launches on `stream` and returns cudaGetLastError() (0 = launched),
-// -1 for an unsupported head_dim, -2 for an unsupported dtype.
+// -1 for an unsupported head_dim, -2 for an unsupported dtype, -3 when a bf16
+// operand's TMA tensor map cannot be made (unaligned pointer, or the driver
+// has no cuTensorMapEncodeTiled).
 extern "C" {
 
 int ds_flash_fwd(const void* q, const void* k, const void* v, const void* bias, void* out, void* lse,

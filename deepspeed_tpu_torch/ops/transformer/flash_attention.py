@@ -4,7 +4,11 @@ Port of deepspeed_tpu/ops/transformer/flash_attention.py. The three Pallas
 TPU kernels there (``_fwd_kernel``, ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel``)
 are CUDA kernels here, in ``csrc/flash_attention.cu``, built for sm_90a at
 first use (ops/op_builder.py) and launched through ctypes on PyTorch's
-current stream.
+current stream. bf16 inputs run the forward and the dK/dV sweep on the
+tensor cores (wgmma, TMA); fp32 inputs, and the bf16 dQ sweep, run scalar
+fp32 kernels. At bf16, p and dS enter their second products rounded to
+bf16, in the kernels and in the plain versions alike, as the Pallas kernels
+round them.
 
 Each kernel has one wrapper (``flash_fwd``, ``flash_bwd_dkdv``,
 ``flash_bwd_dq``) and one plain PyTorch version of the same function
@@ -30,7 +34,9 @@ BIAS_KINDS = {"none": 0, "key": 1, "full": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # launches of each CUDA kernel since the last reset (plain runs not counted)
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
-# block of the plain versions' loops (any size gives the same function)
+# block of the plain versions' loops: at fp32 any size gives the same
+# function; at bf16 p is rounded relative to its block's running max, and
+# 128 keys is the tensor-core forward's k tile
 _PLAIN_BLOCK = 128
 
 
@@ -130,6 +136,10 @@ def flash_fwd_plain(q, k, v, bias, seed, *, scale, causal, bias_kind,
                                      dropout_rate, q.device)
             p = torch.where(keep, p / (1.0 - dropout_rate),
                             torch.zeros_like(p))
+        # p enters the second product in the storage dtype, as the Pallas
+        # kernel's p_acc.astype(v.dtype) and the tensor-core kernel's bf16
+        # A operand do (a no-op at fp32)
+        p = p.to(q.dtype).float()
         acc = acc * alpha + torch.einsum("bqk,bkd->bqd", p, vb)
         m = m_new
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
@@ -140,7 +150,9 @@ def flash_fwd_plain(q, k, v, bias, seed, *, scale, causal, bias_kind,
 
 def _bwd_block(q, k, v, do, lse, delta, bias, seed, *, scale, causal,
                bias_kind, num_heads, dropout_rate, q_start, k_start):
-    """(p_drop, ds) fp32 for one (q block, k block) pair."""
+    """(p_drop, ds) for one (q block, k block) pair: computed in fp32 and
+    rounded to the storage dtype, in which the Pallas kernels feed both to
+    their second products (back in fp32 for the einsums)."""
     s = _block_scores(q, k, bias, scale=scale, causal=causal,
                       bias_kind=bias_kind, num_heads=num_heads,
                       q_start=q_start, k_start=k_start)
@@ -154,7 +166,7 @@ def _bwd_block(q, k, v, do, lse, delta, bias, seed, *, scale, causal,
         p_drop = torch.where(keep, p * inv, torch.zeros_like(p))
         dp = torch.where(keep, dp * inv, torch.zeros_like(dp))
     ds = p * (dp - delta[:, :, None]) * scale
-    return p_drop, ds
+    return p_drop.to(q.dtype).float(), ds.to(q.dtype).float()
 
 
 def flash_bwd_dkdv_plain(q, k, v, do, lse, delta, bias, seed, *, scale,
@@ -254,6 +266,11 @@ def _check_cuda(tensors, bias, bias_kind, num_heads):
     if bh > 65535:
         raise ValueError(f"flash attention kernels take batch*heads <= "
                          f"65535, got {bh}")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in tensors if t.dim() == 3):
+        # the tensor-core kernels read bf16 tiles by TMA
+        raise ValueError("flash attention: bf16 q/k/v/do must start at a "
+                         "16-byte-aligned address")
     if bias_kind != "none":
         if bias is None or bias.dtype != torch.float32 \
                 or bias.device != q.device or not bias.is_contiguous():
@@ -278,10 +295,15 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+_LAUNCH_ERRORS = {-1: "unsupported head_dim", -2: "unsupported dtype",
+                  -3: "no TMA tensor map for a bf16 operand (unaligned "
+                      "pointer, or no cuTensorMapEncodeTiled in the driver)"}
+
+
 def _raise_on(err, name):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
-                           f"{'unsupported dtype/head_dim' if err < 0 else f'cudaError {err}'}")
+                           f"{_LAUNCH_ERRORS.get(err, f'cudaError {err}')}")
 
 
 def _route(q, name):

@@ -41,6 +41,7 @@ setup(
                                     "deepspeed_tpu_torch",
                                     "deepspeed_tpu_torch.*"]),
     package_data={"deepspeed_tpu_torch": ["ops/transformer/csrc/*.cu",
+                                          "ops/transformer/csrc/*.cuh",
                                           "ops/sparse_attention/csrc/*.cu"]},
     include_package_data=True,
     data_files=[("csrc/adam", ["csrc/adam/cpu_adam.cpp"])],

@@ -38,6 +38,13 @@ def _close(a, b, dtype):
     (torch.bfloat16, 200, 64, "none", True, 0.0),
     (torch.float32, 128, 96, "full", True, 0.0),
     (torch.float32, 130, 128, "key", False, 0.1),
+    # bf16 runs the tensor-core forward and dK/dV: head_dim 96 (padded to
+    # two 64-column panels) and 128, both bias kinds, dropout, ragged S
+    (torch.bfloat16, 77, 96, "full", True, 0.0),
+    (torch.bfloat16, 200, 96, "key", False, 0.1),
+    (torch.bfloat16, 256, 128, "full", False, 0.1),
+    (torch.bfloat16, 333, 128, "key", True, 0.0),
+    (torch.bfloat16, 1000, 64, "key", True, 0.1),
 ])
 def test_kernels_match_plain_versions(cuda, dtype, s, d, kind, causal, rate):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -48,6 +55,7 @@ def test_kernels_match_plain_versions(cuda, dtype, s, d, kind, causal, rate):
         bias = torch.randn(4, s, s, generator=gen, device=cuda)
     elif kind == "key":
         bias = torch.randn(2, s, generator=gen, device=cuda)
+        bias[:, -9:] = tfa.NEG_INF         # padded keys
     seed = 99 if rate else None
     kw = dict(scale=d ** -0.5, causal=causal, bias_kind=kind, num_heads=2,
               dropout_rate=rate)
@@ -109,6 +117,13 @@ def test_cuda_attention_raises_instead_of_rerouting(cuda):
     q = torch.zeros(1, 2, 16, 64, device=cuda)
     with pytest.raises(ValueError, match="CPU tensors only"):
         scaled_dot_product_attention(q, q, q, causal=True, use_pallas=False)
+    # bf16 at a head_dim the tensor-core kernels do not take still raises
+    q = torch.zeros(1, 2, 16, 80, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 80"):
+        scaled_dot_product_attention(q, q, q, causal=True)
+    with pytest.raises(ValueError, match="head_dim in"):
+        tfa.flash_fwd(q[0], q[0], q[0], None, None, scale=1.0, causal=True,
+                      bias_kind="none", num_heads=2, dropout_rate=0.0)
 
 
 def _sparse_layout(heads, s, block):

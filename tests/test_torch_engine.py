@@ -362,6 +362,25 @@ def test_every_kernel_source_is_registered_and_ships():
     assert "ops/sparse_attention/csrc/*.cu" in setup
 
 
+def test_library_path_follows_every_header_of_the_source_directory(
+        tmp_path, monkeypatch):
+    """A source's library name hashes the headers beside it too: an edited
+    header must not load a library built from the old one."""
+    from deepspeed_tpu_torch.ops import op_builder
+
+    src = tmp_path / "kernels.cu"
+    src.write_text('#include "helpers.cuh"\n')
+    header = tmp_path / "helpers.cuh"
+    monkeypatch.setitem(op_builder.SOURCES, "probe", str(src))
+    paths = []
+    for body in ("#define TILE 64\n", "#define TILE 128\n"):
+        header.write_text(body)
+        paths.append(op_builder.so_path("probe"))
+    assert paths[0] != paths[1]
+    header.write_text("#define TILE 64\n")
+    assert op_builder.so_path("probe") == paths[0]
+
+
 def test_chip_smoke_refuses_without_cuda_or_package(tmp_path):
     """No result without a card, and none from a copy of the script alone."""
     lone = tmp_path / "chip_smoke.py"
