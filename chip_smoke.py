@@ -7,19 +7,23 @@ Phases, run in this order, each of which raises (exit code != 0) on any
 failure:
   1. env      card name and power limit (nvidia-smi), torch and CUDA versions
   2. build    nvcc build of every CUDA source of the port, all sources at
-              once, each timed; cuobjdump -sass of the flash library counts
-              the tensor-core instructions (HGMMA / HMMA) of every kernel
-              instantiation and fails unless each bf16 forward and dK/dV
-              instantiation has some
+              once, each timed, with the ptxas report (registers, spills)
+              of the tensor-core kernels; cuobjdump -sass of both libraries
+              counts the tensor-core instructions (HGMMA / HMMA) of every
+              kernel instantiation and fails unless each instantiation of
+              the tensor-core kernels (flash fwd, dK/dV and dQ, block-sparse
+              fwd; one per head_dim) has HGMMA and no scalar kernel has any
   3. kernels  each flash-attention kernel against its plain PyTorch version
               on the card: the GPT-2 training shape (8, 16, 1024, 64) bf16
               causal, plus bf16 and fp32 shapes at head_dim 64, 96 and 128
               with 'key' bias (padded keys), 'full' bias, ragged sequence
               lengths and dropout; per-kernel times beside the plain
               version's, the bound and, as a yardstick only, PyTorch's
-              scaled_dot_product_attention (never called by the port); two
-              planted faults (diagonal tile skipped, one output tile left
-              at zero) must fail the same gate
+              scaled_dot_product_attention (never called by the port), and
+              the bf16 dQ sweep's scalar kernel (the route its tensor-core
+              kernel replaced) timed beside it; two planted faults
+              (diagonal tile skipped, one output tile left at zero) must
+              fail the same gate
   4. train    initialize() -> 10 x train_batch of gpt2-350m (24 layers, full
               width) at seq 1024, bf16 over fp32 master, Adam, WarmupLR,
               clipping 1.0, gas 2: losses finite and falling, every flash
@@ -37,9 +41,13 @@ failure:
               FixedSparsityConfig(12, block 64, local 4, global 1) layout
               with a key bias, plus fp32 cases (per-head BigBird at block
               16, an empty layout row, a padded key tail, head_dim 64 to
-              128, blocks 32 and 128); times beside the plain versions, the
-              bound and, as a yardstick only, scaled_dot_product_attention
-              with the layout's token mask; two planted faults (the last
+              128, blocks 32 and 128) and bf16 cases on the tensor-core
+              forward (head_dim 96 and 128, block 128, a padded key tail,
+              an empty row, a fully padded row); times beside the plain
+              versions, the bound and, as a yardstick only,
+              scaled_dot_product_attention with the layout's token mask,
+              and the bf16 forward's scalar kernel beside its tensor-core
+              one; two planted faults (the last
               active block of every row dropped, one block-row of every
               output left at zero) must fail the gate
   8. train (BERT)
@@ -60,6 +68,7 @@ import concurrent.futures
 import json
 import os
 import random
+import re
 import subprocess
 import sys
 import time
@@ -92,9 +101,22 @@ BERT_SPARSITY = dict(block=64, num_local_blocks=4, num_global_blocks=1)
 # the reference's own scale: |a - b| <= TOL * (|b| + rms(b)) (see scaled_err);
 # in the parity phase, ||a - b|| <= TOL * ||b|| per gradient tensor
 TOL = {"bfloat16": 2e-2, "float32": 1e-4}
-# tile of the planted faults: the q tile of the bf16 forward and the k tile
-# of the bf16 dK/dV sweep
+# tile of the planted faults: the q tile of the bf16 forward and dQ sweep
+# and the k tile of the bf16 dK/dV sweep
 FAULT_TILE = 128
+# the tensor-core kernels, by library: every instantiation (one per
+# head_dim) must hold HGMMA, and every other kernel none
+TC_FAMILIES = {
+    "flash_attention": ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
+                        "flash_bwd_dq_tc_kernel"),
+    "block_sparse_attention": ("bsa_fwd_tc_kernel",),
+}
+# the tensor-core kernel each kernel takes on its slice's main path (bf16);
+# the others run scalar kernels there
+FAMILY_OF = {"flash_fwd": "flash_fwd_tc_kernel",
+             "flash_bwd_dkdv": "flash_bwd_dkdv_tc_kernel",
+             "flash_bwd_dq": "flash_bwd_dq_tc_kernel",
+             "sparse_fwd": "bsa_fwd_tc_kernel"}
 # the slice's model and step
 SLICE_MODEL = "gpt2-350m"
 SLICE_SEQ = 1024
@@ -262,23 +284,42 @@ def phase_build():
         futures = {name: ex.submit(timed, name)
                    for name in op_builder.SOURCES}
         results = {name: f.result() for name, f in futures.items()}
+    by_kernel = {}
     for name, (path, report, secs) in results.items():
         log(f"build {os.path.relpath(op_builder.SOURCES[name], HERE)}: "
             f"{path}")
-        for ln in report.splitlines():
-            if "registers" in ln or "spill" in ln or "Compiling entry" in ln:
-                log(f"  {ln.strip()}")
+        with open(os.path.join(op_builder.BUILD_DIR, f"ptxas_{name}.txt"),
+                  "w") as f:
+            f.write(report)
+        _ptxas_summary(report, TC_FAMILIES[name])
         log(f"build seconds ({name}): {secs:.2f}")
+        by_kernel.update(_tensor_core_proof(path, TC_FAMILIES[name]))
     log(f"build seconds (all sources, in parallel): "
         f"{time.perf_counter() - t0:.2f}")
-    return _tensor_core_proof(results["flash_attention"][0])
+    return by_kernel
 
 
-def _tensor_core_proof(library):
-    """{kernel instantiation: (HGMMA, HMMA) count} from cuobjdump -sass of
-    the flash library; raises unless every bf16 forward and dK/dV
-    instantiation (flash_fwd_tc_kernel, flash_bwd_dkdv_tc_kernel, one per
-    head_dim) holds tensor-core instructions."""
+def _ptxas_summary(report, families):
+    """Registers and spills of each tensor-core kernel instantiation from
+    the ptxas report (the whole report goes beside the libraries, in
+    build/deepspeed_tpu_torch/ptxas_<source>.txt); their shared
+    memory is dynamic, set at launch from the source's *_tc_smem()."""
+    current = None
+    for ln in report.splitlines():
+        if "Compiling entry" in ln:
+            current = next((f for f in families if f in ln), None)
+            dim = re.search(r"ILi(\d+)E", ln)
+            if current:
+                current += f"<{dim.group(1) if dim else '?'}>"
+        elif current and ("registers" in ln or "spill" in ln):
+            log(f"  ptxas {current}: {ln.split('info    :')[-1].strip()}")
+
+
+def _tensor_core_proof(library, families):
+    """{family: {instantiation: HGMMA + HMMA count}} from cuobjdump -sass of
+    one library; raises unless every instantiation of each tensor-core
+    family (one per head_dim) holds HGMMA and every other kernel of the
+    library (the scalar ones) holds no tensor-core instruction."""
     from deepspeed_tpu_torch.ops import op_builder
 
     tool = os.path.join(os.path.dirname(op_builder.find_nvcc()), "cuobjdump")
@@ -295,12 +336,17 @@ def _tensor_core_proof(library):
     for name, (hgmma, hmma) in sorted(counts.items()):
         log(f"  sass {name[:110]}: HGMMA {hgmma} HMMA {hmma}")
     by_kernel = {}
-    for family in ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel"):
+    for family in families:
         found = {n: c for n, c in counts.items() if family in n}
-        if len(found) != 3 or not all(sum(c) for c in found.values()):
+        if len(found) != 3 or not all(c[0] for c in found.values()):
             raise RuntimeError(f"{family}: expected 3 instantiations with "
-                               f"tensor-core instructions, got {found}")
+                               f"HGMMA instructions, got {found}")
         by_kernel[family] = {n: c[0] + c[1] for n, c in found.items()}
+    scalar = {n: c for n, c in counts.items()
+              if not any(f in n for f in families) and sum(c)}
+    if scalar:
+        raise RuntimeError(f"scalar kernels with tensor-core instructions: "
+                           f"{scalar}")
     return by_kernel
 
 
@@ -379,17 +425,33 @@ def _flash_case(shape, dtype, causal, bias_kind, dropout, seed, main):
                 lambda: fa.flash_bwd_dq_plain(q, k, v, do, lse, delta, bias,
                                               dseed, **kw)),
         }
-        # kernel and plain in turns: kernel, plain, plain, kernel
-        for name, (kern, plain) in calls.items():
-            k1 = kernel_ms(kern)
-            p1 = cuda_ms(plain, iters=3, warmup=1)
-            p2 = cuda_ms(plain, iters=3, warmup=1)
-            k2 = kernel_ms(kern)
-            summary[name]["ms"] = (k1 + k2) / 2
-            summary[name]["plain_ms"] = (p1 + p2) / 2
-            log(f"  {name:15s} kernel {k1:.3f}/{k2:.3f} ms, plain "
-                f"{p1:.3f}/{p2:.3f} ms")
+        # the scalar dQ sweep at bf16: the route the tensor-core one replaced
+        scalar = {"flash_bwd_dq": lambda: fa.flash_bwd_dq(
+            q, k, v, do, lse, delta, bias, dseed, scalar=True, **kw)}
+        _time_in_turns(calls, scalar, summary)
     return summary
+
+
+def _time_in_turns(calls, scalar, summary):
+    """Kernel and plain version in turns (kernel, plain, plain, kernel),
+    with the scalar kernel a tensor-core kernel replaced, where there is
+    one, timed between them (kernel, scalar, plain, plain, scalar, kernel);
+    the means go into summary[kernel]["ms" / "plain_ms" / "scalar_ms"]."""
+    for name, (kern, plain) in calls.items():
+        k1 = kernel_ms(kern)
+        s1 = kernel_ms(scalar[name]) if name in scalar else None
+        p1 = cuda_ms(plain, iters=3, warmup=1)
+        p2 = cuda_ms(plain, iters=3, warmup=1)
+        s2 = kernel_ms(scalar[name]) if name in scalar else None
+        k2 = kernel_ms(kern)
+        summary[name]["ms"] = (k1 + k2) / 2
+        summary[name]["plain_ms"] = (p1 + p2) / 2
+        note = ""
+        if name in scalar:
+            summary[name]["scalar_ms"] = (s1 + s2) / 2
+            note = f", scalar kernel {s1:.3f}/{s2:.3f} ms"
+        log(f"  {name:15s} kernel {k1:.3f}/{k2:.3f} ms, plain "
+            f"{p1:.3f}/{p2:.3f} ms{note}")
 
 
 def _planted_faults(q, k, v, do, lse, delta, dseed, kw, plain, tol,
@@ -529,14 +591,13 @@ def phase_kernels(env, tensor_cores):
         f"{main_shape} bf16 causal: fwd {lib_fwd:.3f} ms, bwd (dq, dk, dv "
         f"together) {lib_bwd:.3f} ms")
     rows = []
-    families = {"flash_fwd": "flash_fwd_tc_kernel",
-                "flash_bwd_dkdv": "flash_bwd_dkdv_tc_kernel"}
     for name, replaces in FLASH_KERNELS:
         bms, by = bound(name, env["name"], main_shape, torch.bfloat16, True)
         r = main[name]
         rows.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
-            "replaces": replaces, "launches": None,
+            "replaces": replaces, "kernel_route": "tc" if name in FAMILY_OF else "scalar",
+            "launches": None,
             "max_abs_err": r["max_abs_err"], "scaled_err": r["err"],
             "planted_fault_err": r["fault_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
@@ -544,11 +605,13 @@ def phase_kernels(env, tensor_cores):
             # dK/dV or the dQ sweep alone
             "library_ms": lib_fwd if name == "flash_fwd" else None,
             "library_bwd_all_ms": lib_bwd,
+            # the scalar kernel the tensor-core one replaced, at bf16
+            "scalar_ms": r.get("scalar_ms"),
             "shape": list(main_shape), "dtype": "bfloat16", "causal": True,
             "card": env["smi"],
             # tensor-core instructions in the SASS of each bf16
-            # instantiation (none: the scalar dQ kernel)
-            "tensor_core_sass": tensor_cores.get(families.get(name), {}),
+            # instantiation
+            "tensor_core_sass": tensor_cores.get(FAMILY_OF.get(name), {}),
         })
         log(f"  {name:15s} {r['ms']:.3f} ms vs bound {bms:.4f} ms "
             f"({by}) on {env['smi']}")
@@ -674,11 +737,12 @@ def phase_profile(env, train, label, steps=2):
             engine.train_batch(batch=batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    by_name = {}
+    by_name, n_device = {}, 0
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             by_name[evt.name] = by_name.get(evt.name, 0.0) \
                 + evt.time_range.elapsed_us()
+            n_device += 1
     if not by_name:
         raise RuntimeError("the profiler recorded no device time")
     busy = sum(by_name.values())
@@ -690,7 +754,12 @@ def phase_profile(env, train, label, steps=2):
         f"{env['smi']}): "
         f"wall {wall_us / steps / 1e3:.1f} ms/step, device busy "
         f"{busy / steps / 1e3:.1f} ms/step, idle share "
-        f"{1 - busy / wall_us:.3f}")
+        f"{1 - busy / wall_us:.3f}; {n_device // steps} device operations "
+        f"per step")
+    # the profiler's own host work slows the host: the share that the
+    # step without it leaves idle is busy over the train phase's median
+    log(f"  idle share of the unprofiled step ({train['step_ms']:.1f} ms): "
+        f"{1 - busy / steps / 1e3 / train['step_ms']:.3f}")
     for g, us in sorted(groups.items(), key=lambda x: -x[1]):
         log(f"  {g:50s} {us / steps / 1e3:9.2f} ms/step "
             f"{us / busy:6.1%} of device time")
@@ -820,6 +889,9 @@ def _sparse_case(shape, dtype, layout, block, bias_kind, seed, main):
     elif bias_kind == "padded":
         bias = (randn(b, s) * 2.0).contiguous()
         bias[:, -7:] = bsk.NEG_INF         # padded keys
+    elif bias_kind == "padded block":      # the last key block all padded
+        bias = (randn(b, s) * 2.0).contiguous()
+        bias[:, -block:] = bsk.NEG_INF
     luts = bsk.luts_for(layout, "cuda")
     kw = dict(scale=d ** -0.5, block=block, num_heads=h)
     out, lse = bsk.sparse_fwd(q, k, v, luts, bias, **kw)
@@ -916,16 +988,10 @@ def _sparse_case(shape, dtype, layout, block, bias_kind, seed, main):
             lambda: bsk.sparse_bwd_dkdv_plain(q, k, v, do, lse, delta, luts,
                                               bias, **kw)),
     }
-    # kernel and plain in turns: kernel, plain, plain, kernel
-    for name, (kern, plain_fn) in calls.items():
-        k1 = kernel_ms(kern)
-        p1 = cuda_ms(plain_fn, iters=3, warmup=1)
-        p2 = cuda_ms(plain_fn, iters=3, warmup=1)
-        k2 = kernel_ms(kern)
-        summary[name]["ms"] = (k1 + k2) / 2
-        summary[name]["plain_ms"] = (p1 + p2) / 2
-        log(f"  {name:15s} kernel {k1:.3f}/{k2:.3f} ms, plain "
-            f"{p1:.3f}/{p2:.3f} ms")
+    # the scalar forward at bf16: the route the tensor-core one replaced
+    scalar = {"sparse_fwd": lambda: bsk.sparse_fwd(q, k, v, luts, bias,
+                                                   scalar=True, **kw)}
+    _time_in_turns(calls, scalar, summary)
     return summary
 
 
@@ -954,7 +1020,7 @@ def _sparse_library_ms(shape, dtype, layout, block):
     return fwd, cuda_ms(fwd_bwd)
 
 
-def phase_sparse_kernels(env):
+def phase_sparse_kernels(env, tensor_cores):
     import torch
 
     from deepspeed_tpu_torch.ops.sparse_attention import (
@@ -986,6 +1052,26 @@ def phase_sparse_kernels(env):
                  False)
     _sparse_case((2, 2, 512, 64), torch.bfloat16, bigbird[:2], 16, "padded",
                  15, False)
+    # bf16 on the tensor-core forward: head_dim 96 and 128, block 128, a
+    # padded key tail, an empty row, and a fully padded row (a query block
+    # whose only active key block is padded: every score ties at -1e30 and
+    # the row gives the mean of v, as the Pallas kernel does; ROADMAP C-w4)
+    fixed = FixedSparsityConfig(num_heads=2, **BERT_SPARSITY).make_layout(512)
+    _sparse_case((2, 2, 512, 96), torch.bfloat16, fixed, 64, "padded", 16,
+                 False)
+    _sparse_case((1, 2, 512, 128), torch.bfloat16, wide, 128, "padded", 17,
+                 False)
+    holed64 = FixedSparsityConfig(num_heads=2, block=64,
+                                  num_local_blocks=2).make_layout(256)
+    holed64[:, 2] = 0
+    _sparse_case((2, 2, 256, 128), torch.bfloat16, holed64, 64, "none", 18,
+                 False)
+    tied = FixedSparsityConfig(num_heads=2, block=64,
+                               num_local_blocks=2).make_layout(256)
+    tied[:, -1] = 0
+    tied[:, -1, -1] = 1
+    _sparse_case((2, 2, 256, 64), torch.bfloat16, tied, 64, "padded block",
+                 19, False)
     lib_fwd, lib_all = _sparse_library_ms(main_shape, torch.bfloat16, layout,
                                           block)
     log(f"  library yardstick (scaled_dot_product_attention with the token "
@@ -1001,7 +1087,8 @@ def phase_sparse_kernels(env):
         r = main[name]
         rows.append({
             "name": name, "route": "cuda", "source": SPARSE_SOURCE,
-            "replaces": replaces, "launches": None,
+            "replaces": replaces, "kernel_route": "tc" if name in FAMILY_OF else "scalar",
+            "launches": None,
             "max_abs_err": r["max_abs_err"], "scaled_err": r["err"],
             "planted_fault_err": r["fault_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": bms, "bound_by": by,
@@ -1013,7 +1100,9 @@ def phase_sparse_kernels(env):
             "layout": "FixedSparsityConfig(12, block=64, num_local_blocks=4,"
                       " num_global_blocks=1)",
             "active_blocks_per_head": int((layout != 0).sum()) // h,
+            "scalar_ms": r.get("scalar_ms"),
             "card": env["smi"],
+            "tensor_core_sass": tensor_cores.get(FAMILY_OF.get(name), {}),
         })
         log(f"  {name:15s} {r['ms']:.3f} ms vs bound {bms:.4f} ms ({by}) on "
             f"{env['smi']}")
@@ -1157,7 +1246,7 @@ def main():
     phase_profile(env, train, SLICE_MODEL)
     del train
     phase_parity()
-    sparse_rows = phase_sparse_kernels(env)
+    sparse_rows = phase_sparse_kernels(env, tensor_cores)
     torch.cuda.empty_cache()
     bert = phase_train_bert(env)
     for row in sparse_rows:

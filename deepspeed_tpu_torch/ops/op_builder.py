@@ -4,14 +4,16 @@ Each source in ``SOURCES`` compiles into its own shared library with a plain
 C interface (no PyTorch headers in the build, so a build takes seconds), for
 ``sm_90a`` (Hopper), at first use, into ``build/deepspeed_tpu_torch/``
 beside the package. A library's file name carries a hash of its source
-directory (the source and the headers it includes from there) and flags,
-so an edited source or header is rebuilt and concurrent builds never write
-the same file. Sources build independently: ``build(name)`` for each name
+directory, of every header the source includes (from there or from another
+directory, such as the shared ``ops/transformer/csrc/hopper.cuh``) and of
+the flags, so an edited source or header is rebuilt and concurrent builds
+never write the same file. Sources build independently: ``build(name)`` for each name
 may run at the same time.
 """
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -46,10 +48,12 @@ SIGNATURES = {
         "ds_flash_fwd": [_P] * 6 + _FLASH_TAIL,
         "ds_flash_bwd_dkdv": [_P] * 9 + _FLASH_TAIL,
         "ds_flash_bwd_dq": [_P] * 8 + _FLASH_TAIL,
+        "ds_flash_bwd_dq_scalar": [_P] * 8 + _FLASH_TAIL,
     },
     "block_sparse_attention": {
         # (dtype, head_dim, bh, heads, seq, block, max_nnz, scale, stream)
         "ds_bsa_fwd": [_P] * 8 + _BSA_TAIL,
+        "ds_bsa_fwd_scalar": [_P] * 8 + _BSA_TAIL,
         "ds_bsa_bwd_dq": [_P] * 10 + _BSA_TAIL,
         "ds_bsa_bwd_dkdv": [_P] * 11 + _BSA_TAIL,
     },
@@ -68,17 +72,38 @@ def find_nvcc():
                        "the CUDA kernels are built from source at first use")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _included(path, seen):
+    """``path`` and every file it includes with ``#include "..."``, followed
+    from header to header, each resolved against its includer's directory
+    (as nvcc resolves them); added to ``seen``."""
+    path = os.path.normpath(path)
+    if path in seen or not os.path.isfile(path):
+        return
+    seen.add(path)
+    with open(path, encoding="utf-8", errors="replace") as f:
+        text = f.read()
+    for rel in _INCLUDE.findall(text):
+        _included(os.path.join(os.path.dirname(path), rel), seen)
+
+
 def so_path(name):
     """The library path of source ``name``: a hash of every file in the
-    source's directory, names and contents, and of the flags."""
-    digest = hashlib.sha256()
+    source's directory and of every header it includes from elsewhere,
+    names (relative to the source's directory) and contents, and of the
+    flags."""
     src_dir = os.path.dirname(SOURCES[name])
-    for fname in sorted(os.listdir(src_dir)):
-        path = os.path.join(src_dir, fname)
-        if os.path.isfile(path):
-            digest.update(fname.encode() + b"\0")
-            with open(path, "rb") as f:
-                digest.update(f.read())
+    files = set()
+    _included(SOURCES[name], files)
+    files |= {os.path.join(src_dir, f) for f in os.listdir(src_dir)}
+    digest = hashlib.sha256()
+    for path in sorted(os.path.relpath(f, src_dir) for f in files
+                       if os.path.isfile(f)):
+        digest.update(path.encode() + b"\0")
+        with open(os.path.join(src_dir, path), "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:12]}.so")
 

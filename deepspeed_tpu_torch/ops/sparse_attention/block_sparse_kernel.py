@@ -5,6 +5,10 @@ Pallas TPU kernels there (``_fwd_kernel``, ``_bwd_dq_kernel``,
 ``_bwd_dkdv_kernel``) are CUDA kernels here, in
 ``csrc/block_sparse_attention.cu``, built for sm_90a at first use
 (ops/op_builder.py) and launched through ctypes on PyTorch's current stream.
+The bf16 forward at block 64 or 128 runs on the tensor cores (wgmma, TMA),
+with p split into two bf16 parts for P.V so that it keeps the fp32 accuracy
+of the Pallas kernel; fp32, blocks 16 and 32, and both backward sweeps run
+scalar fp32 kernels.
 
 A (H, S/block, S/block) 0/1 layout becomes lookup tables (``build_luts``):
 the forward and dQ sweeps walk, per (batch*head, query block), only the
@@ -281,6 +285,10 @@ def _check_cuda(tensors, luts, key_bias, block, num_heads, stats=()):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("block-sparse kernels take contiguous tensors on "
                              "the device of q")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
+        # the tensor-core forward reads bf16 tiles by TMA
+        raise ValueError("block-sparse kernels: bf16 q/k/v/do must start at "
+                         "a 16-byte-aligned address")
 
 
 def _args(q, block, num_heads, max_nnz, scale):
@@ -297,19 +305,26 @@ def _raise_on(err, name):
     if err != 0:
         why = {-1: "unsupported head_dim", -2: "unsupported dtype",
                -3: "unsupported block", -4: "sequence not a multiple of the "
-               "block"}.get(err, f"cudaError {err}")
+               "block", -5: "no TMA tensor map for a bf16 operand (unaligned "
+               "pointer, or no cuTensorMapEncodeTiled in the driver)"
+               }.get(err, f"cudaError {err}")
         raise RuntimeError(f"{name} kernel launch failed: {why}")
 
 
-def sparse_fwd(q, k, v, luts, key_bias, *, scale, block, num_heads):
-    """Forward over (bh, S, d) tensors -> (out, lse (bh, S) fp32)."""
+def sparse_fwd(q, k, v, luts, key_bias, *, scale, block, num_heads,
+               scalar=False):
+    """Forward over (bh, S, d) tensors -> (out, lse (bh, S) fp32).
+    ``scalar`` launches the scalar kernel at bf16 too (the route the
+    tensor-core kernel replaced, to time the two side by side); the model
+    never asks for it."""
     kw = dict(scale=scale, block=block, num_heads=num_heads)
     if not _route(q, "sparse_fwd"):
         return sparse_fwd_plain(q, k, v, luts, key_bias, **kw)
     _check_cuda((q, k, v), luts, key_bias, block, num_heads)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    err = _library().ds_bsa_fwd(
+    lib = _library()
+    err = (lib.ds_bsa_fwd_scalar if scalar else lib.ds_bsa_fwd)(
         _ptr(q), _ptr(k), _ptr(v), _ptr(key_bias), _ptr(luts.cols),
         _ptr(luts.nnz), _ptr(out), _ptr(lse),
         *_args(q, block, num_heads, luts.cols.shape[-1], scale))

@@ -1,7 +1,8 @@
 // Block-sparse attention for Hopper (sm_90a): forward, dQ sweep and dK/dV sweep.
 //
 // Replaces the Pallas TPU kernels of deepspeed_tpu/ops/sparse_attention/block_sparse_kernel.py:
-//   bsa_fwd_kernel       <- _fwd_kernel       (launched by _sparse_fwd)
+//   bsa_fwd_tc_kernel (bf16, block 64/128), bsa_fwd_kernel (fp32, blocks 16/32)
+//                        <- _fwd_kernel       (launched by _sparse_fwd)
 //   bsa_bwd_dq_kernel    <- _bwd_dq_kernel    (launched by _sparse_bwd)
 //   bsa_bwd_dkdv_kernel  <- _bwd_dkdv_kernel  (launched by _sparse_bwd)
 //
@@ -37,14 +38,29 @@
 // Bound. At the long-sequence BERT shape (B*H = 48, S = 4096, D = 64, block 64,
 // 19 active blocks per row) each kernel does 60-120 GFLOP against 100-150 MB
 // moved, far above the card's bytes/operations balance point, so it is bound by
-// operations. This first version multiplies with scalar fp32 FMAs, not tensor
-// cores, so its time is far above that bound. The LUT of the dK/dV sweep is
-// uneven (a global key block is walked by every query block, a local one by a
-// few), so its blocks differ in work; the next steps are mma.sync / wgmma on the
-// same tiling and splitting the long dK/dV rows.
+// operations. The scalar kernels multiply with fp32 FMAs, so their time is far
+// above that bound. The LUT of the dK/dV sweep is uneven (a global key block is
+// walked by every query block, a local one by a few), so its blocks differ in
+// work; the next steps are wgmma for the two backward sweeps and splitting the
+// long dK/dV rows.
+//
+// Routing, before launch: the bf16 forward at block 64 or 128 runs on the
+// tensor cores (bsa_fwd_tc_kernel: wgmma, TMA, mbarriers, the PTX helpers of
+// ../../transformer/csrc/hopper.cuh); fp32, blocks 16 and 32, and both
+// backward sweeps run the scalar kernels. Precision of the tensor-core
+// forward: S = Q.K^T from bf16 operands is exact per product and summed in
+// fp32, as the Pallas kernel's fp32 dot of upcast inputs (only the order of
+// the sum differs); p stays at fp32 accuracy for P.V, split into two bf16
+// operands p_hi + p_lo (about 16 bits of p) whose products sum into one fp32
+// accumulator. Rounding p to bf16 once would not compute the Pallas function,
+// which keeps p in fp32.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "../../transformer/csrc/hopper.cuh"
 
 namespace {
 
@@ -395,6 +411,246 @@ __global__ void __launch_bounds__(kThreads) bsa_bwd_dkdv_kernel(BsaParams p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 tensor-core forward (B5): wgmma + TMA + mbarriers
+// ---------------------------------------------------------------------------
+constexpr int kTcRows = 64;                   // rows of a q tile and of a k/v tile
+constexpr int kTcConsumerWarps = 4;           // one consumer warpgroup
+constexpr int kTcThreads = 32 * kTcConsumerWarps + 32;  // + one producer warp
+constexpr int kTcStages = 2;                  // ring of k/v tiles
+
+// bytes of a swizzled 64-row tile at head_dim D (zero-padded to whole panels)
+template <int D> __host__ __device__ constexpr uint32_t tc_tile_bytes() {
+  return static_cast<uint32_t>(hopper::tc_panels<D>() * kTcRows * hopper::kRowBytes);
+}
+template <int D> constexpr size_t fwd_tc_smem() {
+  // Q, K/V ring, the ring's key-bias rows, 5 mbarriers, 1024 bytes to align the tiles
+  return tc_tile_bytes<D>() + 2 * kTcStages * tc_tile_bytes<D>() + kTcStages * kTcRows * sizeof(float) + 64 +
+         1024;
+}
+
+// One fp32 pair as a bf16 pair `hi` (round to nearest) and the bf16 pair of
+// what that rounding left, `lo`: hi + lo holds the pair to about 16 bits.
+__device__ __forceinline__ void split_bf16(uint32_t& hi, uint32_t& lo, float x0, float x1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 back = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - back.x, x1 - back.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// B5 on the tensor cores. One block per (bh, 64-row q tile): warps 0-3 are
+// one consumer warpgroup, warp 4 the producer. The producer reads the q
+// tile's LUT row and loads the Q tile once and, for every active key block
+// (each 64-row half of a 128 block in turn), its K and V tiles by TMA and
+// its 64 fp32 of key bias into a 2-stage ring. The consumer computes
+// S = Q.K^T by wgmma (bf16 operands, whose products are exact in the fp32
+// accumulator), s = S * scale + bias in fp32 in that order, the online
+// softmax on S's accumulator registers, and O += P.V with p kept to fp32
+// accuracy: p is split into p_hi = bf16(p) and p_lo = bf16(p - p_hi), the
+// register A operands of two products into the same fp32 accumulator, V
+// read MN-major from the swizzled tile. Several blocks share an SM, so one
+// block's products overlap another's softmax.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 2)
+    bsa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v, BsaParams p) {
+  using namespace hopper;
+  constexpr int NP = tc_panels<D>();  // output / V panels of 64 columns
+  constexpr int KD = D / 16;          // k-steps of Q.K^T
+  constexpr uint32_t kBytes = tc_tile_bytes<D>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t sQ = base;
+  const uint32_t sKV = sQ + kBytes;  // stage s: K at sKV + 2 s kBytes, V after it
+  const uint32_t sBias = sKV + 2 * kTcStages * kBytes;  // stage s: 64 fp32 at sBias + 256 s
+  const uint32_t bars = sBias + kTcStages * kTcRows * sizeof(float);
+  const uint32_t bar_q = bars, bar_full = bars + 8, bar_empty = bars + 8 + 8 * kTcStages;
+
+  const int q0 = blockIdx.x * kTcRows;
+  const int bh = blockIdx.y;
+  const int nb = p.seq / p.block;
+  const int lut_row = (bh % p.heads) * nb + q0 / p.block;
+  const int subtiles = p.block / kTcRows;
+  const int n_iter = p.nnz[lut_row] * subtiles;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(bar_full + 8 * s, 32);  // the producer warp's 32 lanes
+      mbar_init(bar_empty + 8 * s, kTcConsumerWarps);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kTcConsumerWarps) {  // producer
+    const int* cols = p.lut + (size_t)lut_row * p.max_nnz;
+    const float* bias = p.bias ? p.bias + (size_t)(bh / p.heads) * p.seq : nullptr;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_q, kBytes);
+      for (int pp = 0; pp < NP; ++pp) tma_load_3d(sQ + pp * kTcRows * kRowBytes, &tm_q, bar_q, pp * kPanelCols, q0, bh);
+    }
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % kTcStages;
+      const int k0 = cols[it / subtiles] * p.block + (it % subtiles) * kTcRows;
+      if (it >= kTcStages) mbar_wait(bar_empty + 8 * s, (it / kTcStages - 1) & 1);
+      if (bias != nullptr) {
+        float* kb = reinterpret_cast<float*>(base_ptr + (sBias + s * kTcRows * sizeof(float) - base));
+        kb[lane] = bias[k0 + lane];
+        kb[lane + 32] = bias[k0 + lane + 32];
+      }
+      if (lane == 0) {
+        const uint32_t sK = sKV + 2 * s * kBytes, sV = sK + kBytes;
+        mbar_arrive_expect_tx(bar_full + 8 * s, 2 * kBytes);
+        for (int pp = 0; pp < NP; ++pp) {
+          tma_load_3d(sK + pp * kTcRows * kRowBytes, &tm_k, bar_full + 8 * s, pp * kPanelCols, k0, bh);
+          tma_load_3d(sV + pp * kTcRows * kRowBytes, &tm_v, bar_full + 8 * s, pp * kPanelCols, k0, bh);
+        }
+      } else {
+        mbar_arrive(bar_full + 8 * s);
+      }
+    }
+    return;
+  }
+
+  // the consumer warpgroup: this thread holds rows q0 + 16 w + lane/4 + 8h
+  // and, in each 8-column group j of an accumulator, columns 8j + c_off + {0, 1}
+  const int w = warp;
+  const int c_off = 2 * (lane % 4);
+  const bool has_bias = p.bias != nullptr;
+
+  float o[NP][32];
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[pp][i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % kTcStages;
+    const uint32_t sK = sKV + 2 * s * kBytes, sV = sK + kBytes;
+    const float* kb = reinterpret_cast<const float*>(base_ptr + (sBias + s * kTcRows * sizeof(float) - base));
+    mbar_wait(bar_full + 8 * s, (it / kTcStages) & 1);
+
+    // S = Q . K^T
+    float sc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      const uint32_t col = (kd % 4) * 32;  // 16 bf16 further along the swizzled row
+      wgmma_ss(sc, desc_k_major(sQ + (kd / 4) * kTcRows * kRowBytes + col),
+               desc_k_major(sK + (kd / 4) * kTcRows * kRowBytes + col), kd > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // s = (q . k) * scale + bias, two roundings in that order (no fused
+    // multiply-add: an all-padded row must tie at exactly -1e30), then the
+    // running max. Branches are uniform and outside the element loops.
+    if (has_bias) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = __fadd_rn(__fmul_rn(sc[i], p.scale), kb[tc_col(i, c_off)]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = __fmul_rn(sc[i], p.scale);
+    }
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = quad_max(mx[h]);
+      alpha[h] = exp2f((m[h] - mx[h]) * kLog2e);
+      m[h] = mx[h];
+    }
+
+    // p = exp(s - m) in fp32 feeds the denominator and, split in two bf16
+    // parts, the product with V
+    float row_sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = exp2f((sc[i] - m[(i >> 1) & 1]) * kLog2e);
+      row_sum[(i >> 1) & 1] += sc[i];
+    }
+    uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) split_bf16(p_hi[c][r], p_lo[c][r], sc[8 * c + 2 * r], sc[8 * c + 2 * r + 1]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + row_sum[h];  // per-thread share of the row
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[pp][i] *= alpha[(i >> 1) & 1];
+
+    // O += p_hi . V + p_lo . V, V MN-major: k-step kk reads k rows 16 kk .. 16 kk + 15
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTcRows / 16; ++kk)
+#pragma unroll
+      for (int pp = 0; pp < NP; ++pp) {
+        const uint64_t dv = desc_mn_major(sV + pp * kTcRows * kRowBytes + kk * 16 * kRowBytes);
+        wgmma_rs(o[pp], p_hi[kk], dv);
+        wgmma_rs(o[pp], p_lo[kk], dv);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp) fence_regs(o[pp]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      fence_regs(p_hi[kk]);
+      fence_regs(p_lo[kk]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+  }
+
+  // a row with no active block (l = 0) writes zeros and lse = -1e30 + log(1)
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + (size_t)bh * p.seq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * w + lane / 4 + 8 * h;
+    const float lt = quad_sum(l[h]);
+    const float l_safe = lt == 0.f ? 1.f : lt;
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * pp + 8 * j + c_off;
+        if (col < D) {
+          const float a = lt > 0.f ? o[pp][4 * j + 2 * h] / l_safe : 0.f;
+          const float b = lt > 0.f ? o[pp][4 * j + 2 * h + 1] / l_safe : 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * D + col) = __floats2bfloat162_rn(a, b);
+        }
+      }
+    if (lane % 4 == 0) p.lse_out[(size_t)bh * p.seq + row] = m[h] + logf(l_safe);
+  }
+}
+
+constexpr int kErrTensorMap = -5;  // a tensor map could not be encoded (or a pointer is unaligned)
+
+template <int D>
+int launch_fwd_tc(const BsaParams& p, int bh, cudaStream_t stream) {
+  using hopper::make_tile_map;
+  CUtensorMap tq, tk, tv;
+  if (!make_tile_map<D>(&tq, p.q, p.seq, bh, kTcRows) || !make_tile_map<D>(&tk, p.k, p.seq, bh, kTcRows) ||
+      !make_tile_map<D>(&tv, p.v, p.seq, bh, kTcRows))
+    return kErrTensorMap;
+  constexpr size_t smem = fwd_tc_smem<D>();
+  cudaError_t e = cudaFuncSetAttribute(bsa_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  bsa_fwd_tc_kernel<D><<<dim3(p.seq / kTcRows, bh), kTcThreads, smem, stream>>>(tq, tk, tv, p);
+  return (int)cudaGetLastError();
+}
+
 template <int D, int TQ> constexpr size_t fwd_smem() {
   return sizeof(float) * (3 * TQ * (D + 1) + TQ * (TQ + 1));
 }
@@ -428,9 +684,16 @@ int launch_typed(Which which, const BsaParams& p, int bh, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// the tile is min(block, 64) rows; a 128 block is walked as two 64-row tiles
+// The bf16 forward at block 64 or 128 runs on the tensor cores; every other
+// case runs the scalar kernels, whose tile is min(block, 64) rows (a 128
+// block is walked as two 64-row tiles). Decided before launch, never by a
+// retry. `scalar` launches the scalar forward at bf16 too: the route the
+// tensor-core one replaced, kept so that a run can time the two side by side.
 template <typename T, int D>
-int launch_block(Which which, const BsaParams& p, int bh, cudaStream_t stream) {
+int launch_block(Which which, const BsaParams& p, int bh, cudaStream_t stream, bool scalar) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (which == kFwd && !scalar && (p.block == 64 || p.block == 128)) return launch_fwd_tc<D>(p, bh, stream);
+  }
   switch (p.block) {
     case 16: return launch_typed<T, D, 16>(which, p, bh, stream);
     case 32: return launch_typed<T, D, 32>(which, p, bh, stream);
@@ -441,20 +704,20 @@ int launch_block(Which which, const BsaParams& p, int bh, cudaStream_t stream) {
 }
 
 template <typename T>
-int launch_dim(Which which, const BsaParams& p, int head_dim, int bh, cudaStream_t stream) {
+int launch_dim(Which which, const BsaParams& p, int head_dim, int bh, cudaStream_t stream, bool scalar) {
   switch (head_dim) {
-    case 64: return launch_block<T, 64>(which, p, bh, stream);
-    case 96: return launch_block<T, 96>(which, p, bh, stream);
-    case 128: return launch_block<T, 128>(which, p, bh, stream);
+    case 64: return launch_block<T, 64>(which, p, bh, stream, scalar);
+    case 96: return launch_block<T, 96>(which, p, bh, stream, scalar);
+    case 128: return launch_block<T, 128>(which, p, bh, stream, scalar);
     default: return -1;
   }
 }
 
-int launch(Which which, const BsaParams& p, int dtype, int head_dim, int bh, void* stream) {
+int launch(Which which, const BsaParams& p, int dtype, int head_dim, int bh, void* stream, bool scalar = false) {
   if (p.block <= 0 || p.seq % p.block != 0) return -4;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dim<float>(which, p, head_dim, bh, s);
-  if (dtype == 1) return launch_dim<__nv_bfloat16>(which, p, head_dim, bh, s);
+  if (dtype == 0) return launch_dim<float>(which, p, head_dim, bh, s, scalar);
+  if (dtype == 1) return launch_dim<__nv_bfloat16>(which, p, head_dim, bh, s, scalar);
   return -2;
 }
 
@@ -480,7 +743,9 @@ BsaParams make_params(const void* q, const void* k, const void* v, const void* b
 // Plain C interface (loaded with ctypes). dtype: 0 fp32, 1 bf16. Each function
 // launches on `stream` and returns cudaGetLastError() (0 = launched), -1 for an
 // unsupported head_dim, -2 for an unsupported dtype, -3 for an unsupported
-// block, -4 for a sequence that is not a multiple of the block.
+// block, -4 for a sequence that is not a multiple of the block, -5 when a
+// bf16 operand's TMA tensor map cannot be made (unaligned pointer, or the
+// driver has no cuTensorMapEncodeTiled).
 extern "C" {
 
 int ds_bsa_fwd(const void* q, const void* k, const void* v, const void* bias, const void* cols,
@@ -490,6 +755,17 @@ int ds_bsa_fwd(const void* q, const void* k, const void* v, const void* bias, co
   p.out = out;
   p.lse_out = static_cast<float*>(lse);
   return launch(kFwd, p, dtype, head_dim, bh, stream);
+}
+
+// ds_bsa_fwd on the scalar kernel whatever the dtype and block (to time the
+// bf16 route that the tensor-core kernel replaced)
+int ds_bsa_fwd_scalar(const void* q, const void* k, const void* v, const void* bias, const void* cols,
+                      const void* nnz, void* out, void* lse, int dtype, int head_dim, int bh, int heads, int seq,
+                      int block, int max_nnz, float scale, void* stream) {
+  BsaParams p = make_params(q, k, v, bias, cols, nnz, heads, seq, block, max_nnz, scale);
+  p.out = out;
+  p.lse_out = static_cast<float*>(lse);
+  return launch(kFwd, p, dtype, head_dim, bh, stream, true);
 }
 
 int ds_bsa_bwd_dq(const void* q, const void* k, const void* v, const void* bias, const void* dout,

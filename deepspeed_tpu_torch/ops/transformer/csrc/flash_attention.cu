@@ -5,7 +5,8 @@
 //                          <- _fwd_kernel       (launched by _flash_fwd)
 //   flash_bwd_dkdv_tc_kernel (bf16), flash_bwd_dkdv_kernel (fp32)
 //                          <- _bwd_dkdv_kernel  (launched by _flash_bwd)
-//   flash_bwd_dq_kernel    <- _bwd_dq_kernel    (launched by _flash_bwd)
+//   flash_bwd_dq_tc_kernel (bf16), flash_bwd_dq_kernel (fp32)
+//                          <- _bwd_dq_kernel    (launched by _flash_bwd)
 //
 // Each kernel computes the whole function of its Pallas counterpart: scaled
 // q.k^T scores, an optional additive bias ('key': one (B, S_k) row per batch,
@@ -18,9 +19,9 @@
 // Layout: q, k, v, out, dout, dq, dk, dv are (B*H, S, D) contiguous in the
 // storage dtype (bf16 or fp32); lse and delta are compact (B*H, S_q) fp32.
 //
-// Routing, by dtype before launch: bf16 runs the forward and the dK/dV sweep
-// on the tensor cores (flash_fwd_tc_kernel, flash_bwd_dkdv_tc_kernel) and
-// the dQ sweep on the scalar kernel; fp32 runs the three scalar kernels,
+// Routing, by dtype before launch: bf16 runs the forward and both backward
+// sweeps on the tensor cores (flash_fwd_tc_kernel, flash_bwd_dkdv_tc_kernel,
+// flash_bwd_dq_tc_kernel); fp32 runs the three scalar kernels,
 // whose fp32 products are what the Pallas kernels compute at fp32 (TF32
 // tensor cores would not be). At bf16, p and dS enter their second products
 // rounded to bf16, as the Pallas kernels round them (p_acc.astype(v.dtype),
@@ -31,34 +32,37 @@
 // backward sweeps write disjoint outputs, with no atomics.
 //
 // Tensor-core kernels (bf16, sm_90a). Bound at the GPT-2 slice shape
-// (8, 16, 1024, 64) causal: the forward by bytes (0.020 ms), the dK/dV sweep
-// by operations (0.035 ms); both sit at 0.1-0.15 ms, held back by the
-// element-wise softmax work between the products, not by the products or
-// the loads. The design:
+// (8, 16, 1024, 64) causal: the forward by bytes (0.020 ms), the dK/dV and
+// dQ sweeps by operations (0.035 and 0.026 ms); all sit well above it,
+// held back by the element-wise softmax work between the products, not by
+// the products or the loads. The design:
 //   - one block per (bh, 128-row tile) with two consumer warpgroups of 64
 //     rows and one producer warp; the forward loops over 128-row k/v tiles,
-//     the dK/dV sweep (one block per 128 k rows) over 64-row q/dO tiles;
+//     the dQ sweep (one block per 128 q rows) over 64-row k/v tiles, the
+//     dK/dV sweep (one block per 128 k rows) over 64-row q/dO tiles;
 //   - TMA loads (3-D tensor maps over (bh, S, D), 128-byte swizzle, rows and
 //     columns past the tensor arrive as zeros) into a 2-stage ring signalled
 //     by mbarriers; the producer loads while the consumers compute; the
 //     dK/dV producer also stages each q tile's lse and delta;
-//   - wgmma m64n64k16 bf16 with fp32 accumulators: S = Q.K^T (forward) and
-//     S^T = K.Q^T, dP^T = V.dO^T (dK/dV) with both operands in shared
-//     memory; p (forward) and p_drop^T, dS^T (dK/dV) go from the fp32
-//     accumulator registers pairwise to bf16 and are the register A operand
-//     of O += P.V, dV += p_drop^T.dO, dK += dS^T.Q, whose B operands (V, dO,
-//     Q) are read MN-major from the same swizzled tiles: nothing is
-//     transposed and P never goes to shared memory;
+//   - wgmma m64n64k16 bf16 with fp32 accumulators: S = Q.K^T (forward, dQ),
+//     dP = dO.V^T (dQ) and S^T = K.Q^T, dP^T = V.dO^T (dK/dV) with both
+//     operands in shared memory; p (forward), dS (dQ) and p_drop^T, dS^T
+//     (dK/dV) go from the fp32 accumulator registers pairwise to bf16 and
+//     are the register A operand of O += P.V, dQ += dS.K, dV += p_drop^T.dO,
+//     dK += dS^T.Q, whose B operands (V, K, dO, Q) are read MN-major from the
+//     same swizzled tiles: nothing is transposed and P never goes to shared
+//     memory;
 //   - the row statistics are quad shuffles on the accumulator layout; every
 //     warp-uniform branch (bias kind, a tile crossing the diagonal, a ragged
 //     edge, dropout) sits outside the unrolled element loops: a branch per
 //     element doubled both kernels' times;
-//   - causal: tiles wholly above the diagonal are skipped, the forward's
-//     longest q tiles and the dK/dV sweep's longest k tiles start first;
+//   - causal: tiles wholly above the diagonal are skipped, the forward's and
+//     the dQ sweep's longest q tiles and the dK/dV sweep's longest k tiles
+//     start first;
 //   - head_dim 96 is padded to two 64-column panels with zeros.
 //
-// Scalar kernels (fp32, and the bf16 dQ sweep): one block per (bh, 64-row
-// tile), 64x64 tiles staged in shared memory as fp32 (row pitch D+1 so that
+// Scalar kernels (fp32; the bf16 dQ sweep only on request, for timing): one
+// block per (bh, 64-row tile), 64x64 tiles staged in shared memory as fp32 (row pitch D+1 so that
 // the 16 threads of a half-warp reading 16 different rows hit 16 different
 // banks), 256 threads as a 16x16 grid each owning a 4x4 patch of the score
 // tile and a 4 x D/16 patch of the fp32 accumulators, row reductions as
@@ -469,12 +473,11 @@ constexpr int kFwdRowsQ = 128;                           // fwd: q rows of a blo
 constexpr int kFwdRowsK = 128;                           // fwd: k rows of a stage
 constexpr int kBwdRowsK = 128;                           // dK/dV: k rows of a block
 constexpr int kBwdRowsQ = 64;                            // dK/dV: q rows of a stage
-constexpr float kLog2e = 1.4426950408889634f;
-
-template <int D> __host__ __device__ constexpr int tc_panels() { return (D + hopper::kPanelCols - 1) / hopper::kPanelCols; }
+constexpr int kDqRowsQ = 128;                            // dQ: q rows of a block
+constexpr int kDqRowsK = 64;                             // dQ: k rows of a stage
 // bytes of a swizzled tile of `rows` rows at head_dim D (zero-padded to whole panels)
 template <int D> __host__ __device__ constexpr uint32_t tc_tile_bytes(int rows) {
-  return static_cast<uint32_t>(tc_panels<D>() * rows * hopper::kRowBytes);
+  return static_cast<uint32_t>(hopper::tc_panels<D>() * rows * hopper::kRowBytes);
 }
 
 template <int D> constexpr size_t fwd_tc_smem() {
@@ -486,14 +489,9 @@ template <int D> constexpr size_t dkdv_tc_smem() {
   return 2 * tc_tile_bytes<D>(kBwdRowsK) +
          kTcStages * (2 * tc_tile_bytes<D>(kBwdRowsQ) + 2 * kBwdRowsQ * sizeof(float)) + 64 + 1024;
 }
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+template <int D> constexpr size_t dq_tc_smem() {
+  // Q, dO, K/V ring, 5 mbarriers, alignment
+  return 2 * tc_tile_bytes<D>(kDqRowsQ) + 2 * kTcStages * tc_tile_bytes<D>(kDqRowsK) + 64 + 1024;
 }
 
 // _dropout_keep split in its row and column halves: the row hash of (bh, qi)
@@ -504,9 +502,6 @@ __device__ __forceinline__ uint32_t dropout_row_hash(const FlashParams& p, int b
 __device__ __forceinline__ bool dropout_keep_row(const FlashParams& p, uint32_t row_hash, int kj) {
   return mix32(row_hash ^ (0x27D4EB2Fu * (uint32_t)kj)) >= p.drop_threshold;
 }
-
-// column of accumulator register i within its 64 columns (see hopper::wgmma_ss)
-__device__ __forceinline__ int tc_col(int i, int c_off) { return 8 * (i >> 2) + c_off + (i & 1); }
 
 // The 4 A-operand registers of k-step `c` (16 columns) taken from a 64-column
 // fp32 accumulator, each pair rounded to bf16 (see hopper::wgmma_rs).
@@ -963,53 +958,214 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   }
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
-// so that the library does not link libcuda itself
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
-                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
-                                   CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+// B3. One block per (bh, 128-row q tile): warps 0-7 are two consumer
+// warpgroups of 64 q rows each, warp 8 the producer. The producer loads the
+// Q and dO tiles once and the k/v tiles (64 rows) into a 2-stage ring by
+// TMA. Each consumer warpgroup computes S = Q.K^T and dP = dO.V^T by wgmma
+// (both operands in shared memory, K-major as stored), p and dS on the
+// accumulator registers, and dQ += dS.K with dS rounded pairwise to bf16 as
+// the register A operand and K read MN-major from the same swizzled tile.
+// dQ stays in fp32 registers and has one writer. 64-row k tiles keep the
+// S, dP and dQ accumulators (64 + 64 + D/2 fp32 registers a thread) inside
+// the register budget of 288 threads at one block per SM.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                           FlashParams p) {
+  using namespace hopper;
+  constexpr int NP = tc_panels<D>();
+  constexpr int KD = D / 16;
+  constexpr uint32_t kQBytes = tc_tile_bytes<D>(kDqRowsQ);
+  constexpr uint32_t kKBytes = tc_tile_bytes<D>(kDqRowsK);
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sDO = sQ + kQBytes;
+  const uint32_t sKV = sDO + kQBytes;  // stage s: K at sKV + 2 s kKBytes, V after it
+  const uint32_t bars = sKV + 2 * kTcStages * kKBytes;
+  const uint32_t bar_q = bars, bar_full = bars + 8, bar_empty = bars + 8 + 8 * kTcStages;
 
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
-                                                       &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  const int bh = blockIdx.x;
+  // causal: the longest rows (last q tiles) start first
+  const int qt = p.causal ? (int)gridDim.y - 1 - (int)blockIdx.y : (int)blockIdx.y;
+  const int q0 = qt * kDqRowsQ;
+  int n_k_tiles = (p.s_k + kDqRowsK - 1) / kDqRowsK;
+  // causal: k tiles wholly right of the diagonal see no row of this block
+  if (p.causal) n_k_tiles = min(n_k_tiles, (q0 + kDqRowsQ - 1) / kDqRowsK + 1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kTcStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kTcConsumerWarps);
+    }
+    mbar_fence_init();
   }
-  return fn;
+  __syncthreads();
+
+  if (warp == kTcConsumerWarps) {  // producer
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_q, 2 * kQBytes);
+      for (int pp = 0; pp < NP; ++pp) {
+        tma_load_3d(sQ + pp * kDqRowsQ * kRowBytes, &tm_q, bar_q, pp * kPanelCols, q0, bh);
+        tma_load_3d(sDO + pp * kDqRowsQ * kRowBytes, &tm_do, bar_q, pp * kPanelCols, q0, bh);
+      }
+      for (int it = 0; it < n_k_tiles; ++it) {
+        const int s = it % kTcStages;
+        if (it >= kTcStages) mbar_wait(bar_empty + 8 * s, (it / kTcStages - 1) & 1);
+        const uint32_t sK = sKV + 2 * s * kKBytes, sV = sK + kKBytes;
+        mbar_arrive_expect_tx(bar_full + 8 * s, 2 * kKBytes);
+        for (int pp = 0; pp < NP; ++pp) {
+          tma_load_3d(sK + pp * kDqRowsK * kRowBytes, &tm_k, bar_full + 8 * s, pp * kPanelCols,
+                      it * kDqRowsK, bh);
+          tma_load_3d(sV + pp * kDqRowsK * kRowBytes, &tm_v, bar_full + 8 * s, pp * kPanelCols,
+                      it * kDqRowsK, bh);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns q rows q0 + 64 wg .. + 63; this thread holds
+  // rows row[h] = q0 + 64 wg + 16 w + lane/4 + 8h and, in each 8-column
+  // group j of an accumulator, k columns 8j + c_off + {0, 1}
+  const int wg = warp / 4, w = warp % 4;
+  const int c_off = 2 * (lane % 4);
+  const int wg_q0 = q0 + 64 * wg;
+  int row[2];
+  uint32_t row_hash[2];
+  float lse[2], delta[2];
+  const float* rows_bias[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    row[h] = wg_q0 + 16 * w + lane / 4 + 8 * h;
+    row_hash[h] = p.use_dropout ? dropout_row_hash(p, bh, row[h]) : 0u;
+    // padding rows read an in-range row; they are never written
+    const int rc = min(row[h], p.s_q - 1);
+    lse[h] = p.lse[(size_t)bh * p.s_q + rc];
+    delta[h] = p.delta[(size_t)bh * p.s_q + rc];
+    rows_bias[h] = p.bias_kind == 2 ? p.bias + ((size_t)bh * p.s_q + rc) * p.s_k : nullptr;
+  }
+  const float* key_bias = p.bias_kind == 1 ? p.bias + (size_t)(bh / p.heads) * p.s_k : nullptr;
+
+  float dq[NP][32];
+#pragma unroll
+  for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq[pp][i] = 0.f;
+
+  mbar_wait(bar_q, 0);
+  for (int it = 0; it < n_k_tiles; ++it) {
+    const int s = it % kTcStages;
+    const uint32_t sK = sKV + 2 * s * kKBytes, sV = sK + kKBytes;
+    const int k0 = it * kDqRowsK;
+    mbar_wait(bar_full + 8 * s, (it / kTcStages) & 1);
+    if (p.causal && k0 > wg_q0 + 63) {
+      // every pair of this warpgroup is masked: p = 0 and dS = 0 exactly
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+      continue;
+    }
+
+    // S = Q . K^T and dP = dO . V^T (64 q rows x 64 k columns)
+    float sc[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      const uint32_t a_off = (kd / 4) * kDqRowsQ * kRowBytes + wg * 64 * kRowBytes + (kd % 4) * 32;
+      const uint32_t b_off = (kd / 4) * kDqRowsK * kRowBytes + (kd % 4) * 32;
+      wgmma_ss(sc, desc_k_major(sQ + a_off), desc_k_major(sK + b_off), kd > 0);
+      wgmma_ss(dp, desc_k_major(sDO + a_off), desc_k_major(sV + b_off), kd > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // scores, masks, p, dropout and dS, each branch uniform over the warp
+    // and outside the element loops (see the forward)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] *= p.scale;
+    if (p.bias_kind == 1) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] += key_bias[min(k0 + tc_col(i, c_off), p.s_k - 1)];
+    } else if (p.bias_kind == 2) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] += rows_bias[(i >> 1) & 1][min(k0 + tc_col(i, c_off), p.s_k - 1)];
+    }
+    if (p.causal && k0 + kDqRowsK - 1 > wg_q0) {  // a tile that crosses the diagonal
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (row[(i >> 1) & 1] < k0 + tc_col(i, c_off)) sc[i] = kNegInf;
+    }
+    // p = exp(s - lse) with expf of the difference, as the plain version
+    // computes it (see the dK/dV sweep); dS = p (dp - delta) scale
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = expf(sc[i] - lse[(i >> 1) & 1]);
+    if (p.use_dropout) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const float dpv =
+            dropout_keep_row(p, row_hash[(i >> 1) & 1], k0 + tc_col(i, c_off)) ? dp[i] * p.drop_inv_keep : 0.f;
+        dp[i] = sc[i] * (dpv - delta[(i >> 1) & 1]) * p.scale;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - delta[(i >> 1) & 1]) * p.scale;
+    }
+    if (k0 + kDqRowsK > p.s_k) {  // columns past S_k (K's rows there arrive as zeros)
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (k0 + tc_col(i, c_off) >= p.s_k) dp[i] = 0.f;
+    }
+    uint32_t da[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_to_a(da[c], dp, c);
+
+    // dQ += dS . K, K MN-major: k-step kk reads k rows 16 kk .. 16 kk + 15
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDqRowsK / 16; ++kk)
+#pragma unroll
+      for (int pp = 0; pp < NP; ++pp)
+        wgmma_rs(dq[pp], da[kk], desc_mn_major(sK + pp * kDqRowsK * kRowBytes + kk * 16 * kRowBytes));
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp) fence_regs(dq[pp]);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(da[kk]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+  }
+
+  __nv_bfloat16* dq_out = static_cast<__nv_bfloat16*>(p.dq) + (size_t)bh * p.s_q * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= p.s_q) continue;
+#pragma unroll
+    for (int pp = 0; pp < NP; ++pp)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 64 * pp + 8 * j + c_off;
+        if (col < D) {
+          *reinterpret_cast<__nv_bfloat162*>(dq_out + (size_t)row[h] * D + col) =
+              __floats2bfloat162_rn(dq[pp][4 * j + 2 * h], dq[pp][4 * j + 2 * h + 1]);
+        }
+      }
+  }
 }
 
 constexpr int kErrTensorMap = -3;  // a tensor map could not be encoded (or a pointer is unaligned)
 
-// a 3-D map over a (bh, rows, D) bf16 tensor whose boxes are (1, box_rows, 64)
-// in 128-byte-swizzled panels; out-of-range rows and columns read as zero
-template <int D>
-int make_tile_map(CUtensorMap* map, const void* ptr, int rows, int bh, int box_rows) {
-  EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return kErrTensorMap;
-  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
-  const cuuint32_t box[3] = {(cuuint32_t)hopper::kPanelCols, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kErrTensorMap;
-}
-
 template <int D>
 int launch_fwd_tc(const FlashParams& p, int bh, cudaStream_t stream) {
+  using hopper::make_tile_map;
   CUtensorMap tq, tk, tv;
-  int err = make_tile_map<D>(&tq, p.q, p.s_q, bh, kFwdRowsQ);
-  if (err == 0) err = make_tile_map<D>(&tk, p.k, p.s_k, bh, kFwdRowsK);
-  if (err == 0) err = make_tile_map<D>(&tv, p.v, p.s_k, bh, kFwdRowsK);
-  if (err != 0) return err;
+  if (!make_tile_map<D>(&tq, p.q, p.s_q, bh, kFwdRowsQ) || !make_tile_map<D>(&tk, p.k, p.s_k, bh, kFwdRowsK) ||
+      !make_tile_map<D>(&tv, p.v, p.s_k, bh, kFwdRowsK))
+    return kErrTensorMap;
   constexpr size_t smem = fwd_tc_smem<D>();
   cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
@@ -1021,18 +1177,33 @@ int launch_fwd_tc(const FlashParams& p, int bh, cudaStream_t stream) {
 
 template <int D>
 int launch_dkdv_tc(const FlashParams& p, int bh, cudaStream_t stream) {
+  using hopper::make_tile_map;
   CUtensorMap tq, tk, tv, tdo;
-  int err = make_tile_map<D>(&tq, p.q, p.s_q, bh, kBwdRowsQ);
-  if (err == 0) err = make_tile_map<D>(&tk, p.k, p.s_k, bh, kBwdRowsK);
-  if (err == 0) err = make_tile_map<D>(&tv, p.v, p.s_k, bh, kBwdRowsK);
-  if (err == 0) err = make_tile_map<D>(&tdo, p.dout, p.s_q, bh, kBwdRowsQ);
-  if (err != 0) return err;
+  if (!make_tile_map<D>(&tq, p.q, p.s_q, bh, kBwdRowsQ) || !make_tile_map<D>(&tk, p.k, p.s_k, bh, kBwdRowsK) ||
+      !make_tile_map<D>(&tv, p.v, p.s_k, bh, kBwdRowsK) || !make_tile_map<D>(&tdo, p.dout, p.s_q, bh, kBwdRowsQ))
+    return kErrTensorMap;
   constexpr size_t smem = dkdv_tc_smem<D>();
   cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(bh, (p.s_k + kBwdRowsK - 1) / kBwdRowsK);
   flash_bwd_dkdv_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, tdo, p);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_tc(const FlashParams& p, int bh, cudaStream_t stream) {
+  using hopper::make_tile_map;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!make_tile_map<D>(&tq, p.q, p.s_q, bh, kDqRowsQ) || !make_tile_map<D>(&tk, p.k, p.s_k, bh, kDqRowsK) ||
+      !make_tile_map<D>(&tv, p.v, p.s_k, bh, kDqRowsK) || !make_tile_map<D>(&tdo, p.dout, p.s_q, bh, kDqRowsQ))
+    return kErrTensorMap;
+  constexpr size_t smem = dq_tc_smem<D>();
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid(bh, (p.s_q + kDqRowsQ - 1) / kDqRowsQ);
+  flash_bwd_dq_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, tdo, p);
   return (int)cudaGetLastError();
 }
 
@@ -1057,16 +1228,19 @@ int launch_scalar(Kernel kernel, size_t smem, dim3 grid, const FlashParams& p, c
   return (int)cudaGetLastError();
 }
 
-// bf16 forward and dK/dV run on the tensor cores; the bf16 dQ sweep and every
-// fp32 kernel run the scalar kernels (fp32 products, as the Pallas kernels
-// compute them at fp32). Decided by dtype before launch, never by a retry.
+// bf16 runs the three tensor-core kernels; every fp32 kernel runs the scalar
+// kernels (fp32 products, as the Pallas kernels compute them at fp32).
+// Decided by dtype before launch, never by a retry. `scalar` launches the
+// scalar dQ sweep at bf16 too: the route the tensor-core one replaced, kept
+// so that a run can time the two side by side.
 template <typename T, int D>
-int launch_typed(Which which, const FlashParams& p, int bh, cudaStream_t stream) {
+int launch_typed(Which which, const FlashParams& p, int bh, cudaStream_t stream, bool scalar) {
   const int n_q_tiles = (p.s_q + kTile - 1) / kTile;
   const int n_k_tiles = (p.s_k + kTile - 1) / kTile;
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     if (which == kFwd) return launch_fwd_tc<D>(p, bh, stream);
     if (which == kDkdv) return launch_dkdv_tc<D>(p, bh, stream);
+    if (!scalar) return launch_dq_tc<D>(p, bh, stream);
     return launch_scalar(flash_bwd_dq_kernel<T, D>, dq_smem<D>(), dim3(n_q_tiles, bh), p, stream);
   } else {
     if (which == kFwd) return launch_scalar(flash_fwd_kernel<T, D>, fwd_smem<D>(), dim3(n_q_tiles, bh), p, stream);
@@ -1077,19 +1251,20 @@ int launch_typed(Which which, const FlashParams& p, int bh, cudaStream_t stream)
 }
 
 template <typename T>
-int launch_dim(Which which, const FlashParams& p, int head_dim, int bh, cudaStream_t stream) {
+int launch_dim(Which which, const FlashParams& p, int head_dim, int bh, cudaStream_t stream, bool scalar) {
   switch (head_dim) {
-    case 64: return launch_typed<T, 64>(which, p, bh, stream);
-    case 96: return launch_typed<T, 96>(which, p, bh, stream);
-    case 128: return launch_typed<T, 128>(which, p, bh, stream);
+    case 64: return launch_typed<T, 64>(which, p, bh, stream, scalar);
+    case 96: return launch_typed<T, 96>(which, p, bh, stream, scalar);
+    case 128: return launch_typed<T, 128>(which, p, bh, stream, scalar);
     default: return -1;
   }
 }
 
-int launch(Which which, const FlashParams& p, int dtype, int head_dim, int bh, void* stream) {
+int launch(Which which, const FlashParams& p, int dtype, int head_dim, int bh, void* stream,
+           bool scalar = false) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_dim<float>(which, p, head_dim, bh, s);
-  if (dtype == 1) return launch_dim<__nv_bfloat16>(which, p, head_dim, bh, s);
+  if (dtype == 0) return launch_dim<float>(which, p, head_dim, bh, s, scalar);
+  if (dtype == 1) return launch_dim<__nv_bfloat16>(which, p, head_dim, bh, s, scalar);
   return -2;
 }
 
@@ -1159,6 +1334,21 @@ int ds_flash_bwd_dq(const void* q, const void* k, const void* v, const void* bia
   p.delta = static_cast<const float*>(delta);
   p.dq = dq;
   return launch(kDq, p, dtype, head_dim, bh, stream);
+}
+
+// ds_flash_bwd_dq on the scalar kernel whatever the dtype (to time the
+// bf16 route that the tensor-core kernel replaced)
+int ds_flash_bwd_dq_scalar(const void* q, const void* k, const void* v, const void* bias, const void* dout,
+                           const void* lse, const void* delta, void* dq, int dtype, int head_dim, int bh,
+                           int heads, int s_q, int s_k, float scale, int causal, int bias_kind, int use_dropout,
+                           unsigned int threshold, float inv_keep, unsigned int seed, void* stream) {
+  FlashParams p = make_params(q, k, v, bias, heads, s_q, s_k, scale, causal, bias_kind, use_dropout,
+                              threshold, inv_keep, seed);
+  p.dout = dout;
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.dq = dq;
+  return launch(kDq, p, dtype, head_dim, bh, stream, true);
 }
 
 }  // extern "C"

@@ -1,5 +1,7 @@
 // Hopper (sm_90a) building blocks as inline PTX: mbarriers, TMA tile loads,
-// wgmma shared-memory descriptors and the m64n64k16 bf16 warpgroup product.
+// wgmma shared-memory descriptors and the m64n64k16 bf16 warpgroup product;
+// and, on the host, the TMA tensor maps. Shared by flash_attention.cu and
+// ../../sparse_attention/csrc/block_sparse_attention.cu.
 //
 // Tiles live in shared memory as 128-byte-swizzled panels: a panel holds 64
 // bf16 columns of every row of a tile, one 128-byte row per tile row, and
@@ -167,12 +169,77 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 #undef HOPPER_D32
 #undef HOPPER_D32_LIST
 
+// 64-column panels of a tile at head_dim D (the last one zero-padded)
+template <int D>
+__host__ __device__ constexpr int tc_panels() {
+  return (D + kPanelCols - 1) / kPanelCols;
+}
+
+// column of accumulator register i within its 64 columns, for the thread
+// with c_off = 2 (lane % 4) (see wgmma_ss)
+__device__ __forceinline__ int tc_col(int i, int c_off) { return 8 * (i >> 2) + c_off + (i & 1); }
+
+// max and sum over the 4 lanes that hold one accumulator row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;  // exp(x) = exp2(x log2(e))
+
 // two fp32 values as one bf16 pair, round to nearest even; `lo` in the low
 // half (the lower column)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   uint32_t r;
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
   return r;
+}
+
+// ---------------------------------------------------------------------------
+// TMA tensor maps (host)
+// ---------------------------------------------------------------------------
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that a library does not link libcuda itself
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault,
+                                                       &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A 3-D map over a (bh, rows, D) bf16 tensor whose boxes are (1, box_rows,
+// 64) in 128-byte-swizzled panels; out-of-range rows and columns read as
+// zero. False when the map cannot be made (a pointer that is not 16-byte
+// aligned, or a driver without cuTensorMapEncodeTiled).
+template <int D>
+bool make_tile_map(CUtensorMap* map, const void* ptr, int rows, int bh, int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
+  const cuuint32_t box[3] = {(cuuint32_t)kPanelCols, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem_strides[3] = {1, 1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS;
 }
 
 }  // namespace hopper

@@ -4,9 +4,9 @@ Port of deepspeed_tpu/ops/transformer/flash_attention.py. The three Pallas
 TPU kernels there (``_fwd_kernel``, ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel``)
 are CUDA kernels here, in ``csrc/flash_attention.cu``, built for sm_90a at
 first use (ops/op_builder.py) and launched through ctypes on PyTorch's
-current stream. bf16 inputs run the forward and the dK/dV sweep on the
-tensor cores (wgmma, TMA); fp32 inputs, and the bf16 dQ sweep, run scalar
-fp32 kernels. At bf16, p and dS enter their second products rounded to
+current stream. bf16 inputs run the forward and both backward sweeps on the
+tensor cores (wgmma, TMA); fp32 inputs run scalar fp32 kernels. At bf16, p
+and dS enter their second products rounded to
 bf16, in the kernels and in the plain versions alike, as the Pallas kernels
 round them.
 
@@ -358,15 +358,18 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, bias, seed, *, scale, causal,
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, bias, seed, *, scale, causal,
-                 bias_kind, num_heads, dropout_rate):
-    """dQ sweep -> dq in the dtype of q."""
+                 bias_kind, num_heads, dropout_rate, scalar=False):
+    """dQ sweep -> dq in the dtype of q. ``scalar`` launches the scalar
+    kernel at bf16 too (the route the tensor-core kernel replaced, to time
+    the two side by side); the model never asks for it."""
     kw = dict(scale=scale, causal=causal, bias_kind=bias_kind,
               num_heads=num_heads, dropout_rate=dropout_rate)
     if not _route(q, "flash_bwd_dq"):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, bias, seed, **kw)
     _check_cuda((q, k, v, do, lse, delta), bias, bias_kind, num_heads)
     dq = torch.empty_like(q)
-    err = _library().ds_flash_bwd_dq(
+    lib = _library()
+    err = (lib.ds_flash_bwd_dq_scalar if scalar else lib.ds_flash_bwd_dq)(
         _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(do), _ptr(lse),
         _ptr(delta), _ptr(dq),
         *_common_args(q, k, bias, seed, scale, causal, bias_kind, num_heads,

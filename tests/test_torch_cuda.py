@@ -45,6 +45,10 @@ def _close(a, b, dtype):
     (torch.bfloat16, 256, 128, "full", False, 0.1),
     (torch.bfloat16, 333, 128, "key", True, 0.0),
     (torch.bfloat16, 1000, 64, "key", True, 0.1),
+    # the tensor-core dQ sweep: 64-row k tiles, ragged at both ends
+    (torch.bfloat16, 130, 64, "full", False, 0.1),
+    (torch.bfloat16, 520, 128, "none", True, 0.1),
+    (torch.bfloat16, 384, 96, "none", False, 0.0),
 ])
 def test_kernels_match_plain_versions(cuda, dtype, s, d, kind, causal, rate):
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -74,6 +78,12 @@ def test_kernels_match_plain_versions(cuda, dtype, s, d, kind, causal, rate):
     for a, b in ((out, ref_out), (lse, ref_lse), (dq, ref_dq), (dk, ref_dk),
                  (dv, ref_dv)):
         assert _close(a, b, dtype)
+    if dtype == torch.bfloat16:
+        # the scalar dQ sweep that the tensor-core one replaced computes the
+        # same function
+        dq_scalar = tfa.flash_bwd_dq(q, k, v, do, lse, delta, bias, seed,
+                                     scalar=True, **kw)
+        assert _close(dq_scalar, ref_dq, dtype)
 
 
 @pytest.mark.cuda
@@ -147,6 +157,11 @@ def _sparse_layout(heads, s, block):
     (torch.float32, 256, 128, 16, True),
     (torch.float32, 512, 96, 128, False),
     (torch.bfloat16, 256, 64, 32, False),
+    # the tensor-core forward: bf16 at block 64 and 128, head_dim 64 to 128
+    (torch.bfloat16, 512, 96, 64, True),
+    (torch.bfloat16, 256, 128, 64, False),
+    (torch.bfloat16, 512, 128, 128, True),
+    (torch.bfloat16, 512, 64, 128, False),
 ])
 def test_sparse_kernels_match_plain_versions(cuda, dtype, s, d, block,
                                              padded):
@@ -182,6 +197,38 @@ def test_sparse_kernels_match_plain_versions(cuda, dtype, s, d, block,
     for a, b in ((out, ref_out), (lse[full], ref_lse[full]), (dq, ref_dq),
                  (dk, ref_dk), (dv, ref_dv)):
         assert _close(a, b, dtype)
+    if dtype == torch.bfloat16 and block in (64, 128):
+        # the scalar forward that the tensor-core one replaced computes the
+        # same function
+        out_s, lse_s = bsk.sparse_fwd(q, k, v, luts, bias, scalar=True, **kw)
+        assert _close(out_s, ref_out, dtype)
+        assert _close(lse_s[full], ref_lse[full], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_sparse_bf16_forward_fully_padded_row(cuda, d):
+    """ROADMAP C-w4 on the tensor-core forward: a query block whose active
+    keys are all padded (key bias -1e30) ties every score at exactly -1e30
+    and gives the mean of v over those keys, as the Pallas kernel does."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bsk
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn(1, 128, d, generator=gen, device=cuda)
+               .to(torch.bfloat16) for _ in range(3))
+    bias = torch.zeros(1, 128, device=cuda)
+    bias[:, 64:] = bsk.NEG_INF
+    luts = bsk.luts_for(np.array([[[1, 1], [0, 1]]]), cuda)
+    kw = dict(scale=d ** -0.5, block=64, num_heads=1)
+    out, lse = bsk.sparse_fwd(q, k, v, luts, bias, **kw)
+    ref_out, ref_lse = bsk.sparse_fwd_plain(q, k, v, luts, bias, **kw)
+    mean = v[0, 64:].float().mean(0).expand(64, d)
+    assert _close(out[0, 64:], mean, torch.bfloat16)
+    assert _close(out, ref_out, torch.bfloat16)
+    assert _close(lse, ref_lse, torch.bfloat16)
 
 
 @pytest.mark.cuda

@@ -381,6 +381,34 @@ def test_library_path_follows_every_header_of_the_source_directory(
     assert op_builder.so_path("probe") == paths[0]
 
 
+def test_library_paths_follow_the_shared_header(tmp_path, monkeypatch):
+    """Both libraries include ops/transformer/csrc/hopper.cuh, the
+    block-sparse one from outside its own directory: editing a copy of that
+    header changes the hashed path of both, and restoring it restores
+    them."""
+    import shutil
+
+    from deepspeed_tpu_torch.ops import op_builder
+
+    ops = os.path.join(PORT, "ops")
+    for name, src in list(op_builder.SOURCES.items()):
+        rel = os.path.relpath(src, ops)
+        shutil.copytree(os.path.dirname(src),
+                        tmp_path / os.path.dirname(rel), dirs_exist_ok=True)
+        monkeypatch.setitem(op_builder.SOURCES, name, str(tmp_path / rel))
+    header = tmp_path / "transformer" / "csrc" / "hopper.cuh"
+    sparse = op_builder.SOURCES["block_sparse_attention"]
+    assert '#include "../../transformer/csrc/hopper.cuh"' in open(
+        sparse).read()
+    before = {n: op_builder.so_path(n) for n in op_builder.SOURCES}
+    text = header.read_text()
+    header.write_text(text + "// edited\n")
+    after = {n: op_builder.so_path(n) for n in op_builder.SOURCES}
+    assert all(after[n] != before[n] for n in before), (before, after)
+    header.write_text(text)
+    assert {n: op_builder.so_path(n) for n in op_builder.SOURCES} == before
+
+
 def test_chip_smoke_refuses_without_cuda_or_package(tmp_path):
     """No result without a card, and none from a copy of the script alone."""
     lone = tmp_path / "chip_smoke.py"

@@ -460,3 +460,112 @@ def test_pad_unpad_and_position_extension_match_jax():
 
     tok = U.update_tokenizer_model_max_length(Tok(), 4096)
     assert tok.model_max_length == tok.init_kwargs["model_max_length"] == 4096
+
+
+# ---------------------------------------------------------------------------
+# precision policy of the bf16 tensor-core forward
+# ---------------------------------------------------------------------------
+def _tc_forward_emulation(q, k, v, luts, key_bias, *, scale, block,
+                          num_heads, p_operand):
+    """The bf16 tensor-core forward's arithmetic in torch: S from bf16
+    operands (exact products) summed in fp32, s = S * scale + bias, the
+    online softmax in fp32 over the LUT's blocks in order, and P.V taken
+    from ``p_operand(p)``, a list of bf16 parts of p whose products with V
+    sum in fp32. Returns the output rounded to bf16."""
+    bh, s, d = q.shape
+    qf, kf, vf = (tbsk._blocks(t, num_heads, block) for t in (q, k, v))
+    bias = tbsk._key_bias_blocks(key_bias, num_heads, block)
+    m = torch.full((*qf.shape[:4], 1), tbsk.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(qf.shape)
+    for a in range(luts.cols.shape[-1]):
+        kb = luts.cols[:, :, a]
+        active = (a < luts.nnz)[None, :, :, None, None]
+        sc = torch.einsum("bhiqd,bhikd->bhiqk", qf, tbsk._gather(kf, kb))
+        sc = sc * scale
+        if bias is not None:
+            sc = sc + tbsk._gather(bias, kb)[:, :, :, None, :]
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l_new = l * alpha + p.sum(-1, keepdim=True)
+        vg = tbsk._gather(vf, kb)
+        pv = sum(torch.einsum("bhiqk,bhikd->bhiqd", part.float(), vg)
+                 for part in p_operand(p))
+        m = torch.where(active, m_new, m)
+        l = torch.where(active, l_new, l)
+        acc = torch.where(active, acc * alpha + pv, acc)
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    out = torch.where(l > 0.0, acc / l_safe, torch.zeros_like(acc))
+    return out.to(torch.bfloat16).reshape(bh, s, d)
+
+
+def _split_p(p):
+    """The kernel's policy: p_hi = bf16(p), p_lo = bf16(p - p_hi)."""
+    hi = p.to(torch.bfloat16)
+    return [hi, (p - hi.float()).to(torch.bfloat16)]
+
+
+def _round_p_once(p):
+    """What the policy forbids: p rounded to bf16 once."""
+    return [p.to(torch.bfloat16)]
+
+
+def _bf16_ulps(a, b):
+    """|a - b| in bf16 ulps of max(|b|, rms(b)), element by element. The
+    floor at the rms keeps out the elements that cancel to near zero, whose
+    own ulp is far below the rounding error of any fp32 sum that makes
+    them."""
+    a, b = a.float(), b.float()
+    mag = torch.maximum(b.abs(), b.square().mean().sqrt())
+    return (a - b).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+# at most this share of the output elements may differ from the Pallas
+# kernel's, each by at most one bf16 ulp (of max(|b|, rms(b))). Measured on
+# the four cases below: 0.12-0.23 % differ with p split (the two sum the
+# same exact products in other orders, with p to about 16 bits, and a sum
+# close to a bf16 rounding boundary rounds either way), 26-38 % with p
+# rounded to bf16 once, some of them by 1.5-2 ulps
+SPLIT_P_SHARE = 1e-2
+
+
+@pytest.mark.parametrize("d,bias", [(64, False), (64, True), (96, True),
+                                    (128, True)])
+def test_bf16_forward_needs_p_at_fp32_accuracy(d, bias):
+    """The Pallas block-sparse forward (interpret mode, bf16 inputs, fp32
+    upcast, p kept fp32) against the tensor-core forward's arithmetic on
+    the CPU at (2, 2, 512, d) over a Fixed layout at block 64: with p split
+    into two bf16 parts, at most SPLIT_P_SHARE of the output elements
+    differ, by one bf16 ulp at most; with p rounded to bf16 once, the same
+    check fails."""
+    s, block = 512, 64
+    rng = np.random.default_rng(100 + d + bias)
+    q, k, v = (rng.standard_normal((B * H, s, d)).astype(np.float32)
+               for _ in range(3))
+    kb = None
+    if bias:
+        kb = (2.0 * rng.standard_normal((B, s))).astype(np.float32)
+        kb[:, -9:] = -1e30                   # padded keys
+    layout = tsa.FixedSparsityConfig(H, block=block, num_local_blocks=4,
+                                     num_global_blocks=1).make_layout(s)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    cols, nnz, _, _ = jbsk.build_luts(layout)
+    j_out, _ = jbsk._sparse_fwd(jq, jk, jv, cols, nnz, scale=d ** -0.5,
+                                block=block, heads=H, interpret=True,
+                                key_bias=None if kb is None
+                                else jnp.asarray(kb))
+    want = torch.tensor(np.asarray(j_out.astype(jnp.float32))).bfloat16()
+    tq, tk, tv = (torch.tensor(x).bfloat16() for x in (q, k, v))
+    kw = dict(scale=d ** -0.5, block=block, num_heads=H)
+    luts = tbsk.luts_for(layout, "cpu")
+    tkb = None if kb is None else torch.tensor(kb)
+    plain, _ = tbsk.sparse_fwd_plain(tq, tk, tv, luts, tkb, **kw)
+    assert int(_bf16_ulps(plain, want).max()) <= 1
+    for policy, holds in ((_split_p, True), (_round_p_once, False)):
+        got = _tc_forward_emulation(tq, tk, tv, luts, tkb, p_operand=policy,
+                                    **kw)
+        ulps = _bf16_ulps(got, want)
+        share = float((ulps > 0).float().mean())
+        ok = int(ulps.max()) <= 1 and share <= SPLIT_P_SHARE
+        assert ok == holds, (policy.__name__, share, int(ulps.max()))
