@@ -12,7 +12,8 @@ failure:
               counts the tensor-core instructions (HGMMA / HMMA) of every
               kernel instantiation and fails unless each instantiation of
               the tensor-core kernels (flash fwd, dK/dV and dQ, block-sparse
-              fwd; one per head_dim) has HGMMA and no scalar kernel has any
+              fwd, dQ and dK/dV; one per head_dim) has HGMMA and no scalar
+              kernel has any
   3. kernels  each flash-attention kernel against its plain PyTorch version
               on the card: the GPT-2 training shape (8, 16, 1024, 64) bf16
               causal, plus bf16 and fp32 shapes at head_dim 64, 96 and 128
@@ -42,12 +43,14 @@ failure:
               with a key bias, plus fp32 cases (per-head BigBird at block
               16, an empty layout row, a padded key tail, head_dim 64 to
               128, blocks 32 and 128) and bf16 cases on the tensor-core
-              forward (head_dim 96 and 128, block 128, a padded key tail,
+              kernels (head_dim 96 and 128, block 128, a padded key tail,
               an empty row, a fully padded row); times beside the plain
               versions, the bound and, as a yardstick only,
               scaled_dot_product_attention with the layout's token mask,
-              and the bf16 forward's scalar kernel beside its tensor-core
-              one; two planted faults (the last
+              and each bf16 kernel's scalar kernel (the route its
+              tensor-core kernel replaced) beside it; the dQ and dK/dV
+              sweeps timed again at head_dim 96 and 128 (off the slice,
+              logged only); two planted faults (the last
               active block of every row dropped, one block-row of every
               output left at zero) must fail the gate
   8. train (BERT)
@@ -109,14 +112,16 @@ FAULT_TILE = 128
 TC_FAMILIES = {
     "flash_attention": ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
                         "flash_bwd_dq_tc_kernel"),
-    "block_sparse_attention": ("bsa_fwd_tc_kernel",),
+    "block_sparse_attention": ("bsa_fwd_tc_kernel", "bsa_bwd_dq_tc_kernel",
+                               "bsa_bwd_dkdv_tc_kernel"),
 }
-# the tensor-core kernel each kernel takes on its slice's main path (bf16);
-# the others run scalar kernels there
+# the tensor-core kernel each kernel takes on its slice's main path (bf16)
 FAMILY_OF = {"flash_fwd": "flash_fwd_tc_kernel",
              "flash_bwd_dkdv": "flash_bwd_dkdv_tc_kernel",
              "flash_bwd_dq": "flash_bwd_dq_tc_kernel",
-             "sparse_fwd": "bsa_fwd_tc_kernel"}
+             "sparse_fwd": "bsa_fwd_tc_kernel",
+             "sparse_bwd_dq": "bsa_bwd_dq_tc_kernel",
+             "sparse_bwd_dkdv": "bsa_bwd_dkdv_tc_kernel"}
 # the slice's model and step
 SLICE_MODEL = "gpt2-350m"
 SLICE_SEQ = 1024
@@ -168,6 +173,8 @@ def flash_work(kernel, bh, s_q, s_k, d, elem, causal, bias_bytes,
 
 
 def bound(kernel, name, shape, dtype, causal, bias_bytes=0, pairs=None):
+    """(ms, "operations" or "bytes"): the least time of the kernel's work at
+    this shape."""
     import torch
 
     _, (bf16_peak, fp32_peak, bw) = card_peaks(name)
@@ -313,6 +320,8 @@ def _ptxas_summary(report, families):
                 current += f"<{dim.group(1) if dim else '?'}>"
         elif current and ("registers" in ln or "spill" in ln):
             log(f"  ptxas {current}: {ln.split('info    :')[-1].strip()}")
+        if "wgmma" in ln:          # e.g. products serialized by ptxas
+            log(f"  ptxas: {ln.strip()[:300]}")
 
 
 def _tensor_core_proof(library, families):
@@ -596,7 +605,7 @@ def phase_kernels(env, tensor_cores):
         r = main[name]
         rows.append({
             "name": name, "route": "cuda", "source": FLASH_SOURCE,
-            "replaces": replaces, "kernel_route": "tc" if name in FAMILY_OF else "scalar",
+            "replaces": replaces, "kernel_route": "tc",
             "launches": None,
             "max_abs_err": r["max_abs_err"], "scaled_err": r["err"],
             "planted_fault_err": r["fault_err"], "ms": r["ms"],
@@ -988,9 +997,14 @@ def _sparse_case(shape, dtype, layout, block, bias_kind, seed, main):
             lambda: bsk.sparse_bwd_dkdv_plain(q, k, v, do, lse, delta, luts,
                                               bias, **kw)),
     }
-    # the scalar forward at bf16: the route the tensor-core one replaced
-    scalar = {"sparse_fwd": lambda: bsk.sparse_fwd(q, k, v, luts, bias,
-                                                   scalar=True, **kw)}
+    # the scalar kernels at bf16: the routes the tensor-core ones replaced
+    scalar = {
+        "sparse_fwd": lambda: bsk.sparse_fwd(q, k, v, luts, bias, scalar=True,
+                                             **kw),
+        "sparse_bwd_dq": lambda: bsk.sparse_bwd_dq(
+            q, k, v, do, lse, delta, luts, bias, scalar=True, **kw),
+        "sparse_bwd_dkdv": lambda: bsk.sparse_bwd_dkdv(
+            q, k, v, do, lse, delta, luts, bias, scalar=True, **kw)}
     _time_in_turns(calls, scalar, summary)
     return summary
 
@@ -1052,7 +1066,7 @@ def phase_sparse_kernels(env, tensor_cores):
                  False)
     _sparse_case((2, 2, 512, 64), torch.bfloat16, bigbird[:2], 16, "padded",
                  15, False)
-    # bf16 on the tensor-core forward: head_dim 96 and 128, block 128, a
+    # bf16 on the tensor-core kernels: head_dim 96 and 128, block 128, a
     # padded key tail, an empty row, and a fully padded row (a query block
     # whose only active key block is padded: every score ties at -1e30 and
     # the row gives the mean of v, as the Pallas kernel does; ROADMAP C-w4)
@@ -1087,7 +1101,7 @@ def phase_sparse_kernels(env, tensor_cores):
         r = main[name]
         rows.append({
             "name": name, "route": "cuda", "source": SPARSE_SOURCE,
-            "replaces": replaces, "kernel_route": "tc" if name in FAMILY_OF else "scalar",
+            "replaces": replaces, "kernel_route": "tc",
             "launches": None,
             "max_abs_err": r["max_abs_err"], "scaled_err": r["err"],
             "planted_fault_err": r["fault_err"], "ms": r["ms"],
@@ -1104,9 +1118,40 @@ def phase_sparse_kernels(env, tensor_cores):
             "card": env["smi"],
             "tensor_core_sass": tensor_cores.get(FAMILY_OF.get(name), {}),
         })
-        log(f"  {name:15s} {r['ms']:.3f} ms vs bound {bms:.4f} ms ({by}) on "
-            f"{env['smi']}")
+        log(f"  {name:15s} {r['ms']:.4f} ms vs bound {bms:.4f} ms ({by}), "
+            f"library fwd + whole bwd {lib_all:.3f} ms, on {env['smi']}")
+    _backward_head_dims(env, main_shape, layout, block, pairs)
     return rows
+
+
+def _backward_head_dims(env, main_shape, layout, block, pairs):
+    """The tensor-core dQ and dK/dV sweeps at the slice's shape with
+    head_dim 96 and 128 (off the slice; the dK/dV sweep runs one block per
+    SM there, two at 64), against their bounds. Logged only: the kernels
+    line holds the slice's shape."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bsk
+
+    b, h, s, _ = main_shape
+    luts = bsk.luts_for(layout, "cuda")
+    bias = torch.zeros(b, s, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    for d in (96, 128):
+        q, k, v, do = (torch.randn(b * h, s, d, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        kw = dict(scale=d ** -0.5, block=block, num_heads=h)
+        out, lse = bsk.sparse_fwd(q, k, v, luts, bias, **kw)
+        delta = (do.float() * out.float()).sum(-1)
+        args = (q, k, v, do, lse, delta, luts, bias)
+        for name, fn in (("sparse_bwd_dq", bsk.sparse_bwd_dq),
+                         ("sparse_bwd_dkdv", bsk.sparse_bwd_dkdv)):
+            ms = kernel_ms(lambda: fn(*args, **kw))
+            bms, by = bound(name, env["name"], (b, h, s, d), torch.bfloat16,
+                            False, bias_bytes=b * s * 4, pairs=pairs)
+            log(f"  {name:15s} at head_dim {d}: {ms:.4f} ms vs bound "
+                f"{bms:.4f} ms ({by}), {ms / bms:.2f}x, on {env['smi']}")
 
 
 def _bert_batch(vocab, gas, micro, seq, seed):

@@ -40,7 +40,7 @@ _F = ctypes.c_float
 _U = ctypes.c_uint
 # C signatures of each library: {function: argtypes}; every one returns int
 _FLASH_TAIL = [_I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _U, _F, _U, _P]
-_BSA_TAIL = [_I, _I, _I, _I, _I, _I, _I, _F, _P]
+_BSA_TAIL = [_I, _I, _I, _I, _I, _I, _I, _F, _I, _P]
 SIGNATURES = {
     "flash_attention": {
         # (dtype, head_dim, bh, heads, s_q, s_k, scale, causal, bias_kind,
@@ -51,11 +51,11 @@ SIGNATURES = {
         "ds_flash_bwd_dq_scalar": [_P] * 8 + _FLASH_TAIL,
     },
     "block_sparse_attention": {
-        # (dtype, head_dim, bh, heads, seq, block, max_nnz, scale, stream)
+        # (dtype, head_dim, bh, heads, seq, block, max_nnz, scale, scalar,
+        #  stream)
         "ds_bsa_fwd": [_P] * 8 + _BSA_TAIL,
-        "ds_bsa_fwd_scalar": [_P] * 8 + _BSA_TAIL,
         "ds_bsa_bwd_dq": [_P] * 10 + _BSA_TAIL,
-        "ds_bsa_bwd_dkdv": [_P] * 11 + _BSA_TAIL,
+        "ds_bsa_bwd_dkdv": [_P] * 12 + _BSA_TAIL,
     },
 }
 

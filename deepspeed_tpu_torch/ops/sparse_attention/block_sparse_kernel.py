@@ -5,17 +5,19 @@ Pallas TPU kernels there (``_fwd_kernel``, ``_bwd_dq_kernel``,
 ``_bwd_dkdv_kernel``) are CUDA kernels here, in
 ``csrc/block_sparse_attention.cu``, built for sm_90a at first use
 (ops/op_builder.py) and launched through ctypes on PyTorch's current stream.
-The bf16 forward at block 64 or 128 runs on the tensor cores (wgmma, TMA),
-with p split into two bf16 parts for P.V so that it keeps the fp32 accuracy
-of the Pallas kernel; fp32, blocks 16 and 32, and both backward sweeps run
-scalar fp32 kernels.
+At bf16 and block 64 or 128 all three run on the tensor cores (wgmma, TMA),
+with p and dS split into two bf16 parts for their second products so that
+they keep the fp32 accuracy of the Pallas kernels; fp32 and blocks 16 and 32
+run scalar fp32 kernels.
 
 A (H, S/block, S/block) 0/1 layout becomes lookup tables (``build_luts``):
 the forward and dQ sweeps walk, per (batch*head, query block), only the
 active key blocks ``cols[h, qb, :nnz]``; the dK/dV sweep walks, per key
-block, the transpose table ``rows_t[h, kb, :nnz_t]``. The tables are built
-once per layout and device and kept on the device (``luts_for``), so a layer
-call makes no host-to-device copy and no host sync.
+block, the transpose table ``rows_t[h, kb, :nnz_t]``, taking the key blocks
+of each head longest first (``order_t``: by descending ``nnz_t``). The
+tables are built once per layout and device and kept on the device
+(``luts_for``), so a layer call makes no host-to-device copy and no host
+sync.
 
 Each kernel has one wrapper (``sparse_fwd``, ``sparse_bwd_dq``,
 ``sparse_bwd_dkdv``) and one plain PyTorch version of the same function
@@ -70,12 +72,21 @@ def build_luts(layout):
     return cols, nnz, rows_t, nnz_t
 
 
+def key_order(nnz_t):
+    """(H, nb) nnz_t -> (H, nb) int32: each head's key blocks by descending
+    nnz_t (ties in block order), the order in which the tensor-core dK/dV
+    sweep takes its key tiles, so that the longest start first."""
+    return np.argsort(-np.asarray(nnz_t), axis=-1,
+                      kind="stable").astype(np.int32)
+
+
 class Luts(NamedTuple):
     """The lookup tables of one layout, int32 tensors on one device."""
     cols: torch.Tensor      # (H, nb, max_nnz)
     nnz: torch.Tensor       # (H, nb)
     rows_t: torch.Tensor    # (H, nb, max_nnz_t)
     nnz_t: torch.Tensor     # (H, nb)
+    order_t: torch.Tensor   # (H, nb), key_order(nnz_t)
 
 
 _LUT_CACHE = {}
@@ -87,8 +98,9 @@ def luts_for(layout, device) -> Luts:
     mask = np.asarray(layout) != 0
     key = (mask.shape, mask.tobytes(), str(torch.device(device)))
     if key not in _LUT_CACHE:
-        _LUT_CACHE[key] = Luts(*(torch.from_numpy(a).to(device)
-                                 for a in build_luts(mask)))
+        tables = build_luts(mask)
+        _LUT_CACHE[key] = Luts(*(torch.from_numpy(a).to(device) for a in
+                                 (*tables, key_order(tables[3]))))
     return _LUT_CACHE[key]
 
 
@@ -286,15 +298,16 @@ def _check_cuda(tensors, luts, key_bias, block, num_heads, stats=()):
             raise ValueError("block-sparse kernels take contiguous tensors on "
                              "the device of q")
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in tensors):
-        # the tensor-core forward reads bf16 tiles by TMA
+        # the tensor-core kernels read bf16 tiles by TMA
         raise ValueError("block-sparse kernels: bf16 q/k/v/do must start at "
                          "a 16-byte-aligned address")
 
 
-def _args(q, block, num_heads, max_nnz, scale):
+def _args(q, block, num_heads, max_nnz, scale, scalar):
     bh, s, d = q.shape
     return [_DTYPES[q.dtype], d, bh, num_heads, s, block, max_nnz,
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream]
+            float(scale), int(scalar),
+            torch.cuda.current_stream(q.device).cuda_stream]
 
 
 def _ptr(t):
@@ -323,19 +336,18 @@ def sparse_fwd(q, k, v, luts, key_bias, *, scale, block, num_heads,
     _check_cuda((q, k, v), luts, key_bias, block, num_heads)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
-    lib = _library()
-    err = (lib.ds_bsa_fwd_scalar if scalar else lib.ds_bsa_fwd)(
+    err = _library().ds_bsa_fwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(key_bias), _ptr(luts.cols),
         _ptr(luts.nnz), _ptr(out), _ptr(lse),
-        *_args(q, block, num_heads, luts.cols.shape[-1], scale))
+        *_args(q, block, num_heads, luts.cols.shape[-1], scale, scalar))
     _raise_on(err, "sparse_fwd")
     LAUNCHES["sparse_fwd"] += 1
     return out, lse
 
 
 def sparse_bwd_dq(q, k, v, do, lse, delta, luts, key_bias, *, scale, block,
-                  num_heads):
-    """dQ sweep -> dq in the dtype of q."""
+                  num_heads, scalar=False):
+    """dQ sweep -> dq in the dtype of q. ``scalar`` as in ``sparse_fwd``."""
     kw = dict(scale=scale, block=block, num_heads=num_heads)
     if not _route(q, "sparse_bwd_dq"):
         return sparse_bwd_dq_plain(q, k, v, do, lse, delta, luts, key_bias,
@@ -346,15 +358,16 @@ def sparse_bwd_dq(q, k, v, do, lse, delta, luts, key_bias, *, scale, block,
     err = _library().ds_bsa_bwd_dq(
         _ptr(q), _ptr(k), _ptr(v), _ptr(key_bias), _ptr(do), _ptr(lse),
         _ptr(delta), _ptr(luts.cols), _ptr(luts.nnz), _ptr(dq),
-        *_args(q, block, num_heads, luts.cols.shape[-1], scale))
+        *_args(q, block, num_heads, luts.cols.shape[-1], scale, scalar))
     _raise_on(err, "sparse_bwd_dq")
     LAUNCHES["sparse_bwd_dq"] += 1
     return dq
 
 
 def sparse_bwd_dkdv(q, k, v, do, lse, delta, luts, key_bias, *, scale, block,
-                    num_heads):
-    """dK/dV sweep -> (dk, dv) in the dtype of k/v."""
+                    num_heads, scalar=False):
+    """dK/dV sweep -> (dk, dv) in the dtype of k/v. ``scalar`` as in
+    ``sparse_fwd``."""
     kw = dict(scale=scale, block=block, num_heads=num_heads)
     if not _route(q, "sparse_bwd_dkdv"):
         return sparse_bwd_dkdv_plain(q, k, v, do, lse, delta, luts, key_bias,
@@ -365,8 +378,9 @@ def sparse_bwd_dkdv(q, k, v, do, lse, delta, luts, key_bias, *, scale, block,
     dv = torch.empty_like(v)
     err = _library().ds_bsa_bwd_dkdv(
         _ptr(q), _ptr(k), _ptr(v), _ptr(key_bias), _ptr(do), _ptr(lse),
-        _ptr(delta), _ptr(luts.rows_t), _ptr(luts.nnz_t), _ptr(dk), _ptr(dv),
-        *_args(q, block, num_heads, luts.rows_t.shape[-1], scale))
+        _ptr(delta), _ptr(luts.rows_t), _ptr(luts.nnz_t), _ptr(luts.order_t),
+        _ptr(dk), _ptr(dv),
+        *_args(q, block, num_heads, luts.rows_t.shape[-1], scale, scalar))
     _raise_on(err, "sparse_bwd_dkdv")
     LAUNCHES["sparse_bwd_dkdv"] += 1
     return dk, dv

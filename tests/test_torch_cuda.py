@@ -157,7 +157,7 @@ def _sparse_layout(heads, s, block):
     (torch.float32, 256, 128, 16, True),
     (torch.float32, 512, 96, 128, False),
     (torch.bfloat16, 256, 64, 32, False),
-    # the tensor-core forward: bf16 at block 64 and 128, head_dim 64 to 128
+    # the tensor-core kernels: bf16 at block 64 and 128, head_dim 64 to 128
     (torch.bfloat16, 512, 96, 64, True),
     (torch.bfloat16, 256, 128, 64, False),
     (torch.bfloat16, 512, 128, 128, True),
@@ -198,11 +198,92 @@ def test_sparse_kernels_match_plain_versions(cuda, dtype, s, d, block,
                  (dk, ref_dk), (dv, ref_dv)):
         assert _close(a, b, dtype)
     if dtype == torch.bfloat16 and block in (64, 128):
-        # the scalar forward that the tensor-core one replaced computes the
-        # same function
+        # the scalar kernels that the tensor-core ones replaced compute the
+        # same functions
         out_s, lse_s = bsk.sparse_fwd(q, k, v, luts, bias, scalar=True, **kw)
         assert _close(out_s, ref_out, dtype)
         assert _close(lse_s[full], ref_lse[full], dtype)
+        dq_s = bsk.sparse_bwd_dq(q, k, v, do, lse, delta, luts, bias,
+                                 scalar=True, **kw)
+        dk_s, dv_s = bsk.sparse_bwd_dkdv(q, k, v, do, lse, delta, luts, bias,
+                                         scalar=True, **kw)
+        for a, b in ((dq_s, ref_dq), (dk_s, ref_dk), (dv_s, ref_dv)):
+            assert _close(a, b, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [64, 128])
+@pytest.mark.parametrize("d", [64, 96, 128])
+def test_sparse_tc_backward_sweeps_match_plain_versions(cuda, d, block):
+    """The bf16 tensor-core dQ and dK/dV sweeps against their plain versions
+    over a Fixed layout, whose global key blocks are walked by every query
+    block and the others by a few (the dK/dV sweep takes its key tiles
+    longest first), with one key block that no query block walks (its dK
+    and dV are zero) and a padded key tail; each launch counted once."""
+    from deepspeed_tpu_torch.ops.sparse_attention import (
+        FixedSparsityConfig, block_sparse_kernel as bsk)
+
+    s = 1024
+    gen = torch.Generator(device=cuda).manual_seed(d + block)
+    q, k, v, do = (torch.randn(6, s, d, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    bias = torch.randn(2, s, generator=gen, device=cuda)
+    bias[:, -9:] = bsk.NEG_INF
+    layout = FixedSparsityConfig(3, block=block, num_local_blocks=4 if
+                                 block == 64 else 2).make_layout(s)
+    layout[0, :, 0] = 0
+    luts = bsk.luts_for(layout, cuda)
+    kw = dict(scale=d ** -0.5, block=block, num_heads=3)
+    out, lse = bsk.sparse_fwd(q, k, v, luts, bias, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    before = dict(bsk.LAUNCHES)
+    dq = bsk.sparse_bwd_dq(q, k, v, do, lse, delta, luts, bias, **kw)
+    dk, dv = bsk.sparse_bwd_dkdv(q, k, v, do, lse, delta, luts, bias, **kw)
+    assert {n: bsk.LAUNCHES[n] - before[n] for n in before} == {
+        "sparse_fwd": 0, "sparse_bwd_dq": 1, "sparse_bwd_dkdv": 1}
+    ref_dq = bsk.sparse_bwd_dq_plain(q, k, v, do, lse, delta, luts, bias,
+                                     **kw)
+    ref_dk, ref_dv = bsk.sparse_bwd_dkdv_plain(q, k, v, do, lse, delta, luts,
+                                               bias, **kw)
+    assert int(luts.nnz_t[0, 0]) == 0 and int(luts.order_t[0, -1]) == 0
+    assert not dk[0, :block].any() and not dv[0, :block].any()
+    for a, b in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert torch.isfinite(a).all()
+        assert _close(a, b, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_sparse_bf16_backward_fully_padded_row(cuda, d):
+    """ROADMAP C-w4 on the tensor-core backward sweeps: a query block whose
+    only active key block is all padded ties every score at -1e30 and
+    reproduces the forward's lse (p = 1 on each of its keys), as the
+    plain versions compute it."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bsk
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q, k, v, do = (torch.randn(1, 128, d, generator=gen, device=cuda)
+                   .to(torch.bfloat16) for _ in range(4))
+    bias = torch.zeros(1, 128, device=cuda)
+    bias[:, 64:] = bsk.NEG_INF
+    luts = bsk.luts_for(np.array([[[1, 1], [0, 1]]]), cuda)
+    kw = dict(scale=d ** -0.5, block=64, num_heads=1)
+    out, lse = bsk.sparse_fwd(q, k, v, luts, bias, **kw)
+    delta = (do.float() * out.float()).sum(-1)
+    dq = bsk.sparse_bwd_dq(q, k, v, do, lse, delta, luts, bias, **kw)
+    dk, dv = bsk.sparse_bwd_dkdv(q, k, v, do, lse, delta, luts, bias, **kw)
+    ref_dq = bsk.sparse_bwd_dq_plain(q, k, v, do, lse, delta, luts, bias,
+                                     **kw)
+    ref_dk, ref_dv = bsk.sparse_bwd_dkdv_plain(q, k, v, do, lse, delta, luts,
+                                               bias, **kw)
+    # the tied rows: p = 1 on each padded key, so dv of those keys holds
+    # the sum of dO over the tied rows (plus the first block's share)
+    assert float(ref_dv[0, 64:].float().abs().max()) > 1.0
+    for a, b in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert _close(a, b, torch.bfloat16)
 
 
 @pytest.mark.cuda

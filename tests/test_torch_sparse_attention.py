@@ -569,3 +569,149 @@ def test_bf16_forward_needs_p_at_fp32_accuracy(d, bias):
         share = float((ulps > 0).float().mean())
         ok = int(ulps.max()) <= 1 and share <= SPLIT_P_SHARE
         assert ok == holds, (policy.__name__, share, int(ulps.max()))
+
+
+# ---------------------------------------------------------------------------
+# precision policy of the bf16 tensor-core backward sweeps
+# ---------------------------------------------------------------------------
+def _tc_backward_emulation(q, k, v, do, lse, delta, luts, key_bias, *, scale,
+                           block, num_heads, operand):
+    """The bf16 tensor-core dQ and dK/dV sweeps' arithmetic in torch: S and
+    dP from bf16 operands (exact products) summed in fp32, s = S * scale +
+    bias, p = exp(s - lse) and dS = p (dP - delta) scale in fp32
+    (``_bwd_probs``), and the second products dQ = dS.K, dV = p^T.dO and
+    dK = dS^T.Q taken from ``operand(x)``, a list of bf16 parts of p or dS
+    whose products sum in fp32, over the LUTs' blocks in order. Returns
+    (dq, dk, dv) rounded to bf16."""
+    bh, s, d = q.shape
+    qf, kf, vf, dof = (tbsk._blocks(t, num_heads, block)
+                       for t in (q, k, v, do))
+    lse_b, delta_b = (tbsk._blocks(t, num_heads, block)[..., None]
+                      for t in (lse, delta))
+    bias = tbsk._key_bias_blocks(key_bias, num_heads, block)
+
+    def product(eq, x, y):
+        return sum(torch.einsum(eq, part.float(), y) for part in operand(x))
+
+    dq = torch.zeros(qf.shape)
+    for a in range(luts.cols.shape[-1]):
+        kb = luts.cols[:, :, a]
+        active = (a < luts.nnz)[None, :, :, None, None]
+        kg = tbsk._gather(kf, kb)
+        _, ds = tbsk._bwd_probs(qf, kg, tbsk._gather(vf, kb), dof, lse_b,
+                                delta_b, None if bias is None
+                                else tbsk._gather(bias, kb), scale)
+        dq = torch.where(active, dq + product("bhiqk,bhikd->bhiqd", ds, kg),
+                         dq)
+    dk, dv = torch.zeros(kf.shape), torch.zeros(vf.shape)
+    for a in range(luts.rows_t.shape[-1]):
+        qb = luts.rows_t[:, :, a]
+        active = (a < luts.nnz_t)[None, :, :, None, None]
+        qg, dog = tbsk._gather(qf, qb), tbsk._gather(dof, qb)
+        p, ds = tbsk._bwd_probs(qg, kf, vf, dog, tbsk._gather(lse_b, qb),
+                                tbsk._gather(delta_b, qb), bias, scale)
+        dv = torch.where(active, dv + product("bhiqk,bhiqd->bhikd", p, dog),
+                         dv)
+        dk = torch.where(active, dk + product("bhiqk,bhiqd->bhikd", ds, qg),
+                         dk)
+    return tuple(x.to(torch.bfloat16).reshape(bh, s, d) for x in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("d", [64, 96, 128])
+@pytest.mark.parametrize("bias", [False, True])
+def test_bf16_backward_needs_p_and_ds_at_fp32_accuracy(d, bias):
+    """The Pallas block-sparse backward (``_sparse_bwd`` in interpret mode,
+    bf16 inputs, fp32 upcast, p and dS kept fp32) against the tensor-core
+    sweeps' arithmetic on the CPU at (2, 2, 512, d) over a Fixed layout at
+    block 64, fed the Pallas forward's out and lse: with p and dS split into
+    two bf16 parts, at most SPLIT_P_SHARE of the elements of dq, dk and dv
+    differ, by one bf16 ulp at most. Measured on the six cases: 0.17-0.26 %
+    of the elements of each gradient differ with p and dS split, by one ulp;
+    38.9-42.5 % with p and dS rounded to bf16 once, by up to 2-4 ulps, and
+    up to 8-14 in dk and dv with the key bias: rounding once fails the
+    same check."""
+    s, block = 512, 64
+    rng = np.random.default_rng(200 + d + bias)
+    q, k, v, do = (rng.standard_normal((B * H, s, d)).astype(np.float32)
+                   for _ in range(4))
+    kb = None
+    if bias:
+        kb = (2.0 * rng.standard_normal((B, s))).astype(np.float32)
+        kb[:, -9:] = -1e30                   # padded keys
+    layout = tsa.FixedSparsityConfig(H, block=block, num_local_blocks=4,
+                                     num_global_blocks=1).make_layout(s)
+    jq, jk, jv, jdo = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, do))
+    jluts = jbsk.build_luts(layout)
+    jkb = None if kb is None else jnp.asarray(kb)
+    j_out, j_lse = jbsk._sparse_fwd(jq, jk, jv, jluts[0], jluts[1],
+                                    scale=d ** -0.5, block=block, heads=H,
+                                    interpret=True, key_bias=jkb)
+    want = [torch.tensor(np.asarray(g.astype(jnp.float32))).bfloat16()
+            for g in jbsk._sparse_bwd((jq, jk, jv, jkb, j_out, j_lse)
+                                      + tuple(jluts), jdo, scale=d ** -0.5,
+                                      block=block, heads=H, interpret=True)]
+    tq, tk, tv, tdo = (torch.tensor(x).bfloat16() for x in (q, k, v, do))
+    out = torch.tensor(np.asarray(j_out.astype(jnp.float32)))
+    lse = torch.tensor(np.asarray(j_lse))
+    delta = (tdo.float() * out).sum(-1)
+    kw = dict(scale=d ** -0.5, block=block, num_heads=H)
+    luts = tbsk.luts_for(layout, "cpu")
+    tkb = None if kb is None else torch.tensor(kb)
+    readings = {}
+    for policy in (_split_p, _round_p_once):
+        got = _tc_backward_emulation(tq, tk, tv, tdo, lse, delta, luts, tkb,
+                                     operand=policy, **kw)
+        ulps = [_bf16_ulps(a, b) for a, b in zip(got, want)]
+        readings[policy.__name__] = (
+            max(float((u > 0).float().mean()) for u in ulps),
+            max(float(u.max()) for u in ulps))
+    share, worst = readings["_split_p"]
+    assert int(worst) <= 1 and share <= SPLIT_P_SHARE, readings
+    share, worst = readings["_round_p_once"]
+    assert not (int(worst) <= 1 and share <= SPLIT_P_SHARE), readings
+
+
+def test_key_order_takes_the_longest_key_blocks_first():
+    """Luts.order_t is, for each head, a permutation of its key blocks by
+    descending nnz_t (ties in block order), and the four tables beside it
+    are still the JAX package's build_luts."""
+    random.seed(7)
+    layout = tsa.BigBirdSparsityConfig(3, block=16,
+                                       different_layout_per_head=True,
+                                       num_random_blocks=2).make_layout(256)
+    luts = tbsk.luts_for(layout, "cpu")
+    for a, b in zip(luts[:4], jbsk.build_luts(layout)):
+        np.testing.assert_array_equal(a.numpy(), b)
+    order, nnz_t = luts.order_t.numpy(), luts.nnz_t.numpy()
+    assert order.dtype == np.int32 and order.shape == nnz_t.shape
+    for h in range(3):
+        assert sorted(order[h]) == list(range(nnz_t.shape[1]))
+        lengths = nnz_t[h, order[h]]
+        assert all(lengths[:-1] >= lengths[1:])
+        ties = lengths[:-1] == lengths[1:]
+        assert all(order[h, :-1][ties] < order[h, 1:][ties])
+    fixed = tsa.FixedSparsityConfig(12, block=64, num_local_blocks=4,
+                                    num_global_blocks=1).make_layout(4096)
+    order = tbsk.luts_for(fixed, "cpu").order_t.numpy()
+    # the slice's layout: the 16 global key blocks of each head, walked by
+    # all 64 query blocks, come first
+    np.testing.assert_array_equal(order[:, :16],
+                                  np.tile(np.arange(3, 64, 4), (12, 1)))
+
+
+def test_longest_first_leaves_a_short_tail_at_the_slice_layout():
+    """The dK/dV sweep's launch at the BERT slice (batch 4 x 12 heads, the
+    Fixed layout at seq 4096) by list scheduling on 264 resident blocks
+    (132 SMs, 2 blocks each at head_dim 64): longest first ends within
+    1.5 % of an even spread of the tile pairs, block order 12 % after."""
+    from deepspeed_tpu_torch.ops.sparse_attention.order_probe import makespan
+
+    fixed = tsa.FixedSparsityConfig(12, block=64, num_local_blocks=4,
+                                    num_global_blocks=1).make_layout(4096)
+    luts = tbsk.luts_for(fixed, "cpu")
+    nnz_t = luts.nnz_t.numpy()
+    even = nnz_t.sum() * 4 / 264
+    by_block = np.tile(np.arange(64), (12, 1))
+    assert makespan(nnz_t, luts.order_t.numpy(), 48, 264) == 224
+    assert makespan(nnz_t, by_block, 48, 264) == 248
+    assert 224 <= 1.015 * even and 248 >= 1.12 * even
