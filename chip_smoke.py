@@ -26,9 +26,10 @@ failure:
               (diagonal tile skipped, one output tile left at zero) must
               fail the same gate
   4. train    initialize() -> 10 x train_batch of gpt2-350m (24 layers, full
-              width) at seq 1024, bf16 over fp32 master, Adam, WarmupLR,
-              clipping 1.0, gas 2: losses finite and falling, every flash
-              kernel launched exactly 24 x 2 x 10 times
+              width) at seq 1024, bf16 (the module's parameters the bf16
+              copy of the fp32 master), Adam, WarmupLR, clipping 1.0, gas
+              2: losses finite and falling, every flash kernel launched
+              exactly 24 x 2 x 10 times
   5. profile  two more train_batch steps under torch.profiler: device time
               by kernel, the flash kernels' and the GEMMs' shares, and the
               device's idle share (after the launch counts are read)
@@ -64,7 +65,30 @@ failure:
               2 layers at full width, seq 4096: loss and every gradient
               against block_sparse_attention_reference as the attention; a
               planted fault (one active block per row dropped) must fail it
-The line before the last is the kernels JSON; the last line is
+ 11. kernels (fp16)
+              B1-B3 at fp16 (their fp16 tensor-core instantiations)
+              against the plain versions: the slice shape, timed, with
+              scaled_dot_product_attention's fp16 time and the two
+              planted faults, and small shapes with both bias kinds,
+              dropout and head_dim 64, 96, 128; the fp16 gate is 5e-3
+              (PERF.md section 2)
+ 12. train (fp16)
+              gpt2-350m at fp16 with dynamic loss scaling (2**16,
+              hysteresis 2) and remat 'attn_out': 10 steps with the loss
+              scale and skipped steps after each, flash launches per step
+              (2 x 24 x 2 forward: the remat re-runs it, as the JAX
+              model's does; 24 x 2 of each backward sweep); a checkpoint
+              saved after step 5 into a temporary directory (seconds,
+              bytes), loaded into a new engine, and steps 6-10 run again:
+              their losses must equal the uninterrupted run's bit for bit
+ 13. profile (fp16)
+              two more steps under torch.profiler
+ 14. optimizers
+              LAMB and SGD through initialize() -> train_batch, 3 steps
+              each at 2 layers of gpt2-350m, bf16: losses finite and
+              falling
+The line before the last is the kernels JSON (the fp16 rows named
+<kernel>_fp16, their launches from phase 12); the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card and nvcc.
 """
 import concurrent.futures
@@ -103,18 +127,21 @@ BERT_SPARSITY = dict(block=64, num_local_blocks=4, num_global_blocks=1)
 # error allowed against the plain version, element by element relative to
 # the reference's own scale: |a - b| <= TOL * (|b| + rms(b)) (see scaled_err);
 # in the parity phase, ||a - b|| <= TOL * ||b|| per gradient tensor
-TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+TOL = {"bfloat16": 2e-2, "float16": 5e-3, "float32": 1e-4}
 # tile of the planted faults: the q tile of the bf16 forward and dQ sweep
 # and the k tile of the bf16 dK/dV sweep
 FAULT_TILE = 128
 # the tensor-core kernels, by library: every instantiation (one per
-# head_dim) must hold HGMMA, and every other kernel none
+# head_dim and element type) must hold HGMMA, and every other kernel none
 TC_FAMILIES = {
     "flash_attention": ("flash_fwd_tc_kernel", "flash_bwd_dkdv_tc_kernel",
                         "flash_bwd_dq_tc_kernel"),
     "block_sparse_attention": ("bsa_fwd_tc_kernel", "bsa_bwd_dq_tc_kernel",
                                "bsa_bwd_dkdv_tc_kernel"),
 }
+# instantiations of each tensor-core kernel: head_dim 64, 96, 128, at bf16
+# and fp16 (flash) or bf16 (block-sparse)
+TC_INSTANTIATIONS = {"flash_attention": 6, "block_sparse_attention": 3}
 # the tensor-core kernel each kernel takes on its slice's main path (bf16)
 FAMILY_OF = {"flash_fwd": "flash_fwd_tc_kernel",
              "flash_bwd_dkdv": "flash_bwd_dkdv_tc_kernel",
@@ -128,6 +155,10 @@ SLICE_SEQ = 1024
 SLICE_MICRO = 8
 SLICE_GAS = 2
 SLICE_STEPS = 10
+# the fp16 slice: the same model and step at fp16 with dynamic loss scaling
+# and selective remat
+FP16_SCALE_POWER = 16
+FP16_REMAT_POLICY = "attn_out"
 
 
 def log(msg):
@@ -182,7 +213,8 @@ def bound(kernel, name, shape, dtype, causal, bias_bytes=0, pairs=None):
     elem = torch.empty((), dtype=dtype).element_size()
     ops, nbytes = flash_work(kernel, b * h, s, s, d, elem, causal,
                              bias_bytes, pairs)
-    peak = bf16_peak if dtype == torch.bfloat16 else fp32_peak
+    # fp16 and bf16 share the tensor cores' rate
+    peak = fp32_peak if dtype == torch.float32 else bf16_peak
     t_ops, t_bytes = ops / peak * 1e3, nbytes / bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
@@ -300,7 +332,8 @@ def phase_build():
             f.write(report)
         _ptxas_summary(report, TC_FAMILIES[name])
         log(f"build seconds ({name}): {secs:.2f}")
-        by_kernel.update(_tensor_core_proof(path, TC_FAMILIES[name]))
+        by_kernel.update(_tensor_core_proof(path, TC_FAMILIES[name],
+                                            TC_INSTANTIATIONS[name]))
     log(f"build seconds (all sources, in parallel): "
         f"{time.perf_counter() - t0:.2f}")
     return by_kernel
@@ -315,20 +348,22 @@ def _ptxas_summary(report, families):
     for ln in report.splitlines():
         if "Compiling entry" in ln:
             current = next((f for f in families if f in ln), None)
-            dim = re.search(r"ILi(\d+)E", ln)
+            dim = re.search(r"Li(\d+)E", ln)
+            elem = "fp16" if "6__half" in ln else "bf16"
             if current:
-                current += f"<{dim.group(1) if dim else '?'}>"
+                current += f"<{elem}, {dim.group(1) if dim else '?'}>"
         elif current and ("registers" in ln or "spill" in ln):
             log(f"  ptxas {current}: {ln.split('info    :')[-1].strip()}")
         if "wgmma" in ln:          # e.g. products serialized by ptxas
             log(f"  ptxas: {ln.strip()[:300]}")
 
 
-def _tensor_core_proof(library, families):
+def _tensor_core_proof(library, families, instantiations):
     """{family: {instantiation: HGMMA + HMMA count}} from cuobjdump -sass of
-    one library; raises unless every instantiation of each tensor-core
-    family (one per head_dim) holds HGMMA and every other kernel of the
-    library (the scalar ones) holds no tensor-core instruction."""
+    one library; raises unless each tensor-core family has
+    ``instantiations`` instantiations (one per head_dim and element type),
+    each holding HGMMA, and every other kernel of the library (the scalar
+    ones) holds no tensor-core instruction."""
     from deepspeed_tpu_torch.ops import op_builder
 
     tool = os.path.join(os.path.dirname(op_builder.find_nvcc()), "cuobjdump")
@@ -347,9 +382,11 @@ def _tensor_core_proof(library, families):
     by_kernel = {}
     for family in families:
         found = {n: c for n, c in counts.items() if family in n}
-        if len(found) != 3 or not all(c[0] for c in found.values()):
-            raise RuntimeError(f"{family}: expected 3 instantiations with "
-                               f"HGMMA instructions, got {found}")
+        if len(found) != instantiations \
+                or not all(c[0] for c in found.values()):
+            raise RuntimeError(f"{family}: expected {instantiations} "
+                               f"instantiations with HGMMA instructions, got "
+                               f"{found}")
         by_kernel[family] = {n: c[0] + c[1] for n, c in found.items()}
     scalar = {n: c for n, c in counts.items()
               if not any(f in n for f in families) and sum(c)}
@@ -595,16 +632,45 @@ def phase_kernels(env, tensor_cores):
                 False)
     _dropout_masks_exact(torch.float32)
     _dropout_masks_exact(torch.bfloat16)
-    lib_fwd, lib_bwd = _library_ms(main_shape, torch.bfloat16)
+    return _kernel_rows(env, tensor_cores, main, main_shape, torch.bfloat16)
+
+
+def phase_kernels_fp16(env, tensor_cores):
+    """B1-B3 at fp16 (the element type of the fp16 training phase) against
+    their plain versions: the slice shape, timed and shown to fail the
+    planted faults, and small shapes with both bias kinds and dropout at
+    head_dim 64, 96 and 128. Rows named <kernel>_fp16."""
+    import torch
+
+    log("kernels at fp16 against their plain versions on the card:")
+    main_shape = (8, 16, SLICE_SEQ, 64)
+    main = _flash_case(main_shape, torch.float16, True, "none", 0.0, 11,
+                       main=True)
+    _flash_case((2, 4, 256, 64), torch.float16, False, "key", 0.1, 12,
+                False)
+    _flash_case((1, 2, 200, 128), torch.float16, True, "full", 0.1, 13,
+                False)
+    _flash_case((2, 2, 333, 96), torch.float16, True, "key", 0.1, 14, False)
+    _flash_case((1, 3, 77, 64), torch.float16, True, "none", 0.0, 15, False)
+    _dropout_masks_exact(torch.float16)
+    return _kernel_rows(env, tensor_cores, main, main_shape, torch.float16,
+                        suffix="_fp16")
+
+
+def _kernel_rows(env, tensor_cores, main, main_shape, dtype, suffix=""):
+    """The kernels line's rows of the flash kernels at ``dtype``, with the
+    library yardstick timed at the slice shape."""
+    lib_fwd, lib_bwd = _library_ms(main_shape, dtype)
+    dname = str(dtype).split(".")[-1]
     log(f"  library yardstick (scaled_dot_product_attention) at "
-        f"{main_shape} bf16 causal: fwd {lib_fwd:.3f} ms, bwd (dq, dk, dv "
-        f"together) {lib_bwd:.3f} ms")
+        f"{main_shape} {dname} causal: fwd {lib_fwd:.3f} ms, bwd (dq, dk, "
+        f"dv together) {lib_bwd:.3f} ms")
     rows = []
     for name, replaces in FLASH_KERNELS:
-        bms, by = bound(name, env["name"], main_shape, torch.bfloat16, True)
+        bms, by = bound(name, env["name"], main_shape, dtype, True)
         r = main[name]
         rows.append({
-            "name": name, "route": "cuda", "source": FLASH_SOURCE,
+            "name": name + suffix, "route": "cuda", "source": FLASH_SOURCE,
             "replaces": replaces, "kernel_route": "tc",
             "launches": None,
             "max_abs_err": r["max_abs_err"], "scaled_err": r["err"],
@@ -614,15 +680,14 @@ def phase_kernels(env, tensor_cores):
             # dK/dV or the dQ sweep alone
             "library_ms": lib_fwd if name == "flash_fwd" else None,
             "library_bwd_all_ms": lib_bwd,
-            # the scalar kernel the tensor-core one replaced, at bf16
+            # the scalar kernel the tensor-core one replaced
             "scalar_ms": r.get("scalar_ms"),
-            "shape": list(main_shape), "dtype": "bfloat16", "causal": True,
+            "shape": list(main_shape), "dtype": dname, "causal": True,
             "card": env["smi"],
-            # tensor-core instructions in the SASS of each bf16
-            # instantiation
+            # tensor-core instructions in the SASS of each instantiation
             "tensor_core_sass": tensor_cores.get(FAMILY_OF.get(name), {}),
         })
-        log(f"  {name:15s} {r['ms']:.3f} ms vs bound {bms:.4f} ms "
+        log(f"  {name + suffix:20s} {r['ms']:.3f} ms vs bound {bms:.4f} ms "
             f"({by}) on {env['smi']}")
     return rows
 
@@ -1271,6 +1336,175 @@ def phase_parity_bert():
         raise RuntimeError("the BERT parity gate passes a planted fault")
 
 
+def _fp16_config(micro, gas):
+    """The slice's step at fp16 with dynamic loss scaling (initial scale
+    2**16, hysteresis 2, window 1000)."""
+    cfg = _ds_config(micro, gas)
+    del cfg["bf16"]
+    cfg["fp16"] = {"enabled": True, "loss_scale": 0,
+                   "initial_scale_power": FP16_SCALE_POWER, "hysteresis": 2}
+    return cfg
+
+
+def _fp16_engine():
+    import torch
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
+
+    cfg = gpt2_config(SLICE_MODEL, n_positions=SLICE_SEQ,
+                      dtype=torch.float16, remat=True,
+                      remat_policy=FP16_REMAT_POLICY)
+    engine, _, _, _ = initialize(model=GPT2Model(cfg),
+                                 config_params=_fp16_config(SLICE_MICRO,
+                                                            SLICE_GAS))
+    return engine, cfg
+
+
+def _fp16_steps(engine, batch, steps, env, label):
+    """``steps`` train_batch calls: (losses, step ms, loss scale and skipped
+    steps after each, flash launches of each step). The scale and the
+    skipped count are read after each step's clock stops."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    out = {"losses": [], "step_ms": [], "scale": [], "skipped": [],
+           "launches": []}
+    for _ in range(steps):
+        before = dict(fa.LAUNCHES)
+        t0 = time.perf_counter()
+        loss = engine.train_batch(batch=batch)
+        out["losses"].append(float(loss))       # syncs the step
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        out["scale"].append(engine.loss_scale())
+        out["skipped"].append(engine.skipped_steps)
+        out["launches"].append({n: fa.LAUNCHES[n] - before[n]
+                                for n in before})
+    torch.cuda.synchronize()
+    log(f"  {label}: losses {out['losses']}")
+    log(f"  {label}: loss scale {out['scale']}, skipped {out['skipped']}, "
+        f"step ms {[round(x, 1) for x in out['step_ms']]} on {env['smi']}")
+    return out
+
+
+def phase_train_fp16(env):
+    """gpt2-350m at fp16 (dynamic loss scale, remat 'attn_out'): 10 steps,
+    a checkpoint saved after step 5 and loaded into a new engine, steps
+    6-10 run again there: their losses must equal the uninterrupted run's
+    bit for bit. Every flash kernel count is set to 0 before step 1 and
+    read after step 10."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bsk
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    engine, cfg = _fp16_engine()
+    batch = _slice_batch(cfg.vocab_size, SLICE_GAS, SLICE_MICRO, SLICE_SEQ,
+                         seed=0)
+    n_params = sum(p.numel() for p in engine.params)
+    log(f"train fp16 {SLICE_MODEL} ({n_params / 1e6:.1f}M params) seq "
+        f"{SLICE_SEQ} micro {SLICE_MICRO} gas {SLICE_GAS}, remat "
+        f"{FP16_REMAT_POLICY}, dynamic loss scale 2**{FP16_SCALE_POWER}, "
+        f"hysteresis 2:")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    bsk.reset_launch_counts()
+    first = _fp16_steps(engine, batch, 5, env, "steps 1-5")
+    save_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        engine.save_checkpoint(save_dir)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(root, f))
+                     for root, _, files in os.walk(save_dir) for f in files)
+        second = _fp16_steps(engine, batch, 5, env, "steps 6-10")
+        launches = dict(fa.LAUNCHES, **bsk.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        del engine
+        torch.cuda.empty_cache()
+        resumed, _ = _fp16_engine()
+        t0 = time.perf_counter()
+        resumed.load_checkpoint(save_dir)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        rerun = _fp16_steps(resumed, batch, 5, env, "steps 6-10 resumed")
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    losses = first["losses"] + second["losses"]
+    per_step = first["launches"] + second["launches"]
+    steady = sorted((first["step_ms"] + second["step_ms"])[1:])[4]
+    tokens = SLICE_MICRO * SLICE_GAS * SLICE_SEQ
+    log(f"  checkpoint after step 5: save {save_s:.2f} s, load {load_s:.2f} "
+        f"s (manifest verified), {nbytes} bytes ({nbytes / 2 ** 30:.2f} "
+        f"GiB); steps 6-10 resumed {rerun['losses']} against "
+        f"{second['losses']}")
+    log(f"  step ms (median of steps 2..10) {steady:.1f} on {env['smi']}; "
+        f"tokens/s {tokens / steady * 1e3:.0f}; steps/s "
+        f"{1e3 / steady:.3f}; max_memory_allocated {peak / 2 ** 30:.2f} GiB")
+    log(f"  flash launches per step {per_step[0]}; in 10 steps {launches}")
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise RuntimeError(f"non-finite fp16 loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError(f"fp16 loss did not fall: {losses}")
+    # the forward kernel runs twice per layer and micro-batch (the remat
+    # recompute, as in the JAX model), the backward sweeps once
+    want = {"flash_fwd": 2 * cfg.n_layer * SLICE_GAS,
+            "flash_bwd_dkdv": cfg.n_layer * SLICE_GAS,
+            "flash_bwd_dq": cfg.n_layer * SLICE_GAS}
+    if any(step != want for step in per_step):
+        raise RuntimeError(f"fp16 flash launches per step {per_step}, "
+                           f"expected {want}")
+    if launches != dict({n: 10 * c for n, c in want.items()},
+                        **{n: 0 for n, _ in SPARSE_KERNELS}):
+        raise RuntimeError(f"fp16 launches in 10 steps: {launches}")
+    if rerun["losses"] != second["losses"]:
+        raise RuntimeError(f"the resumed run's losses {rerun['losses']} "
+                           f"differ from the uninterrupted run's "
+                           f"{second['losses']}")
+    if rerun["scale"] != second["scale"] \
+            or rerun["skipped"] != second["skipped"]:
+        raise RuntimeError("the resumed run's loss scale or skipped steps "
+                           "differ")
+    return {"launches": launches, "step_ms": steady, "losses": losses,
+            "engine": resumed, "batch": batch}
+
+
+def phase_optimizers(env):
+    """LAMB and SGD (momentum 0.9) through initialize() -> train_batch at 2
+    layers of gpt2-350m, full width, bf16: 3 steps each, losses finite and
+    falling."""
+    import torch
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
+
+    cfg = gpt2_config(SLICE_MODEL, n_layer=2, n_positions=SLICE_SEQ,
+                      dtype=torch.bfloat16)
+    batch = _slice_batch(cfg.vocab_size, SLICE_GAS, SLICE_MICRO, SLICE_SEQ,
+                         seed=3)
+    for optimizer in ({"type": "Lamb", "params": {"lr": 1e-2}},
+                      {"type": "SGD", "params": {"lr": 0.1,
+                                                 "momentum": 0.9}}):
+        ds = _ds_config(SLICE_MICRO, SLICE_GAS)
+        ds["optimizer"] = optimizer
+        ds.pop("scheduler")
+        engine, _, _, _ = initialize(model=GPT2Model(cfg), config_params=ds)
+        losses = [float(engine.train_batch(batch=batch)) for _ in range(3)]
+        log(f"optimizer {optimizer['type']} ({cfg.n_layer} layers, n_embd "
+            f"{cfg.n_embd}, bf16): losses {losses}")
+        if not all(x == x and abs(x) != float("inf") for x in losses) \
+                or not losses[-1] < losses[0]:
+            raise RuntimeError(f"{optimizer['type']}: losses {losses}")
+        del engine
+        torch.cuda.empty_cache()
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "deepspeed_tpu_torch")):
         print("chip_smoke.py: the deepspeed_tpu_torch package is not beside "
@@ -1300,7 +1534,17 @@ def main():
     del bert
     torch.cuda.empty_cache()
     phase_parity_bert()
-    print(json.dumps({"kernels": rows + sparse_rows}), flush=True)
+    fp16_rows = phase_kernels_fp16(env, tensor_cores)
+    torch.cuda.empty_cache()
+    fp16 = phase_train_fp16(env)
+    for row in fp16_rows:
+        row["launches"] = fp16["launches"][row["name"][:-len("_fp16")]]
+    phase_profile(env, fp16, f"{SLICE_MODEL} fp16")
+    del fp16
+    torch.cuda.empty_cache()
+    phase_optimizers(env)
+    print(json.dumps({"kernels": rows + sparse_rows + fp16_rows}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

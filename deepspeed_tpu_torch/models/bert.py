@@ -7,7 +7,8 @@ LayerNorm, decoder tied to the word embeddings plus ``mlm_bias``, logits
 sliced back to ``vocab_size``) and the NSP head (tanh pooler over [CLS]).
 With a ``sparsity_config`` every layer attends through the block-sparse
 path (long-sequence BERT). Parameters are fp32 and cast to
-``config.dtype`` at use.
+``config.dtype`` at use; under the engine at bf16 or fp16 they are the
+engine's compute-dtype copy and the casts are no-ops.
 """
 import dataclasses
 from typing import Any, Optional
@@ -17,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepspeed_tpu_torch.models.api import pad_to_multiple
+from deepspeed_tpu_torch.models.convert import bert_reference_tree, leaf_specs
 from deepspeed_tpu_torch.ops.transformer.functional import dropout, gelu
 from deepspeed_tpu_torch.ops.transformer.transformer import (
     Dense, DeepSpeedTransformerConfig, DeepSpeedTransformerLayer, LayerNorm)
@@ -175,6 +177,11 @@ class BertForPreTraining(nn.Module):
             m.reset_with(generator)
         with torch.no_grad():
             self.mlm_bias.zero_()
+
+    def reference_leaf_specs(self):
+        """This model's parameters in the JAX package's tree order, the
+        layout of the engine's checkpoints (models/convert.py)."""
+        return leaf_specs(bert_reference_tree(self.config))
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 train=False, generator=None):

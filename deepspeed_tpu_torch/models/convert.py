@@ -109,3 +109,87 @@ def bert_params_from_jax(tree, cfg):
                          f"the config pads the vocab to "
                          f"{cfg.padded_vocab_size}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the JAX package's parameter tree, leaf by leaf (checkpoint layout)
+# ---------------------------------------------------------------------------
+def _dense_spec(prefix):
+    return {"kernel": (f"{prefix}.weight", True),
+            "bias": (f"{prefix}.bias", False)}
+
+
+def _norm_spec(prefix):
+    return {"scale": (f"{prefix}.weight", False),
+            "bias": (f"{prefix}.bias", False)}
+
+
+def _gpt2_block_spec(prefix):
+    return {"attn": {"c_attn": _dense_spec(f"{prefix}.attn.c_attn"),
+                     "c_proj": _dense_spec(f"{prefix}.attn.c_proj")},
+            "ln_1": _norm_spec(f"{prefix}.ln_1"),
+            "ln_2": _norm_spec(f"{prefix}.ln_2"),
+            "mlp": {"c_fc": _dense_spec(f"{prefix}.mlp.c_fc"),
+                    "c_proj": _dense_spec(f"{prefix}.mlp.c_proj")}}
+
+
+def _stacked(trees):
+    """One tree whose leaves stack the leaves of ``trees`` (a scanned
+    stack's leading (L,) axis): (tuple of names, transposed)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stacked([t[k] for t in trees]) for k in first}
+    return tuple(t[0] for t in trees), first[1]
+
+
+def gpt2_reference_tree(cfg):
+    """The JAX GPT2LMHead's parameter tree with each leaf the name (or, for
+    a scanned stack, the names) of this package's parameter and whether
+    the JAX leaf is its transpose."""
+    tree = {"wte": ("wte", False), "wpe": ("wpe", False),
+            "ln_f": _norm_spec("ln_f")}
+    blocks = [_gpt2_block_spec(f"h.{i}") for i in range(cfg.n_layer)]
+    if cfg.scan_layers:
+        tree["h"] = {"block": _stacked(blocks)}
+    else:
+        tree.update({f"h_{i}": b for i, b in enumerate(blocks)})
+    return tree
+
+
+def bert_reference_tree(cfg):
+    """The JAX BertForPreTraining's parameter tree, as gpt2_reference_tree
+    (the names ``bert_params_from_jax`` maps)."""
+    emb = {name: (f"embeddings.{name}", False) for name in (
+        "word_embeddings", "position_embeddings", "token_type_embeddings")}
+    emb["ln"] = _norm_spec("embeddings.ln")
+    encoder = {}
+    for i in range(cfg.num_hidden_layers):
+        body = {n: _norm_spec(f"encoder.layers.{i}.body.{n}")
+                for n in _BERT_BODY_NORMS}
+        body.update({n: _dense_spec(f"encoder.layers.{i}.body.{n}")
+                     for n in _BERT_BODY_DENSE})
+        encoder[f"layer_{i}"] = {"body": body}
+    if cfg.pre_layer_norm:
+        encoder["final_ln"] = _norm_spec("encoder.final_ln")
+    tree = {"embeddings": emb, "encoder": encoder,
+            "mlm_ln": _norm_spec("mlm_ln"), "mlm_bias": ("mlm_bias", False)}
+    tree.update({n: _dense_spec(n) for n in ("mlm_transform", "pooler",
+                                             "nsp")})
+    return tree
+
+
+def leaf_specs(tree):
+    """[(name or tuple of names, transposed)] of a reference tree's leaves
+    in the JAX package's flatten order (a dict flattens in sorted key
+    order): the layout of a checkpoint's parameter-shaped fields."""
+    out = []
+
+    def walk(node):
+        for key in sorted(node):
+            if isinstance(node[key], dict):
+                walk(node[key])
+            else:
+                out.append(node[key])
+
+    walk(tree)
+    return out

@@ -3,9 +3,11 @@
 Port of deepspeed_tpu/models/gpt2.py: pre-LN decoder blocks, fused QKV
 projection, attention through ops.transformer.functional (the flash kernels
 for CUDA tensors), tied LM head sliced back to ``vocab_size``, and the
-chunked LM loss. Parameters are fp32 and cast to ``config.dtype`` where they
-are used, as flax modules with ``dtype=`` do. ``remat=True`` recomputes each
-block in the backward (torch.utils.checkpoint).
+chunked LM loss. Parameters are fp32, cast to ``config.dtype`` where they
+are used, as flax modules with ``dtype=`` do; under the engine at bf16 or
+fp16 they are the engine's compute-dtype copy and the casts are no-ops.
+``remat=True`` recomputes each block in the backward
+(torch.utils.checkpoint) under ``remat_policy``.
 
 Size table mirrors the reference perf harness configs
 (tests/model/Megatron_GPT2/run_perf_test.py:18-84).
@@ -16,11 +18,13 @@ from typing import Any, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from deepspeed_tpu_torch.models.api import (chunked_lm_cross_entropy,
                                             cross_entropy_loss,
                                             pad_to_multiple)
+from deepspeed_tpu_torch.models.convert import gpt2_reference_tree, leaf_specs
 from deepspeed_tpu_torch.ops.transformer.functional import (
     dropout, gelu, scaled_dot_product_attention)
 from deepspeed_tpu_torch.ops.transformer.transformer import (Dense,
@@ -42,8 +46,9 @@ class GPT2Config:
     layer_norm_epsilon: float = 1e-5
     dtype: Any = torch.bfloat16    # compute dtype
     remat: bool = False            # activation checkpointing per block
-    # what the per-block checkpoint saves; the port runs 'nothing' (full
-    # recompute). 'attn_out' and 'dots' are ROADMAP item A19.
+    # what the per-block checkpoint saves (the JAX package's policies):
+    # 'nothing' (the block's input), 'attn_out' (and the attention output
+    # before c_proj), 'dots' (and the matmul outputs the backward reads)
     remat_policy: str = "nothing"
     # the JAX package scans stacked (L, ...) block params; the port always
     # keeps a list of blocks and reads either layout (models/convert.py)
@@ -84,14 +89,45 @@ def gpt2_config(name: str, **overrides) -> GPT2Config:
     return GPT2Config(**base)
 
 
+REMAT_POLICIES = ("nothing", "", None, "attn_out", "dots")
+# the Dense layers' matmuls of a block in the order of its forward: c_attn,
+# attn.c_proj, c_fc, mlp.c_proj; 'dots' saves the first three (what
+# jax.checkpoint's dots_saveable keeps of them: mlp.c_proj's output reaches
+# only the residual add, whose backward does not read it). The attention is
+# the flash kernels on the card; the batched products of the CPU's plain
+# attention are recomputed.
+_MATMULS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+_DOTS_SAVED = 3
+
+
+def _dots_policy():
+    """The selective-checkpoint policy of one block call under 'dots': its
+    first three matmul outputs are kept, everything else (LayerNorm, GeLU,
+    the attention, whose kernels launch outside PyTorch's dispatcher) is
+    recomputed, as under the JAX package's dots_saveable."""
+    seen = [0]
+
+    def policy(ctx, op, *args, **kwargs):
+        if op not in _MATMULS:
+            return CheckpointPolicy.PREFER_RECOMPUTE
+        seen[0] += 1
+        return CheckpointPolicy.MUST_SAVE if seen[0] <= _DOTS_SAVED \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return policy
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy())
+
+
 def _check_supported(cfg: GPT2Config):
     if cfg.moe_num_experts:
         raise NotImplementedError(
             "GPT-2 mixture-of-experts is not ported yet (ROADMAP A15)")
-    if cfg.remat and cfg.remat_policy not in ("nothing", "", None):
-        raise NotImplementedError(
-            f"remat_policy {cfg.remat_policy!r} is not ported yet (ROADMAP "
-            f"A19); the port recomputes whole blocks ('nothing')")
+    if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
+                         "(expected nothing|attn_out|dots)")
     if cfg.attention_sp_mode == "ring":
         raise NotImplementedError(
             "ring attention (sequence parallelism) is not ported yet "
@@ -107,6 +143,12 @@ class CausalSelfAttention(nn.Module):
         self.c_proj = Dense(e, e)
 
     def forward(self, x, train, generator):
+        return self.project(self.attend(x, train, generator), train,
+                            generator)
+
+    def attend(self, x, train, generator):
+        """Attention of the LayerNorm output x: (B, S, E) before c_proj,
+        the tensor the JAX model names 'attn_out'."""
         cfg = self.config
         B, S, E = x.shape
         q, k, v = self.c_attn(x).split(E, dim=-1)
@@ -120,9 +162,12 @@ class CausalSelfAttention(nn.Module):
             dropout_rng=generator if drop else None,
             dropout_rate=cfg.dropout if drop else 0.0,
             use_pallas=cfg.use_pallas_attention)
-        y = self.c_proj(y.transpose(1, 2).reshape(B, S, E))
-        if drop:
-            y = dropout(y, generator, cfg.dropout)
+        return y.transpose(1, 2).reshape(B, S, E)
+
+    def project(self, y, train, generator):
+        y = self.c_proj(y)
+        if train and self.config.dropout > 0:
+            y = dropout(y, generator, self.config.dropout)
         return y
 
 
@@ -150,8 +195,35 @@ class Block(nn.Module):
         self.mlp = MLP(config)
 
     def forward(self, x, train, generator):
-        x = x + self.attn(self.ln_1(x), train, generator)
+        return self.rest(x, self.attend(x, train, generator), train,
+                         generator)
+
+    def attend(self, x, train, generator):
+        return self.attn.attend(self.ln_1(x), train, generator)
+
+    def rest(self, x, y, train, generator):
+        """The block after the attention output y."""
+        x = x + self.attn.project(y, train, generator)
         return x + self.mlp(self.ln_2(x), train, generator)
+
+    def remat(self, x, train, generator, policy):
+        """The block with its activations recomputed in the backward,
+        keeping what ``policy`` saves (the JAX package's remat_policy):
+        'nothing' the block's input; 'attn_out' the input and the attention
+        output, two segments split there, so the backward re-runs
+        LayerNorm, c_attn and the attention for the first and the rest for
+        the second; 'dots' the input and three matmul outputs. Each segment
+        replays the dropout it drew (``replayable``); every policy re-runs
+        the attention's forward kernel, as the JAX model's does (its
+        residuals are neither named nor dots)."""
+        if policy == "attn_out":
+            y = checkpoint(replayable(self.attend, generator), x, train,
+                           use_reentrant=False)
+            return checkpoint(replayable(self.rest, generator), x, y, train,
+                              use_reentrant=False)
+        kw = {"context_fn": _dots_contexts} if policy == "dots" else {}
+        return checkpoint(replayable(self, generator), x, train,
+                          use_reentrant=False, **kw)
 
 
 class GPT2Model(nn.Module):
@@ -188,6 +260,11 @@ class GPT2Model(nn.Module):
             if isinstance(m, (Dense, LayerNorm)):
                 m.reset_with(generator)
 
+    def reference_leaf_specs(self):
+        """This model's parameters in the JAX package's tree order, the
+        layout of the engine's checkpoints (models/convert.py)."""
+        return leaf_specs(gpt2_reference_tree(self.config))
+
     def hidden(self, input_ids, train=False, generator=None):
         """Final-LayerNorm activations (B, S, E) in the compute dtype."""
         cfg = self.config
@@ -199,8 +276,7 @@ class GPT2Model(nn.Module):
             x = dropout(x, generator, cfg.dropout)
         for block in self.h:
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(replayable(block, generator), x, train,
-                               use_reentrant=False)
+                x = block.remat(x, train, generator, cfg.remat_policy)
             else:
                 x = block(x, train, generator)
         return self.ln_f(x)

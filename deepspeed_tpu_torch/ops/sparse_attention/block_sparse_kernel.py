@@ -249,7 +249,9 @@ def kernel_refusal(q, block):
     at this layout block (None = they can)."""
     s, d = q.shape[-2], q.shape[-1]
     if q.dtype not in _DTYPES:
-        return f"dtype {q.dtype} is not float32 or bfloat16"
+        later = " (float16 is ROADMAP B10)" if q.dtype == torch.float16 \
+            else ""
+        return f"dtype {q.dtype} is not float32 or bfloat16{later}"
     if d not in HEAD_DIMS:
         return f"head_dim {d} is not one of the kernels' {HEAD_DIMS}"
     if block not in BLOCKS:

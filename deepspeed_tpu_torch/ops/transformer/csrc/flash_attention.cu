@@ -1,11 +1,11 @@
 // Flash attention for Hopper (sm_90a): forward, dK/dV sweep and dQ sweep.
 //
 // Replaces the Pallas TPU kernels of deepspeed_tpu/ops/transformer/flash_attention.py:
-//   flash_fwd_tc_kernel (bf16), flash_fwd_kernel (fp32)
+//   flash_fwd_tc_kernel (bf16, fp16), flash_fwd_kernel (fp32)
 //                          <- _fwd_kernel       (launched by _flash_fwd)
-//   flash_bwd_dkdv_tc_kernel (bf16), flash_bwd_dkdv_kernel (fp32)
+//   flash_bwd_dkdv_tc_kernel (bf16, fp16), flash_bwd_dkdv_kernel (fp32)
 //                          <- _bwd_dkdv_kernel  (launched by _flash_bwd)
-//   flash_bwd_dq_tc_kernel (bf16), flash_bwd_dq_kernel (fp32)
+//   flash_bwd_dq_tc_kernel (bf16, fp16), flash_bwd_dq_kernel (fp32)
 //                          <- _bwd_dq_kernel    (launched by _flash_bwd)
 //
 // Each kernel computes the whole function of its Pallas counterpart: scaled
@@ -17,21 +17,24 @@
 // bit the same uint32 arithmetic as _dropout_keep.
 //
 // Layout: q, k, v, out, dout, dq, dk, dv are (B*H, S, D) contiguous in the
-// storage dtype (bf16 or fp32); lse and delta are compact (B*H, S_q) fp32.
+// storage dtype (bf16, fp16 or fp32); lse and delta are compact (B*H, S_q)
+// fp32. The dropout seed is one int32 in device memory, drawn there by the
+// caller and read by the kernel, so that a step never waits on the host for
+// it.
 //
-// Routing, by dtype before launch: bf16 runs the forward and both backward
+// Routing, by dtype before launch: bf16 and fp16 run the forward and both backward
 // sweeps on the tensor cores (flash_fwd_tc_kernel, flash_bwd_dkdv_tc_kernel,
 // flash_bwd_dq_tc_kernel); fp32 runs the three scalar kernels,
 // whose fp32 products are what the Pallas kernels compute at fp32 (TF32
-// tensor cores would not be). At bf16, p and dS enter their second products
-// rounded to bf16, as the Pallas kernels round them (p_acc.astype(v.dtype),
+// tensor cores would not be). At bf16 and fp16, p and dS enter their second
+// products rounded to the storage dtype, as the Pallas kernels round them (p_acc.astype(v.dtype),
 // p_drop.astype(do.dtype), ds.astype(q.dtype), ds.astype(k.dtype)).
 //
 // Blocks run in parallel with no order, so the sequential grid axis of the
 // Pallas kernels becomes a loop inside one thread block, and the two
 // backward sweeps write disjoint outputs, with no atomics.
 //
-// Tensor-core kernels (bf16, sm_90a). Bound at the GPT-2 slice shape
+// Tensor-core kernels (bf16 and fp16, one instantiation each, sm_90a). Bound at the GPT-2 slice shape
 // (8, 16, 1024, 64) causal: the forward by bytes (0.020 ms), the dK/dV and
 // dQ sweeps by operations (0.035 and 0.026 ms); all sit well above it,
 // held back by the element-wise softmax work between the products, not by
@@ -44,10 +47,10 @@
 //     columns past the tensor arrive as zeros) into a 2-stage ring signalled
 //     by mbarriers; the producer loads while the consumers compute; the
 //     dK/dV producer also stages each q tile's lse and delta;
-//   - wgmma m64n64k16 bf16 with fp32 accumulators: S = Q.K^T (forward, dQ),
+//   - wgmma m64n64k16 bf16 (fp16) with fp32 accumulators: S = Q.K^T (forward, dQ),
 //     dP = dO.V^T (dQ) and S^T = K.Q^T, dP^T = V.dO^T (dK/dV) with both
 //     operands in shared memory; p (forward), dS (dQ) and p_drop^T, dS^T
-//     (dK/dV) go from the fp32 accumulator registers pairwise to bf16 and
+//     (dK/dV) go from the fp32 accumulator registers pairwise to bf16 (fp16) and
 //     are the register A operand of O += P.V, dQ += dS.K, dV += p_drop^T.dO,
 //     dK += dS^T.Q, whose B operands (V, K, dO, Q) are read MN-major from the
 //     same swizzled tiles: nothing is transposed and P never goes to shared
@@ -70,6 +73,7 @@
 // kernel.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -105,17 +109,19 @@ struct FlashParams {
   int use_dropout;
   uint32_t drop_threshold;
   float drop_inv_keep;  // 1 / (1 - rate)
-  uint32_t seed;
+  const int32_t* seed;  // dropout seed: one device int32, read by the kernel
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ __half from_float<__half>(float x) { return __float2half(x); }
 
 __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   h ^= h >> 16;
@@ -125,9 +131,16 @@ __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   return h ^ (h >> 16);
 }
 
+// the dropout seed, read once by each thread that needs it: the wrapper
+// passes the device int32 that the caller drew, so no launch waits on the
+// host for it
+__device__ __forceinline__ uint32_t load_seed(const FlashParams& p) {
+  return p.use_dropout ? static_cast<uint32_t>(__ldg(p.seed)) : 0u;
+}
+
 // _dropout_keep: the keep decision for global position (bh, qi, kj)
-__device__ __forceinline__ bool dropout_keep(const FlashParams& p, int bh, int qi, int kj) {
-  uint32_t seed = p.seed + 0x9E3779B9u * (uint32_t)bh;
+__device__ __forceinline__ bool dropout_keep(const FlashParams& p, uint32_t seed, int bh, int qi, int kj) {
+  seed += 0x9E3779B9u * (uint32_t)bh;
   uint32_t rh = mix32(seed ^ (uint32_t)qi);
   uint32_t h = mix32(rh ^ (0x27D4EB2Fu * (uint32_t)kj));
   return h >= p.drop_threshold;
@@ -230,6 +243,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
   const T* v = static_cast<const T*>(p.v) + (size_t)bh * p.s_k * D;
 
   load_tile<T, D>(Qs, q, q0, p.s_q, tid);
+  const uint32_t seed = load_seed(p);
 
   float acc[4][NJ];
   float m[4], l[4];
@@ -276,7 +290,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
         // the denominator takes the undropped p; dropout scales only the
         // value accumulation
         float pa = pr;
-        if (p.use_dropout) pa = dropout_keep(p, bh, qi, kj) ? pr * p.drop_inv_keep : 0.f;
+        if (p.use_dropout) pa = dropout_keep(p, seed, bh, qi, kj) ? pr * p.drop_inv_keep : 0.f;
         Ps[(ty + 16 * i) * kScorePitch + tx + 16 * j] = pa;
       }
       l[i] = l[i] * alpha + half_warp_sum(row_sum);
@@ -304,7 +318,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
 // where dp' is dO.v^T with the dropout keep mask and 1/(1-rate) applied;
 // writes p (dropped and rescaled) to Pd when Pd is not null and ds to Ds
 template <typename T, int D>
-__device__ __forceinline__ void bwd_tile(const FlashParams& p, const float* Qs, const float* Ks,
+__device__ __forceinline__ void bwd_tile(const FlashParams& p, uint32_t seed, const float* Qs, const float* Ks,
                                          const float* Vs, const float* dOs, const float* lse_s,
                                          const float* delta_s, float* Pd, float* Ds, int bh, int q0,
                                          int k0, int ty, int tx) {
@@ -325,7 +339,7 @@ __device__ __forceinline__ void bwd_tile(const FlashParams& p, const float* Qs, 
         float dpv = dp[i][j];
         pd = pr;
         if (p.use_dropout) {
-          const bool keep = dropout_keep(p, bh, qi, kj);
+          const bool keep = dropout_keep(p, seed, bh, qi, kj);
           pd = keep ? pr * p.drop_inv_keep : 0.f;
           dpv = keep ? dpv * p.drop_inv_keep : 0.f;
         }
@@ -364,6 +378,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(FlashParams p)
 
   load_tile<T, D>(Ks, static_cast<const T*>(p.k) + k_off, k0, p.s_k, tid);
   load_tile<T, D>(Vs, static_cast<const T*>(p.v) + k_off, k0, p.s_k, tid);
+  const uint32_t seed = load_seed(p);
 
   float dk[4][NJ], dv[4][NJ];
 #pragma unroll
@@ -384,7 +399,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(FlashParams p)
       delta_s[tid] = qi < p.s_q ? delta[qi] : 0.f;
     }
     __syncthreads();
-    bwd_tile<T, D>(p, Qs, Ks, Vs, dOs, lse_s, delta_s, Ps, Ds, bh, q0, k0, ty, tx);
+    bwd_tile<T, D>(p, seed, Qs, Ks, Vs, dOs, lse_s, delta_s, Ps, Ds, bh, q0, k0, ty, tx);
     __syncthreads();
     // dv += p_drop^T . dO ; dk += ds^T . q  (rows of dk/dv are k positions)
     tile_acc<D, true>(dv, Ps, dOs, ty, tx);
@@ -428,6 +443,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(FlashParams p) {
 
   load_tile<T, D>(Qs, static_cast<const T*>(p.q) + q_off, q0, p.s_q, tid);
   load_tile<T, D>(dOs, static_cast<const T*>(p.dout) + q_off, q0, p.s_q, tid);
+  const uint32_t seed = load_seed(p);
   if (tid < kTile) {
     const int qi = q0 + tid;
     lse_s[tid] = qi < p.s_q ? p.lse[(size_t)bh * p.s_q + qi] : 0.f;
@@ -448,7 +464,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(FlashParams p) {
     load_tile<T, D>(Ks, k, k0, p.s_k, tid);
     load_tile<T, D>(Vs, v, k0, p.s_k, tid);
     __syncthreads();
-    bwd_tile<T, D>(p, Qs, Ks, Vs, dOs, lse_s, delta_s, nullptr, Ds, bh, q0, k0, ty, tx);
+    bwd_tile<T, D>(p, seed, Qs, Ks, Vs, dOs, lse_s, delta_s, nullptr, Ds, bh, q0, k0, ty, tx);
     __syncthreads();
     tile_acc<D, false>(dq, Ds, Ks, ty, tx);  // dq += ds . k
   }
@@ -464,7 +480,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(FlashParams p) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernels (B1 forward, B2 dK/dV): wgmma + TMA + mbarriers
+// tensor-core kernels (B1 forward, B2 dK/dV, B3 dQ) at bf16 and fp16: wgmma +
+// TMA + mbarriers
 // ---------------------------------------------------------------------------
 constexpr int kTcConsumerWarps = 8;                      // two consumer warpgroups
 constexpr int kTcThreads = 32 * kTcConsumerWarps + 32;   // + one producer warp
@@ -496,20 +513,43 @@ template <int D> constexpr size_t dq_tc_smem() {
 
 // _dropout_keep split in its row and column halves: the row hash of (bh, qi)
 // is computed once per row, the column mix per element
-__device__ __forceinline__ uint32_t dropout_row_hash(const FlashParams& p, int bh, int qi) {
-  return mix32((p.seed + 0x9E3779B9u * (uint32_t)bh) ^ (uint32_t)qi);
+__device__ __forceinline__ uint32_t dropout_row_hash(uint32_t seed, int bh, int qi) {
+  return mix32((seed + 0x9E3779B9u * (uint32_t)bh) ^ (uint32_t)qi);
 }
 __device__ __forceinline__ bool dropout_keep_row(const FlashParams& p, uint32_t row_hash, int kj) {
   return mix32(row_hash ^ (0x27D4EB2Fu * (uint32_t)kj)) >= p.drop_threshold;
 }
 
+// The 2-byte element types of the tensor-core kernels: bf16 and fp16 take
+// the same tiles, swizzle and products, and differ in the wgmma form, the
+// rounding of fp32 pairs and the TMA element type.
+template <typename T> struct TcElem;
+template <> struct TcElem<__nv_bfloat16> {
+  static constexpr bool kHalf = false;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+};
+template <> struct TcElem<__half> {
+  static constexpr bool kHalf = true;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+};
+
 // The 4 A-operand registers of k-step `c` (16 columns) taken from a 64-column
-// fp32 accumulator, each pair rounded to bf16 (see hopper::wgmma_rs).
+// fp32 accumulator, each pair rounded to the element type (see
+// hopper::wgmma_rs).
+template <typename T>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&x)[32], int c) {
-  a[0] = hopper::pack_bf16(x[8 * c + 0], x[8 * c + 1]);
-  a[1] = hopper::pack_bf16(x[8 * c + 2], x[8 * c + 3]);
-  a[2] = hopper::pack_bf16(x[8 * c + 4], x[8 * c + 5]);
-  a[3] = hopper::pack_bf16(x[8 * c + 6], x[8 * c + 7]);
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    a[r] = TcElem<T>::kHalf ? hopper::pack_f16(x[8 * c + 2 * r], x[8 * c + 2 * r + 1])
+                            : hopper::pack_bf16(x[8 * c + 2 * r], x[8 * c + 2 * r + 1]);
+}
+
+// two adjacent output elements from fp32, round to nearest even
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float lo, float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(lo, hi);
+}
+__device__ __forceinline__ void store_pair(__half* dst, float lo, float hi) {
+  *reinterpret_cast<__half2*>(dst) = __floats2half2_rn(lo, hi);
 }
 
 // B1. One block per (bh, 128-row q tile): warps 0-7 are two consumer
@@ -517,9 +557,9 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&x)[32],
 // q tile once and the k/v tiles (128 rows) into a 2-stage ring by TMA; each
 // consumer warpgroup computes S = Q.K^T by wgmma (both operands in shared
 // memory), the masked online softmax on S's accumulator registers, and
-// O += P.V with P converted to bf16 in registers as the A operand and V read
+// O += P.V with P converted to the element type in registers as the A operand and V read
 // MN-major from shared memory, then frees the stage.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                         const __grid_constant__ CUtensorMap tm_v, FlashParams p) {
@@ -578,6 +618,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   // rows row[h] = q0 + 64 wg + 16 w + lane/4 + 8h and, in each 8-column
   // group j of an accumulator, columns 8j + c_off + {0, 1}
   const int wg = warp / 4, w = warp % 4;
+  const uint32_t seed = load_seed(p);
   const int c_off = 2 * (lane % 4);
   const int wg_q0 = q0 + 64 * wg;
   int row[2];
@@ -585,7 +626,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     row[h] = wg_q0 + 16 * w + lane / 4 + 8 * h;
-    row_hash[h] = p.use_dropout ? dropout_row_hash(p, bh, row[h]) : 0u;
+    row_hash[h] = p.use_dropout ? dropout_row_hash(seed, bh, row[h]) : 0u;
   }
   const float* key_bias = p.bias_kind == 1 ? p.bias + (size_t)(bh / p.heads) * p.s_k : nullptr;
 
@@ -607,12 +648,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     wgmma_fence();
 #pragma unroll
     for (int kd = 0; kd < KD; ++kd) {
-      const uint32_t col = (kd % 4) * 32;  // 16 bf16 further along the swizzled row
+      const uint32_t col = (kd % 4) * 32;  // 16 elements further along the swizzled row
       const uint64_t da = desc_k_major(sQ + (kd / 4) * kFwdRowsQ * kRowBytes + wg * 64 * kRowBytes + col);
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         const uint64_t db = desc_k_major(sK + (kd / 4) * kFwdRowsK * kRowBytes + n * 64 * kRowBytes + col);
-        wgmma_ss(sc[n], da, db, kd > 0);
+        wgmma_ss<TcElem<T>::kHalf>(sc[n], da, db, kd > 0);
       }
     }
     wgmma_commit();
@@ -672,7 +713,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     }
 
     // p = exp(s - m): the undropped p feeds the denominator; p_acc (dropout
-    // applied) goes to bf16 as the A operand of P.V
+    // applied) goes to the element type as the A operand of P.V
     uint32_t pa[8][4];
     float row_sum[2] = {0.f, 0.f};
 #pragma unroll
@@ -694,7 +735,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
     for (int n = 0; n < 2; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc_to_a(pa[4 * n + c], sc[n], c);
+      for (int c = 0; c < 4; ++c) acc_to_a<T>(pa[4 * n + c], sc[n], c);
 #pragma unroll
     for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + row_sum[h];  // per-thread share of the row
 #pragma unroll
@@ -708,7 +749,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     for (int kk = 0; kk < kFwdRowsK / 16; ++kk)
 #pragma unroll
       for (int pp = 0; pp < NP; ++pp)
-        wgmma_rs(o[pp], pa[kk], desc_mn_major(sV + pp * kFwdRowsK * kRowBytes + kk * 16 * kRowBytes));
+        wgmma_rs<TcElem<T>::kHalf>(o[pp], pa[kk], desc_mn_major(sV + pp * kFwdRowsK * kRowBytes + kk * 16 * kRowBytes));
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
@@ -719,7 +760,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     if (lane == 0) mbar_arrive(bar_empty + 8 * s);
   }
 
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + (size_t)bh * p.s_q * D;
+  T* out = static_cast<T*>(p.out) + (size_t)bh * p.s_q * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float lt = quad_sum(l[h]);
@@ -731,8 +772,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       for (int j = 0; j < 8; ++j) {
         const int col = 64 * pp + 8 * j + c_off;
         if (col < D) {
-          *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row[h] * D + col) =
-              __floats2bfloat162_rn(o[pp][4 * j + 2 * h] / l_safe, o[pp][4 * j + 2 * h + 1] / l_safe);
+          store_pair(out + (size_t)row[h] * D + col, o[pp][4 * j + 2 * h] / l_safe,
+                     o[pp][4 * j + 2 * h + 1] / l_safe);
         }
       }
     if (lane % 4 == 0) p.lse_out[(size_t)bh * p.s_q + row[h]] = m[h] + logf(l_safe);
@@ -744,10 +785,10 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 // and V once and the q / dO tiles (64 rows, with their lse and delta) into a
 // 2-stage ring. Each consumer warpgroup computes the transposed products
 // S^T = K.Q^T and dP^T = V.dO^T by wgmma, p^T and dS^T on the accumulator
-// registers, and dV += p_drop^T.dO, dK += dS^T.Q with both converted to bf16
+// registers, and dV += p_drop^T.dO, dK += dS^T.Q with both converted to the element type
 // as register A operands and dO, Q read MN-major from shared memory. dK and
 // dV stay in fp32 registers and have one writer each.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
@@ -823,6 +864,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   // rows kr[h] = k0 + 64 wg + 16 w + lane/4 + 8h and, in each 8-column group
   // j of an accumulator, q columns 8j + c_off + {0, 1}
   const int wg = warp / 4, w = warp % 4;
+  const uint32_t seed = load_seed(p);
   const int c_off = 2 * (lane % 4);
   int kr[2];
   float kbias[2] = {0.f, 0.f};
@@ -854,8 +896,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     for (int kd = 0; kd < KD; ++kd) {
       const uint32_t a_off = (kd / 4) * kBwdRowsK * kRowBytes + wg * 64 * kRowBytes + (kd % 4) * 32;
       const uint32_t b_off = (kd / 4) * kBwdRowsQ * kRowBytes + (kd % 4) * 32;
-      wgmma_ss(st, desc_k_major(sK + a_off), desc_k_major(sQ + b_off), kd > 0);
-      wgmma_ss(dpt, desc_k_major(sV + a_off), desc_k_major(sDO + b_off), kd > 0);
+      wgmma_ss<TcElem<T>::kHalf>(st, desc_k_major(sK + a_off), desc_k_major(sQ + b_off), kd > 0);
+      wgmma_ss<TcElem<T>::kHalf>(dpt, desc_k_major(sV + a_off), desc_k_major(sDO + b_off), kd > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -882,14 +924,14 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     }
     // p = exp(s - lse) with expf of the difference, as the plain version
     // computes it (exp2f of a product with log2(e) adds ~1e-6 relative
-    // error, which moves more dS values across a bf16 rounding boundary);
+    // error, which moves more dS values across a rounding boundary);
     // dS = p (dp - delta) scale, with dropout on p_drop and dp
 #pragma unroll
     for (int i = 0; i < 32; ++i) st[i] = expf(st[i] - lse_s[tc_col(i, c_off)]);
     if (p.use_dropout) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
-        const bool keep = dropout_keep(p, bh, q0 + tc_col(i, c_off), kr[(i >> 1) & 1]);
+        const bool keep = dropout_keep(p, seed, bh, q0 + tc_col(i, c_off), kr[(i >> 1) & 1]);
         const float dpv = keep ? dpt[i] * p.drop_inv_keep : 0.f;
         dpt[i] = st[i] * (dpv - delta_s[tc_col(i, c_off)]) * p.scale;
         st[i] = keep ? st[i] * p.drop_inv_keep : 0.f;
@@ -906,8 +948,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     uint32_t pa[4][4], da[4][4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) {
-      acc_to_a(pa[c], st, c);
-      acc_to_a(da[c], dpt, c);
+      acc_to_a<T>(pa[c], st, c);
+      acc_to_a<T>(da[c], dpt, c);
     }
 
     // dV += p_drop^T . dO and dK += dS^T . Q, dO and Q MN-major: k-step kk
@@ -918,8 +960,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
       for (int pp = 0; pp < NP; ++pp) {
         const uint32_t off = pp * kBwdRowsQ * kRowBytes + kk * 16 * kRowBytes;
-        wgmma_rs(dv[pp], pa[kk], desc_mn_major(sDO + off));
-        wgmma_rs(dk[pp], da[kk], desc_mn_major(sQ + off));
+        wgmma_rs<TcElem<T>::kHalf>(dv[pp], pa[kk], desc_mn_major(sDO + off));
+        wgmma_rs<TcElem<T>::kHalf>(dk[pp], da[kk], desc_mn_major(sQ + off));
       }
     wgmma_commit();
     wgmma_wait<0>();
@@ -937,8 +979,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     if (lane == 0) mbar_arrive(bar_empty + 8 * s);
   }
 
-  __nv_bfloat16* dk_out = static_cast<__nv_bfloat16*>(p.dk) + (size_t)bh * p.s_k * D;
-  __nv_bfloat16* dv_out = static_cast<__nv_bfloat16*>(p.dv) + (size_t)bh * p.s_k * D;
+  T* dk_out = static_cast<T*>(p.dk) + (size_t)bh * p.s_k * D;
+  T* dv_out = static_cast<T*>(p.dv) + (size_t)bh * p.s_k * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (kr[h] >= p.s_k) continue;
@@ -949,10 +991,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
         const int col = 64 * pp + 8 * j + c_off;
         if (col < D) {
           const size_t at = (size_t)kr[h] * D + col;
-          *reinterpret_cast<__nv_bfloat162*>(dk_out + at) =
-              __floats2bfloat162_rn(dk[pp][4 * j + 2 * h], dk[pp][4 * j + 2 * h + 1]);
-          *reinterpret_cast<__nv_bfloat162*>(dv_out + at) =
-              __floats2bfloat162_rn(dv[pp][4 * j + 2 * h], dv[pp][4 * j + 2 * h + 1]);
+          store_pair(dk_out + at, dk[pp][4 * j + 2 * h], dk[pp][4 * j + 2 * h + 1]);
+          store_pair(dv_out + at, dv[pp][4 * j + 2 * h], dv[pp][4 * j + 2 * h + 1]);
         }
       }
   }
@@ -963,12 +1003,12 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 // Q and dO tiles once and the k/v tiles (64 rows) into a 2-stage ring by
 // TMA. Each consumer warpgroup computes S = Q.K^T and dP = dO.V^T by wgmma
 // (both operands in shared memory, K-major as stored), p and dS on the
-// accumulator registers, and dQ += dS.K with dS rounded pairwise to bf16 as
+// accumulator registers, and dQ += dS.K with dS rounded pairwise to the element type as
 // the register A operand and K read MN-major from the same swizzled tile.
 // dQ stays in fp32 registers and has one writer. 64-row k tiles keep the
 // S, dP and dQ accumulators (64 + 64 + D/2 fp32 registers a thread) inside
 // the register budget of 288 threads at one block per SM.
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kTcThreads, 1)
     flash_bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                            const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
@@ -1031,6 +1071,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   // rows row[h] = q0 + 64 wg + 16 w + lane/4 + 8h and, in each 8-column
   // group j of an accumulator, k columns 8j + c_off + {0, 1}
   const int wg = warp / 4, w = warp % 4;
+  const uint32_t seed = load_seed(p);
   const int c_off = 2 * (lane % 4);
   const int wg_q0 = q0 + 64 * wg;
   int row[2];
@@ -1040,7 +1081,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     row[h] = wg_q0 + 16 * w + lane / 4 + 8 * h;
-    row_hash[h] = p.use_dropout ? dropout_row_hash(p, bh, row[h]) : 0u;
+    row_hash[h] = p.use_dropout ? dropout_row_hash(seed, bh, row[h]) : 0u;
     // padding rows read an in-range row; they are never written
     const int rc = min(row[h], p.s_q - 1);
     lse[h] = p.lse[(size_t)bh * p.s_q + rc];
@@ -1075,8 +1116,8 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     for (int kd = 0; kd < KD; ++kd) {
       const uint32_t a_off = (kd / 4) * kDqRowsQ * kRowBytes + wg * 64 * kRowBytes + (kd % 4) * 32;
       const uint32_t b_off = (kd / 4) * kDqRowsK * kRowBytes + (kd % 4) * 32;
-      wgmma_ss(sc, desc_k_major(sQ + a_off), desc_k_major(sK + b_off), kd > 0);
-      wgmma_ss(dp, desc_k_major(sDO + a_off), desc_k_major(sV + b_off), kd > 0);
+      wgmma_ss<TcElem<T>::kHalf>(sc, desc_k_major(sQ + a_off), desc_k_major(sK + b_off), kd > 0);
+      wgmma_ss<TcElem<T>::kHalf>(dp, desc_k_major(sDO + a_off), desc_k_major(sV + b_off), kd > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -1121,7 +1162,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     }
     uint32_t da[4][4];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc_to_a(da[c], dp, c);
+    for (int c = 0; c < 4; ++c) acc_to_a<T>(da[c], dp, c);
 
     // dQ += dS . K, K MN-major: k-step kk reads k rows 16 kk .. 16 kk + 15
     wgmma_fence();
@@ -1129,7 +1170,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     for (int kk = 0; kk < kDqRowsK / 16; ++kk)
 #pragma unroll
       for (int pp = 0; pp < NP; ++pp)
-        wgmma_rs(dq[pp], da[kk], desc_mn_major(sK + pp * kDqRowsK * kRowBytes + kk * 16 * kRowBytes));
+        wgmma_rs<TcElem<T>::kHalf>(dq[pp], da[kk], desc_mn_major(sK + pp * kDqRowsK * kRowBytes + kk * 16 * kRowBytes));
     wgmma_commit();
     wgmma_wait<0>();
 #pragma unroll
@@ -1140,7 +1181,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     if (lane == 0) mbar_arrive(bar_empty + 8 * s);
   }
 
-  __nv_bfloat16* dq_out = static_cast<__nv_bfloat16*>(p.dq) + (size_t)bh * p.s_q * D;
+  T* dq_out = static_cast<T*>(p.dq) + (size_t)bh * p.s_q * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (row[h] >= p.s_q) continue;
@@ -1150,8 +1191,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
       for (int j = 0; j < 8; ++j) {
         const int col = 64 * pp + 8 * j + c_off;
         if (col < D) {
-          *reinterpret_cast<__nv_bfloat162*>(dq_out + (size_t)row[h] * D + col) =
-              __floats2bfloat162_rn(dq[pp][4 * j + 2 * h], dq[pp][4 * j + 2 * h + 1]);
+          store_pair(dq_out + (size_t)row[h] * D + col, dq[pp][4 * j + 2 * h], dq[pp][4 * j + 2 * h + 1]);
         }
       }
   }
@@ -1159,51 +1199,54 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 
 constexpr int kErrTensorMap = -3;  // a tensor map could not be encoded (or a pointer is unaligned)
 
-template <int D>
+template <typename T, int D>
 int launch_fwd_tc(const FlashParams& p, int bh, cudaStream_t stream) {
   using hopper::make_tile_map;
   CUtensorMap tq, tk, tv;
-  if (!make_tile_map<D>(&tq, p.q, p.s_q, bh, kFwdRowsQ) || !make_tile_map<D>(&tk, p.k, p.s_k, bh, kFwdRowsK) ||
-      !make_tile_map<D>(&tv, p.v, p.s_k, bh, kFwdRowsK))
+  constexpr CUtensorMapDataType type = TcElem<T>::kMap;
+  if (!make_tile_map<D>(&tq, p.q, p.s_q, bh, kFwdRowsQ, type) || !make_tile_map<D>(&tk, p.k, p.s_k, bh, kFwdRowsK, type) ||
+      !make_tile_map<D>(&tv, p.v, p.s_k, bh, kFwdRowsK, type))
     return kErrTensorMap;
   constexpr size_t smem = fwd_tc_smem<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t e = cudaFuncSetAttribute(flash_fwd_tc_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(bh, (p.s_q + kFwdRowsQ - 1) / kFwdRowsQ);
-  flash_fwd_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, p);
+  flash_fwd_tc_kernel<T, D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dkdv_tc(const FlashParams& p, int bh, cudaStream_t stream) {
   using hopper::make_tile_map;
   CUtensorMap tq, tk, tv, tdo;
-  if (!make_tile_map<D>(&tq, p.q, p.s_q, bh, kBwdRowsQ) || !make_tile_map<D>(&tk, p.k, p.s_k, bh, kBwdRowsK) ||
-      !make_tile_map<D>(&tv, p.v, p.s_k, bh, kBwdRowsK) || !make_tile_map<D>(&tdo, p.dout, p.s_q, bh, kBwdRowsQ))
+  constexpr CUtensorMapDataType type = TcElem<T>::kMap;
+  if (!make_tile_map<D>(&tq, p.q, p.s_q, bh, kBwdRowsQ, type) || !make_tile_map<D>(&tk, p.k, p.s_k, bh, kBwdRowsK, type) ||
+      !make_tile_map<D>(&tv, p.v, p.s_k, bh, kBwdRowsK, type) || !make_tile_map<D>(&tdo, p.dout, p.s_q, bh, kBwdRowsQ, type))
     return kErrTensorMap;
   constexpr size_t smem = dkdv_tc_smem<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dkdv_tc_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(bh, (p.s_k + kBwdRowsK - 1) / kBwdRowsK);
-  flash_bwd_dkdv_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, tdo, p);
+  flash_bwd_dkdv_tc_kernel<T, D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, tdo, p);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int launch_dq_tc(const FlashParams& p, int bh, cudaStream_t stream) {
   using hopper::make_tile_map;
   CUtensorMap tq, tk, tv, tdo;
-  if (!make_tile_map<D>(&tq, p.q, p.s_q, bh, kDqRowsQ) || !make_tile_map<D>(&tk, p.k, p.s_k, bh, kDqRowsK) ||
-      !make_tile_map<D>(&tv, p.v, p.s_k, bh, kDqRowsK) || !make_tile_map<D>(&tdo, p.dout, p.s_q, bh, kDqRowsQ))
+  constexpr CUtensorMapDataType type = TcElem<T>::kMap;
+  if (!make_tile_map<D>(&tq, p.q, p.s_q, bh, kDqRowsQ, type) || !make_tile_map<D>(&tk, p.k, p.s_k, bh, kDqRowsK, type) ||
+      !make_tile_map<D>(&tv, p.v, p.s_k, bh, kDqRowsK, type) || !make_tile_map<D>(&tdo, p.dout, p.s_q, bh, kDqRowsQ, type))
     return kErrTensorMap;
   constexpr size_t smem = dq_tc_smem<D>();
-  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t e = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(bh, (p.s_q + kDqRowsQ - 1) / kDqRowsQ);
-  flash_bwd_dq_tc_kernel<D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, tdo, p);
+  flash_bwd_dq_tc_kernel<T, D><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, tdo, p);
   return (int)cudaGetLastError();
 }
 
@@ -1228,7 +1271,7 @@ int launch_scalar(Kernel kernel, size_t smem, dim3 grid, const FlashParams& p, c
   return (int)cudaGetLastError();
 }
 
-// bf16 runs the three tensor-core kernels; every fp32 kernel runs the scalar
+// bf16 and fp16 run the three tensor-core kernels; every fp32 kernel runs the scalar
 // kernels (fp32 products, as the Pallas kernels compute them at fp32).
 // Decided by dtype before launch, never by a retry. `scalar` launches the
 // scalar dQ sweep at bf16 too: the route the tensor-core one replaced, kept
@@ -1237,10 +1280,10 @@ template <typename T, int D>
 int launch_typed(Which which, const FlashParams& p, int bh, cudaStream_t stream, bool scalar) {
   const int n_q_tiles = (p.s_q + kTile - 1) / kTile;
   const int n_k_tiles = (p.s_k + kTile - 1) / kTile;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (which == kFwd) return launch_fwd_tc<D>(p, bh, stream);
-    if (which == kDkdv) return launch_dkdv_tc<D>(p, bh, stream);
-    if (!scalar) return launch_dq_tc<D>(p, bh, stream);
+  if constexpr (!std::is_same<T, float>::value) {
+    if (which == kFwd) return launch_fwd_tc<T, D>(p, bh, stream);
+    if (which == kDkdv) return launch_dkdv_tc<T, D>(p, bh, stream);
+    if (!scalar) return launch_dq_tc<T, D>(p, bh, stream);
     return launch_scalar(flash_bwd_dq_kernel<T, D>, dq_smem<D>(), dim3(n_q_tiles, bh), p, stream);
   } else {
     if (which == kFwd) return launch_scalar(flash_fwd_kernel<T, D>, fwd_smem<D>(), dim3(n_q_tiles, bh), p, stream);
@@ -1265,12 +1308,13 @@ int launch(Which which, const FlashParams& p, int dtype, int head_dim, int bh, v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_dim<float>(which, p, head_dim, bh, s, scalar);
   if (dtype == 1) return launch_dim<__nv_bfloat16>(which, p, head_dim, bh, s, scalar);
+  if (dtype == 2) return launch_dim<__half>(which, p, head_dim, bh, s, scalar);
   return -2;
 }
 
 FlashParams make_params(const void* q, const void* k, const void* v, const void* bias, int heads, int s_q,
                         int s_k, float scale, int causal, int bias_kind, int use_dropout,
-                        unsigned int threshold, float inv_keep, unsigned int seed) {
+                        unsigned int threshold, float inv_keep, const void* seed) {
   FlashParams p = {};
   p.q = q;
   p.k = k;
@@ -1285,22 +1329,23 @@ FlashParams make_params(const void* q, const void* k, const void* v, const void*
   p.use_dropout = use_dropout;
   p.drop_threshold = threshold;
   p.drop_inv_keep = inv_keep;
-  p.seed = seed;
+  p.seed = static_cast<const int32_t*>(seed);
   return p;
 }
 
 }  // namespace
 
-// Plain C interface (loaded with ctypes). dtype: 0 fp32, 1 bf16. Each
+// Plain C interface (loaded with ctypes). dtype: 0 fp32, 1 bf16, 2 fp16;
+// seed: a device int32 (read only with dropout). Each
 // function launches on `stream` and returns cudaGetLastError() (0 = launched),
-// -1 for an unsupported head_dim, -2 for an unsupported dtype, -3 when a bf16
+// -1 for an unsupported head_dim, -2 for an unsupported dtype, -3 when a bf16 or fp16
 // operand's TMA tensor map cannot be made (unaligned pointer, or the driver
 // has no cuTensorMapEncodeTiled).
 extern "C" {
 
 int ds_flash_fwd(const void* q, const void* k, const void* v, const void* bias, void* out, void* lse,
                  int dtype, int head_dim, int bh, int heads, int s_q, int s_k, float scale, int causal,
-                 int bias_kind, int use_dropout, unsigned int threshold, float inv_keep, unsigned int seed,
+                 int bias_kind, int use_dropout, unsigned int threshold, float inv_keep, const void* seed,
                  void* stream) {
   FlashParams p = make_params(q, k, v, bias, heads, s_q, s_k, scale, causal, bias_kind, use_dropout,
                               threshold, inv_keep, seed);
@@ -1312,7 +1357,7 @@ int ds_flash_fwd(const void* q, const void* k, const void* v, const void* bias, 
 int ds_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* bias, const void* dout,
                       const void* lse, const void* delta, void* dk, void* dv, int dtype, int head_dim, int bh,
                       int heads, int s_q, int s_k, float scale, int causal, int bias_kind, int use_dropout,
-                      unsigned int threshold, float inv_keep, unsigned int seed, void* stream) {
+                      unsigned int threshold, float inv_keep, const void* seed, void* stream) {
   FlashParams p = make_params(q, k, v, bias, heads, s_q, s_k, scale, causal, bias_kind, use_dropout,
                               threshold, inv_keep, seed);
   p.dout = dout;
@@ -1326,7 +1371,7 @@ int ds_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* b
 int ds_flash_bwd_dq(const void* q, const void* k, const void* v, const void* bias, const void* dout,
                     const void* lse, const void* delta, void* dq, int dtype, int head_dim, int bh, int heads,
                     int s_q, int s_k, float scale, int causal, int bias_kind, int use_dropout,
-                    unsigned int threshold, float inv_keep, unsigned int seed, void* stream) {
+                    unsigned int threshold, float inv_keep, const void* seed, void* stream) {
   FlashParams p = make_params(q, k, v, bias, heads, s_q, s_k, scale, causal, bias_kind, use_dropout,
                               threshold, inv_keep, seed);
   p.dout = dout;
@@ -1341,7 +1386,7 @@ int ds_flash_bwd_dq(const void* q, const void* k, const void* v, const void* bia
 int ds_flash_bwd_dq_scalar(const void* q, const void* k, const void* v, const void* bias, const void* dout,
                            const void* lse, const void* delta, void* dq, int dtype, int head_dim, int bh,
                            int heads, int s_q, int s_k, float scale, int causal, int bias_kind, int use_dropout,
-                           unsigned int threshold, float inv_keep, unsigned int seed, void* stream) {
+                           unsigned int threshold, float inv_keep, const void* seed, void* stream) {
   FlashParams p = make_params(q, k, v, bias, heads, s_q, s_k, scale, causal, bias_kind, use_dropout,
                               threshold, inv_keep, seed);
   p.dout = dout;

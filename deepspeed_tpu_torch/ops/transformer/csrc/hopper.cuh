@@ -1,10 +1,10 @@
 // Hopper (sm_90a) building blocks as inline PTX: mbarriers, TMA tile loads,
-// wgmma shared-memory descriptors and the m64n64k16 bf16 warpgroup product;
-// and, on the host, the TMA tensor maps. Shared by flash_attention.cu and
+// wgmma shared-memory descriptors and the m64n64k16 bf16 and fp16 warpgroup
+// products; and, on the host, the TMA tensor maps. Shared by flash_attention.cu and
 // ../../sparse_attention/csrc/block_sparse_attention.cu.
 //
 // Tiles live in shared memory as 128-byte-swizzled panels: a panel holds 64
-// bf16 columns of every row of a tile, one 128-byte row per tile row, and
+// 2-byte (bf16 or fp16) columns of every row of a tile, one 128-byte row per tile row, and
 // starts at a 1024-byte-aligned address. TMA writes that layout
 // (CU_TENSOR_MAP_SWIZZLE_128B with a 64-column box), and the same panel is
 // read by wgmma either K-major (the 64 columns are the reduction axis) or
@@ -130,40 +130,66 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[4]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, "   \
   "%21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
 
-// d(64x64, fp32) (+)= A(64x16) . B(16x64), A and B bf16 in shared memory,
-// both K-major (B stored as its N rows of K values: the product is A . B^T
-// of two row-major tiles). Accumulator layout (per thread t of the
-// warpgroup, warp w = t / 32, lane l = t % 32): d[4j + 2h + e] is row
-// 16w + l/4 + 8h, column 8j + 2(l%4) + e.
+// d(64x64, fp32) (+)= A(64x16) . B(16x64), A and B bf16 (fp16 when kHalf) in
+// shared memory, both K-major (B stored as its N rows of K values: the
+// product is A . B^T of two row-major tiles). Accumulator layout (per thread
+// t of the warpgroup, warp w = t / 32, lane l = t % 32): d[4j + 2h + e] is
+// row 16w + l/4 + 8h, column 8j + 2(l%4) + e.
+template <bool kHalf = false>
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_LIST
-      ", %32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : HOPPER_D32(d)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  if constexpr (kHalf) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " HOPPER_D32_LIST
+        ", %32, %33, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : HOPPER_D32(d)
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_LIST
+        ", %32, %33, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : HOPPER_D32(d)
+        : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+  }
 }
 
-// d(64x64, fp32) += A(64x16) . B(16x64), A bf16 in registers, B bf16 in
-// shared memory MN-major (stored as its K rows of N values: a row-major
-// tile used as it is). a[0..3] hold, as bf16 pairs (low half first): (row l/4, columns
-// 2(l%4) + {0,1}), (row l/4 + 8, same), (row l/4, 8 + 2(l%4) + {0,1}),
-// (row l/4 + 8, same) of warp w's 16 rows: the accumulator layout above, so
-// an fp32 accumulator converts pairwise into the A operand of the next
-// product.
+// d(64x64, fp32) += A(64x16) . B(16x64), A bf16 (fp16 when kHalf) in
+// registers, B of the same type in shared memory MN-major (stored as its K
+// rows of N values: a row-major tile used as it is). a[0..3] hold, as pairs
+// (low half first): (row l/4, columns 2(l%4) + {0,1}), (row l/4 + 8, same),
+// (row l/4, 8 + 2(l%4) + {0,1}), (row l/4 + 8, same) of warp w's 16 rows: the
+// accumulator layout above, so an fp32 accumulator converts pairwise into
+// the A operand of the next product.
+template <bool kHalf = false>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_LIST
-      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : HOPPER_D32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  if constexpr (kHalf) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " HOPPER_D32_LIST
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+        "}\n"
+        : HOPPER_D32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  } else {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " HOPPER_D32_LIST
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+        "}\n"
+        : HOPPER_D32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+  }
 }
 
 #undef HOPPER_D32
@@ -199,6 +225,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return r;
 }
 
+// the same as one fp16 pair (fp16's ulp is 2^-11 of a value, bf16's 2^-8)
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.f16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
 // ---------------------------------------------------------------------------
 // TMA tensor maps (host)
 // ---------------------------------------------------------------------------
@@ -224,19 +257,21 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-D map over a (bh, rows, D) bf16 tensor whose boxes are (1, box_rows,
+// A 3-D map over a (bh, rows, D) tensor of 2-byte elements (bf16, or
+// `type` fp16) whose boxes are (1, box_rows,
 // 64) in 128-byte-swizzled panels; out-of-range rows and columns read as
 // zero. False when the map cannot be made (a pointer that is not 16-byte
 // aligned, or a driver without cuTensorMapEncodeTiled).
 template <int D>
-bool make_tile_map(CUtensorMap* map, const void* ptr, int rows, int bh, int box_rows) {
+bool make_tile_map(CUtensorMap* map, const void* ptr, int rows, int bh, int box_rows,
+                   CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16 != 0) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)rows * D * 2};
   const cuuint32_t box[3] = {(cuuint32_t)kPanelCols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
+  const CUresult r = encode(map, type, 3, const_cast<void*>(ptr), dims, strides, box,
                             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS;

@@ -4,11 +4,11 @@ Port of deepspeed_tpu/ops/transformer/flash_attention.py. The three Pallas
 TPU kernels there (``_fwd_kernel``, ``_bwd_dkdv_kernel``, ``_bwd_dq_kernel``)
 are CUDA kernels here, in ``csrc/flash_attention.cu``, built for sm_90a at
 first use (ops/op_builder.py) and launched through ctypes on PyTorch's
-current stream. bf16 inputs run the forward and both backward sweeps on the
-tensor cores (wgmma, TMA); fp32 inputs run scalar fp32 kernels. At bf16, p
-and dS enter their second products rounded to
-bf16, in the kernels and in the plain versions alike, as the Pallas kernels
-round them.
+current stream. bf16 and fp16 inputs run the forward and both backward
+sweeps on the tensor cores (wgmma, TMA; one instantiation per element
+type); fp32 inputs run scalar fp32 kernels. At bf16 and fp16, p and dS enter
+their second products rounded to the storage dtype, in the kernels and in
+the plain versions alike, as the Pallas kernels round them.
 
 Each kernel has one wrapper (``flash_fwd``, ``flash_bwd_dkdv``,
 ``flash_bwd_dq``) and one plain PyTorch version of the same function
@@ -22,7 +22,9 @@ probabilities blockwise in two sweeps (dK/dV, then dQ), with
 package's ``_flash_bwd`` does. Attention dropout is the same
 murmur3-finalizer hash of (seed, batch*head, q, k) as ``_dropout_keep``, so
 the keep mask is a pure function of the seed and both backward sweeps
-regenerate it; nothing is stored.
+regenerate it; nothing is stored. The seed is an int32 tensor on the
+device (an int is accepted and copied there): the kernels read it
+themselves, so drawing it on the device costs no host sync.
 """
 from typing import Optional
 
@@ -31,7 +33,7 @@ import torch
 NEG_INF = -1e30
 HEAD_DIMS = (64, 96, 128)
 BIAS_KINDS = {"none": 0, "key": 1, "full": 2}
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # launches of each CUDA kernel since the last reset (plain runs not counted)
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkdv": 0, "flash_bwd_dq": 0}
 # block of the plain versions' loops: at fp32 any size gives the same
@@ -78,10 +80,12 @@ def dropout_keep_mask(seed: int, bh: int, q_start: int, q_len: int,
     q_start.., k_start.. for batch*head indices 0..bh-1."""
     rows = torch.arange(q_start, q_start + q_len, device=device,
                         dtype=torch.int64)
+    # an int or a one-element tensor (the int32 the kernels read)
+    seed = torch.as_tensor(seed, device=device).to(torch.int64).reshape(())
     cols = torch.arange(k_start, k_start + k_len, device=device,
                         dtype=torch.int64)
     heads = torch.arange(bh, device=device, dtype=torch.int64)
-    s = (int(seed) & _M32) + _mul32(heads, 0x9E3779B9)
+    s = (seed & _M32) + _mul32(heads, 0x9E3779B9)
     s = s & _M32
     rh = _mix32(s[:, None] ^ rows[None, :])                  # (bh, q)
     h = _mix32(rh[:, :, None] ^ _mul32(cols, 0x27D4EB2F)[None, None, :])
@@ -256,8 +260,8 @@ def _check_cuda(tensors, bias, bias_kind, num_heads):
                              "(batch*heads, seq, head_dim) tensors")
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype
                                      for t in tensors[:3]):
-        raise TypeError(f"flash attention kernels take float32 or bfloat16 "
-                        f"q/k/v of one dtype, got "
+        raise TypeError(f"flash attention kernels take float32, bfloat16 or "
+                        f"float16 q/k/v of one dtype, got "
                         f"{[t.dtype for t in tensors[:3]]}")
     bh, _, d = q.shape
     if d not in HEAD_DIMS:
@@ -266,11 +270,11 @@ def _check_cuda(tensors, bias, bias_kind, num_heads):
     if bh > 65535:
         raise ValueError(f"flash attention kernels take batch*heads <= "
                          f"65535, got {bh}")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
-                                         for t in tensors if t.dim() == 3):
-        # the tensor-core kernels read bf16 tiles by TMA
-        raise ValueError("flash attention: bf16 q/k/v/do must start at a "
-                         "16-byte-aligned address")
+    if q.dtype != torch.float32 and any(t.data_ptr() % 16
+                                        for t in tensors if t.dim() == 3):
+        # the tensor-core kernels read bf16 and fp16 tiles by TMA
+        raise ValueError("flash attention: bf16/fp16 q/k/v/do must start at "
+                         "a 16-byte-aligned address")
     if bias_kind != "none":
         if bias is None or bias.dtype != torch.float32 \
                 or bias.device != q.device or not bias.is_contiguous():
@@ -278,17 +282,34 @@ def _check_cuda(tensors, bias, bias_kind, num_heads):
                              "float32 tensor on the device of q")
 
 
+def _seed_tensor(seed, device):
+    """The dropout seed as the one int32 on ``device`` that the kernels
+    read: a tensor is used as it is (after a move, if it lies elsewhere),
+    an int is copied there."""
+    if isinstance(seed, torch.Tensor):
+        if seed.numel() != 1:
+            raise ValueError(f"flash attention: the dropout seed has "
+                             f"{seed.numel()} elements, expected 1")
+        return seed.to(device=device, dtype=torch.int32).reshape(())
+    s = int(seed) & _M32
+    return torch.tensor(s - (1 << 32) if s >= 1 << 31 else s,
+                        dtype=torch.int32, device=device)
+
+
 def _common_args(q, k, bias, seed, scale, causal, bias_kind, num_heads,
                  dropout_rate):
+    """(the C functions' trailing arguments, the seed tensor that they
+    point at, which the caller holds until the launch)."""
     bh, s_q, d = q.shape
     use_dropout = dropout_rate > 0.0
-    return [_DTYPES[q.dtype], d, bh, num_heads, s_q, k.shape[1],
+    seed_t = _seed_tensor(seed, q.device) if use_dropout else None
+    args = [_DTYPES[q.dtype], d, bh, num_heads, s_q, k.shape[1],
             float(scale), int(bool(causal)), BIAS_KINDS[bias_kind],
             int(use_dropout),
             dropout_threshold(dropout_rate) if use_dropout else 0,
             1.0 / (1.0 - dropout_rate) if use_dropout else 1.0,
-            (int(seed) & _M32) if use_dropout else 0,
-            torch.cuda.current_stream(q.device).cuda_stream]
+            _ptr(seed_t), torch.cuda.current_stream(q.device).cuda_stream]
+    return args, seed_t
 
 
 def _ptr(t):
@@ -296,7 +317,7 @@ def _ptr(t):
 
 
 _LAUNCH_ERRORS = {-1: "unsupported head_dim", -2: "unsupported dtype",
-                  -3: "no TMA tensor map for a bf16 operand (unaligned "
+                  -3: "no TMA tensor map for a bf16/fp16 operand (unaligned "
                       "pointer, or no cuTensorMapEncodeTiled in the driver)"}
 
 
@@ -327,10 +348,10 @@ def flash_fwd(q, k, v, bias, seed, *, scale, causal, bias_kind, num_heads,
     _check_cuda((q, k, v), bias, bias_kind, num_heads)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+    args, _seed = _common_args(q, k, bias, seed, scale, causal, bias_kind,
+                               num_heads, dropout_rate)
     err = _library().ds_flash_fwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse),
-        *_common_args(q, k, bias, seed, scale, causal, bias_kind, num_heads,
-                      dropout_rate))
+        _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), *args)
     _raise_on(err, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
     return out, lse
@@ -347,11 +368,11 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, bias, seed, *, scale, causal,
     _check_cuda((q, k, v, do, lse, delta), bias, bias_kind, num_heads)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    args, _seed = _common_args(q, k, bias, seed, scale, causal, bias_kind,
+                               num_heads, dropout_rate)
     err = _library().ds_flash_bwd_dkdv(
         _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(do), _ptr(lse),
-        _ptr(delta), _ptr(dk), _ptr(dv),
-        *_common_args(q, k, bias, seed, scale, causal, bias_kind, num_heads,
-                      dropout_rate))
+        _ptr(delta), _ptr(dk), _ptr(dv), *args)
     _raise_on(err, "flash_bwd_dkdv")
     LAUNCHES["flash_bwd_dkdv"] += 1
     return dk, dv
@@ -360,8 +381,8 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, bias, seed, *, scale, causal,
 def flash_bwd_dq(q, k, v, do, lse, delta, bias, seed, *, scale, causal,
                  bias_kind, num_heads, dropout_rate, scalar=False):
     """dQ sweep -> dq in the dtype of q. ``scalar`` launches the scalar
-    kernel at bf16 too (the route the tensor-core kernel replaced, to time
-    the two side by side); the model never asks for it."""
+    kernel at bf16 and fp16 too (the route the tensor-core kernel replaced,
+    to time the two side by side); the model never asks for it."""
     kw = dict(scale=scale, causal=causal, bias_kind=bias_kind,
               num_heads=num_heads, dropout_rate=dropout_rate)
     if not _route(q, "flash_bwd_dq"):
@@ -369,11 +390,11 @@ def flash_bwd_dq(q, k, v, do, lse, delta, bias, seed, *, scale, causal,
     _check_cuda((q, k, v, do, lse, delta), bias, bias_kind, num_heads)
     dq = torch.empty_like(q)
     lib = _library()
+    args, _seed = _common_args(q, k, bias, seed, scale, causal, bias_kind,
+                               num_heads, dropout_rate)
     err = (lib.ds_flash_bwd_dq_scalar if scalar else lib.ds_flash_bwd_dq)(
         _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(do), _ptr(lse),
-        _ptr(delta), _ptr(dq),
-        *_common_args(q, k, bias, seed, scale, causal, bias_kind, num_heads,
-                      dropout_rate))
+        _ptr(delta), _ptr(dq), *args)
     _raise_on(err, "flash_bwd_dq")
     LAUNCHES["flash_bwd_dq"] += 1
     return dq
@@ -435,7 +456,7 @@ def _prepare(q, k, v, bias, causal, scale, dropout_rate, dropout_seed):
     if dropout_rate > 0.0:
         if dropout_seed is None:
             raise ValueError("dropout_rate > 0 requires dropout_seed")
-        seed = int(dropout_seed)
+        seed = dropout_seed
     q3 = q.reshape(b * h, s_q, d).contiguous()
     k3 = k.reshape(b * h, s_k, d).contiguous()
     v3 = v.reshape(b * h, s_k, d).contiguous()
@@ -444,13 +465,14 @@ def _prepare(q, k, v, bias, causal, scale, dropout_rate, dropout_seed):
 
 def flash_attention(q, k, v, *, bias=None, causal: bool = False,
                     scale: Optional[float] = None, dropout_rate: float = 0.0,
-                    dropout_seed: Optional[int] = None):
+                    dropout_seed=None):
     """Flash attention over [batch, heads, seq, head_dim] tensors.
 
     bias: optional ADDITIVE bias, (B, 1, 1, S_k) key-padding form or any
     shape broadcastable to (B, H, S_q, S_k); a constant (no gradient).
-    dropout_rate/dropout_seed: in-kernel attention dropout; the int seed
-    fully determines the keep mask. Differentiable in q/k/v. CUDA tensors
+    dropout_rate/dropout_seed: in-kernel attention dropout; the seed (an
+    int, or a one-element int32 tensor on the device, as the JAX package
+    passes an array) fully determines the keep mask. Differentiable in q/k/v. CUDA tensors
     run the kernels; CPU tensors run their plain versions.
     """
     b, h, s_q, d = q.shape
@@ -464,7 +486,7 @@ def flash_attention(q, k, v, *, bias=None, causal: bool = False,
 def flash_attention_reference(q, k, v, *, bias=None, causal: bool = False,
                               scale: Optional[float] = None,
                               dropout_rate: float = 0.0,
-                              dropout_seed: Optional[int] = None):
+                              dropout_seed=None):
     """Plain PyTorch flash attention (same signature and function as
     ``flash_attention``), blockwise online softmax with the same -1e30
     masking and dropout hash; gradients by autograd. Runs on any device."""

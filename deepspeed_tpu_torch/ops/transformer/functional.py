@@ -73,10 +73,12 @@ def scaled_dot_product_attention(q, k, v, *, mask=None, bias=None,
             bias = mask_bias if bias is None else bias + mask_bias
         seed = None
         if dropout_rate > 0.0:
-            # per-call seed for the in-kernel counter-based hash
-            seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
-                                     generator=dropout_rng,
-                                     device=dropout_rng.device))
+            # per-call seed for the in-kernel counter-based hash: drawn on
+            # the generator's device and read there by the kernels, so the
+            # host never waits for it (the JAX package passes an array too)
+            seed = torch.randint(0, 2 ** 31 - 1, (1,), generator=dropout_rng,
+                                 device=dropout_rng.device,
+                                 dtype=torch.int32)
         return flash_attention(q, k, v, bias=bias, causal=causal,
                                scale=scale, dropout_rate=dropout_rate,
                                dropout_seed=seed)

@@ -1,25 +1,31 @@
-"""Where the bf16 backward kernels' gate readings come from, at the GPT-2 slice.
+"""Where the bf16 and fp16 backward kernels' gate readings come from, at the
+GPT-2 slice.
 
-    python3 -m deepspeed_tpu_torch.ops.transformer.rounding_probe   # one GPU
+    python3 -m deepspeed_tpu_torch.ops.transformer.rounding_probe [float16]
 
-At bf16 the flash backward rounds dS to bf16 before dK = dS^T . Q and
-dQ = dS . K, as the Pallas kernels do. Two right implementations of that
-function then differ wherever their fp32 dS values fall on two sides of a
-bf16 rounding boundary, and one such flip moves a dK (dQ) element by one
-bf16 ulp of dS times q (k). This probe runs chip_smoke.py's slice case of
+(one GPU; bfloat16 when no dtype is named). At bf16 (fp16) the flash
+backward rounds dS to the storage dtype before dK = dS^T . Q and dQ = dS . K,
+as the Pallas kernels do. Two right implementations of that function then
+differ wherever their fp32 dS values fall on two sides of a rounding
+boundary, and one such flip moves a dK (dQ) element by one ulp of dS
+times q (k). This probe runs chip_smoke.py's slice case of
 the dK/dV and dQ kernels (same shape, seed and dtype) and reads
 chip_smoke.py's element-wise gate, max |a - b| / (|b| + rms(b)), for each
 kernel and its plain version against two float64 references computed from
-the same inputs: one that rounds dS to bf16 (the function both compute) and
+the same inputs: one that rounds dS to the dtype (the function both
+compute) and
 one that keeps dS exact. It prints each reading with the position of its
 maximum.
 """
+import sys
+
 import torch
 
 from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
 
 SHAPE = (8, 16, 1024, 64)   # chip_smoke.py's flash slice shape
-SEED = 1                    # chip_smoke.py's seed for that case
+# chip_smoke.py's seed for that case at each dtype
+SEEDS = {"bfloat16": 1, "float16": 11}
 
 
 def gate(a, ref):
@@ -34,7 +40,7 @@ def gate(a, ref):
 
 def float64_grads(q, k, v, do, lse, delta, scale, round_ds, chunk=16):
     """(dK, dQ) of the causal flash backward in float64, with dS rounded to
-    bf16 before both products when ``round_ds``."""
+    q's dtype before both products when ``round_ds``."""
     bh, s, _ = q.shape
     keep = torch.tril(torch.ones(s, s, dtype=torch.bool, device=q.device))
     dk = torch.empty(k.shape, dtype=torch.float64, device=q.device)
@@ -48,18 +54,19 @@ def float64_grads(q, k, v, do, lse, delta, scale, round_ds, chunk=16):
         dp = torch.einsum("bqd,bkd->bqk", do[sl].double(), v[sl].double())
         ds = p * (dp - delta[sl, :, None].double()) * scale
         if round_ds:
-            ds = ds.bfloat16().double()
+            ds = ds.to(q.dtype).double()
         dk[sl] = torch.einsum("bqk,bqd->bkd", ds, qd)
         dq[sl] = torch.einsum("bqk,bkd->bqd", ds, kd)
     return dk, dq
 
 
-def main():
+def main(dtype_name="bfloat16"):
     torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = getattr(torch, dtype_name)
     b, h, s, d = SHAPE
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEEDS[dtype_name])
     q, k, v, do = (torch.randn(b * h, s, d, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
+                   .to(dtype) for _ in range(4))
     kw = dict(scale=d ** -0.5, causal=True, bias_kind="none", num_heads=h,
               dropout_rate=0.0)
     out, lse = fa.flash_fwd(q, k, v, None, None, **kw)
@@ -85,9 +92,9 @@ def main():
                 ("float64 dS rounded vs float64 dS exact", rounded[grad],
                  exact[grad])):
             reading, at = gate(a, ref)
-            print(f"{grad} {label}: {reading:.4e} at (bh, {axis[grad]}, d) "
-                  f"{at} on {torch.cuda.get_device_name(0)}")
+            print(f"{dtype_name} {grad} {label}: {reading:.4e} at (bh, "
+                  f"{axis[grad]}, d) {at} on {torch.cuda.get_device_name(0)}")
 
 
 if __name__ == "__main__":
-    main()
+    main(*sys.argv[1:2])

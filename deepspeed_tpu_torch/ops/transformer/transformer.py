@@ -4,7 +4,8 @@ Port of deepspeed_tpu/ops/transformer/transformer.py (reference
 deepspeed/ops/transformer/transformer.py:39-614). One ``nn.Module`` whose
 parameter names mirror the JAX layer's (``body.{attn_ln, qkv, attn_out,
 ffn_ln, ffn_inter, ffn_out}``), pre- or post-LN, computing in the config's
-dtype over fp32 parameters. The attention core is
+dtype (over fp32 parameters cast at use, or the engine's compute-dtype
+copy). The attention core is
 ``functional.scaled_dot_product_attention`` (the flash kernels for CUDA
 tensors) or, with a ``sparsity_config``, the block-sparse path
 (ops/sparse_attention: the block-sparse kernels for CUDA tensors). The
@@ -13,8 +14,8 @@ gelu_checkpoint) recompute the layer body in the backward
 (torch.utils.checkpoint), replaying its dropout generator.
 
 Also home to the building blocks the port's models share: ``Dense`` and
-``LayerNorm`` (fp32 parameters cast to the compute dtype at use, flax's
-initializers) and ``replayable``.
+``LayerNorm`` (computing in the input's dtype from parameters of any
+float dtype, flax's initializers) and ``replayable``.
 """
 import math
 from typing import Optional
@@ -43,9 +44,11 @@ def _trunc_normal_(t, std, generator):
 
 
 class Dense(nn.Linear):
-    """Linear layer whose fp32 parameters are cast to the compute dtype at
-    use. Initialized like flax's Dense: a lecun_normal kernel (or
-    normal(std) when ``std`` is given), zero bias."""
+    """Linear layer computing in the input's dtype: under the engine its
+    parameters already are the compute-dtype copy and the casts are no-ops;
+    fp32 parameters (the module on its own) are cast at use. Initialized
+    like flax's Dense: a lecun_normal kernel (or normal(std) when ``std``
+    is given), zero bias."""
 
     def reset_with(self, generator, std: Optional[float] = None):
         with torch.no_grad():
@@ -63,11 +66,14 @@ class Dense(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm with fp32 statistics, output in the input's dtype."""
+    """LayerNorm with fp32 statistics, output in the input's dtype. The
+    weight and bias take part as they are stored (the engine's
+    compute-dtype copy under bf16 or fp16, as the JAX engine hands them
+    over), converted exactly to fp32."""
 
     def forward(self, x):
-        y = F.layer_norm(x.float(), self.normalized_shape, self.weight,
-                         self.bias, self.eps)
+        y = F.layer_norm(x.float(), self.normalized_shape,
+                         self.weight.float(), self.bias.float(), self.eps)
         return y.to(x.dtype)
 
     def reset_with(self, generator=None):

@@ -1,0 +1,191 @@
+"""Activation checkpointing: recompute instead of save, on torch.
+
+Port of deepspeed_tpu/runtime/activation_checkpointing/checkpointing.py
+(reference behavior: deepspeed/runtime/activation_checkpointing/
+checkpointing.py:58-832, CheckpointFunction, the model-parallel RNG tracker,
+configure() / is_configured()).
+
+``checkpoint(fn, *args)`` is torch.utils.checkpoint without re-entry: the
+forward keeps only the arguments, the backward re-runs ``fn`` with the
+default generators' states restored, so its dropout draws the same masks.
+The flags map as in the JAX package:
+- partition_activations: save nothing but the boundary, which is what
+  torch's checkpoint keeps anyway (one device: nothing to partition);
+- contiguous_checkpointing: accepted for config parity (the caching
+  allocator owns buffer layout), and needs ``num_checkpoints``;
+- checkpoint_in_cpu (activations in host memory) is not ported yet
+  (ROADMAP A14).
+The RNG tracker keeps named ``torch.Generator`` streams (the reference's
+CudaRNGStatesTracker, :148-263); ``fork(name)`` hands out a new generator
+seeded from the named stream and advances it, as the JAX package's
+``fork`` splits a key.
+"""
+import torch
+from torch.utils.checkpoint import checkpoint as _torch_checkpoint
+
+from deepspeed_tpu_torch.utils.logging import logger
+
+# module state (the reference keeps the same globals, :40-56)
+_CONFIG = {
+    "partition_activations": False,
+    "contiguous_checkpointing": False,
+    "checkpoint_in_cpu": False,
+    "synchronize": False,
+    "profile": False,
+}
+_CONFIGURED = False
+_MPU = None
+_NUM_LAYERS = None
+
+
+def configure(mpu_=None, deepspeed_config=None, partition_activations=None,
+              contiguous_checkpointing=None, checkpoint_in_cpu=None,
+              synchronize=None, profile=None, num_checkpoints=None):
+    """Reference analog: checkpointing.py:747-827. Takes explicit flags or a
+    DeepSpeedConfig (or a dict / path of one) with an
+    activation_checkpointing section."""
+    global _CONFIGURED, _MPU, _NUM_LAYERS
+    _CONFIGURED = True
+    _MPU = mpu_
+    if deepspeed_config is not None:
+        from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
+
+        cfg = deepspeed_config
+        if isinstance(cfg, (str, dict)):
+            cfg = DeepSpeedConfig(cfg, world_size=1)
+        ac = getattr(cfg, "activation_checkpointing_config", None)
+        if ac is not None:
+            _CONFIG["partition_activations"] = ac.partition_activations
+            _CONFIG["contiguous_checkpointing"] = \
+                ac.contiguous_memory_optimization
+            _CONFIG["checkpoint_in_cpu"] = ac.cpu_checkpointing
+            _CONFIG["synchronize"] = ac.synchronize_checkpoint_boundary
+            _CONFIG["profile"] = ac.profile
+            _NUM_LAYERS = ac.number_checkpoints
+    for key, val in [("partition_activations", partition_activations),
+                     ("contiguous_checkpointing", contiguous_checkpointing),
+                     ("checkpoint_in_cpu", checkpoint_in_cpu),
+                     ("synchronize", synchronize), ("profile", profile)]:
+        if val is not None:
+            _CONFIG[key] = val
+    if num_checkpoints is not None:
+        _NUM_LAYERS = num_checkpoints
+    if _CONFIG["checkpoint_in_cpu"]:
+        raise NotImplementedError("checkpoint_in_cpu (activations in host "
+                                  "memory) is not ported yet (ROADMAP A14)")
+    if _CONFIG["contiguous_checkpointing"]:
+        logger.info("contiguous_checkpointing: the caching allocator owns "
+                    "buffer layout; flag accepted for parity")
+        if _NUM_LAYERS is None:
+            raise ValueError("contiguous_checkpointing requires "
+                             "num_checkpoints (reference "
+                             "checkpointing.py:816-818)")
+
+
+def is_configured():
+    return _CONFIGURED
+
+
+def reset():
+    """Reference analog: :691-703 (clears the config state)."""
+    global _CONFIGURED, _NUM_LAYERS
+    _CONFIGURED = False
+    _NUM_LAYERS = None
+    for key in _CONFIG:
+        _CONFIG[key] = False
+
+
+def partition_activations_in_checkpoint(flag):
+    """Reference analog: :678-683."""
+    _CONFIG["partition_activations"] = flag
+
+
+def set_num_layers(nlayers):
+    global _NUM_LAYERS
+    _NUM_LAYERS = nlayers
+
+
+def _policy():
+    """The ``context_fn`` that torch.utils.checkpoint takes for the
+    configured flags, None for its default. Every flag that is ported
+    means the default: only the boundary is saved and the rest recomputed
+    (the JAX package's nothing_saveable and its default coincide here)."""
+    if _CONFIG["checkpoint_in_cpu"]:
+        raise NotImplementedError("checkpoint_in_cpu is not ported yet "
+                                  "(ROADMAP A14)")
+    return None
+
+
+def checkpoint(function, *args):
+    """Checkpoint a function call: outputs computed normally, the
+    activations inside recomputed in the backward with the default
+    generators replayed (reference CheckpointFunction, :362-663).
+    Non-tensor arguments pass through as they are."""
+    kw = {}
+    context_fn = _policy()
+    if context_fn is not None:
+        kw["context_fn"] = context_fn
+    return _torch_checkpoint(function, *args, use_reentrant=False,
+                             preserve_rng_state=True, **kw)
+
+
+# ---------------------------------------------------------------------------
+# model-parallel RNG (reference CudaRNGStatesTracker :148-263)
+# ---------------------------------------------------------------------------
+_MODEL_PARALLEL_RNG_TRACKER_NAME = "model-parallel-rng"
+
+
+class RNGStatesTracker:
+    """Named RNG streams over torch generators (reference :148-214)."""
+
+    def __init__(self):
+        self.states = {}
+
+    def reset(self):
+        self.states = {}
+
+    def get_states(self):
+        """{name: generator state}, to restore with set_states."""
+        return {name: gen.get_state() for name, gen in self.states.items()}
+
+    def set_states(self, states):
+        for name, state in states.items():
+            self.states[name].set_state(state)
+
+    def add(self, name, seed, device="cpu"):
+        if name in self.states:
+            raise Exception(f"rng state {name} already exists")
+        self.states[name] = torch.Generator(device=device).manual_seed(seed)
+
+    def fork(self, name=_MODEL_PARALLEL_RNG_TRACKER_NAME):
+        """A new generator seeded from the named stream, which advances."""
+        if name not in self.states:
+            raise Exception(f"rng state {name} is not added")
+        gen = self.states[name]
+        seed = int(torch.randint(0, 2 ** 62, (), generator=gen,
+                                 device=gen.device))
+        return torch.Generator(device=gen.device).manual_seed(seed)
+
+
+_RNG_TRACKER = RNGStatesTracker()
+
+
+def get_rng_tracker():
+    return _RNG_TRACKER
+
+
+# torch-API alias (reference get_cuda_rng_tracker)
+get_cuda_rng_tracker = get_rng_tracker
+
+
+def model_parallel_seed(seed, model_parallel_rank=0, device="cpu"):
+    """Seed the default and model-parallel streams (reference
+    model_parallel_cuda_manual_seed :224-263: the model-parallel stream's
+    seed is seed + 2718 + rank)."""
+    _RNG_TRACKER.reset()
+    _RNG_TRACKER.add("default", seed, device=device)
+    _RNG_TRACKER.add(_MODEL_PARALLEL_RNG_TRACKER_NAME,
+                     seed + 2718 + model_parallel_rank, device=device)
+
+
+model_parallel_cuda_manual_seed = model_parallel_seed

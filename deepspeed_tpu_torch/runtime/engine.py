@@ -3,44 +3,68 @@
 Port of the single-device subset of deepspeed_tpu/runtime/engine.py: the
 optimizer and LR scheduler from the ds_config (``_configure_basic_optimizer``
 :439, ``_configure_lr_scheduler`` :523), ``forward`` / ``backward`` /
-``step`` (:3111, :3217, :3285), the optimizer step with global-norm
-clipping and the overflow skip (``_take_model_step`` :3415, apply fn
-:2184-2240), ``train_batch`` (:3489: gas micro-batches, then one step,
-returning the mean loss) and ``eval_loss`` (:3616).
+``step`` (:3111, :3217, :3285), the optimizer step with the fp16 loss
+scale, global-norm clipping and the overflow skip (``_take_model_step``
+:3415, apply fn :2184-2240), ``train_batch`` (:3489: gas micro-batches,
+then one step, returning the mean loss), ``eval_loss`` (:3616), progressive
+layer drop, and ``save_checkpoint`` / ``load_checkpoint`` (:4312, :4671)
+in the JAX engine's own layout.
 
-Precision: the model's parameters are the fp32 master weights; with
-``bf16`` enabled the model computes in bf16 (GPT2Config.dtype), so each
-micro-batch's gradients arrive in fp32 and accumulate in ``param.grad``,
-the fp32 accumulator of the JAX engine. Initial parameters come from the
-model's ``init_weights`` under the config's ``seed`` (default 42).
+Precision: the JAX engine's TrainState. Each micro-batch's gradients are
+added into an fp32 accumulator (``accum``: views of one flat buffer). At
+fp32 the module's parameters are the master weights. With bf16 or fp16 the
+engine keeps fp32 master weights (``master``) and the module's parameters
+are the compute-dtype copy, refreshed from the master after each optimizer
+step: the model computes with the rounded weights, LayerNorm included, and
+its compute-dtype gradients (one tied leaf's uses summed in that dtype) go
+into the accumulator. Weights are loaded with ``load_module_state_dict``
+(the master keeps their fp32 bits); a parameter written into the module
+directly becomes the master's value at the next step. fp16 scales the loss
+by the dynamic loss scale (runtime/fp16/loss_scaler.py). The step decides
+on the device whether the accumulator overflowed (a non-finite element):
+one select zeroes it, and the optimizer's in-place update with identity
+coefficients skips the step. No host sync; logging reads the flags at
+``steps_per_print``. Initial parameters come from the model's
+``init_weights`` under the config's ``seed`` (default 42).
 
 Configurations that need parts of the port still to come raise at
 construction, naming their ROADMAP item.
 """
+import os
+import pickle
+
+import numpy as np
 import torch
 from torch.utils.data import DataLoader
 
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
+from deepspeed_tpu_torch.ops.adam.sgd import SGD
+from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
+from deepspeed_tpu_torch.runtime import checkpoint_utils
 from deepspeed_tpu_torch.runtime.config import (DeepSpeedConfig,
                                                 get_mesh_shape)
 from deepspeed_tpu_torch.runtime.config_utils import load_config_json
-from deepspeed_tpu_torch.runtime.constants import (ADAFACTOR_OPTIMIZER,
-                                                   ADAM_OPTIMIZER,
+from deepspeed_tpu_torch.runtime.constants import (ADAM_OPTIMIZER,
                                                    ADAMW_OPTIMIZER,
                                                    LAMB_OPTIMIZER,
                                                    ONEBIT_ADAM_OPTIMIZER,
                                                    SGD_OPTIMIZER,
                                                    ZEROONE_ADAM_OPTIMIZER)
+from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (
+    make_loss_scale_state, update_loss_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import SCHEDULER_REGISTRY
-from deepspeed_tpu_torch.utils.logging import log_dist
+from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
+    ProgressiveLayerDrop
+from deepspeed_tpu_torch.runtime.resilience import atomic
+from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 # optimizer names and the ROADMAP item that ports them
-_LATER_OPTIMIZERS = {
-    ONEBIT_ADAM_OPTIMIZER: "A13", ZEROONE_ADAM_OPTIMIZER: "A13",
-    LAMB_OPTIMIZER: "A19", SGD_OPTIMIZER: "A19", ADAFACTOR_OPTIMIZER: "A19",
-}
+_LATER_OPTIMIZERS = {ONEBIT_ADAM_OPTIMIZER: "A13",
+                     ZEROONE_ADAM_OPTIMIZER: "A13"}
+_OPTIMIZERS = (FusedAdam, FusedLamb, SGD)
 # mesh axes and the ROADMAP item that ports them
 _MESH_ITEMS = {"data": "A7", "model": "A7", "pipe": "A12", "seq": "A15"}
+_M32 = 0xFFFFFFFF
 
 
 def resolve_device(device=None) -> torch.device:
@@ -69,8 +93,6 @@ def _refuse_unported(raw, cfg):
         if axis in _MESH_ITEMS and size not in (1, -1):
             no(f"mesh axis {axis!r} of size {size} (one device only)",
                _MESH_ITEMS[axis])
-    if cfg.fp16_enabled:
-        no("fp16 with dynamic loss scaling", "A19")
     if cfg.zero_optimization_stage >= 3:
         no("ZeRO stage 3", "A13")
     if cfg.zero_config.cpu_offload:
@@ -80,8 +102,6 @@ def _refuse_unported(raw, cfg):
         no("quantized ZeRO collectives", "A13")
     if cfg.pipeline.get("stages", 1) not in (1, None):
         no("pipeline parallelism", "A12")
-    if cfg.pld_enabled:
-        no("progressive layer drop", "A19")
     if cfg.telemetry.get("enabled"):
         no("telemetry", "A17")
     if cfg.flops_profiler_config.enabled or cfg.tensorboard_enabled:
@@ -89,6 +109,8 @@ def _refuse_unported(raw, cfg):
     res = cfg.resilience
     if res.watchdog_enabled or res.integrity_enabled:
         no("the resilience watchdog and integrity monitor", "A16")
+    if res.async_commit:
+        no("asynchronous checkpoint commits", "A16")
 
 
 class DeepSpeedEngine:
@@ -112,7 +134,6 @@ class DeepSpeedEngine:
         self.collate_fn = collate_fn
         self.global_steps = 0
         self.micro_steps = 0
-        self._skipped = 0
 
         # --- config -----------------------------------------------------
         config_file = getattr(args, "deepspeed_config", None) if args else None
@@ -131,24 +152,54 @@ class DeepSpeedEngine:
                      f"device: nothing to partition, the step is plain",
                      ranks=[0])
 
-        self.compute_dtype = torch.bfloat16 \
-            if self.bf16_enabled() or self._config.amp_enabled \
-            else torch.float32
+        # --- precision (reference engine.py:136-144) --------------------
+        if self.fp16_enabled():
+            self.compute_dtype = torch.float16
+        elif self.bf16_enabled() or self._config.amp_enabled:
+            self.compute_dtype = torch.bfloat16
+        else:
+            self.compute_dtype = torch.float32
         model_dtype = getattr(getattr(model, "config", None), "dtype", None)
         if model_dtype is not None and model_dtype != self.compute_dtype:
             log_dist(f"model computes in {model_dtype}, the config asks for "
                      f"{self.compute_dtype}: the model's dtype is used",
                      ranks=[0])
+        # the dtype of the module's parameters: the one the model computes in
+        self.param_dtype = model_dtype or self.compute_dtype
+        self.mixed_precision = self.param_dtype != torch.float32
 
-        # --- model and its initial parameters ---------------------------
+        # --- model, master weights, accumulator -------------------------
         self._seed = int(raw.get("seed", 42))
         self.module = model.to(self.device)
         self.module.init_weights(torch.Generator().manual_seed(self._seed))
-        self.params = [p for p in self.module.parameters() if p.requires_grad]
+        named = [(n, p) for n, p in self.module.named_parameters()
+                 if p.requires_grad]
+        self.param_names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        if self.mixed_precision:
+            self.master = [p.detach().clone() for p in self.params]
+            with torch.no_grad():
+                for p in self.params:
+                    p.data = p.data.to(self.param_dtype)
+        else:
+            # fp32: the parameters are the master weights
+            self.master = self.params
+        sizes = [p.numel() for p in self.params]
+        self._flat_accum = torch.zeros(sum(sizes), dtype=torch.float32,
+                                       device=self.device)
+        self.accum = [a.view(p.shape) for a, p in
+                      zip(self._flat_accum.split(sizes), self.params)]
+        self._mark_params()
 
         self.optimizer = self._configure_basic_optimizer()
-        self.optimizer.init_state(self.params)
+        self.optimizer.init_state(self.master)
         self.lr_scheduler = self._configure_lr_scheduler()
+        self.scaler = self._make_scaler()
+        self._skipped = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.progressive_layer_drop = None
+        if self._config.pld_enabled:
+            self.progressive_layer_drop = ProgressiveLayerDrop(
+                theta=self._config.pld_theta, gamma=self._config.pld_gamma)
         self.training_dataloader = None
         if training_data is not None:
             self.training_dataloader = DataLoader(
@@ -161,7 +212,7 @@ class DeepSpeedEngine:
         self._last_grad_norm = None
         n = sum(p.numel() for p in self.params)
         log_dist(f"DeepSpeedEngine: device={self.device} "
-                 f"dtype={self.compute_dtype} params={n / 1e6:.1f}M "
+                 f"dtype={self.param_dtype} params={n / 1e6:.1f}M "
                  f"zero_stage={self.zero_optimization_stage()} "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()} "
                  f"gas={self.gradient_accumulation_steps()}", ranks=[0])
@@ -208,15 +259,23 @@ class DeepSpeedEngine:
     def scheduler_params(self):
         return self._config.scheduler_params
 
+    def dynamic_loss_scale(self):
+        return self._config.loss_scale == 0
+
     def loss_scale(self):
-        return 1.0
+        """The current loss scale (a host read of the device scalar), or
+        the configured one without a scaler (reference engine.py:283)."""
+        if self.scaler is not None:
+            return float(self.scaler.loss_scale)
+        return self._config.loss_scale or self._config.initial_dynamic_scale
 
     def get_global_grad_norm(self):
         return self._last_grad_norm
 
     @property
     def skipped_steps(self):
-        return self._skipped
+        """Overflow-skipped steps (a host read of the device counter)."""
+        return int(self._skipped)
 
     def get_lr(self):
         return [self._current_lr()]
@@ -225,18 +284,18 @@ class DeepSpeedEngine:
         if self.lr_scheduler is not None \
                 and hasattr(self.lr_scheduler, "get_mom"):
             return self.lr_scheduler.get_mom()
-        return [self.optimizer.beta1]
+        return [getattr(self.optimizer, "beta1", 0.9)]
 
     # ------------------------------------------------------------------
     # wiring
     # ------------------------------------------------------------------
     def _configure_basic_optimizer(self):
-        """Reference analog: engine.py:599-639."""
+        """Reference analog: engine.py:439-521."""
         if self.client_optimizer is not None:
-            if not isinstance(self.client_optimizer, FusedAdam):
+            if not isinstance(self.client_optimizer, _OPTIMIZERS):
                 raise NotImplementedError(
-                    "client optimizers other than FusedAdam are not ported "
-                    "yet (ROADMAP A19)")
+                    f"client optimizer {type(self.client_optimizer).__name__}"
+                    f": the port takes its own FusedAdam, FusedLamb and SGD")
             return self.client_optimizer
         name = self.optimizer_name() or ADAM_OPTIMIZER
         params = dict(self.optimizer_params() or {})
@@ -247,6 +306,10 @@ class DeepSpeedEngine:
         if name in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER):
             params.setdefault("adam_w_mode", name == ADAMW_OPTIMIZER)
             return FusedAdam(**params)
+        if name == LAMB_OPTIMIZER:
+            return FusedLamb(**params)
+        if name == SGD_OPTIMIZER:
+            return SGD(**params)
         if name in _LATER_OPTIMIZERS:
             raise NotImplementedError(f"optimizer {name!r} is not ported yet "
                                       f"(ROADMAP {_LATER_OPTIMIZERS[name]})")
@@ -262,6 +325,27 @@ class DeepSpeedEngine:
         if name not in SCHEDULER_REGISTRY:
             raise ValueError(f"Unknown scheduler {name}")
         return SCHEDULER_REGISTRY[name](**(self.scheduler_params() or {}))
+
+    def _make_scaler(self):
+        """The device loss-scale state at fp16 (reference engine.py:1560-1568),
+        else None."""
+        if not self.fp16_enabled():
+            return None
+        args = self._config.dynamic_loss_scale_args or {}
+        if self._config.loss_scale and self._config.loss_scale > 0:
+            return make_loss_scale_state(self._config.loss_scale,
+                                         device=self.device)
+        return make_loss_scale_state(
+            args.get("init_scale", self._config.initial_dynamic_scale),
+            delayed_shift=args.get("delayed_shift", 1), device=self.device)
+
+    def _scaler_hparams(self):
+        """Reference engine.py:1612-1618."""
+        args = self._config.dynamic_loss_scale_args or {}
+        return dict(scale_window=args.get("scale_window", 1000),
+                    min_scale=args.get("min_scale", 1.0),
+                    delayed_shift=args.get("delayed_shift", 1),
+                    dynamic=self.dynamic_loss_scale())
 
     def _current_lr(self):
         sched = self.lr_scheduler
@@ -293,6 +377,44 @@ class DeepSpeedEngine:
                          + self.micro_steps) % (2 ** 63))
         return gen
 
+    def _mark_params(self):
+        """Note each parameter's version: a later change was made outside
+        the engine (``_sync_master``)."""
+        self._param_versions = [p._version for p in self.params]
+
+    @torch.no_grad()
+    def _sync_master(self):
+        """Mixed precision: a parameter written into the module outside the
+        engine (``module.load_state_dict``) becomes its master's value, so
+        that the next update starts from it."""
+        if not self.mixed_precision:
+            return
+        changed = [i for i, (p, v) in enumerate(zip(self.params,
+                                                    self._param_versions))
+                   if p._version != v]
+        if changed:
+            logger.warning(f"{len(changed)} parameters were written into the "
+                           f"module outside the engine: the fp32 master takes "
+                           f"their {self.param_dtype} values "
+                           f"(load_module_state_dict keeps the fp32 bits)")
+            for i in changed:
+                self.master[i].copy_(self.params[i])
+            self._mark_params()
+
+    @torch.no_grad()
+    def load_module_state_dict(self, state_dict, strict=True):
+        """Load weights into the module and, under mixed precision, into
+        the fp32 master at the state dict's own precision (the module's
+        parameters take the compute-dtype copy). Returns what
+        ``module.load_state_dict`` returns."""
+        result = self.module.load_state_dict(state_dict, strict=strict)
+        if self.mixed_precision:
+            for name, m in zip(self.param_names, self.master):
+                if name in state_dict:
+                    m.copy_(state_dict[name])
+        self._mark_params()
+        return result
+
     # ------------------------------------------------------------------
     # public training API (reference semantics)
     # ------------------------------------------------------------------
@@ -311,6 +433,11 @@ class DeepSpeedEngine:
             return self.eval_loss(batch)
         if self._pending_loss is not None:
             raise RuntimeError("forward() called twice without backward()")
+        if self.progressive_layer_drop is not None:
+            # theta rides the batch (reference engine.py:3144-3149)
+            batch = dict(batch)
+            batch["pld_theta"] = np.float32(
+                self.progressive_layer_drop.get_theta())
         loss, _ = self.module.loss(self._to_device(batch),
                                    generator=self._micro_generator(),
                                    train=True)
@@ -321,14 +448,25 @@ class DeepSpeedEngine:
         return self.forward(batch)
 
     def backward(self, loss=None, allreduce_gradients=True):
-        """Accumulate the gradients of the last forward's loss / gas into
-        the fp32 ``param.grad`` (reference engine.py:871)."""
+        """Accumulate the gradients of the last forward's loss (times the
+        loss scale at fp16) / gas into the fp32 accumulator (reference
+        engine.py:871; micro fn :1634-1659)."""
         if self._pending_loss is None:
             raise RuntimeError("backward() called without a preceding "
                                "forward()")
         pending = self._pending_loss
         self._pending_loss = None
-        (pending.float() / self.gradient_accumulation_steps()).backward()
+        scaled = pending.float()
+        if self.scaler is not None:
+            scaled = scaled * self.scaler.loss_scale
+        (scaled / self.gradient_accumulation_steps()).backward()
+        # the gradients, in the compute dtype, into the fp32 accumulator
+        got = [(a, p.grad) for a, p in zip(self.accum, self.params)
+               if p.grad is not None]
+        if got:
+            torch._foreach_add_([a for a, _ in got], [g for _, g in got])
+        for p in self.params:
+            p.grad = None
         self.micro_steps += 1
         return pending if loss is None else loss
 
@@ -346,34 +484,58 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def _take_model_step(self):
-        """Clip by the global norm, skip a non-finite step, Adam, zero the
-        accumulator (apply fn of engine.py:2184-2240)."""
+        """The apply fn of engine.py:2184-2240: overflow = a non-finite
+        element of the (scaled) accumulator; unscale, clip by the global
+        norm, optimizer step, all skipped on overflow; scaler update; zero
+        the accumulator. Every decision stays on the device."""
         lr = self._advance_lr()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
+        self._sync_master()
+        flat = self._flat_accum
+        found_inf = torch.zeros(1, device=self.device)
+        inv_scale = torch.ones(1, device=self.device)
+        scale = None
+        if self.scaler is not None:
+            scale = self.scaler.loss_scale
+            inv_scale = (1.0 / scale).reshape(1)
+        # one fused pass: found_inf = 1 if any element is inf or nan, and
+        # every element times 1 / scale (exact: the scale is a power of 2)
+        torch._amp_foreach_non_finite_check_and_unscale_([flat], found_inf,
+                                                         inv_scale)
+        overflow = found_inf[0] > 0
+        # an overflowed step: a zero gradient (norm 0, clip factor 1), and
+        # the optimizer's update with skip=overflow is the identity
+        flat.masked_fill_(overflow, 0.0)
         gnorm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads)))
-        # the step's one host sync: a non-finite gradient skips the update
-        overflow = not bool(torch.isfinite(gnorm))
-        if overflow:
-            self._skipped += 1
-            log_dist(f"non-finite gradient norm, skipping step "
-                     f"{self.global_steps + 1}", ranks=[0])
-        else:
-            clip = self.gradient_clipping()
-            if clip and clip > 0:
-                factor = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
-                torch._foreach_mul_(grads, factor)
-            self.optimizer.update(self.params, grads, lr=lr)
-        for p in self.params:
-            p.grad = None
+            torch.stack(torch._foreach_norm(self.accum)))
+        clip = self.gradient_clipping()
+        if clip and clip > 0:
+            factor = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
+            torch._foreach_mul_(self.accum, factor)
+        self.optimizer.update(self.master, self.accum, lr=lr, skip=overflow)
+        if self.mixed_precision:
+            torch._foreach_copy_(self.params, self.master)
+            self._mark_params()
+        self._skipped += overflow.to(torch.int32)
+        if self.scaler is not None:
+            self.scaler = update_loss_scale(self.scaler, overflow,
+                                            **self._scaler_hparams())
+        flat.zero_()
         self.global_steps += 1
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
         self._last_grad_norm = gnorm
         self._last_metrics = {"overflow": overflow, "grad_norm": gnorm,
-                              "loss_scale": 1.0}
+                              "loss_scale": 1.0 if scale is None else scale}
         if self.global_steps % self.steps_per_print() == 0:
-            log_dist(f"step={self.global_steps} lr={lr:.3e} "
-                     f"grad_norm={float(gnorm):.4f}", ranks=[0])
+            self._report_progress(lr)
+
+    def _report_progress(self, lr):
+        """The step's flags, read on the host only here (reference
+        engine.py:4088)."""
+        m = self._last_metrics
+        log_dist(f"step={self.global_steps} skipped={self.skipped_steps} "
+                 f"lr={lr:.3e} scale={float(m['loss_scale']):g} "
+                 f"grad_norm={float(m['grad_norm']):.4f}", ranks=[0])
 
     def train_batch(self, data_iter=None, batch=None):
         """gas micro-batches (forward + backward each), then one optimizer
@@ -404,6 +566,248 @@ class DeepSpeedEngine:
                                    generator=self._micro_generator(),
                                    train=False)
         return loss
+
+    # ------------------------------------------------------------------
+    # checkpoints (reference engine.py:4144-4216, 4312, 4671, 4941-5049):
+    # the JAX engine's npz layout, so that either engine loads the other's
+    # ------------------------------------------------------------------
+    def _state_layout(self):
+        """[(field, kind, tensors)] of the JAX TrainState's fields in its
+        flatten order (engine.py:60-70): step, micro_step, params,
+        opt_state (its step, then each parameter-shaped list), master
+        (mixed precision only), accum, scaler (fp16 only), skipped_steps,
+        rng. ``kind`` "tree" marks a parameter-shaped list in this module's
+        order, which maps through the reference's parameter tree."""
+        def scalar(v):
+            return torch.tensor(v, dtype=torch.int32)
+
+        gas = self.gradient_accumulation_steps()
+        layout = [("step", "leaf", [scalar(self.global_steps)]),
+                  ("micro_step", "leaf", [scalar(self.micro_steps % gas)]),
+                  ("params", "tree", self.params),
+                  ("opt", "leaf", [self.optimizer.step])]
+        layout += [("opt", "tree", lst)
+                   for lst in self.optimizer.state_lists()]
+        if self.mixed_precision:
+            layout.append(("master", "tree", self.master))
+        layout.append(("accum", "tree", self.accum))
+        if self.scaler is not None:
+            layout.append(("scaler", "leaf", list(self.scaler)))
+        # the rng leaf: jax.random.PRNGKey(seed), never read back (a torch
+        # generator cannot continue a jax key)
+        seed = np.array([self._seed >> 32, self._seed & _M32], np.uint32)
+        layout += [("skipped_steps", "leaf", [self._skipped]),
+                   ("rng", "leaf", [seed])]
+        return layout
+
+    def _tree_leaves(self, tensors):
+        """A parameter-shaped list -> the reference tree's leaves."""
+        index = {n: i for i, n in enumerate(self.param_names)}
+        out = []
+        for names, transposed in self._leaf_specs():
+            group = names if isinstance(names, tuple) else (names,)
+            ts = [tensors[index[n]] for n in group]
+            ts = [t.t() if transposed else t for t in ts]
+            out.append(torch.stack(ts) if isinstance(names, tuple)
+                       else ts[0])
+        return out
+
+    def _leaf_specs(self):
+        """The model's parameters in the JAX package's tree order (its
+        ``reference_leaf_specs``), the layout of every "tree" field."""
+        if not hasattr(self.module, "reference_leaf_specs"):
+            raise NotImplementedError(
+                f"no JAX checkpoint layout for {type(self.module).__name__}: "
+                f"the model has no reference_leaf_specs()")
+        return self.module.reference_leaf_specs()
+
+    def _state_leaves(self):
+        leaves = []
+        for _, kind, tensors in self._state_layout():
+            leaves += self._tree_leaves(tensors) if kind == "tree" \
+                else list(tensors)
+        return leaves
+
+    def save_checkpoint(self, save_dir, tag=None, client_state=None,
+                        save_latest=True, backend=None, manifest_meta=None,
+                        async_commit=None):
+        """Write ``save_dir/<tag>`` (default ``global_step<N>``) as the JAX
+        engine's synchronous npz commit: ``model_states.npz`` (the
+        TrainState's leaves), ``metadata.pkl`` and the manifest, committed
+        atomically, then the ``latest`` pointer. Returns True."""
+        if backend not in (None, "auto", "npz"):
+            raise NotImplementedError(f"checkpoint backend {backend!r} is "
+                                      f"not ported yet (ROADMAP A16)")
+        if async_commit:
+            raise NotImplementedError("asynchronous checkpoint commits are "
+                                      "not ported yet (ROADMAP A16)")
+        if self._pending_loss is not None:
+            raise RuntimeError("save_checkpoint between forward() and "
+                               "backward(): commit the micro-batch first")
+        tag = f"global_step{self.global_steps}" if tag is None else tag
+        res = self._config.resilience
+        leaves = self._state_leaves()
+        meta = {
+            "global_steps": self.global_steps,
+            "micro_steps": self.micro_steps,
+            "skipped_steps": self.skipped_steps,
+            "dp_world_size": self.dp_world_size,
+            "backend": "npz",
+            "lr_scheduler": self.lr_scheduler.state_dict()
+            if self.lr_scheduler is not None else None,
+            "client_state": client_state or {},
+            "num_leaves": len(leaves),
+            "topology": self._topology(),
+            "data_position": self._data_position(),
+        }
+        manifest = {"tag": str(tag), "global_steps": self.global_steps,
+                    "micro_steps": self.micro_steps,
+                    "world": {"dp": 1, "mp": 1, "sp": 1},
+                    "topology": meta["topology"],
+                    "data_position": meta["data_position"],
+                    "backend": "npz"}
+        manifest.update(manifest_meta or {})
+
+        def write(path):
+            atomic.savez_hashed(os.path.join(path, "model_states.npz"),
+                                **checkpoint_utils.leaves_to_npz_dict(leaves))
+            with open(os.path.join(path, "metadata.pkl"), "wb") as f:
+                pickle.dump(meta, f)
+
+        if res.atomic_checkpoints:
+            with atomic.atomic_tag(save_dir, tag, meta=manifest,
+                                   update_latest=save_latest,
+                                   fsync=res.fsync) as tmp:
+                write(tmp)
+        else:
+            path = os.path.join(save_dir, str(tag))
+            os.makedirs(path, exist_ok=True)
+            write(path)
+            if save_latest:
+                atomic.write_latest(save_dir, tag, fsync=False)
+        log_dist(f"Saved checkpoint {os.path.join(save_dir, str(tag))}",
+                 ranks=[0])
+        return True
+
+    def _topology(self):
+        """The writing mesh's identity card (resilience/reshard.py
+        topology_manifest): one device."""
+        return {"engine": type(self).__name__, "mesh": {}, "dp": 1, "mp": 1,
+                "sp": 1, "zero_stage": int(self.zero_optimization_stage()),
+                "global_batch": {
+                    "train_batch_size": int(self.train_batch_size()),
+                    "micro_batch_per_gpu":
+                        int(self.train_micro_batch_size_per_gpu()),
+                    "gradient_accumulation_steps":
+                        int(self.gradient_accumulation_steps())}}
+
+    def _data_position(self):
+        mb = int(self.train_micro_batch_size_per_gpu())
+        return {"global_steps": self.global_steps,
+                "micro_steps": self.micro_steps, "micro_batch_per_gpu": mb,
+                "dp_world_size": 1, "samples_skipped": 0,
+                "samples_consumed": self.micro_steps * mb}
+
+    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
+                        load_optimizer_states=True,
+                        load_lr_scheduler_states=True, auto_resume=None,
+                        elastic=None):
+        """Restore ``load_dir/<tag>`` (``latest`` when tag is None), written
+        by this engine or the JAX one; the manifest is verified first.
+        Returns (path, client_state), or (None, {}) with no ``latest``."""
+        res = self._config.resilience
+        if auto_resume or (auto_resume is None and tag is None
+                           and res.auto_resume):
+            raise NotImplementedError("auto_resume (newest intact tag) is "
+                                      "not ported yet (ROADMAP A16)")
+        if elastic:
+            raise NotImplementedError("elastic checkpoint loads are not "
+                                      "ported yet (ROADMAP A16)")
+        if self._pending_loss is not None:
+            raise RuntimeError("load_checkpoint between forward() and "
+                               "backward()")
+        if tag is None:
+            tag = atomic.read_latest(load_dir)
+            if tag is None:
+                logger.warning(f"No 'latest' file at {load_dir}; nothing "
+                               f"loaded")
+                return None, {}
+        path = os.path.join(load_dir, str(tag))
+        if res.verify_on_load:
+            ok, reason = atomic.verify_tag(path)
+            if not ok:
+                raise atomic.CheckpointCorrupt(
+                    f"checkpoint tag {tag!r} under {load_dir} failed "
+                    f"verification: {reason}")
+        with open(os.path.join(path, "metadata.pkl"), "rb") as f:
+            meta = pickle.load(f)
+        if meta.get("backend") == "orbax":
+            raise NotImplementedError("orbax checkpoints are not ported yet "
+                                      "(ROADMAP A16)")
+        if os.path.exists(os.path.join(path, "offload_states.npz")):
+            raise NotImplementedError("ZeRO-Offload checkpoint states are "
+                                      "not ported yet (ROADMAP A14)")
+        with np.load(os.path.join(path, "model_states.npz")) as data:
+            flat = checkpoint_utils.npz_dict_to_leaves(data)
+        self._restore_leaves(flat, path, load_module_strict,
+                             load_optimizer_states)
+        self.global_steps = meta["global_steps"]
+        self.micro_steps = meta["micro_steps"]
+        if load_lr_scheduler_states and self.lr_scheduler is not None \
+                and meta.get("lr_scheduler") is not None:
+            self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
+        if self.progressive_layer_drop is not None:
+            self.progressive_layer_drop.update_state(self.global_steps)
+        log_dist(f"Loaded checkpoint {path}", ranks=[0])
+        return path, dict(meta.get("client_state") or {})
+
+    @torch.no_grad()
+    def _restore_leaves(self, flat, path, strict, load_optimizer_states):
+        """Copy the checkpoint's leaves into this engine's state, field by
+        field of the layout; raises when the layouts differ. The counters
+        come from the metadata and the rng leaf is not read."""
+        layout = self._state_layout()
+        specs = self._leaf_specs()
+        n_want = sum(len(specs) if kind == "tree" else len(t)
+                     for _, kind, t in layout)
+        if len(flat) != n_want:
+            raise ValueError(
+                f"checkpoint at {path} holds {len(flat)} state leaves, this "
+                f"engine's layout has {n_want}: saved under another "
+                f"precision, optimizer or model")
+        index = {n: i for i, n in enumerate(self.param_names)}
+        at = 0
+        for field, kind, tensors in layout:
+            n = len(specs) if kind == "tree" else len(tensors)
+            got, at = flat[at:at + n], at + n
+            if field in ("step", "micro_step", "rng") \
+                    or (field == "opt" and not load_optimizer_states):
+                continue
+            if field == "scaler":
+                self.scaler = type(self.scaler)(
+                    *[g.to(self.device) for g in got])
+                continue
+            if kind == "leaf":
+                for dst, src in zip(tensors, got):
+                    dst.copy_(src)
+                continue
+            for (names, transposed), src in zip(specs, got):
+                group = names if isinstance(names, tuple) else (names,)
+                parts = src.unbind(0) if isinstance(names, tuple) else [src]
+                for name, part in zip(group, parts):
+                    dst = tensors[index[name]]
+                    part = part.t() if transposed else part
+                    if tuple(part.shape) != tuple(dst.shape):
+                        if strict:
+                            raise ValueError(
+                                f"checkpoint leaf for {name} has shape "
+                                f"{tuple(part.shape)}, the model's is "
+                                f"{tuple(dst.shape)}")
+                        logger.warning(f"load_checkpoint: {name} skipped "
+                                       f"(shape {tuple(part.shape)})")
+                        continue
+                    dst.copy_(part)
+        self._mark_params()
 
 
 def _micro_at(batch, i):

@@ -393,7 +393,8 @@ def test_seeded_init_is_deterministic_and_scaled():
 
 def test_bert_trains_on_the_port_engine_in_bf16():
     """bf16 compute over fp32 master weights, sparse attention, hidden
-    dropout: losses finite and falling on the CPU."""
+    dropout: losses finite and falling on the CPU; the master weights are
+    fp32 and the module's parameters their bf16 copy."""
     _, tcfg = _configs(True, hidden_dropout_prob=0.1)
     tcfg = dataclasses.replace(tcfg, dtype=torch.bfloat16)
     eng, _, _, _ = deepspeed_tpu_torch.initialize(
@@ -402,4 +403,5 @@ def test_bert_trains_on_the_port_engine_in_bf16():
     batch = _batch(seed=10, lead=(2,))
     losses = [eng.train_batch(batch=batch).item() for _ in range(4)]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
-    assert all(p.dtype == torch.float32 for p in eng.module.parameters())
+    assert all(p.dtype == torch.float32 for p in eng.master)
+    assert all(p.dtype == torch.bfloat16 for p in eng.module.parameters())

@@ -148,8 +148,9 @@ def test_config_mirrors_jax_config():
 
 @pytest.mark.parametrize("override,item", [
     (dict(moe_num_experts=4), "A15"),
-    (dict(remat=True, remat_policy="dots"), "A19"),
-    (dict(remat=True, remat_policy="attn_out"), "A19"),
+    (dict(moe_num_experts=8, moe_top_k=1), "A15"),
+    (dict(remat=True, remat_policy="dots", attention_sp_mode="ring"),
+     "A15"),
     (dict(attention_sp_mode="ring"), "A15"),
 ])
 def test_unported_model_options_raise(override, item):
