@@ -87,6 +87,25 @@ failure:
               LAMB and SGD through initialize() -> train_batch, 3 steps
               each at 2 layers of gpt2-350m, bf16: losses finite and
               falling
+ 15. serve    generation and the continuous-batching InferenceEngine on
+              gpt2-350m (full depth and width, bf16 over fp32 weights,
+              seed 42): 32 greedy requests (prompts 16-512 tokens from
+              default_rng(0), 64 new tokens, every 8th at priority 1; 8
+              submitted, then one per step), 8 slots, KV blocks of 16,
+              prefill chunks of 128, after warmup(). Pass A: every
+              request finishes in vocab, no new dispatch signature after
+              warmup, the pool tensors never move and device_bytes()
+              equals their bytes; the replay gate (each generated token
+              scores within SERVE_DELTA of the best logit of the training
+              forward, the flash kernels, over the same tokens) and its
+              planted fault (the decode view's page tables rotated by one
+              block) at >= 10x the gate; TTFT, TPOT, tokens/s, peak
+              memory, pool.stats(), and 5 decode-only steps under
+              torch.profiler. Pass B: kv_blocks 193, evictions > 0, the
+              same gate. Pass C: int8 KV. Pass D: fp32 at 2 layers, TF32
+              off: engine tokens equal generate()'s (divergence allowed
+              only at a near tie, counted) and generate_beam(num_beams=1)
+              equals greedy
 The line before the last is the kernels JSON (the fp16 rows named
 <kernel>_fp16, their launches from phase 12); the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card and nvcc.
@@ -1505,6 +1524,431 @@ def phase_optimizers(env):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 15: serving (generation and the continuous-batching engine)
+# ---------------------------------------------------------------------------
+SERVE_REQUESTS = 32
+SERVE_PROMPT_LENS = (16, 512)          # uniform, both ends included
+SERVE_MAX_NEW = 64
+SERVE_SLOTS = 8
+SERVE_BLOCK = 16
+SERVE_CHUNK = 128
+SERVE_FIRST = 8                        # submitted before the first step
+SERVE_SEED = 42
+# the eviction pass's pool: room for 3 of the 8 lanes' longest sequences
+# (1 trash block + 3 x 64 blocks of 16 positions)
+SERVE_EVICT_BLOCKS = 1 + 3 * 64
+# replay gate (bf16): the engine's token may score at most this far below
+# the replay's best logit at any generated position: four bf16 spacings
+# at the top logits' magnitude (2**-6 in [2, 4)), twice the worst deficit
+# of a right engine (PERF.md section 2)
+SERVE_DELTA = 0.0625
+SERVE_FAULT_FACTOR = 10
+# fp32 near-tie rule: a greedy token may part from generate()'s only at a
+# step whose top-2 logit gap in generate()'s logits is below this, relative
+TIE_REL = 1e-5
+PROFILE_DECODE_STEPS = 5
+
+
+def _serve_traffic(vocab):
+    """32 prompts, lengths uniform in [16, 512], tokens uniform in the
+    vocab, from numpy's default_rng(0); every 8th request priority 1."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SERVE_PROMPT_LENS[0], SERVE_PROMPT_LENS[1] + 1,
+                        SERVE_REQUESTS)
+    prompts = [rng.integers(0, vocab, int(n)).astype(np.int32)
+               for n in lens]
+    prios = [1 if (i + 1) % 8 == 0 else 0 for i in range(SERVE_REQUESTS)]
+    return prompts, prios
+
+
+def _serve_model(**overrides):
+    import torch
+
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
+
+    cfg = gpt2_config(SLICE_MODEL, **overrides)
+    return GPT2Model(cfg, torch.Generator().manual_seed(SERVE_SEED))
+
+
+def _serve_engine(model, **kw):
+    from deepspeed_tpu_torch.serving import InferenceEngine
+
+    kw.setdefault("max_slots", SERVE_SLOTS)
+    return InferenceEngine(model, kv_block_size=SERVE_BLOCK,
+                           prefill_chunk=SERVE_CHUNK, **kw)
+
+
+def _drive_traffic(eng, prompts, prios):
+    """8 requests before the first step, then one per step until all are
+    in, then serve() to the end; returns (rids, wall seconds)."""
+    import time as _time
+
+    t0 = _time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=SERVE_MAX_NEW, priority=q)
+            for p, q in zip(prompts[:SERVE_FIRST], prios[:SERVE_FIRST])]
+    for p, q in zip(prompts[SERVE_FIRST:], prios[SERVE_FIRST:]):
+        eng.step()
+        rids.append(eng.submit(p, max_new_tokens=SERVE_MAX_NEW, priority=q))
+    eng.serve()
+    return rids, _time.perf_counter() - t0
+
+
+def _check_finished(eng, rids, prompts, vocab, label):
+    for rid, p in zip(rids, prompts):
+        res = eng.results[rid]
+        toks = res["tokens"]
+        if res["status"] != "finished" \
+                or len(toks) != len(p) + SERVE_MAX_NEW \
+                or not (toks >= 0).all() or not (toks < vocab).all():
+            raise RuntimeError(f"serve {label}: request {rid} "
+                               f"{res['status']}, {len(toks)} tokens")
+
+
+def _replay_excess(model, eng, rids, prompts):
+    """Every generated position's deficit: the replay's best logit minus
+    the replay's logit of the engine's token, the replay being the port's
+    training forward (GPT2Model.forward: the flash kernels) over
+    prompt + generated[:-1]. Returns (deficits, best logits), one array
+    each per request."""
+    import torch
+
+    out, tops = [], []
+    with torch.no_grad():
+        for rid, p in zip(rids, prompts):
+            toks = eng.results[rid]["tokens"]
+            ids = torch.as_tensor(toks[:-1], device="cuda").long()[None]
+            logits = model(ids)[0, len(p) - 1:].float()
+            gen = torch.as_tensor(toks[len(p):], device="cuda").long()
+            mine = logits.gather(1, gen[:, None])[:, 0]
+            best = logits.max(dim=-1).values
+            out.append((best - mine).cpu().numpy())
+            tops.append(best.cpu().numpy())
+    return out, tops
+
+
+def _deficit_summary(replay):
+    import numpy as np
+
+    d = np.concatenate(replay[0])
+    return {"n": int(d.size), "max": float(d.max()),
+            "p99": float(np.percentile(d, 99)),
+            "p50": float(np.percentile(d, 50)),
+            "nonzero": int((d > 0).sum()),
+            "top_max": float(np.abs(np.concatenate(replay[1])).max())}
+
+
+def _rotated_view():
+    """The planted fault: the decode step's page view gathered with every
+    lane's page table rotated by one block (prefill chunks, one row,
+    unchanged)."""
+    import torch
+
+    from deepspeed_tpu_torch.serving import engine as serving_engine
+
+    plain = serving_engine._pool_view
+
+    def rotated(pool, scales, l, tables, quantized, out_dtype):
+        if tables.shape[0] > 1:
+            tables = torch.roll(tables, 1, dims=1)
+        return plain(pool, scales, l, tables, quantized, out_dtype)
+    return rotated
+
+
+def _profile_decode(env, eng, steps):
+    """Wall ms per decode-only step unprofiled, then ``steps`` steps under
+    torch.profiler: device busy ms, idle share and device operations per
+    step."""
+    import time as _time
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    # 8 requests of 16 tokens, stepped until every lane decodes and no
+    # prefill or queue is left
+    prompts, _ = _serve_traffic(eng.cfg.vocab_size)
+    for p in prompts[:SERVE_SLOTS]:
+        eng.submit(p[:16], max_new_tokens=SERVE_MAX_NEW)
+    sch = eng.scheduler
+    while len(sch.running) < SERVE_SLOTS or sch.prefilling is not None \
+            or sch.queue_depth():
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = _time.perf_counter()
+    for _ in range(10):
+        eng.step()
+    wall = (_time.perf_counter() - t0) / 10 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = _time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        prof_wall = (_time.perf_counter() - t0) / steps * 1e3
+    by_name, n_device = {}, 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[evt.name] = by_name.get(evt.name, 0.0) \
+                + evt.time_range.elapsed_us()
+            n_device += 1
+    if not by_name:
+        raise RuntimeError("the profiler recorded no device time")
+    busy = sum(by_name.values()) / steps / 1e3
+    if len(sch.running) != SERVE_SLOTS:
+        raise RuntimeError("a lane finished inside the profiled steps")
+    log(f"serve decode step ({SERVE_SLOTS} lanes, view "
+        f"{eng.W * eng.bs} positions, {env['smi']}): wall "
+        f"{wall:.2f} ms/step unprofiled, {prof_wall:.2f} profiled; "
+        f"device busy {busy:.3f} ms/step; idle share of the unprofiled "
+        f"step {1 - busy / wall:.3f}; {n_device // steps} device "
+        f"operations per step")
+    groups = {}
+    for name, us in by_name.items():
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + us
+    for g, us in sorted(groups.items(), key=lambda x: -x[1]):
+        log(f"  {g:50s} {us / steps / 1e3:9.3f} ms/step")
+    for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
+        log(f"  {us / steps / 1e3:9.3f} ms/step  {name[:100]}")
+    eng.serve()
+    return {"wall_ms": wall, "busy_ms": busy, "ops": n_device // steps}
+
+
+def _greedy_matches(model, prompt, got_new, generate):
+    """(first bad step or None, near ties): the engine's greedy tokens
+    against generate()'s, generate() restarting from the engine's prefix
+    after each step whose top-2 gap in generate()'s fp32 logits is below
+    TIE_REL relative (the only divergence allowed)."""
+    import numpy as np
+
+    ties, done = 0, 0
+    n = len(got_new)
+    while done < n:
+        prefix = np.concatenate([prompt, got_new[:done]])[None]
+        ref, logits = generate(model, None, prefix, n - done,
+                               return_logits=True)
+        diff = np.flatnonzero(ref[0, prefix.shape[1]:] != got_new[done:])
+        if diff.size == 0:
+            return None, ties
+        j = int(diff[0])
+        top = np.sort(logits[0, j])[-2:]
+        gap = (top[1] - top[0]) / max(abs(float(top[1])), 1e-30)
+        if gap >= TIE_REL:
+            return (done + j, float(gap)), ties
+        ties += 1
+        done += j + 1
+    return None, ties
+
+
+def _beam_matches_greedy(model, prompt, beam_new, generate):
+    """(first bad step or None, score ties): one beam's tokens against
+    greedy decoding. Beam search ranks candidates by the running
+    log-probability plus the step's log-softmax, in fp32, so once the
+    running score is large two candidates whose log-probabilities differ
+    by less than its spacing round to one score and the top-k takes
+    either; a divergence is allowed only there (the candidates' scores,
+    recomputed in float64 from generate()'s logits along the same
+    prefix, at most two fp32 spacings apart), and greedy decoding
+    restarts from the beam's prefix."""
+    import numpy as np
+
+    ties, done, score = 0, 0, 0.0
+    n = len(beam_new)
+    while done < n:
+        prefix = np.concatenate([prompt, beam_new[:done]])[None]
+        ref, logits = generate(model, None, prefix, n - done,
+                               return_logits=True)
+        lg = logits[0].astype(np.float64)
+        lp = lg - lg.max(-1, keepdims=True)
+        lp -= np.log(np.exp(lp).sum(-1, keepdims=True))
+        new = ref[0, prefix.shape[1]:]
+        diff = np.flatnonzero(new != beam_new[done:])
+        upto = int(diff[0]) if diff.size else n - done
+        score += float(lp[np.arange(upto), new[:upto]].sum())
+        if diff.size == 0:
+            return None, ties
+        j = upto
+        a = score + lp[j, new[j]]
+        b = score + lp[j, beam_new[done + j]]
+        if not 0.0 <= a - b <= 2 * float(np.spacing(np.float32(abs(a)))):
+            return (done + j, a - b), ties
+        ties += 1
+        score = b
+        done += j + 1
+    return None, ties
+
+
+def phase_serve(env):
+    """Generation and the continuous-batching engine on gpt2-350m: pass A
+    (bf16, replay gate and its planted fault, fixed shapes, in-place
+    pool, latency, the decode step's profile), pass B (eviction), pass C
+    (int8 KV), pass D (fp32 at 2 layers: engine tokens equal generate()'s
+    and generate_beam(num_beams=1)'s)."""
+    import time as _time
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.models.generation import (generate,
+                                                       generate_beam)
+    from deepspeed_tpu_torch.serving import engine as serving_engine
+
+    model = _serve_model(dtype=torch.bfloat16)
+    vocab = model.config.vocab_size
+    prompts, prios = _serve_traffic(vocab)
+    lens = [len(p) for p in prompts]
+    log(f"serve traffic: {SERVE_REQUESTS} requests, prompts {min(lens)}-"
+        f"{max(lens)} tokens (mean {np.mean(lens):.1f}), max_new "
+        f"{SERVE_MAX_NEW}, greedy, {SERVE_FIRST} then 1 per step; "
+        f"{SLICE_MODEL} bf16 over fp32 weights, seed {SERVE_SEED}, "
+        f"{SERVE_SLOTS} slots, block {SERVE_BLOCK}, chunk {SERVE_CHUNK}")
+
+    # -- pass A ---------------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    eng = _serve_engine(model)
+    if eng.device.type != "cuda":
+        raise RuntimeError(f"the engine runs on {eng.device}")
+    t0 = _time.perf_counter()
+    eng.warmup()
+    warm_s = _time.perf_counter() - t0
+    sigs = dict(eng.dispatch_shapes.signatures)
+    ptrs = [t.data_ptr() for t in eng.pool.tensors.arrays]
+    rids, wall = _drive_traffic(eng, prompts, prios)
+    _check_finished(eng, rids, prompts, vocab, "A")
+    if set(eng.dispatch_shapes.signatures) != set(sigs):
+        new = set(eng.dispatch_shapes.signatures) - set(sigs)
+        raise RuntimeError(f"serve A: new dispatch signatures after warmup:"
+                           f" {new}")
+    if [t.data_ptr() for t in eng.pool.tensors.arrays] != ptrs:
+        raise RuntimeError("serve A: the pool tensors moved")
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in eng.pool.tensors.arrays)
+    if eng.pool.device_bytes() != nbytes:
+        raise RuntimeError(f"serve A: device_bytes {eng.pool.device_bytes()}"
+                           f" != tensors {nbytes}")
+    rep = eng.serving_report()
+    peak = torch.cuda.max_memory_allocated()
+    gen_tokens = rep["tokens"]["generated"]
+    log(f"serve A ({env['smi']}): warmup {warm_s:.1f} s, "
+        f"{len(sigs)} dispatch signatures "
+        f"({', '.join(eng.dispatch_shapes.names())}); traffic "
+        f"{wall:.2f} s, {rep['steps']['total']} engine steps "
+        f"({rep['steps']['decode']} decode), evictions "
+        f"{rep['requests']['evictions']}")
+    log(f"  TTFT p50 {rep['ttft_s']['p50'] * 1e3:.1f} ms, p95 "
+        f"{rep['ttft_s']['p95'] * 1e3:.1f} ms; TPOT p50 "
+        f"{rep['tpot_p50_s'] * 1e3:.2f} ms (mean "
+        f"{rep['tpot_s'] * 1e3:.2f}); output {gen_tokens / wall:.1f} "
+        f"tokens/s ({gen_tokens} tokens); peak max_memory_allocated "
+        f"{peak / 2 ** 30:.2f} GiB; pool {nbytes / 1e9:.3f} GB")
+    log(f"  pool.stats() {json.dumps(eng.pool.stats())}")
+    model.cuda()
+    deficit = _deficit_summary(_replay_excess(model, eng, rids, prompts))
+    log(f"  replay gate: engine token's deficit to the replay's best "
+        f"logit over {deficit['n']} positions: max {deficit['max']:.4f}, "
+        f"p99 {deficit['p99']:.4f}, p50 {deficit['p50']:.4f}, "
+        f"{deficit['nonzero']} positions > 0, best logits up to "
+        f"{deficit['top_max']:.3f}; gate {SERVE_DELTA}")
+    if not deficit["max"] <= SERVE_DELTA:
+        raise RuntimeError(f"serve A: replay deficit {deficit['max']} > "
+                           f"{SERVE_DELTA}")
+    decode = _profile_decode(env, eng, PROFILE_DECODE_STEPS)
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- the planted fault ----------------------------------------------
+    eng = _serve_engine(model)
+    with mock.patch.object(serving_engine, "_pool_view", _rotated_view()):
+        frids, _ = _drive_traffic(eng, prompts, prios)
+    fault = _deficit_summary(_replay_excess(model, eng, frids, prompts))
+    log(f"  planted fault (decode view's page tables rotated by one "
+        f"block, the same traffic): max deficit {fault['max']:.4f} = "
+        f"{fault['max'] / SERVE_DELTA:.1f} x the gate (needs "
+        f">= {SERVE_FAULT_FACTOR}); p50 {fault['p50']:.4f}")
+    if not fault["max"] >= SERVE_FAULT_FACTOR * SERVE_DELTA:
+        raise RuntimeError("serve: the planted fault passes the replay gate")
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- pass B: eviction ------------------------------------------------
+    eng = _serve_engine(model, kv_blocks=SERVE_EVICT_BLOCKS)
+    rids, wall = _drive_traffic(eng, prompts, prios)
+    _check_finished(eng, rids, prompts, vocab, "B")
+    rep = eng.serving_report()
+    evictions = rep["requests"]["evictions"]
+    deficit_b = _deficit_summary(_replay_excess(model, eng, rids, prompts))
+    log(f"serve B (kv_blocks {SERVE_EVICT_BLOCKS}): {evictions} evictions, "
+        f"{rep['steps']['total']} engine steps, {wall:.2f} s, prefill "
+        f"tokens computed {rep['prefix_cache']['prefill_tokens_computed']};"
+        f" replay max deficit {deficit_b['max']:.4f} (p99 "
+        f"{deficit_b['p99']:.4f})")
+    if evictions <= 0:
+        raise RuntimeError("serve B: no eviction")
+    if not deficit_b["max"] <= SERVE_DELTA:
+        raise RuntimeError(f"serve B: replay deficit {deficit_b['max']}")
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- pass C: int8 KV -------------------------------------------------
+    eng = _serve_engine(model, quantize_kv=True)
+    if not eng.pool.quantized:
+        raise RuntimeError("serve C: int8 KV disarmed")
+    rids, wall = _drive_traffic(eng, prompts, prios)
+    _check_finished(eng, rids, prompts, vocab, "C")
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in eng.pool.tensors.arrays)
+    if eng.pool.device_bytes() != nbytes:
+        raise RuntimeError(f"serve C: device_bytes {eng.pool.device_bytes()}"
+                           f" != tensors {nbytes}")
+    deficit_c = _deficit_summary(_replay_excess(model, eng, rids, prompts))
+    log(f"serve C (int8 KV): {wall:.2f} s, pool {nbytes / 1e9:.3f} GB "
+        f"(device_bytes equal); replay deficit against the bf16 replay, "
+        f"logged only: max {deficit_c['max']:.4f}, p99 "
+        f"{deficit_c['p99']:.4f}, p50 {deficit_c['p50']:.4f}")
+    del eng, model
+    torch.cuda.empty_cache()
+
+    # -- pass D: fp32, 2 layers at full width ------------------------------
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("serve D needs TF32 off")
+    model = _serve_model(dtype=torch.float32, n_layer=2)
+    eng = _serve_engine(model)
+    model.cuda()
+    rids, wall = _drive_traffic(eng, prompts, prios)
+    _check_finished(eng, rids, prompts, vocab, "D")
+    ties = 0
+    for rid, p in zip(rids, prompts):
+        got = eng.results[rid]["tokens"][len(p):]
+        bad, t = _greedy_matches(model, p, got, generate)
+        ties += t
+        if bad is not None:
+            raise RuntimeError(f"serve D: request {rid} parts from "
+                               f"generate() at step {bad[0]}, top-2 gap "
+                               f"{bad[1]:.3g} relative")
+    beam_ties = 0
+    for p in prompts[:SERVE_FIRST]:
+        got = generate_beam(model, None, p[None], SERVE_MAX_NEW,
+                            num_beams=1)[0]
+        bad, t = _beam_matches_greedy(model, p, got[len(p):], generate)
+        beam_ties += t
+        if bad is not None:
+            raise RuntimeError("serve D: generate_beam(num_beams=1) parts "
+                               f"from greedy at step {bad[0]}, candidate "
+                               f"scores {bad[1]:.3g} apart")
+    log(f"serve D (fp32, 2 layers, TF32 off): engine greedy tokens equal "
+        f"generate()'s for all {SERVE_REQUESTS} requests with {ties} "
+        f"near-tie steps (top-2 gap < {TIE_REL} relative); "
+        f"generate_beam(num_beams=1) equals greedy on {SERVE_FIRST} "
+        f"prompts with {beam_ties} steps where the beam's two best "
+        f"candidate scores round together")
+    del eng, model
+    torch.cuda.empty_cache()
+    return {"decode": decode, "deficit": deficit, "fault": fault}
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "deepspeed_tpu_torch")):
         print("chip_smoke.py: the deepspeed_tpu_torch package is not beside "
@@ -1543,6 +1987,8 @@ def main():
     del fp16
     torch.cuda.empty_cache()
     phase_optimizers(env)
+    torch.cuda.empty_cache()
+    phase_serve(env)
     print(json.dumps({"kernels": rows + sparse_rows + fp16_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

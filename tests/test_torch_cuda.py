@@ -1,4 +1,5 @@
-"""The port's CUDA kernels on a GPU; every test here skips without one.
+"""The port on a GPU (its CUDA kernels, training and serving); every test
+here skips without one.
 
 This file imports neither jax nor the JAX package, so it also runs on a
 machine that has only PyTorch and the CUDA toolkit:
@@ -418,3 +419,141 @@ def test_dropout_and_the_step_make_no_host_sync(cuda, precision):
     assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == {
         "flash_fwd": 8, "flash_bwd_dkdv": 4, "flash_bwd_dq": 4}
     assert torch.isfinite(loss).item()
+
+
+# ---------------------------------------------------------------------------
+# serving on the card
+# ---------------------------------------------------------------------------
+# a small GPT-2 with the kernels' head_dim, bf16 over fp32 weights
+_SERVE_CFG = dict(vocab_size=256, n_positions=128, n_embd=128, n_layer=2,
+                  n_head=2)
+# the replay gate at this size: four bf16 spacings at the top logits'
+# magnitude (2**-8 in [1, 2)), as chip_smoke.py derives its gate; the
+# planted fault must read 10x above it
+_SERVE_DELTA = 2.0 ** -6
+
+
+def _serve_setup(cuda, **kw):
+    import numpy as np
+
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    from deepspeed_tpu_torch.serving import InferenceEngine
+
+    model = GPT2Model(GPT2Config(dtype=torch.bfloat16, **_SERVE_CFG),
+                      torch.Generator().manual_seed(42))
+    eng = InferenceEngine(model, max_slots=4, kv_block_size=16,
+                          prefill_chunk=32, **kw)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, 256, int(n)).astype(np.int32)
+               for n in rng.integers(4, 80, 8)]
+    return model, eng, prompts
+
+
+def _serve(eng, prompts, max_new=24):
+    rids = [eng.submit(p, max_new_tokens=max_new) for p in prompts[:4]]
+    for p in prompts[4:]:
+        eng.step()
+        rids.append(eng.submit(p, max_new_tokens=max_new))
+    eng.serve()
+    return rids
+
+
+def _worst_deficit(model, eng, rids, prompts):
+    """Max over generated positions of the replay's best logit minus its
+    logit of the engine's token; the replay is the training forward (the
+    flash kernels) over prompt + generated[:-1]."""
+    worst = 0.0
+    with torch.no_grad():
+        for rid, p in zip(rids, prompts):
+            toks = eng.results[rid]["tokens"]
+            ids = torch.as_tensor(toks[:-1], device="cuda").long()[None]
+            logits = model(ids)[0, len(p) - 1:].float()
+            gen = torch.as_tensor(toks[len(p):], device="cuda").long()
+            d = logits.max(-1).values - logits.gather(1, gen[:, None])[:, 0]
+            worst = max(worst, float(d.max()))
+    return worst
+
+
+@pytest.mark.cuda
+def test_serving_replay_gate_and_planted_fault(cuda):
+    """Greedy engine tokens on the card score within the gate of the
+    replay's best logit; gathering the decode view with each lane's page
+    table rotated by one block fails the gate tenfold."""
+    from unittest import mock
+
+    from deepspeed_tpu_torch.serving import engine as serving_engine
+
+    model, eng, prompts = _serve_setup(cuda)
+    assert eng.device.type == "cuda"
+    rids = _serve(eng, prompts)
+    model.to(cuda)
+    before = dict(tfa.LAUNCHES)
+    worst = _worst_deficit(model, eng, rids, prompts)
+    assert tfa.LAUNCHES["flash_fwd"] - before["flash_fwd"] \
+        == len(rids) * _SERVE_CFG["n_layer"]
+    plain = serving_engine._pool_view
+
+    def rotated(pool, scales, l, tables, quantized, out_dtype):
+        if tables.shape[0] > 1:
+            tables = torch.roll(tables, 1, dims=1)
+        return plain(pool, scales, l, tables, quantized, out_dtype)
+
+    _, bad, _ = _serve_setup(cuda)
+    with mock.patch.object(serving_engine, "_pool_view", rotated):
+        bad_rids = _serve(bad, prompts)
+    fault = _worst_deficit(model, bad, bad_rids, prompts)
+    print(f"replay deficit {worst:.5f}, planted fault {fault:.5f}")
+    assert worst <= _SERVE_DELTA, worst
+    assert fault >= 10 * _SERVE_DELTA, fault
+
+
+@pytest.mark.cuda
+def test_serving_step_fetches_once_per_dispatch(cuda):
+    """Under torch.cuda.set_sync_debug_mode("warn") a step syncs exactly
+    once per dispatch that samples (the decode step and a final prefill
+    chunk: tokens and finiteness flags in one fetch) and nowhere else;
+    the per-step inputs go up through pinned memory without a sync."""
+    import warnings
+
+    model, eng, prompts = _serve_setup(cuda)
+    eng.warmup()
+    torch.cuda.synchronize()
+    rids = [eng.submit(p, max_new_tokens=12) for p in prompts[:6]]
+    steps = 0
+    while eng.scheduler.has_work():
+        before = dict(eng.dispatch_shapes.signatures)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        fetches = sum(n - before.get(sig, 0) for sig, n in
+                      eng.dispatch_shapes.signatures.items()
+                      if sig[0] == "decode_step"
+                      or sig[0].endswith("_final"))
+        syncs = [w for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        assert len(syncs) == fetches, (steps, fetches,
+                                       [str(w.message) for w in syncs])
+        steps += 1
+    assert steps > 12
+    assert all(eng.results[r]["status"] == "finished" for r in rids)
+
+
+@pytest.mark.cuda
+def test_serving_pool_storage_stable_on_card(cuda):
+    """The pool tensors keep their storage across steps, int8 included,
+    and device_bytes() prices them byte for byte."""
+    for quantize in (False, True):
+        model, eng, prompts = _serve_setup(cuda, quantize_kv=quantize)
+        assert eng.pool.quantized == quantize
+        ptrs = [t.data_ptr() for t in eng.pool.tensors.arrays]
+        k0 = eng.pool.tensors.k.clone()
+        rids = _serve(eng, prompts)
+        assert [t.data_ptr() for t in eng.pool.tensors.arrays] == ptrs
+        assert not torch.equal(eng.pool.tensors.k, k0)
+        assert eng.pool.device_bytes() == sum(
+            t.numel() * t.element_size() for t in eng.pool.tensors.arrays)
+        assert all(eng.results[r]["status"] == "finished" for r in rids)
