@@ -33,11 +33,21 @@ failure:
   5. profile  two more train_batch steps under torch.profiler: device time
               by kernel, the flash kernels' and the GEMMs' shares, and the
               device's idle share (after the launch counts are read)
-  6. parity   2 layers at full width: loss and every parameter gradient with
+  6. zero     phase 4's run at ZeRO stage 2 in a world of one over NCCL
+              (init_distributed() under torchrun's variables, mesh data 1):
+              its 10 losses and final master weights equal phase 4's bit
+              for bit (else within the spread of two stage-0 runs, which
+              is then printed), the collectives counted in each step equal
+              comm_volume_report()'s list at dp 1, B1-B3 launch 480 times
+              each; step ms, tokens/s and peak memory beside phase 4's, two
+              more steps under torch.profiler; the same run with the
+              post-step parameter gather skipped (a planted fault) must
+              fail the first gate
+  7. parity   2 layers at full width: loss and every parameter gradient with
               the kernels against the same model with the plain version
               (flash_attention_reference) as its attention, bf16 tolerance;
               a planted fault (diagonal tiles masked) must fail it
-  7. sparse kernels
+  8. sparse kernels
               each block-sparse kernel against its plain version: the
               long-sequence BERT shape (4, 12, 4096, 64) bf16 over the
               FixedSparsityConfig(12, block 64, local 4, global 1) layout
@@ -54,25 +64,25 @@ failure:
               logged only); two planted faults (the last
               active block of every row dropped, one block-row of every
               output left at zero) must fail the gate
-  8. train (BERT)
+  9. train (BERT)
               initialize() -> 10 x train_batch of bert-base (12 layers,
               full width) at seq 4096 over that layout, micro 4, gas 2:
               losses finite and falling, every block-sparse kernel launched
               exactly 12 x 2 x 10 times and no flash kernel
-  9. profile (BERT)
+ 10. profile (BERT)
               two more steps under torch.profiler
- 10. parity (BERT)
+ 11. parity (BERT)
               2 layers at full width, seq 4096: loss and every gradient
               against block_sparse_attention_reference as the attention; a
               planted fault (one active block per row dropped) must fail it
- 11. kernels (fp16)
+ 12. kernels (fp16)
               B1-B3 at fp16 (their fp16 tensor-core instantiations)
               against the plain versions: the slice shape, timed, with
               scaled_dot_product_attention's fp16 time and the two
               planted faults, and small shapes with both bias kinds,
               dropout and head_dim 64, 96, 128; the fp16 gate is 5e-3
               (PERF.md section 2)
- 12. train (fp16)
+ 13. train (fp16)
               gpt2-350m at fp16 with dynamic loss scaling (2**16,
               hysteresis 2) and remat 'attn_out': 10 steps with the loss
               scale and skipped steps after each, flash launches per step
@@ -81,13 +91,13 @@ failure:
               saved after step 5 into a temporary directory (seconds,
               bytes), loaded into a new engine, and steps 6-10 run again:
               their losses must equal the uninterrupted run's bit for bit
- 13. profile (fp16)
+ 14. profile (fp16)
               two more steps under torch.profiler
- 14. optimizers
+ 15. optimizers
               LAMB and SGD through initialize() -> train_batch, 3 steps
               each at 2 layers of gpt2-350m, bf16: losses finite and
               falling
- 15. serve    generation and the continuous-batching InferenceEngine on
+ 16. serve    generation and the continuous-batching InferenceEngine on
               gpt2-350m (full depth and width, bf16 over fp32 weights,
               seed 42): 32 greedy requests (prompts 16-512 tokens from
               default_rng(0), 64 new tokens, every 8th at priority 1; 8
@@ -107,7 +117,7 @@ failure:
               only at a near tie, counted) and generate_beam(num_beams=1)
               equals greedy
 The line before the last is the kernels JSON (the fp16 rows named
-<kernel>_fp16, their launches from phase 12); the last line is
+<kernel>_fp16, their launches from phase 13); the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card and nvcc.
 """
 import concurrent.futures
@@ -752,15 +762,23 @@ def phase_train(env):
     want = {name: cfg.n_layer * SLICE_GAS * SLICE_STEPS
             for name, _ in FLASH_KERNELS}
     want.update({name: 0 for name, _ in SPARSE_KERNELS})
-    return _train_steps(env, engine, batch, SLICE_MODEL, SLICE_SEQ,
-                        SLICE_MICRO, SLICE_GAS, SLICE_STEPS, want)
+    train = _train_steps(env, engine, batch, SLICE_MODEL, SLICE_SEQ,
+                         SLICE_MICRO, SLICE_GAS, SLICE_STEPS, want)
+    # the fp32 master after the 10 steps, on the host: phase_zero's gate
+    train["master"] = _host_master(engine)
+    return train
+
+
+def _host_master(engine):
+    return [m.detach().to("cpu", copy=True) for m in engine.master]
 
 
 def _train_steps(env, engine, batch, model_name, seq, micro, gas, steps,
-                 want):
+                 want, after_step=None):
     """``steps`` train_batch calls with every kernel count set to 0 just
     before and read just after; raises unless the losses are finite and
-    falling and each kernel launched exactly ``want[kernel]`` times."""
+    falling and each kernel launched exactly ``want[kernel]`` times.
+    ``after_step()`` runs after each step, untimed."""
     import torch
 
     from deepspeed_tpu_torch.ops.sparse_attention import \
@@ -778,6 +796,8 @@ def _train_steps(env, engine, batch, model_name, seq, micro, gas, steps,
         loss = engine.train_batch(batch=batch)
         losses.append(float(loss))          # syncs the step
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        if after_step is not None:
+            after_step()
     launches = dict(fa.LAUNCHES, **bsk.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     log(f"train {model_name} ({n_params / 1e6:.1f}M params) seq "
@@ -858,6 +878,146 @@ def phase_profile(env, train, label, steps=2):
             f"{us / busy:6.1%} of device time")
     for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:12]:
         log(f"  {us / steps / 1e3:9.2f} ms/step  {name[:100]}")
+
+
+def _slice_engine(zero_stage, mesh=None):
+    """phase_train's gpt2-350m engine and batch at ``zero_stage``."""
+    import torch
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
+
+    cfg = gpt2_config(SLICE_MODEL, n_positions=SLICE_SEQ,
+                      dtype=torch.bfloat16, remat=False)
+    ds_config = dict(_ds_config(SLICE_MICRO, SLICE_GAS),
+                     zero_optimization={"stage": zero_stage})
+    if mesh is not None:
+        ds_config["mesh"] = mesh
+    engine, _, _, _ = initialize(model=GPT2Model(cfg), config_params=ds_config)
+    batch = _slice_batch(cfg.vocab_size, SLICE_GAS, SLICE_MICRO, SLICE_SEQ,
+                         seed=0)
+    want = {name: cfg.n_layer * SLICE_GAS * SLICE_STEPS
+            for name, _ in FLASH_KERNELS}
+    want.update({name: 0 for name, _ in SPARSE_KERNELS})
+    return engine, batch, want
+
+
+def _spread(a, b):
+    """(max |loss difference|, max |master difference|) of two runs."""
+    import torch
+
+    loss = max(abs(x - y) for x, y in zip(a["losses"], b["losses"]))
+    master = max(float((x.float() - y.float()).abs().max())
+                 for x, y in zip(a["master"], b["master"]))
+    return loss, master
+
+
+def _world_of_one():
+    """The torchrun variables of a world of one on a free port; returns the
+    values they replaced."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    world = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0",
+                 WORLD_SIZE="1", LOCAL_RANK="0")
+    saved = {k: os.environ.get(k) for k in world}
+    os.environ.update(world)
+    return saved
+
+
+def phase_zero(env, ref):
+    """ZeRO stage 2 over NCCL in a world of one: phase_train's run (same
+    seed, batch, config) with ``zero_optimization.stage`` 2 and ``mesh
+    {"data": 1}`` through init_distributed(). Gates: its 10 losses and
+    final master equal phase_train's stage-0 run bit for bit (else within
+    the spread of two stage-0 runs, which is printed); the collectives
+    counted in every step equal comm_volume_report()'s list at dp 1; B1-B3
+    launch 480 times each; the same run with the post-step parameter
+    gather skipped (a planted fault) fails the first gate."""
+    import torch
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch import init_distributed
+
+    saved = _world_of_one()
+    try:
+        init_distributed()
+        if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+            raise RuntimeError(f"phase_zero: {dist.get_backend()} world of "
+                               f"{dist.get_world_size()}, expected NCCL x 1")
+        engine, batch, want = _slice_engine(2, mesh={"data": 1})
+        report = engine.comm_volume_report()
+        want_comm = sorted((c["name"], c["op"], c["dtype"], c["elements"],
+                            c["count_per_step"], c["bytes_per_step"])
+                           for c in report["collectives"])
+        records = []
+        zero = _train_steps(env, engine, batch, f"{SLICE_MODEL} ZeRO-2 NCCL",
+                            SLICE_SEQ, SLICE_MICRO, SLICE_GAS, SLICE_STEPS,
+                            want, after_step=lambda: records.append(
+                                engine.last_step_comm))
+        zero["master"] = _host_master(engine)
+        for step, rec in enumerate(records, 1):
+            got = sorted((c["name"], c["op"], c["dtype"], c["elements"],
+                          c["count_per_step"], c["bytes_per_step"])
+                         for c in rec["collectives"])
+            if got != want_comm:
+                raise RuntimeError(f"phase_zero step {step}: counted "
+                                   f"collectives differ from the report")
+        log(f"zero: NCCL world 1, stage 2: each of {len(want_comm)} "
+            f"leaves all-reduced {SLICE_GAS}x per step, in "
+            f"{records[-1]['calls']} NCCL calls and "
+            f"{records[-1]['scalars']} scalar reductions; ring bytes "
+            f"{report['total_bytes_per_step']}, the report's at dp 1")
+        phase_profile(env, zero, f"{SLICE_MODEL} ZeRO-2 NCCL world 1")
+        zero.pop("engine")
+        del engine
+        torch.cuda.empty_cache()
+        # the planted fault: the compute parameters never refreshed
+        engine, batch, want = _slice_engine(2, mesh={"data": 1})
+        engine._gather_params = lambda: None
+        fault = {"losses": [float(engine.train_batch(batch=batch))
+                            for _ in range(SLICE_STEPS)],
+                 "master": _host_master(engine)}
+        del engine
+        torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    diff = _spread(zero, ref)
+    gate = (0.0, 0.0)
+    if diff != gate:
+        # not bit for bit: the gate is the spread of two stage-0 runs
+        engine, batch, want = _slice_engine(0)
+        again = {"losses": [float(engine.train_batch(batch=batch))
+                            for _ in range(SLICE_STEPS)],
+                 "master": _host_master(engine)}
+        del engine
+        torch.cuda.empty_cache()
+        gate = _spread(again, ref)
+        log(f"zero: stage 0 is not deterministic here: the spread of two "
+            f"stage-0 runs (loss, master) = {gate}")
+    planted = _spread(fault, ref)
+    log(f"zero: stage 2 vs stage 0 (max |loss diff|, max |master diff|) "
+        f"{diff}, gate {gate}; planted fault (gather skipped) {planted}")
+    if diff[0] > gate[0] or diff[1] > gate[1]:
+        raise RuntimeError(f"phase_zero: stage 2 differs from stage 0 by "
+                           f"{diff}, beyond {gate}")
+    if not (planted[0] > gate[0] or planted[1] > gate[1]):
+        raise RuntimeError(f"phase_zero: the planted fault passed the gate "
+                           f"({planted} within {gate})")
+    log(f"zero: step ms (median of steps 2..{SLICE_STEPS}) stage 0 "
+        f"{ref['step_ms']:.1f} / ZeRO-2 NCCL {zero['step_ms']:.1f}; tokens/s "
+        f"{ref['tokens_per_s']:.0f} / {zero['tokens_per_s']:.0f}; "
+        f"max_memory_allocated {ref['peak_bytes'] / 2 ** 30:.2f} / "
+        f"{zero['peak_bytes'] / 2 ** 30:.2f} GiB on {env['smi']}")
+    return zero
 
 
 def _plain_attention(mask_diagonal=False):
@@ -1525,7 +1685,7 @@ def phase_optimizers(env):
 
 
 # ---------------------------------------------------------------------------
-# phase 15: serving (generation and the continuous-batching engine)
+# phase 16: serving (generation and the continuous-batching engine)
 # ---------------------------------------------------------------------------
 SERVE_REQUESTS = 32
 SERVE_PROMPT_LENS = (16, 512)          # uniform, both ends included
@@ -1967,7 +2127,11 @@ def main():
     for row in rows:
         row["launches"] = train["launches"][row["name"]]
     phase_profile(env, train, SLICE_MODEL)
+    train.pop("engine")
+    torch.cuda.empty_cache()
+    phase_zero(env, train)
     del train
+    torch.cuda.empty_cache()
     phase_parity()
     sparse_rows = phase_sparse_kernels(env, tensor_cores)
     torch.cuda.empty_cache()

@@ -5,6 +5,7 @@ surface, same ``initialize()`` entry point, with the attention kernels
 written by hand for NVIDIA Hopper (sm_90a). Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``.
 """
+from deepspeed_tpu_torch.utils.distributed import init_distributed
 from deepspeed_tpu_torch.version import __reference_version__, __version__
 
 __git_hash__ = None

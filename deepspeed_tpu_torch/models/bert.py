@@ -18,7 +18,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepspeed_tpu_torch.models.api import pad_to_multiple
-from deepspeed_tpu_torch.models.convert import bert_reference_tree, leaf_specs
+from deepspeed_tpu_torch.models.convert import (bert_reference_tree,
+                                                leaf_paths, leaf_specs,
+                                                bert_tp_taken)
 from deepspeed_tpu_torch.ops.transformer.functional import dropout, gelu
 from deepspeed_tpu_torch.ops.transformer.transformer import (
     Dense, DeepSpeedTransformerConfig, DeepSpeedTransformerLayer, LayerNorm)
@@ -182,6 +184,16 @@ class BertForPreTraining(nn.Module):
         """This model's parameters in the JAX package's tree order, the
         layout of the engine's checkpoints (models/convert.py)."""
         return leaf_specs(bert_reference_tree(self.config))
+
+    def reference_leaf_paths(self):
+        """The JAX package's name of each ``reference_leaf_specs`` leaf."""
+        return leaf_paths(bert_reference_tree(self.config))
+
+    @staticmethod
+    def tp_taken(path, ndim, stacked=False):
+        """The dims of the JAX leaf ``path`` that its tensor-parallel spec
+        takes; ZeRO shards the leaf along another (runtime/zero)."""
+        return bert_tp_taken(path, ndim)
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 train=False, generator=None):

@@ -193,3 +193,55 @@ def leaf_specs(tree):
 
     walk(tree)
     return out
+
+
+def leaf_paths(tree):
+    """The '/'-joined key path of each of a reference tree's leaves, in
+    ``leaf_specs`` order (the JAX package's leaf names)."""
+    out = []
+
+    def walk(node, prefix):
+        for key in sorted(node):
+            path = f"{prefix}{key}"
+            if isinstance(node[key], dict):
+                walk(node[key], path + "/")
+            else:
+                out.append(path)
+
+    walk(tree, "")
+    return out
+
+
+def gpt2_tp_taken(path, ndim, stacked=False):
+    """The dims of a JAX GPT-2 leaf that its tensor-parallel spec gives to
+    the ``model`` axis (deepspeed_tpu models/gpt2.py ``gpt2_tp_leaf_spec``:
+    QKV and MLP-in kernels their output dim and biases, the c_proj
+    kernels their input dim, wte its vocab dim; a scanned stack's leading
+    (L,) dim is never taken). ZeRO shards another dim."""
+    if ndim == 0 or "wpe" in path:
+        return ()
+    if "wte" in path:
+        return (0,)
+    lead = 1 if stacked else 0
+    kernel = ndim - lead == 2
+    if "c_attn" in path or "c_fc" in path:
+        return (lead + 1,) if kernel else (lead,)
+    if "c_proj" in path and kernel:
+        return (lead,)
+    return ()
+
+
+def bert_tp_taken(path, ndim):
+    """As ``gpt2_tp_taken`` for the JAX BERT (deepspeed_tpu models/bert.py
+    ``param_partition_spec``): word embeddings their vocab dim, the QKV
+    and FFN-in kernels their output dim, attn-out and FFN-out their input
+    dim."""
+    if ndim == 0:
+        return ()
+    if "word_embeddings" in path:
+        return (0,)
+    if ndim == 2 and ("qkv" in path or "ffn_inter" in path):
+        return (1,)
+    if ndim == 2 and ("attn_out" in path or "ffn_out" in path):
+        return (0,)
+    return ()

@@ -24,7 +24,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from deepspeed_tpu_torch.models.api import (chunked_lm_cross_entropy,
                                             cross_entropy_loss,
                                             pad_to_multiple)
-from deepspeed_tpu_torch.models.convert import gpt2_reference_tree, leaf_specs
+from deepspeed_tpu_torch.models.convert import (gpt2_reference_tree,
+                                                leaf_paths, leaf_specs,
+                                                gpt2_tp_taken)
 from deepspeed_tpu_torch.ops.transformer.functional import (
     dropout, gelu, scaled_dot_product_attention)
 from deepspeed_tpu_torch.ops.transformer.transformer import (Dense,
@@ -264,6 +266,16 @@ class GPT2Model(nn.Module):
         """This model's parameters in the JAX package's tree order, the
         layout of the engine's checkpoints (models/convert.py)."""
         return leaf_specs(gpt2_reference_tree(self.config))
+
+    def reference_leaf_paths(self):
+        """The JAX package's name of each ``reference_leaf_specs`` leaf."""
+        return leaf_paths(gpt2_reference_tree(self.config))
+
+    @staticmethod
+    def tp_taken(path, ndim, stacked=False):
+        """The dims of the JAX leaf ``path`` that its tensor-parallel spec
+        takes; ZeRO shards the leaf along another (runtime/zero)."""
+        return gpt2_tp_taken(path, ndim, stacked)
 
     def hidden(self, input_ids, train=False, generator=None):
         """Final-LayerNorm activations (B, S, E) in the compute dtype."""

@@ -8,6 +8,11 @@ code: ``_foreach`` ops over the parameter list, the per-tensor norms from
 ``_foreach_norm``. The step count is a device int32 (``LambState.step``);
 ``skip`` leaves params and state as they were, decided on the device with
 the update in place (``keep_factor``).
+
+Under ZeRO the lists hold this rank's shards of some tensors
+(``set_partition``): the trust ratio still takes the norms of the whole
+tensors, the shards' squared norms summed over the data-parallel group in
+one all-reduce.
 """
 import torch
 
@@ -38,6 +43,16 @@ class FusedLamb:
         self.step = None
         self.m = None
         self.v = None
+        self._group = None
+        self._partitioned = None
+
+    def set_partition(self, group, partitioned):
+        """``partitioned[i]``: whether parameter i of the lists is this
+        rank's shard of a tensor split over ``group`` (the engine's
+        ``DataParallelGroup``)."""
+        if any(partitioned):
+            self._group = group
+            self._partitioned = list(partitioned)
 
     def init_state(self, params):
         self.step = torch.zeros((), dtype=torch.int32,
@@ -78,6 +93,8 @@ class FusedLamb:
         # zero on a skipped step
         w_norm = torch.stack(torch._foreach_norm(params))
         u_norm = torch.stack(torch._foreach_norm(upd))
+        if self._partitioned is not None:
+            w_norm, u_norm = self._whole_norms(w_norm, u_norm)
         trust = torch.where((w_norm > 0) & (u_norm > 0),
                             torch.clamp(w_norm / u_norm, self.min_coeff,
                                         self.max_coeff),
@@ -85,3 +102,15 @@ class FusedLamb:
         torch._foreach_mul_(upd, list((trust * keep).unbind()))
         torch._foreach_add_(params, upd, alpha=-lr)
         self.step = self.step + keep.int()
+
+    def _whole_norms(self, w_norm, u_norm):
+        """The norms of the whole tensors where the lists hold shards: the
+        shards' squared norms summed over the group."""
+        if not torch.is_tensor(self._partitioned):
+            self._partitioned = torch.tensor(self._partitioned,
+                                             device=w_norm.device)
+        mask = self._partitioned
+        sq = torch.stack([w_norm, u_norm]).square() * mask
+        self._group.all_reduce(sq)
+        return (torch.where(mask, sq[0].sqrt(), w_norm),
+                torch.where(mask, sq[1].sqrt(), u_norm))

@@ -8,6 +8,8 @@ mesh sections are extensions of the reference's keys.
 import json
 import os
 
+import torch.distributed as dist
+
 from deepspeed_tpu_torch.elasticity import (compute_elastic_config, elasticity_enabled,
                                       ensure_immutable_elastic_config)
 from deepspeed_tpu_torch.elasticity.config import (ElasticityConfigError,
@@ -500,6 +502,9 @@ class DeepSpeedConfig:
 
         if world_size is not None:
             self.world_size = world_size
+        elif mpu is None and dist.is_available() and dist.is_initialized():
+            # the process group's world, when one is initialised
+            self.world_size = dist.get_world_size()
         elif mpu is None:
             self.world_size = int(os.environ.get("WORLD_SIZE", "1"))
         else:

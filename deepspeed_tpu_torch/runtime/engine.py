@@ -1,14 +1,16 @@
-"""DeepSpeedEngine on one device.
+"""DeepSpeedEngine: one device per process, data parallel over a process
+group with ZeRO stage 0, 1 or 2.
 
-Port of the single-device subset of deepspeed_tpu/runtime/engine.py: the
-optimizer and LR scheduler from the ds_config (``_configure_basic_optimizer``
-:439, ``_configure_lr_scheduler`` :523), ``forward`` / ``backward`` /
-``step`` (:3111, :3217, :3285), the optimizer step with the fp16 loss
-scale, global-norm clipping and the overflow skip (``_take_model_step``
-:3415, apply fn :2184-2240), ``train_batch`` (:3489: gas micro-batches,
-then one step, returning the mean loss), ``eval_loss`` (:3616), progressive
-layer drop, and ``save_checkpoint`` / ``load_checkpoint`` (:4312, :4671)
-in the JAX engine's own layout.
+Port of deepspeed_tpu/runtime/engine.py without its tensor, pipeline and
+sequence axes: the optimizer and LR scheduler from the ds_config
+(``_configure_basic_optimizer`` :439, ``_configure_lr_scheduler`` :523),
+``forward`` / ``backward`` / ``step`` (:3111, :3217, :3285), the optimizer
+step with the fp16 loss scale, global-norm clipping and the overflow skip
+(``_take_model_step`` :3415, apply fn :2184-2240), ``train_batch`` (:3489:
+gas micro-batches, then one step, returning the mean loss), ``eval_loss``
+(:3616), progressive layer drop, ``deepspeed_io`` (:542), the comm volume
+report (:2956) and ``save_checkpoint`` / ``load_checkpoint`` (:4312,
+:4671) in the JAX engine's own layout.
 
 Precision: the JAX engine's TrainState. Each micro-batch's gradients are
 added into an fp32 accumulator (``accum``: views of one flat buffer). At
@@ -27,20 +29,39 @@ coefficients skips the step. No host sync; logging reads the flags at
 ``steps_per_print``. Initial parameters come from the model's
 ``init_weights`` under the config's ``seed`` (default 42).
 
+Data parallelism (``init_distributed``: NCCL on CUDA, gloo on the CPU):
+each process feeds its own micro-batch, and the loss and gradients are the
+global batch's mean, as the JAX engine's over its ``data`` axis. Each
+micro step's fp32 gradients are exchanged on the current stream: an
+all-reduce, and at stage 2 a reduce-scatter of the leaves ZeRO shards
+into the rank's shard of the accumulator (runtime/zero/partition.py: the
+JAX engine's per-leaf rule). From stage 1 the master weights and the
+optimizer state are the rank's shards; the update runs on them, and one
+all-gather brings the compute-dtype parameters back to every rank. The
+overflow flag is a MAX and the global norm a SUM over the group, so every
+rank takes or skips the same step. In a world of one every leaf is
+replicated, and the step is the single-process one bit for bit.
+
 Configurations that need parts of the port still to come raise at
 construction, naming their ROADMAP item.
 """
 import os
 import pickle
 
+import hashlib
+
 import numpy as np
 import torch
-from torch.utils.data import DataLoader
+import torch.distributed as dist
 
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
 from deepspeed_tpu_torch.ops.adam.sgd import SGD
 from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
+from deepspeed_tpu_torch.parallel.mesh import (DataParallelGroup,
+                                               resolve_data_axis)
 from deepspeed_tpu_torch.runtime import checkpoint_utils
+from deepspeed_tpu_torch.runtime import comm_accounting as ca
+from deepspeed_tpu_torch.runtime import memory_accounting
 from deepspeed_tpu_torch.runtime.config import (DeepSpeedConfig,
                                                 get_mesh_shape)
 from deepspeed_tpu_torch.runtime.config_utils import load_config_json
@@ -50,20 +71,24 @@ from deepspeed_tpu_torch.runtime.constants import (ADAM_OPTIMIZER,
                                                    ONEBIT_ADAM_OPTIMIZER,
                                                    SGD_OPTIMIZER,
                                                    ZEROONE_ADAM_OPTIMIZER)
+from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (
     make_loss_scale_state, update_loss_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import SCHEDULER_REGISTRY
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
     ProgressiveLayerDrop
 from deepspeed_tpu_torch.runtime.resilience import atomic
+from deepspeed_tpu_torch.runtime.utils import (clip_grad_by_global_norm,
+                                               global_norm_from_tree,
+                                               has_overflow)
+from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartition
+from deepspeed_tpu_torch.utils.distributed import init_distributed
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 
 # optimizer names and the ROADMAP item that ports them
 _LATER_OPTIMIZERS = {ONEBIT_ADAM_OPTIMIZER: "A13",
                      ZEROONE_ADAM_OPTIMIZER: "A13"}
 _OPTIMIZERS = (FusedAdam, FusedLamb, SGD)
-# mesh axes and the ROADMAP item that ports them
-_MESH_ITEMS = {"data": "A7", "model": "A7", "pipe": "A12", "seq": "A15"}
 _M32 = 0xFFFFFFFF
 
 
@@ -89,10 +114,6 @@ def _refuse_unported(raw, cfg):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                   f"{item})")
 
-    for axis, size in get_mesh_shape(raw).items():
-        if axis in _MESH_ITEMS and size not in (1, -1):
-            no(f"mesh axis {axis!r} of size {size} (one device only)",
-               _MESH_ITEMS[axis])
     if cfg.zero_optimization_stage >= 3:
         no("ZeRO stage 3", "A13")
     if cfg.zero_config.cpu_offload:
@@ -127,8 +148,13 @@ class DeepSpeedEngine:
                             "modules are ROADMAP A12")
         if mpu is not None:
             raise NotImplementedError("model parallelism through an mpu is "
-                                      "not ported yet (ROADMAP A7)")
+                                      "not ported yet (ROADMAP A7b)")
+        if dist_init_required or (dist_init_required is None
+                                  and not dist.is_initialized()):
+            # joins the world the environment names; a no-op without one
+            init_distributed(device="cuda" if device is None else device)
         self.device = resolve_device(device)
+        self.dp_group = self._data_parallel_group()
         self.client_optimizer = optimizer
         self.client_lr_scheduler = lr_scheduler
         self.collate_fn = collate_fn
@@ -144,13 +170,12 @@ class DeepSpeedEngine:
             raise ValueError("DeepSpeed requires --deepspeed_config or "
                              "config_params")
         raw = load_config_json(raw) if isinstance(raw, str) else raw
-        self.dp_world_size = 1
+        world = 1 if self.dp_group is None else self.dp_group.size
+        self.dp_world_size = resolve_data_axis(get_mesh_shape(raw), world)
+        self.dp_rank = 0 if self.dp_group is None else self.dp_group.rank
+        self.mp_world_size = self.sp_world_size = 1
         self._config = DeepSpeedConfig(raw, world_size=self.dp_world_size)
         _refuse_unported(raw, self._config)
-        if self.zero_optimization_stage() in (1, 2):
-            log_dist(f"ZeRO stage {self.zero_optimization_stage()} on one "
-                     f"device: nothing to partition, the step is plain",
-                     ranks=[0])
 
         # --- precision (reference engine.py:136-144) --------------------
         if self.fp16_enabled():
@@ -176,22 +201,16 @@ class DeepSpeedEngine:
                  if p.requires_grad]
         self.param_names = [n for n, _ in named]
         self.params = [p for _, p in named]
-        if self.mixed_precision:
-            self.master = [p.detach().clone() for p in self.params]
-            with torch.no_grad():
-                for p in self.params:
-                    p.data = p.data.to(self.param_dtype)
-        else:
-            # fp32: the parameters are the master weights
-            self.master = self.params
-        sizes = [p.numel() for p in self.params]
-        self._flat_accum = torch.zeros(sum(sizes), dtype=torch.float32,
-                                       device=self.device)
-        self.accum = [a.view(p.shape) for a, p in
-                      zip(self._flat_accum.split(sizes), self.params)]
+        self.partition = ZeroPartition(
+            self.module, self.param_names, self.params, self.dp_world_size,
+            self.dp_rank, self.zero_optimization_stage())
+        self._build_state()
         self._mark_params()
 
         self.optimizer = self._configure_basic_optimizer()
+        if hasattr(self.optimizer, "set_partition"):
+            self.optimizer.set_partition(self.dp_group,
+                                         self.partition.sharded)
         self.optimizer.init_state(self.master)
         self.lr_scheduler = self._configure_lr_scheduler()
         self.scaler = self._make_scaler()
@@ -202,9 +221,8 @@ class DeepSpeedEngine:
                 theta=self._config.pld_theta, gamma=self._config.pld_gamma)
         self.training_dataloader = None
         if training_data is not None:
-            self.training_dataloader = DataLoader(
-                training_data, batch_size=self.train_micro_batch_size_per_gpu(),
-                collate_fn=collate_fn)
+            self.training_dataloader = self.deepspeed_io(training_data)
+        self.last_step_comm = None
 
         self._train_mode = True
         self._pending_loss = None
@@ -213,6 +231,7 @@ class DeepSpeedEngine:
         n = sum(p.numel() for p in self.params)
         log_dist(f"DeepSpeedEngine: device={self.device} "
                  f"dtype={self.param_dtype} params={n / 1e6:.1f}M "
+                 f"dp={self.dp_world_size} "
                  f"zero_stage={self.zero_optimization_stage()} "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()} "
                  f"gas={self.gradient_accumulation_steps()}", ranks=[0])
@@ -339,6 +358,95 @@ class DeepSpeedEngine:
             args.get("init_scale", self._config.initial_dynamic_scale),
             delayed_shift=args.get("delayed_shift", 1), device=self.device)
 
+    def _data_parallel_group(self):
+        """The process group (``DataParallelGroup``), or None in a
+        single-process run. Its backend must be the device's: NCCL on
+        CUDA, gloo on the CPU; nothing falls back."""
+        if not dist.is_initialized():
+            return None
+        group = DataParallelGroup()
+        want = "nccl" if self.device.type == "cuda" else "gloo"
+        if group.backend != want:
+            raise RuntimeError(f"the process group runs {group.backend}; a "
+                               f"{self.device.type} engine needs {want}")
+        return group
+
+    @torch.no_grad()
+    def _build_state(self):
+        """This rank's master weights, gradient accumulator and exchange
+        buffers under the ZeRO partition (``self.partition``)."""
+        part, dev, f32 = self.partition, self.device, torch.float32
+        sharded = part.sharded
+        # master: the shards of the sharded parameters in one segment;
+        # fp32 replicated ones are the parameters themselves
+        self._master_seg = torch.empty(part.seg_size, dtype=f32, device=dev)
+        shards = iter(part.segment_views(self._master_seg))
+        self.master = []
+        for i, p in enumerate(self.params):
+            if sharded[i]:
+                m = next(shards)
+                m.copy_(part.narrow(p, i))
+            else:
+                m = p.detach().clone() if self.mixed_precision else p
+            self.master.append(m)
+        if self.mixed_precision:
+            for p in self.params:
+                p.data = p.data.to(self.param_dtype)
+        self._master_separate = self.mixed_precision or any(sharded)
+        self._rep_idx = [i for i, s in enumerate(sharded) if not s]
+        # accumulator: full-shaped for the leaves all-reduced each micro
+        # step, then (stage 2) this rank's shards of the others
+        stage2 = self.zero_optimization_stage() >= 2
+        self._ar_idx = [i for i, s in enumerate(sharded)
+                        if not (stage2 and s)]
+        sizes = [self.params[i].numel() for i in self._ar_idx]
+        self._n_ar = sum(sizes)
+        seg = part.seg_size if stage2 else 0
+        self._flat_accum = torch.zeros(self._n_ar + seg, dtype=f32,
+                                       device=dev)
+        self.accum = [None] * len(self.params)
+        for i, a in zip(self._ar_idx, self._flat_accum[:self._n_ar]
+                        .split(sizes)):
+            self.accum[i] = a.view(self.params[i].shape)
+        if stage2:
+            for i, a in zip(part.sharded_idx, part.segment_views(
+                    self._flat_accum[self._n_ar:])):
+                self.accum[i] = a
+        # the gradients the update reads: this rank's part of each
+        self._step_grads = [a if stage2 else part.local(a, i)
+                            for i, a in enumerate(self.accum)]
+        self._partitioned = sharded if any(sharded) else None
+        if self.dp_group is None:
+            return
+        self._ar_buf = torch.empty(self._n_ar, dtype=f32, device=dev)
+        self._ar_views = [b.view(self.params[i].shape) for i, b in
+                          zip(self._ar_idx, self._ar_buf.split(sizes))]
+        self._ar_leaves = [(leaf.name, leaf.elements)
+                           for leaf in part.leaves
+                           if not (stage2 and leaf.shard_dim is not None)]
+        self._sh_leaves = part.leaf_elements(sharded=True)
+        n = self.dp_world_size * part.seg_size
+        if stage2:
+            self._rs_send = torch.empty(n, dtype=f32, device=dev)
+            self._rs_recv = torch.empty(part.seg_size, dtype=f32, device=dev)
+        self._ag_send = torch.empty(part.seg_size, dtype=self.param_dtype,
+                                    device=dev)
+        self._ag_recv = torch.empty(n, dtype=self.param_dtype, device=dev)
+
+    def deepspeed_io(self, dataset, batch_size=None, pin_memory=False,
+                     data_sampler=None, collate_fn=None,
+                     num_local_io_workers=None):
+        """This process's loader of ``dataset``: micro-batches of its
+        disjoint share (reference engine.py:731-772)."""
+        return DeepSpeedDataLoader(
+            dataset,
+            batch_size=batch_size or self.train_micro_batch_size_per_gpu(),
+            pin_memory=pin_memory, collate_fn=collate_fn or self.collate_fn,
+            num_local_io_workers=num_local_io_workers or 0,
+            data_sampler=data_sampler,
+            data_parallel_world_size=self.dp_world_size,
+            data_parallel_rank=self.dp_rank)
+
     def _scaler_hparams(self):
         """Reference engine.py:1612-1618."""
         args = self._config.dynamic_loss_scale_args or {}
@@ -384,10 +492,11 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def _sync_master(self):
-        """Mixed precision: a parameter written into the module outside the
-        engine (``module.load_state_dict``) becomes its master's value, so
-        that the next update starts from it."""
-        if not self.mixed_precision:
+        """Mixed precision or ZeRO shards: a parameter written into the
+        module outside the engine (``module.load_state_dict``) becomes its
+        master's value (this rank's part of it), so that the next update
+        starts from it."""
+        if not self._master_separate:
             return
         changed = [i for i, (p, v) in enumerate(zip(self.params,
                                                     self._param_versions))
@@ -398,20 +507,19 @@ class DeepSpeedEngine:
                            f"their {self.param_dtype} values "
                            f"(load_module_state_dict keeps the fp32 bits)")
             for i in changed:
-                self.master[i].copy_(self.params[i])
+                self.master[i].copy_(self.partition.local(self.params[i], i))
             self._mark_params()
 
     @torch.no_grad()
     def load_module_state_dict(self, state_dict, strict=True):
-        """Load weights into the module and, under mixed precision, into
-        the fp32 master at the state dict's own precision (the module's
-        parameters take the compute-dtype copy). Returns what
-        ``module.load_state_dict`` returns."""
+        """Load weights into the module and, under mixed precision or ZeRO,
+        into the fp32 master (this rank's shards) at the state dict's own
+        precision (the module's parameters take the compute-dtype copy).
+        Returns what ``module.load_state_dict`` returns."""
         result = self.module.load_state_dict(state_dict, strict=strict)
-        if self.mixed_precision:
-            for name, m in zip(self.param_names, self.master):
-                if name in state_dict:
-                    m.copy_(state_dict[name])
+        for i, (name, m) in enumerate(zip(self.param_names, self.master)):
+            if name in state_dict and m is not self.params[i]:
+                m.copy_(self.partition.local(state_dict[name], i))
         self._mark_params()
         return result
 
@@ -459,16 +567,61 @@ class DeepSpeedEngine:
         scaled = pending.float()
         if self.scaler is not None:
             scaled = scaled * self.scaler.loss_scale
-        (scaled / self.gradient_accumulation_steps()).backward()
+        # the global batch's mean: each rank's share of it
+        (scaled / (self.gradient_accumulation_steps()
+                   * self.dp_world_size)).backward()
         # the gradients, in the compute dtype, into the fp32 accumulator
-        got = [(a, p.grad) for a, p in zip(self.accum, self.params)
-               if p.grad is not None]
-        if got:
-            torch._foreach_add_([a for a, _ in got], [g for _, g in got])
+        if self.dp_group is not None:
+            self._exchange_grads([p.grad for p in self.params])
+        else:
+            got = [(a, p.grad) for a, p in zip(self.accum, self.params)
+                   if p.grad is not None]
+            if got:
+                torch._foreach_add_([a for a, _ in got], [g for _, g in got])
         for p in self.params:
             p.grad = None
         self.micro_steps += 1
         return pending if loss is None else loss
+
+    @torch.no_grad()
+    def _exchange_grads(self, grads):
+        """One micro step's gradients (None: zero) over the group, summed
+        into the accumulator: one fp32 all-reduce of the replicated part,
+        and at stage 2 one reduce-scatter of the sharded leaves into this
+        rank's shards. Both enqueue on the current stream."""
+        group = self.dp_group
+        if self._ar_idx:
+            dst, src = [], []
+            for v, i in zip(self._ar_views, self._ar_idx):
+                if grads[i] is None:
+                    v.zero_()
+                else:
+                    dst.append(v)
+                    src.append(grads[i])
+            if dst:
+                torch._foreach_copy_(dst, src)
+            group.all_reduce(self._ar_buf, leaves=self._ar_leaves)
+            self._flat_accum[:self._n_ar].add_(self._ar_buf)
+        if self._flat_accum.numel() > self._n_ar:
+            self.partition.pack(self._rs_send, grads)
+            group.reduce_scatter(self._rs_recv, self._rs_send,
+                                 leaves=self._sh_leaves)
+            self._flat_accum[self._n_ar:].add_(self._rs_recv)
+
+    @torch.no_grad()
+    def _gather_params(self):
+        """The module's parameters from the updated master: a cast copy of
+        each replicated one (mixed precision), and one all-gather of this
+        rank's shards in the parameters' dtype for the sharded ones."""
+        if self.mixed_precision and self._rep_idx:
+            torch._foreach_copy_([self.params[i] for i in self._rep_idx],
+                                 [self.master[i] for i in self._rep_idx])
+        if self.partition.sharded_idx:
+            self._ag_send.copy_(self._master_seg)
+            self.dp_group.all_gather(self._ag_recv, self._ag_send,
+                                     leaves=self._sh_leaves)
+            self.partition.unpack(self._ag_recv, self.params)
+        self._mark_params()
 
     def is_gradient_accumulation_boundary(self):
         return self.micro_steps % self.gradient_accumulation_steps() == 0
@@ -491,30 +644,25 @@ class DeepSpeedEngine:
         lr = self._advance_lr()
         self._sync_master()
         flat = self._flat_accum
-        found_inf = torch.zeros(1, device=self.device)
-        inv_scale = torch.ones(1, device=self.device)
-        scale = None
+        inv_scale = scale = None
         if self.scaler is not None:
             scale = self.scaler.loss_scale
             inv_scale = (1.0 / scale).reshape(1)
-        # one fused pass: found_inf = 1 if any element is inf or nan, and
-        # every element times 1 / scale (exact: the scale is a power of 2)
-        torch._amp_foreach_non_finite_check_and_unscale_([flat], found_inf,
-                                                         inv_scale)
-        overflow = found_inf[0] > 0
+        # one fused pass over this rank's accumulator: inf or nan, and every
+        # element times 1 / scale (exact: the scale is a power of 2); the
+        # flag is a MAX over the group, so every rank skips alike
+        overflow = has_overflow([flat], self.dp_group, inv_scale)
         # an overflowed step: a zero gradient (norm 0, clip factor 1), and
         # the optimizer's update with skip=overflow is the identity
         flat.masked_fill_(overflow, 0.0)
-        gnorm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(self.accum)))
+        grads = self._step_grads
+        gnorm = global_norm_from_tree(grads, self.dp_group,
+                                      self._partitioned)
         clip = self.gradient_clipping()
         if clip and clip > 0:
-            factor = torch.clamp(clip / (gnorm + 1e-6), max=1.0)
-            torch._foreach_mul_(self.accum, factor)
-        self.optimizer.update(self.master, self.accum, lr=lr, skip=overflow)
-        if self.mixed_precision:
-            torch._foreach_copy_(self.params, self.master)
-            self._mark_params()
+            clip_grad_by_global_norm(grads, clip, gnorm)
+        self.optimizer.update(self.master, grads, lr=lr, skip=overflow)
+        self._gather_params()
         self._skipped += overflow.to(torch.int32)
         if self.scaler is not None:
             self.scaler = update_loss_scale(self.scaler, overflow,
@@ -526,6 +674,8 @@ class DeepSpeedEngine:
         self._last_grad_norm = gnorm
         self._last_metrics = {"overflow": overflow, "grad_norm": gnorm,
                               "loss_scale": 1.0 if scale is None else scale}
+        if self.dp_group is not None:
+            self.last_step_comm = self.dp_group.counter.take()
         if self.global_steps % self.steps_per_print() == 0:
             self._report_progress(lr)
 
@@ -539,8 +689,9 @@ class DeepSpeedEngine:
 
     def train_batch(self, data_iter=None, batch=None):
         """gas micro-batches (forward + backward each), then one optimizer
-        step; returns the mean micro-batch loss. ``batch`` carries a
-        leading (gas, ...) axis on every entry, as in the JAX engine."""
+        step; returns the mean micro-batch loss over the global batch.
+        ``batch`` (this process's share) carries a leading (gas, ...) axis
+        on every entry, as in the JAX engine."""
         gas = self.gradient_accumulation_steps()
         if batch is None:
             if data_iter is None:
@@ -555,8 +706,11 @@ class DeepSpeedEngine:
             losses.append(self.forward(micro).detach())
             self.backward()
         self._train_mode = was_training
-        self._take_model_step()
         loss = torch.stack(losses).float().mean()
+        if self.dp_group is not None:
+            # the global batch's mean loss
+            loss = self.dp_group.all_reduce(loss) / self.dp_world_size
+        self._take_model_step()
         self._last_metrics["loss"] = loss
         return loss
 
@@ -572,33 +726,56 @@ class DeepSpeedEngine:
     # the JAX engine's npz layout, so that either engine loads the other's
     # ------------------------------------------------------------------
     def _state_layout(self):
-        """[(field, kind, tensors)] of the JAX TrainState's fields in its
-        flatten order (engine.py:60-70): step, micro_step, params,
+        """[(field, kind, tensors, sharded)] of the JAX TrainState's fields
+        in its flatten order (engine.py:60-70): step, micro_step, params,
         opt_state (its step, then each parameter-shaped list), master
         (mixed precision only), accum, scaler (fp16 only), skipped_steps,
         rng. ``kind`` "tree" marks a parameter-shaped list in this module's
-        order, which maps through the reference's parameter tree."""
+        order, which maps through the reference's parameter tree;
+        ``sharded``, a list that holds this rank's shards of the sharded
+        parameters (ZeRO: the optimizer state and master, and at stage 2
+        the accumulator)."""
         def scalar(v):
             return torch.tensor(v, dtype=torch.int32)
 
+        zero = bool(self.partition.sharded_idx)
         gas = self.gradient_accumulation_steps()
-        layout = [("step", "leaf", [scalar(self.global_steps)]),
-                  ("micro_step", "leaf", [scalar(self.micro_steps % gas)]),
-                  ("params", "tree", self.params),
-                  ("opt", "leaf", [self.optimizer.step])]
-        layout += [("opt", "tree", lst)
+        layout = [("step", "leaf", [scalar(self.global_steps)], False),
+                  ("micro_step", "leaf", [scalar(self.micro_steps % gas)],
+                   False),
+                  ("params", "tree", self.params, False),
+                  ("opt", "leaf", [self.optimizer.step], False)]
+        layout += [("opt", "tree", lst, zero)
                    for lst in self.optimizer.state_lists()]
         if self.mixed_precision:
-            layout.append(("master", "tree", self.master))
-        layout.append(("accum", "tree", self.accum))
+            layout.append(("master", "tree", self.master, zero))
+        layout.append(("accum", "tree", self.accum,
+                       zero and self.zero_optimization_stage() >= 2))
         if self.scaler is not None:
-            layout.append(("scaler", "leaf", list(self.scaler)))
+            layout.append(("scaler", "leaf", list(self.scaler), False))
         # the rng leaf: jax.random.PRNGKey(seed), never read back (a torch
         # generator cannot continue a jax key)
         seed = np.array([self._seed >> 32, self._seed & _M32], np.uint32)
-        layout += [("skipped_steps", "leaf", [self._skipped]),
-                   ("rng", "leaf", [seed])]
+        layout += [("skipped_steps", "leaf", [self._skipped], False),
+                   ("rng", "leaf", [seed], False)]
         return layout
+
+    @torch.no_grad()
+    def _gather_full(self, tensors):
+        """Full-shaped copies of a parameter-shaped list that holds this
+        rank's shards: one all-gather (every rank takes part)."""
+        part = self.partition
+        seg = torch.empty(part.seg_size, dtype=torch.float32,
+                          device=self.device)
+        torch._foreach_copy_(part.segment_views(seg),
+                             [tensors[i] for i in part.sharded_idx])
+        out = torch.empty(self.dp_world_size * part.seg_size,
+                          dtype=torch.float32, device=self.device)
+        self.dp_group.all_gather(out, seg, leaves=())
+        full = [torch.empty(part.shapes[i], dtype=t.dtype, device=t.device)
+                if part.sharded[i] else t for i, t in enumerate(tensors)]
+        part.unpack(out, full)
+        return full
 
     def _tree_leaves(self, tensors):
         """A parameter-shaped list -> the reference tree's leaves."""
@@ -622,19 +799,42 @@ class DeepSpeedEngine:
         return self.module.reference_leaf_specs()
 
     def _state_leaves(self):
+        """The TrainState's leaves, full-shaped (sharded lists gathered)."""
         leaves = []
-        for _, kind, tensors in self._state_layout():
+        for _, kind, tensors, sharded in self._state_layout():
+            if sharded:
+                tensors = self._gather_full(tensors)
             leaves += self._tree_leaves(tensors) if kind == "tree" \
                 else list(tensors)
         return leaves
+
+    def _checkpoint_tag_validation(self, tag):
+        """The tag must be the same on every rank (reference
+        engine.py:1472-1487; JAX engine.py:4105-4125): its hash gathered
+        over the group, min against max."""
+        mode = self._config.checkpoint_tag_validation_mode
+        if mode == "IGNORE" or self.dp_group is None:
+            return
+        digest = int.from_bytes(
+            hashlib.sha256(str(tag).encode()).digest()[:4], "big")
+        hashes = self.dp_group.all_gather_ints([digest])
+        lo, hi = int(hashes.min()), int(hashes.max())
+        if lo != hi:
+            msg = (f"checkpoint tag {tag!r} is not consistent across "
+                   f"processes (hash min {lo} != max {hi})")
+            if mode == "FAIL":
+                raise AssertionError(msg)
+            logger.warning(msg)
 
     def save_checkpoint(self, save_dir, tag=None, client_state=None,
                         save_latest=True, backend=None, manifest_meta=None,
                         async_commit=None):
         """Write ``save_dir/<tag>`` (default ``global_step<N>``) as the JAX
         engine's synchronous npz commit: ``model_states.npz`` (the
-        TrainState's leaves), ``metadata.pkl`` and the manifest, committed
-        atomically, then the ``latest`` pointer. Returns True."""
+        TrainState's leaves, full arrays at any dp), ``metadata.pkl`` and
+        the manifest, committed atomically, then the ``latest`` pointer.
+        Every rank takes part; rank 0 writes (JAX engine.py:4365). Returns
+        True."""
         if backend not in (None, "auto", "npz"):
             raise NotImplementedError(f"checkpoint backend {backend!r} is "
                                       f"not ported yet (ROADMAP A16)")
@@ -645,6 +845,7 @@ class DeepSpeedEngine:
             raise RuntimeError("save_checkpoint between forward() and "
                                "backward(): commit the micro-batch first")
         tag = f"global_step{self.global_steps}" if tag is None else tag
+        self._checkpoint_tag_validation(tag)
         res = self._config.resilience
         leaves = self._state_leaves()
         meta = {
@@ -662,7 +863,7 @@ class DeepSpeedEngine:
         }
         manifest = {"tag": str(tag), "global_steps": self.global_steps,
                     "micro_steps": self.micro_steps,
-                    "world": {"dp": 1, "mp": 1, "sp": 1},
+                    "world": {"dp": self.dp_world_size, "mp": 1, "sp": 1},
                     "topology": meta["topology"],
                     "data_position": meta["data_position"],
                     "backend": "npz"}
@@ -674,25 +875,84 @@ class DeepSpeedEngine:
             with open(os.path.join(path, "metadata.pkl"), "wb") as f:
                 pickle.dump(meta, f)
 
-        if res.atomic_checkpoints:
+        if self.dp_rank == 0 and res.atomic_checkpoints:
             with atomic.atomic_tag(save_dir, tag, meta=manifest,
                                    update_latest=save_latest,
                                    fsync=res.fsync) as tmp:
                 write(tmp)
-        else:
+        elif self.dp_rank == 0:
             path = os.path.join(save_dir, str(tag))
             os.makedirs(path, exist_ok=True)
             write(path)
             if save_latest:
                 atomic.write_latest(save_dir, tag, fsync=False)
+        if self.dp_group is not None:
+            # no rank goes on (or loads the tag) before rank 0 committed it
+            self.dp_group.barrier()
         log_dist(f"Saved checkpoint {os.path.join(save_dir, str(tag))}",
                  ranks=[0])
         return True
 
+    # ------------------------------------------------------------------
+    # accounting (JAX engine.py:1323-1365, 2928-3059)
+    # ------------------------------------------------------------------
+    def _comm_leaf_specs(self):
+        """A LeafSpec of every JAX leaf: its name, shape and the dimension
+        the accumulator's layout shards over ``data`` (stage 2 only)."""
+        stage2 = self.zero_optimization_stage() >= 2
+        return [ca.LeafSpec(leaf.name, leaf.shape,
+                            leaf.shard_dim if stage2 else None)
+                for leaf in self.partition.leaves]
+
+    def comm_volume_report(self):
+        """The analytic per-step communication volume of this config, as
+        the JAX engine computes it (``comm_volume_report``): the fp32
+        gradient exchange of every micro step (a reduce-scatter of each
+        leaf the accumulator shards, an all-reduce of the others) and the
+        compute-dtype all-gather of the sharded leaves after each step,
+        with ring bytes (w-1)/w."""
+        dp = self.dp_world_size
+        stage = self.zero_optimization_stage()
+        compute = ca.dtype_name(self.param_dtype)
+        report = ca.volume_report(
+            self._comm_leaf_specs(), dp,
+            gas=self.gradient_accumulation_steps(), param_dtype=compute,
+            gather_params=dp > 1 and stage in (1, 2))
+        report["config"].update({"zero_stage": stage,
+                                 "compute_dtype": compute})
+        report["grad_path_modeled"] = True
+        return report
+
+    def _analytic_memory_components(self):
+        """This rank's bytes of the train state by component (JAX
+        engine.py:1323-1365), from the tensors it holds: the compute
+        parameters (whole on every rank), the fp32 accumulator, the master
+        and the optimizer state (this rank's shards of the sharded leaves
+        from stage 1, of the accumulator at stage 2), the loss scaler. A
+        master that is the parameters themselves counts under params."""
+        own = {id(p) for p in self.params}
+        opt = [self.optimizer.step] + [
+            t for lst in self.optimizer.state_lists() for t in lst]
+        components = {
+            "params_bytes": memory_accounting.tensor_bytes(self.params),
+            "grad_accum_bytes":
+                memory_accounting.tensor_bytes([self._flat_accum]),
+            "master_bytes": memory_accounting.tensor_bytes(
+                [m for m in self.master if id(m) not in own]),
+            "optimizer_state_bytes": memory_accounting.tensor_bytes(opt),
+            "scaler_bytes":
+                memory_accounting.tensor_bytes(list(self.scaler or ())),
+        }
+        return {"components": components,
+                "persistent_bytes": sum(components.values())}
+
     def _topology(self):
         """The writing mesh's identity card (resilience/reshard.py
-        topology_manifest): one device."""
-        return {"engine": type(self).__name__, "mesh": {}, "dp": 1, "mp": 1,
+        topology_manifest)."""
+        dp = self.dp_world_size
+        return {"engine": type(self).__name__,
+                "mesh": {"pipe": 1, "data": dp, "seq": 1, "model": 1},
+                "dp": dp, "mp": 1,
                 "sp": 1, "zero_stage": int(self.zero_optimization_stage()),
                 "global_batch": {
                     "train_batch_size": int(self.train_batch_size()),
@@ -703,17 +963,19 @@ class DeepSpeedEngine:
 
     def _data_position(self):
         mb = int(self.train_micro_batch_size_per_gpu())
+        dp = self.dp_world_size
         return {"global_steps": self.global_steps,
                 "micro_steps": self.micro_steps, "micro_batch_per_gpu": mb,
-                "dp_world_size": 1, "samples_skipped": 0,
-                "samples_consumed": self.micro_steps * mb}
+                "dp_world_size": dp, "samples_skipped": 0,
+                "samples_consumed": self.micro_steps * mb * dp}
 
     def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
                         load_optimizer_states=True,
                         load_lr_scheduler_states=True, auto_resume=None,
                         elastic=None):
         """Restore ``load_dir/<tag>`` (``latest`` when tag is None), written
-        by this engine or the JAX one; the manifest is verified first.
+        by this engine or the JAX one at any dp: each rank reads the full
+        arrays and keeps its own shards. The manifest is verified first.
         Returns (path, client_state), or (None, {}) with no ``latest``."""
         res = self._config.resilience
         if auto_resume or (auto_resume is None and tag is None
@@ -758,7 +1020,15 @@ class DeepSpeedEngine:
             self.lr_scheduler.load_state_dict(meta["lr_scheduler"])
         if self.progressive_layer_drop is not None:
             self.progressive_layer_drop.update_state(self.global_steps)
-        log_dist(f"Loaded checkpoint {path}", ranks=[0])
+        saved_dp = (meta.get("topology") or {}).get("dp")
+        log_dist(f"Loaded checkpoint {path} (saved at dp="
+                 f"{meta.get('dp_world_size')}, now dp={self.dp_world_size})",
+                 ranks=[0])
+        if saved_dp not in (None, self.dp_world_size):
+            # the npz arrays are full, so any dp reads them (JAX
+            # engine.py:5062-5071); the elastic plan is ROADMAP A16
+            log_dist(f"checkpoint was written at dp={saved_dp}, now "
+                     f"dp={self.dp_world_size}", ranks=[0])
         return path, dict(meta.get("client_state") or {})
 
     @torch.no_grad()
@@ -769,15 +1039,16 @@ class DeepSpeedEngine:
         layout = self._state_layout()
         specs = self._leaf_specs()
         n_want = sum(len(specs) if kind == "tree" else len(t)
-                     for _, kind, t in layout)
+                     for _, kind, t, _ in layout)
         if len(flat) != n_want:
             raise ValueError(
                 f"checkpoint at {path} holds {len(flat)} state leaves, this "
                 f"engine's layout has {n_want}: saved under another "
                 f"precision, optimizer or model")
         index = {n: i for i, n in enumerate(self.param_names)}
+        part = self.partition
         at = 0
-        for field, kind, tensors in layout:
+        for field, kind, tensors, sharded in layout:
             n = len(specs) if kind == "tree" else len(tensors)
             got, at = flat[at:at + n], at + n
             if field in ("step", "micro_step", "rng") \
@@ -794,19 +1065,24 @@ class DeepSpeedEngine:
             for (names, transposed), src in zip(specs, got):
                 group = names if isinstance(names, tuple) else (names,)
                 parts = src.unbind(0) if isinstance(names, tuple) else [src]
-                for name, part in zip(group, parts):
-                    dst = tensors[index[name]]
-                    part = part.t() if transposed else part
-                    if tuple(part.shape) != tuple(dst.shape):
+                for name, full in zip(group, parts):
+                    i = index[name]
+                    full = full.t() if transposed else full
+                    if tuple(full.shape) != part.shapes[i]:
                         if strict:
                             raise ValueError(
                                 f"checkpoint leaf for {name} has shape "
-                                f"{tuple(part.shape)}, the model's is "
-                                f"{tuple(dst.shape)}")
+                                f"{tuple(full.shape)}, the model's is "
+                                f"{part.shapes[i]}")
                         logger.warning(f"load_checkpoint: {name} skipped "
-                                       f"(shape {tuple(part.shape)})")
+                                       f"(shape {tuple(full.shape)})")
                         continue
-                    dst.copy_(part)
+                    tensors[i].copy_(part.local(full, i) if sharded
+                                     else full)
+        if not self.mixed_precision:
+            # fp32: the master shards are the restored parameters' slices
+            for i in part.sharded_idx:
+                self.master[i].copy_(part.narrow(self.params[i], i))
         self._mark_params()
 
 

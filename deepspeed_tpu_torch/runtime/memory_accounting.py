@@ -1,9 +1,9 @@
-"""Analytic device bytes of the serving KV pool.
+"""Analytic device bytes of the serving KV pool and of the train state.
 
 Port of ``kv_pool_bytes`` of deepspeed_tpu/runtime/memory_accounting.py,
-the builder ``PagedKVPool.stats()`` prices the pool through; the rest of
-the memory accounting (the training engines' analytic budgets and the
-measured side) comes with ROADMAP A17.
+the builder ``PagedKVPool.stats()`` prices the pool through, and of the
+training engine's analytic components (per rank, ZeRO shards included);
+the measured side comes with ROADMAP A17.
 """
 import torch
 
@@ -40,3 +40,11 @@ def kv_pool_bytes(n_layer: int, num_blocks: int, n_head: int,
     kv = 2 * n_layer * bps * n_head * block_size * head_dim * store
     scales = 2 * n_layer * bps * n_head * block_size * 4 if quantized else 0
     return kv + scales
+
+
+def tensor_bytes(tensors) -> int:
+    """Device bytes of ``tensors`` (views of one buffer each by their own
+    elements): the analytic components of the training engine's state
+    (``DeepSpeedEngine._analytic_memory_components``)."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+

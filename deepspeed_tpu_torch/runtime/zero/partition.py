@@ -1,0 +1,193 @@
+"""ZeRO stages 1 and 2: which elements of each leaf a rank owns.
+
+The JAX engine (deepspeed_tpu/runtime/engine.py:562-685,
+``_build_shardings``) shards each leaf of the master weights and the
+optimizer state over the ``data`` axis along one dimension
+(``mesh.zero_merge_spec``: the largest that the tensor-parallel spec
+leaves free and the data-parallel size divides), and at stage 2 the fp32
+gradient accumulator too; a leaf with no such dimension stays replicated.
+This module is that rule over the port's parameters. A JAX leaf is one
+parameter, transposed for a Dense kernel, or, for a scanned stack, the
+(L,)-stacked parameters of every layer; its shard dimension maps back onto
+the parameters: a slice of each along the matching dimension, or, when
+the stack's layer dimension is the one sharded, whole layers.
+
+A rank's shards of all the sharded parameters pack into one flat
+segment of ``seg_size`` elements, the same size on every rank; a buffer
+of ``dp`` segments, rank-major, is what one ``reduce_scatter_tensor`` or
+``all_gather_into_tensor`` moves for all the leaves at once, and the
+packing does not change which elements a rank owns.
+"""
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
+
+import torch
+
+from deepspeed_tpu_torch.parallel.mesh import zero_merge_dim
+
+
+@dataclass
+class Leaf:
+    """One leaf of the JAX parameter tree: its name and shape there, the
+    dimension ZeRO shards it along (None: replicated), the indices of the
+    port's parameters it holds, whether it is their transpose (a Dense
+    kernel) and whether it stacks them (a scanned stack)."""
+    name: str
+    shape: Tuple[int, ...]
+    shard_dim: Optional[int]
+    params: List[int]
+    transposed: bool = False
+    stacked: bool = False
+
+    @property
+    def elements(self) -> int:
+        n = 1
+        for d in self.shape:
+            n *= d
+        return n
+
+
+class ZeroPartition:
+    """The per-leaf partition of ``params`` over a data-parallel world of
+    ``dp`` ranks at ZeRO ``stage`` (none below stage 1 or at dp 1), seen
+    from rank ``rank``. ``slices[i]``: None for a replicated parameter,
+    else each rank's (dim, start, length) of parameter i."""
+
+    def __init__(self, module, param_names, params, dp, rank, stage):
+        self.dp, self.rank = dp, rank
+        self.shapes = [tuple(p.shape) for p in params]
+        self.leaves = _leaves(module, param_names, self.shapes,
+                              dp if stage >= 1 else 1)
+        self.slices = [None] * len(params)
+        for leaf in self.leaves:
+            if leaf.shard_dim is not None:
+                self._split(leaf)
+        self.sharded = [s is not None for s in self.slices]
+        self.sharded_idx = [i for i, s in enumerate(self.sharded) if s]
+        sizes = [sum(self._numel(i, r) for i in self.sharded_idx)
+                 for r in range(dp)]
+        assert len(set(sizes)) <= 1, sizes
+        self.seg_size = sizes[0] if sizes else 0
+
+    def _split(self, leaf):
+        d = leaf.shard_dim
+        if leaf.stacked and d == 0:
+            # the layer dimension: each rank owns whole layers
+            per = len(leaf.params) // self.dp
+            for j, i in enumerate(leaf.params):
+                full = self.shapes[i][0]
+                self.slices[i] = [(0, 0, full if r == j // per else 0)
+                                  for r in range(self.dp)]
+            return
+        d -= 1 if leaf.stacked else 0
+        for i in leaf.params:
+            ndim = len(self.shapes[i])
+            tdim = ndim - 1 - d if leaf.transposed else d
+            size = self.shapes[i][tdim] // self.dp
+            self.slices[i] = [(tdim, r * size, size) for r in range(self.dp)]
+
+    def _numel(self, i, r):
+        dim, _, length = self.slices[i][r]
+        n = length
+        for k, s in enumerate(self.shapes[i]):
+            if k != dim:
+                n *= s
+        return n
+
+    def slice_shape(self, i, r=None):
+        r = self.rank if r is None else r
+        shape = list(self.shapes[i])
+        dim, _, length = self.slices[i][r]
+        shape[dim] = length
+        return tuple(shape)
+
+    def narrow(self, t, i, r=None):
+        """Rank ``r``'s (default: this rank's) part of parameter i's
+        full-shaped tensor ``t``: a view."""
+        dim, start, length = self.slices[i][self.rank if r is None else r]
+        return t.narrow(dim, start, length)
+
+    def local(self, t, i):
+        """This rank's part of ``t`` (full-shaped like parameter i): the
+        shard of a sharded parameter, else ``t`` itself."""
+        return self.narrow(t, i) if self.sharded[i] else t
+
+    def segment_views(self, buf, r=None):
+        """Views into ``buf`` (``seg_size`` elements) shaped as rank
+        ``r``'s shards, one per sharded parameter, in order."""
+        r = self.rank if r is None else r
+        out, at = [], 0
+        for i in self.sharded_idx:
+            n = self._numel(i, r)
+            out.append(buf[at:at + n].view(self.slice_shape(i, r)))
+            at += n
+        return out
+
+    def rank_major_views(self, buf):
+        """[(rank, views)] into ``buf`` (``dp * seg_size`` elements)."""
+        s = self.seg_size
+        return [(r, self.segment_views(buf[r * s:(r + 1) * s], r))
+                for r in range(self.dp)]
+
+    def pack(self, buf, tensors):
+        """Copy every rank's part of the full-shaped ``tensors`` (indexed
+        like the parameters; None reads as zeros) into ``buf``,
+        rank-major: the input of a reduce-scatter."""
+        dst, src = [], []
+        for r, views in self.rank_major_views(buf):
+            for i, v in zip(self.sharded_idx, views):
+                if tensors[i] is None:
+                    v.zero_()
+                else:
+                    dst.append(v)
+                    src.append(self.narrow(tensors[i], i, r))
+        if dst:
+            torch._foreach_copy_(dst, src)
+
+    def unpack(self, buf, tensors):
+        """Write ``buf`` (rank-major, the output of an all-gather) into
+        each rank's part of the full-shaped ``tensors``."""
+        dst, src = [], []
+        for r, views in self.rank_major_views(buf):
+            for i, v in zip(self.sharded_idx, views):
+                dst.append(self.narrow(tensors[i], i, r))
+                src.append(v)
+        if dst:
+            torch._foreach_copy_(dst, src)
+
+    def leaf_elements(self, sharded):
+        """[(leaf name, elements)] of the sharded (or the replicated)
+        leaves: what a collective over them carries, for the counter."""
+        return [(leaf.name, leaf.elements) for leaf in self.leaves
+                if (leaf.shard_dim is not None) == sharded]
+
+
+def _leaves(module, param_names, shapes, dp):
+    """The JAX tree's leaves over the port's parameters, each with its
+    ZeRO dimension at ``dp``. A model without ``reference_leaf_specs``
+    has one leaf per parameter, with no tensor-parallel spec (as a JAX
+    model without ``param_partition_spec``)."""
+    index = {n: i for i, n in enumerate(param_names)}
+    if hasattr(module, "reference_leaf_specs"):
+        specs = module.reference_leaf_specs()
+        paths = module.reference_leaf_paths()
+    else:
+        specs = [(n, False) for n in param_names]
+        paths = list(param_names)
+    out = []
+    for path, (names, transposed) in zip(paths, specs):
+        stacked = isinstance(names, tuple)
+        idx = [index[n] for n in (names if stacked else (names,))]
+        shape = shapes[idx[0]][::-1] if transposed else shapes[idx[0]]
+        if stacked:
+            shape = (len(idx),) + shape
+        taken = module.tp_taken(path, len(shape), stacked) \
+            if hasattr(module, "tp_taken") else ()
+        out.append(Leaf(path, tuple(shape),
+                        zero_merge_dim(shape, dp, taken), idx, transposed,
+                        stacked))
+    covered = sorted(i for leaf in out for i in leaf.params)
+    if covered != list(range(len(param_names))):
+        raise ValueError("the model's reference_leaf_specs do not cover "
+                         "each trainable parameter exactly once")
+    return out

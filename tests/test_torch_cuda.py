@@ -421,6 +421,126 @@ def test_dropout_and_the_step_make_no_host_sync(cuda, precision):
     assert torch.isfinite(loss).item()
 
 
+@pytest.mark.cuda
+def test_nccl_world_of_one_stage2_step_makes_no_host_sync(cuda, monkeypatch):
+    """A 1-rank NCCL world at ZeRO stage 2 (bf16): the micro steps'
+    all-reduces, the overflow MAX, the norm and the loss reduction enqueue
+    on the stream without a host sync under
+    torch.cuda.set_sync_debug_mode("error"); the collectives counted in
+    the step are the comm volume report's."""
+    import socket
+
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for key, value in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                           RANK="0", WORLD_SIZE="1", LOCAL_RANK="0").items():
+        monkeypatch.setenv(key, value)
+    cfg = GPT2Config(vocab_size=256, n_positions=128, n_embd=128, n_layer=2,
+                     n_head=2, dtype=torch.bfloat16)
+    ds = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+          "gradient_accumulation_steps": 2, "gradient_clipping": 1.0,
+          "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+          "zero_optimization": {"stage": 2}, "mesh": {"data": 1},
+          "steps_per_print": 10 ** 9, "bf16": {"enabled": True}}
+    deepspeed_tpu_torch.init_distributed()
+    try:
+        assert dist.get_backend() == "nccl"
+        eng, _, _, _ = deepspeed_tpu_torch.initialize(model=GPT2Model(cfg),
+                                                      config_params=ds)
+        ids = torch.randint(0, 256, (2, 2, 128), device=cuda,
+                            generator=torch.Generator(device=cuda)
+                            .manual_seed(0))
+        batch = {"input_ids": ids, "labels": ids}
+        eng.train_batch(batch=batch)      # builds the library, warms NCCL
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = eng.train_batch(batch=batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.isfinite(loss).item()
+        got = sorted((c["name"], c["op"], c["count_per_step"])
+                     for c in eng.last_step_comm["collectives"])
+        want = sorted((c["name"], c["op"], c["count_per_step"])
+                      for c in eng.comm_volume_report()["collectives"])
+        assert got == want and len(got) == len(eng.param_names)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_worlds_of_2_and_4_match_one_card(cuda, tmp_path):
+    """On a host with 4 cards: NCCL worlds of 2 and 4 ranks (rank r on card
+    r) at ZeRO stages 1 and 2 train the gloo tests' tiny GPT-2 at the
+    kernels' head_dim 64 (n_embd 128; fp32, 5 Adam steps, gas 2) to one
+    card's losses (rtol 1e-4) and master weights (rtol 1e-4, atol 5e-5,
+    the key biases as in tests/test_torch_zero.py) on the same global
+    batch, every rank alike; each step's counted
+    collectives are the report's (at stage 1 plus the post-step gather of
+    each sharded leaf, ROADMAP C-w7). Skips with fewer than 4 cards.
+    The weights' atol is tests/test_torch_checkpoint.py's: the one card
+    multiplies micro-batches dp times as large, cuBLAS sums them in
+    another order, and Adam moves an element whose gradient is near zero
+    by lr times the ratio of two tiny moments (one element of 49152 read
+    1.53e-5 apart at dp 4 on an H100, 1.5 % of lr)."""
+    import numpy as np
+
+    import torch_zero_worker as W
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    steps, gas, lr = 5, 2, 1e-3
+    model = dict(W.TINY, n_embd=128)
+    for dp in (2, 4):
+        micro = W.MICRO * dp
+        ref = W._engine(W.ds_config(1, 0, gas, micro=micro), None,
+                        device="cuda", model=model)
+        batches = W.global_batches(0, steps, gas, micro)
+        want = [ref.train_batch(batch=W._local(b, 0, micro)).item()
+                for b in batches]
+        want_master = W._full_master(ref)
+        del ref
+        jobs = [(f"s{stage}", "train",
+                 dict(dp=dp, stage=stage, gas=gas, steps=steps, seed=0,
+                      init=None, device="cuda", model=model))
+                for stage in (1, 2)]
+        ranks = W.run_world(dp, jobs, str(tmp_path / f"dp{dp}"),
+                            device="cuda")
+        for stage in (1, 2):
+            for rank in ranks:
+                got = rank[f"s{stage}"]
+                np.testing.assert_allclose(got["losses"], want, rtol=1e-4)
+                W.assert_master_close(got["master"], want_master, 1e-4,
+                                      5e-5, steps, lr,
+                                      f"dp {dp} stage {stage}")
+                sharded = _sharded_leaves(got, model)
+                assert sharded
+                extra = set() if stage == 2 else {
+                    (f"param_ag:{leaf}", "all-gather", 1) for leaf in sharded}
+                report = {(c["name"], c["op"], c["count_per_step"])
+                          for c in got["report"]["collectives"]}
+                for step in got["comm"]:
+                    assert {(c["name"], c["op"], c["count_per_step"])
+                            for c in step["collectives"]} == report | extra
+
+
+def _sharded_leaves(result, sizes):
+    """The JAX leaf names whose master this rank holds a shard of."""
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+
+    model = GPT2Model(GPT2Config(dtype=torch.float32, **sizes))
+    return {path for path, (name, _) in zip(model.reference_leaf_paths(),
+                                            model.reference_leaf_specs())
+            if result["layout"][name]["master"]
+            != result["layout"][name]["full"]}
+
+
 # ---------------------------------------------------------------------------
 # serving on the card
 # ---------------------------------------------------------------------------

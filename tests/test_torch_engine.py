@@ -216,7 +216,7 @@ def test_lr_schedules_match_jax(name, params):
      "A13"),
     ({"zero_optimization": {"stage": 3}}, "A13"),
     ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, "A14"),
-    ({"mesh": {"data": 2}}, "A7"),
+    pytest.param({"mesh": {"model": 2}}, "A7b", id="extra3-A7"),
     ({"mesh": {"pipe": 2}}, "A12"),
     ({"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}}, "A13"),
     ({"optimizer": {"type": "ZeroOneAdam", "params": {"lr": 1e-3}}}, "A13"),
@@ -292,7 +292,14 @@ def test_import_does_not_load_jax():
             "deepspeed_tpu_torch.models.bert, "
             "deepspeed_tpu_torch.ops.sparse_attention, "
             "deepspeed_tpu_torch.ops.transformer, "
-            "deepspeed_tpu_torch.ops.op_builder; "
+            "deepspeed_tpu_torch.ops.op_builder, "
+            "deepspeed_tpu_torch.parallel.mesh, "
+            "deepspeed_tpu_torch.runtime.comm_accounting, "
+            "deepspeed_tpu_torch.runtime.dataloader, "
+            "deepspeed_tpu_torch.runtime.utils, "
+            "deepspeed_tpu_torch.runtime.zero.partition, "
+            "deepspeed_tpu_torch.runtime.zero.utils, "
+            "deepspeed_tpu_torch.utils.distributed; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'deepspeed_tpu')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)

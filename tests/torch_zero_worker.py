@@ -1,0 +1,317 @@
+"""One rank of a gloo world for the data-parallel tests of the PyTorch port
+(tests/test_torch_zero.py, tests/test_torch_distributed.py), and the
+launcher that starts a world of them.
+
+    python tests/torch_zero_worker.py SPEC
+
+with MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE and LOCAL_RANK set. SPEC is
+a pickle {"out": directory, "jobs": [(name, kind, kwargs)]}; the rank runs
+each job in order in one process group and writes {name: result} to
+``out/rank<R>.pkl``. Imports torch and the port only, never JAX.
+"""
+import os
+import pickle
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# the tiny GPT-2 of the data-parallel tests: every dim a multiple of 4
+TINY = dict(vocab_size=128, n_positions=32, n_embd=32, n_layer=2, n_head=2)
+SEQ = 16
+MICRO = 2          # per rank
+
+
+def ds_config(dp, stage, gas, optimizer="Adam", fp16=False, lr=1e-3,
+              micro=MICRO):
+    cfg = {"train_batch_size": micro * gas * dp,
+           "train_micro_batch_size_per_gpu": micro,
+           "gradient_accumulation_steps": gas,
+           "optimizer": {"type": optimizer,
+                         "params": {"lr": lr, "weight_decay": 0.01}},
+           "gradient_clipping": 1.0,
+           "zero_optimization": {"stage": stage},
+           "steps_per_print": 10 ** 9}
+    if fp16:
+        cfg["fp16"] = {"enabled": True, "loss_scale": 0,
+                       "initial_scale_power": 8, "hysteresis": 1}
+    return cfg
+
+
+def global_batches(seed, steps, gas, rows):
+    """(steps, gas, rows, SEQ) token ids from a numpy seed: the global
+    batch of each step (``rows`` = micro * dp); rank r of a world with
+    micro-batch m feeds rows r*m:(r+1)*m."""
+    return np.random.default_rng(seed).integers(
+        0, TINY["vocab_size"], (steps, gas, rows, SEQ))
+
+
+# ---------------------------------------------------------------------------
+# the rank's side
+# ---------------------------------------------------------------------------
+def _engine(config, init, dtype=torch.float32, device="cpu", model=None):
+    """An engine on the CPU, or (``device="cuda"``) on this rank's card,
+    over the GPT-2 of ``model``'s sizes (default TINY)."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.convert import params_from_jax
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+
+    cfg = GPT2Config(dtype=dtype, **(model or TINY))
+    eng, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=GPT2Model(cfg), config_params=config,
+        device=None if device == "cuda" else device)
+    if init is not None:
+        eng.load_module_state_dict(params_from_jax(init, cfg))
+    return eng
+
+
+def _local(batch, rank, micro):
+    rows = slice(rank * micro, (rank + 1) * micro)
+    ids = batch[:, rows]
+    return {"input_ids": ids, "labels": ids}
+
+
+def _full_master(eng):
+    """The master weights, gathered to full arrays, by parameter name."""
+    master = eng._gather_full(eng.master) if eng.partition.sharded_idx \
+        else eng.master
+    return {n: m.detach().float().cpu().numpy().copy()
+            for n, m in zip(eng.param_names, master)}
+
+
+def _layout(eng):
+    """Each parameter's full shape and the shapes this rank holds of its
+    master, optimizer state and accumulator."""
+    opt = eng.optimizer.state_lists()
+    return {n: {"full": tuple(p.shape),
+                "master": tuple(eng.master[i].shape),
+                "opt": [tuple(lst[i].shape) for lst in opt],
+                "accum": tuple(eng.accum[i].shape)}
+            for i, (n, p) in enumerate(zip(eng.param_names, eng.params))}
+
+
+def job_train(dp, stage, gas, steps, seed, init, optimizer="Adam",
+              micro=MICRO, save=None, save_at=None, device="cpu",
+              model=None):
+    """``steps`` train_batch steps; losses, grad norms, the final master
+    and the counted collectives of each step. With ``save``, a checkpoint
+    after step ``save_at``."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    eng = _engine(ds_config(dp, stage, gas, optimizer, micro=micro), init,
+                  device=device, model=model)
+    batches = global_batches(seed, steps, gas, micro * dp)
+    out = {"losses": [], "norms": [], "comm": [], "layout": _layout(eng)}
+    for step in range(steps):
+        out["losses"].append(eng.train_batch(
+            batch=_local(batches[step], rank, micro)).item())
+        out["norms"].append(float(eng._last_metrics["grad_norm"]))
+        out["comm"].append(eng.last_step_comm)
+        if save is not None and step + 1 == save_at:
+            eng.save_checkpoint(save)
+    out["master"] = _full_master(eng)
+    out["report"] = eng.comm_volume_report()
+    out["memory"] = eng._analytic_memory_components()
+    out["skipped"] = eng.skipped_steps
+    return out
+
+
+def job_resume(dp, stage, gas, steps, seed, load, start):
+    """A new engine loads ``load`` (written after step ``start``) and runs
+    the remaining steps of the same batches."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    eng = _engine(ds_config(dp, stage, gas), None)
+    eng.load_checkpoint(load)
+    batches = global_batches(seed, steps, gas, MICRO * dp)
+    losses = [eng.train_batch(batch=_local(batches[s], rank, MICRO)).item()
+              for s in range(start, steps)]
+    return {"losses": losses, "master": _full_master(eng),
+            "global_steps": eng.global_steps}
+
+
+def job_load(dp, stage, gas, load):
+    """Load a tag (e.g. the JAX engine's) and return the full state
+    leaves it restored, in the npz's order."""
+    eng = _engine(ds_config(dp, stage, gas), None)
+    path, _ = eng.load_checkpoint(load)
+    leaves = [t.detach().float().cpu().numpy() if torch.is_tensor(t)
+              else np.asarray(t) for t in eng._state_leaves()]
+    return {"path": path, "leaves": leaves, "layout": _layout(eng)}
+
+
+def job_overflow(dp, seed, init, plant_rank, param):
+    """fp16 stage 2: a non-finite gradient planted on ``plant_rank`` only
+    (element 0 of ``param``) in the first step."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    eng = _engine(ds_config(dp, 2, 1, fp16=True), init, torch.float16)
+    i = eng.param_names.index(param)
+    if rank == plant_rank:
+        def plant(g):
+            g = g.clone()
+            g.view(-1)[0] = float("inf")
+            return g
+        handle = eng.params[i].register_hook(plant)
+    batches = global_batches(seed, 2, 1, MICRO * dp)
+    before = _full_master(eng)
+    scale0 = eng.loss_scale()
+    eng.train_batch(batch=_local(batches[0], rank, MICRO))
+    out = {"scale0": scale0, "scale1": eng.loss_scale(),
+           "skipped1": eng.skipped_steps,
+           "overflow1": bool(eng._last_metrics["overflow"]),
+           "unchanged": all(np.array_equal(before[n], m) for n, m in
+                            _full_master(eng).items()),
+           # the rank whose shard holds the planted element
+           "holder": [r for r in range(dp) if eng.partition.sharded[i]
+                      and eng.partition.slices[i][r][1] == 0]}
+    if rank == plant_rank:
+        handle.remove()
+    eng.train_batch(batch=_local(batches[1], rank, MICRO))
+    out["skipped2"] = eng.skipped_steps
+    return out
+
+
+def job_sampler(dp, n):
+    """The dataset indices this rank's DeepSpeedDataLoader reads."""
+    import torch.distributed as dist
+
+    from torch.utils.data import TensorDataset
+
+    eng = _engine(ds_config(dp, 0, 1), None)
+    data = TensorDataset(torch.arange(n))
+    loader = eng.deepspeed_io(data)
+    seen = [int(x) for (b,) in loader for x in b]
+    return {"indices": seen, "rank": dist.get_rank(),
+            "sampler": type(loader.data_sampler).__name__}
+
+
+def job_tag_check(dp):
+    """Checkpoint tag validation (mode FAIL) on a tag that differs by rank
+    and on one that does not."""
+    import torch.distributed as dist
+
+    config = dict(ds_config(dp, 2, 1), checkpoint={"tag_validation": "FAIL"})
+    eng = _engine(config, None)
+    eng._checkpoint_tag_validation("same")
+    try:
+        eng._checkpoint_tag_validation(f"rank{dist.get_rank()}")
+    except AssertionError as e:
+        return {"error": str(e)}
+    return {"error": None}
+
+
+JOBS = {"tag_check": job_tag_check, "train": job_train, "resume": job_resume, "load": job_load,
+        "overflow": job_overflow, "sampler": job_sampler}
+
+
+def main(spec_path):
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch
+
+    torch.set_num_threads(1)
+    with open(spec_path, "rb") as f:
+        spec = pickle.load(f)
+    deepspeed_tpu_torch.init_distributed(device=spec["device"], timeout=60,
+                                         verbose=False)
+    rank = dist.get_rank()
+    results = {}
+    for name, kind, kwargs in spec["jobs"]:
+        results[name] = JOBS[kind](**kwargs)
+    dist.barrier()
+    dist.destroy_process_group()
+    tmp = os.path.join(spec["out"], f"rank{rank}.pkl.tmp")
+    with open(tmp, "wb") as f:
+        pickle.dump(results, f)
+    os.replace(tmp, os.path.join(spec["out"], f"rank{rank}.pkl"))
+
+
+def assert_master_close(got, want, rtol, atol, steps, lr, what):
+    """Every element of the master weights within rtol/atol, but the key
+    third of each ``c_attn`` bias: its gradient is zero in exact
+    arithmetic (softmax ignores a shift common to all keys), so Adam moves
+    it by the sign of rounding noise, up to lr per step, and it is held to
+    2 * steps * lr."""
+    assert set(got) == set(want)
+    for name in want:
+        a, b = np.asarray(got[name]), np.asarray(want[name])
+        if name.endswith("attn.c_attn.bias"):
+            e = a.shape[0] // 3
+            np.testing.assert_allclose(a[e:2 * e], b[e:2 * e], rtol=0,
+                                       atol=2 * steps * lr,
+                                       err_msg=f"{what}: {name} keys")
+            a, b = np.delete(a, range(e, 2 * e)), np.delete(b, range(e, 2 * e))
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol,
+                                   err_msg=f"{what}: {name}")
+
+
+# ---------------------------------------------------------------------------
+# the launcher's side
+# ---------------------------------------------------------------------------
+def free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_world(world, jobs, out, timeout=120, device="cpu"):
+    """Start ``world`` ranks on ``jobs`` (gloo on the CPU, or NCCL with
+    rank r on card r for ``device="cuda"``) and return each rank's
+    results; every process is killed when the world outlives ``timeout``
+    seconds, and a rank's failure raises with its output."""
+    os.makedirs(out, exist_ok=True)
+    spec_path = os.path.join(out, "spec.pkl")
+    with open(spec_path, "wb") as f:
+        pickle.dump({"out": out, "jobs": jobs, "device": device}, f)
+    port = free_port()
+    procs, logs = [], []
+    for rank in range(world):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1",
+                   MASTER_PORT=str(port), RANK=str(rank),
+                   WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                   OMP_NUM_THREADS="1", PYTHONPATH=REPO)
+        log = open(os.path.join(out, f"rank{rank}.log"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), spec_path],
+            env=env, stdout=log, stderr=subprocess.STDOUT, cwd=REPO))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        tails = []
+        for r in bad:
+            with open(os.path.join(out, f"rank{r}.log")) as f:
+                tails.append(f"--- rank {r} (rc {procs[r].returncode}):\n"
+                             + f.read()[-3000:])
+        raise RuntimeError(f"a world of {world} failed (timeout {timeout} "
+                           f"s):\n" + "\n".join(tails))
+    results = []
+    for rank in range(world):
+        with open(os.path.join(out, f"rank{rank}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return results
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])
