@@ -116,6 +116,32 @@ failure:
               off: engine tokens equal generate()'s (divergence allowed
               only at a near tie, counted) and generate_beam(num_beams=1)
               equals greedy
+ 17. offload  ZeRO-Offload (stage 2, cpu_offload) of phase 4's run: the
+              fp32 master, Adam's m and v and the gradient accumulator on
+              the host, stepped by the port's C++ host Adam (built with
+              g++ in phase 2), the bf16 gradients copied down to pinned
+              memory on a side stream each micro step, the bf16 weights
+              pushed back up after each step. The host Adam held against
+              the device FusedAdam on the same fp32 gradients for one step
+              at full size (each element within 2 ulp of the master plus
+              lr * (rho + 2**-20), rho what the fp32 1 - beta moves the
+              update by: _adam_gate); 10 steps with losses finite and
+              falling, B1-B3 480 launches each, the losses within
+              OFFLOAD_LOSS_GATE of phase 4's (PERF.md section 2) and a
+              planted fault (the push skipped: the card trains on stale
+              weights; 3 steps) at least 10x outside it; a save after step 5 into
+              a temporary directory, a load into a new engine and steps
+              6-10 again, bit for bit; step ms, tokens/s, idle share and
+              peak memory beside phase 4's, the analytic offload bytes,
+              host RSS, D2H and H2D GB/s, host Adam ms per step, the
+              host's CPU and memory, two steps under torch.profiler
+ 18. offload (large)
+              gpt2-4b (64 layers, n_embd 2304: 4.2B parameters, whose
+              stage-0 state, 18 bytes per parameter, does not fit one 80
+              GB card) under ZeRO-Offload, seq 1024, micro 1, gas 1, remat
+              attn_out: 3 steps with finite losses and every flash launch
+              counted; peak device memory beside the analytic stage-0
+              bytes; step ms, host Adam ms, host RSS
 The line before the last is the kernels JSON (the fp16 rows named
 <kernel>_fp16, their launches from phase 13); the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card and nvcc.
@@ -339,7 +365,8 @@ def phase_env():
 
 
 def phase_build():
-    """One nvcc per source, all started together; each timed."""
+    """One nvcc per source and one g++ per host source (the offload host
+    Adam), all started together; each timed."""
     from deepspeed_tpu_torch.ops import op_builder
 
     def timed(name):
@@ -347,11 +374,24 @@ def phase_build():
         path, report = op_builder.build(name, verbose=True)
         return path, report, time.perf_counter() - t0
 
+    def timed_host(name):
+        t0 = time.perf_counter()
+        path = op_builder.build_host(name)
+        return path, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(op_builder.SOURCES)) as ex:
+    n = len(op_builder.SOURCES) + len(op_builder.HOST_SOURCES)
+    with concurrent.futures.ThreadPoolExecutor(n) as ex:
         futures = {name: ex.submit(timed, name)
                    for name in op_builder.SOURCES}
+        host = {name: ex.submit(timed_host, name)
+                for name in op_builder.HOST_SOURCES}
         results = {name: f.result() for name, f in futures.items()}
+        host = {name: f.result() for name, f in host.items()}
+    for name, (path, secs) in host.items():
+        log(f"build {os.path.relpath(op_builder.HOST_SOURCES[name], HERE)} "
+            f"(g++ {' '.join(op_builder.host_flags())}): {path}; build "
+            f"seconds {secs:.2f}")
     by_kernel = {}
     for name, (path, report, secs) in results.items():
         log(f"build {os.path.relpath(op_builder.SOURCES[name], HERE)}: "
@@ -774,11 +814,12 @@ def _host_master(engine):
 
 
 def _train_steps(env, engine, batch, model_name, seq, micro, gas, steps,
-                 want, after_step=None):
+                 want, after_step=None, falling=True):
     """``steps`` train_batch calls with every kernel count set to 0 just
     before and read just after; raises unless the losses are finite and
-    falling and each kernel launched exactly ``want[kernel]`` times.
-    ``after_step()`` runs after each step, untimed."""
+    (``falling``) falling and each kernel launched exactly
+    ``want[kernel]`` times. ``after_step()`` runs after each step,
+    untimed."""
     import torch
 
     from deepspeed_tpu_torch.ops.sparse_attention import \
@@ -813,7 +854,7 @@ def _train_steps(env, engine, batch, model_name, seq, micro, gas, steps,
         f"{peak / 2 ** 30:.2f} GiB on {env['smi']}")
     if not all(x == x and abs(x) != float("inf") for x in losses):
         raise RuntimeError(f"non-finite loss: {losses}")
-    if not losses[-1] < losses[0]:
+    if falling and not losses[-1] < losses[0]:
         raise RuntimeError(f"loss did not fall: {losses}")
     if launches != want:
         raise RuntimeError(f"{model_name}: kernels launched {launches}, "
@@ -837,7 +878,8 @@ def _kernel_group(name):
 
 
 def phase_profile(env, train, label, steps=2):
-    """Device time by kernel over ``steps`` more train_batch steps."""
+    """Device time by kernel over ``steps`` more train_batch steps; returns
+    the device busy ms per step and the unprofiled step's idle share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -878,6 +920,9 @@ def phase_profile(env, train, label, steps=2):
             f"{us / busy:6.1%} of device time")
     for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:12]:
         log(f"  {us / steps / 1e3:9.2f} ms/step  {name[:100]}")
+    return {"busy_ms": busy / steps / 1e3,
+            "idle_share": 1 - busy / steps / 1e3 / train["step_ms"],
+            "operations": n_device // steps}
 
 
 def _slice_engine(zero_stage, mesh=None):
@@ -2109,6 +2154,376 @@ def phase_serve(env):
     return {"decode": decode, "deficit": deficit, "fault": fault}
 
 
+# ---------------------------------------------------------------------------
+# phases 17-18: ZeRO-Offload
+# ---------------------------------------------------------------------------
+# phase 18's size, fixed: stage 0 holds 18 bytes per parameter (bf16
+# params 2, fp32 master 4, fp32 accumulator 4, Adam m and v 8), 75.6 GB of
+# state for gpt2-4b's 4.2B parameters, beyond one 80 GB card with its
+# activations; offloaded, the host holds 16 bytes per parameter (67.2 GB)
+# plus two bf16 pinned staging buffers (16.8 GB). The H100 machine's host
+# has 101 GiB (free -g), short of gpt2-8b's ~183 GB.
+OFFLOAD_LARGE_MODEL = "gpt2-4b"
+OFFLOAD_LARGE_STEPS = 3
+OFFLOAD_LARGE_REMAT = "attn_out"
+# the loss gate against phase 4 (PERF.md section 2): both runs start from
+# the same weights and see the same gradients at step 1; the host Adam
+# rounds differently from FusedAdam (1 - beta formed in fp32, fused
+# multiply-adds, a float64 norm), a few fp32 ulps of the master, which
+# flip a few bf16 roundings of the parameters and grow slowly: 7.1e-4
+# over 10 steps on an H100 (PERF.md). A loss 1e-2 off is 5-8 % of one
+# step's decrease here (0.13-0.19), what a wrong update, gradient or push
+# moves within a step or two; the planted fault (no push) must read 10x
+OFFLOAD_LOSS_GATE = 1e-2
+OFFLOAD_FAULT_FACTOR = 10
+# the planted fault's run: the first update lands at step 2 (WarmupLR
+# starts at lr 0), so 3 steps show it
+OFFLOAD_FAULT_STEPS = 3
+
+
+def _host_info():
+    """The host's CPU model, cores and memory (lscpu, free -g)."""
+    lscpu = subprocess.run(["lscpu"], capture_output=True, text=True,
+                           timeout=60).stdout
+    keep = ("Model name", "CPU(s)", "Thread(s) per core", "Socket(s)")
+    cpu = "; ".join(line.strip() for line in lscpu.splitlines()
+                    if line.split(":")[0].strip() in keep)
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                          timeout=60).stdout.splitlines()
+    mem = next((line for line in free if line.startswith("Mem:")), "")
+    return f"{cpu}; free -g {' '.join(mem.split())}"
+
+
+def _rss():
+    """(resident, peak resident) GiB of this process: VmRSS of
+    /proc/self/status and getrusage's ru_maxrss (both in KiB)."""
+    import resource
+
+    rss = 0.0
+    with open("/proc/self/status") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            if key == "VmRSS":
+                rss = int(value.split()[0]) / 2 ** 20
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    return rss, peak
+
+
+def _release_earlier_phases():
+    """Collect what earlier phases left in reference cycles and return the
+    card's cached blocks, so that the offload phases' memory figures and
+    the host's 96 GiB hold their own state only; returns the card's bytes
+    still allocated."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def _offload_engine(model_name, micro, gas, remat_policy=None):
+    """An offload engine (ZeRO stage 2, cpu_offload) over phase 4's
+    config; returns (engine, model config, construction seconds)."""
+    import torch
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
+
+    cfg = gpt2_config(model_name, n_positions=SLICE_SEQ,
+                      dtype=torch.bfloat16, remat=remat_policy is not None,
+                      **({"remat_policy": remat_policy} if remat_policy
+                         else {}))
+    ds = dict(_ds_config(micro, gas),
+              zero_optimization={"stage": 2, "cpu_offload": True})
+    t0 = time.perf_counter()
+    # built on the card from a card generator: the constructor's own
+    # initialization, which the engine's init_weights from the config's
+    # seed overwrites, takes minutes on the host at gpt2-4b's size
+    with torch.device("cuda"):
+        model = GPT2Model(cfg, torch.Generator("cuda").manual_seed(0))
+    engine, _, _, _ = initialize(model=model, config_params=ds)
+    torch.cuda.synchronize()
+    return engine, cfg, time.perf_counter() - t0
+
+
+def _time_host_calls(engine):
+    """Wrap the engine's host-side calls to time them (seconds per call):
+    the host Adam, the adds of staged gradients, the push and the whole
+    host step."""
+    times = {"adam": [], "drain": [], "push": [], "step": []}
+
+    def wrap(obj, attr, key):
+        fn = getattr(obj, attr)
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            times[key].append(time.perf_counter() - t0)
+            return out
+        setattr(obj, attr, timed)
+
+    wrap(engine.optimizer, "step", "adam")
+    wrap(engine, "_drain_pending_fetches", "drain")
+    wrap(engine, "_push_params", "push")
+    wrap(engine, "_take_model_step_offload", "step")
+    return times
+
+
+def _host_times_line(times, steps):
+    """ms per step of each timed host call over the last ``steps``."""
+    parts = []
+    for key, label in (("step", "host step"), ("adam", "host Adam"),
+                       ("drain", "gradient adds (all micro steps)"),
+                       ("push", "push (cast + copy up)")):
+        vals = times[key]
+        per_step = len(vals) // max(1, len(times["step"]))
+        last = vals[-steps * per_step:] if per_step else []
+        parts.append(f"{label} {sum(last) / steps * 1e3:.1f}")
+    return "ms per step: " + ", ".join(parts)
+
+
+def _pcie_rates(engine, iters=5):
+    """(D2H, H2D) GB/s of the engine's own buffers: its flat device buffer
+    into pinned staging on its side stream, and pinned staging up into
+    the flat buffer on the current stream, by CUDA events."""
+    import torch
+
+    src, dst, up = engine._dev_flat, engine._staging[0], engine._push_host
+    nbytes = src.numel() * src.element_size()
+    rates = []
+    for stream, copy in ((engine._d2h_stream,
+                          lambda: dst.copy_(src, non_blocking=True)),
+                         (torch.cuda.current_stream(),
+                          lambda: src.copy_(up, non_blocking=True))):
+        with torch.cuda.stream(stream):
+            copy()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                copy()
+            end.record()
+        end.synchronize()
+        rates.append(nbytes * iters / (start.elapsed_time(end) / 1e3) / 1e9)
+    return rates
+
+
+def _adam_gate(env, engine):
+    """One Adam step at full size on the same fp32 master and gradients:
+    the port's host Adam against the device FusedAdam. The two differ in
+    arithmetic, not in the update: the C++ kernel forms 1 - beta in fp32
+    (1.f - beta) where FusedAdam rounds the double 1 - beta to fp32, which
+    moves the step-1 update (m / sqrt(v) with bias correction, at most 1
+    in size) by rho = d1 + d2 / 2 relative (d_i: the two 1 - beta_i's
+    relative difference; 6.9e-6 at beta2 0.999), and each side rounds
+    the update a few times more (2**-20) and the new master once. Each
+    element must lie within 2 ulp(master) + lr * (rho + 2**-20). Returns
+    the worst element's share of its bound and the host Adam's ms."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
+
+    opt, lr = engine.optimizer, 1e-4
+    n = engine._host_master.numel()
+    gen = torch.Generator().manual_seed(17)
+    master = engine._host_master.clone()
+    grads = torch.randn(n, generator=gen) * 1e-2
+    host = master.clone()
+    state = opt.init_state([host])
+    t0 = time.perf_counter()
+    opt.step([host], [grads], state, lr=lr, grad_scale=1.0)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    dev_opt = FusedAdam(lr=lr, betas=(opt.beta1, opt.beta2), eps=opt.eps,
+                        weight_decay=opt.weight_decay,
+                        adam_w_mode=opt.adamw_mode,
+                        bias_correction=opt.bias_correction)
+    dev = master.cuda()
+    dev_opt.init_state([dev])
+    dev_opt.update([dev], [grads.cuda()], lr=lr)
+    dev = dev.cpu()
+    f32 = torch.float32
+
+    def rel(beta):
+        one_minus = float(torch.tensor(1.0, dtype=f32)
+                          - torch.tensor(beta, dtype=f32))
+        rounded = float(torch.tensor(1.0 - beta, dtype=f32))
+        return abs(one_minus - rounded) / rounded
+
+    rho = rel(opt.beta1) + rel(opt.beta2) / 2
+    ulp = torch.nextafter(dev.abs(), torch.tensor(float("inf"))) - dev.abs()
+    bound = 2 * ulp + lr * (rho + 2.0 ** -20)
+    share = float(((host - dev).abs() / bound).max())
+    log(f"offload: one Adam step over {n} elements, host Adam against the "
+        f"device FusedAdam on the same fp32 gradients: max |diff| "
+        f"{float((host - dev).abs().max()):.3e}, worst element at "
+        f"{share:.3f} of its bound (2 ulp + lr * (rho {rho:.3e} + "
+        f"2**-20)); host Adam {host_ms:.1f} ms")
+    del dev_opt, dev
+    torch.cuda.empty_cache()
+    if share > 1.0:
+        raise RuntimeError(f"offload: the host Adam differs from FusedAdam "
+                           f"beyond the bound ({share:.3f})")
+    return share, host_ms
+
+
+def phase_offload(env, stage0):
+    """ZeRO-Offload of phase 4's run (gpt2-350m bf16, seq 1024, micro 8,
+    gas 2, Adam, WarmupLR, clipping 1.0, seed 42): the gates of the
+    module docstring's phase 17."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bsk
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    left = _release_earlier_phases()
+    host_before = _rss()
+    engine, cfg, init_s = _offload_engine(SLICE_MODEL, SLICE_MICRO,
+                                          SLICE_GAS)
+    mem = engine._analytic_memory_components()
+    log(f"offload: {SLICE_MODEL} engine built in {init_s:.1f} s; host "
+        f"{_host_info()}; OpenMP threads "
+        f"{engine._host_lib.ds_get_num_threads()}, torch threads "
+        f"{torch.get_num_threads()}, SIMD width "
+        f"{engine._host_lib.ds_simd_width()}")
+    log(f"offload: analytic bytes: device {mem['components']} + transient "
+        f"{mem['transient']} = {mem['device_bytes'] / 2 ** 30:.2f} GiB; "
+        f"host {mem['host']} = {mem['host_bytes'] / 2 ** 30:.2f} GiB; "
+        f"host RSS before/after construction {host_before[0]:.2f} / "
+        f"{_rss()[0]:.2f} GiB; card bytes left by earlier phases {left}")
+    _adam_gate(env, engine)
+    times = _time_host_calls(engine)
+    batch = _slice_batch(cfg.vocab_size, SLICE_GAS, SLICE_MICRO, SLICE_SEQ,
+                         seed=0)
+    want = {name: cfg.n_layer * SLICE_GAS * SLICE_STEPS
+            for name, _ in FLASH_KERNELS}
+    want.update({name: 0 for name, _ in SPARSE_KERNELS})
+    half = SLICE_STEPS // 2
+    save_dir = tempfile.mkdtemp(prefix="chip_smoke_offload_")
+    state = {"step": 0}
+
+    def after_step():
+        state["step"] += 1
+        if state["step"] == half:
+            t0 = time.perf_counter()
+            engine.save_checkpoint(save_dir)
+            state["save_s"] = time.perf_counter() - t0
+
+    try:
+        train = _train_steps(env, engine, batch, f"{SLICE_MODEL} offload",
+                             SLICE_SEQ, SLICE_MICRO, SLICE_GAS, SLICE_STEPS,
+                             want, after_step=after_step)
+        log(f"offload: {_host_times_line(times, SLICE_STEPS - 1)} (steps "
+            f"2..{SLICE_STEPS}); host RSS / peak {_rss()[0]:.2f} / "
+            f"{_rss()[1]:.2f} GiB")
+        d2h, h2d = _pcie_rates(engine)
+        nbytes = engine._dev_flat.numel() * engine._dev_flat.element_size()
+        log(f"offload: PCIe, {nbytes / 1e9:.3f} GB per copy: D2H (device "
+            f"-> pinned, side stream) {d2h:.1f} GB/s, H2D (pinned -> "
+            f"device) {h2d:.1f} GB/s on {env['smi']}")
+        profile = phase_profile(env, train, f"{SLICE_MODEL} offload")
+        train.pop("engine")
+        del engine
+        torch.cuda.empty_cache()
+        nbytes = sum(os.path.getsize(os.path.join(root, f))
+                     for root, _, files in os.walk(save_dir) for f in files)
+        resumed, _, _ = _offload_engine(SLICE_MODEL, SLICE_MICRO, SLICE_GAS)
+        t0 = time.perf_counter()
+        resumed.load_checkpoint(save_dir)
+        load_s = time.perf_counter() - t0
+        rerun = [float(resumed.train_batch(batch=batch))
+                 for _ in range(SLICE_STEPS - half)]
+        del resumed
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(save_dir, ignore_errors=True)
+    log(f"offload: checkpoint after step {half}: save {state['save_s']:.2f} "
+        f"s, load {load_s:.2f} s, {nbytes} bytes ({nbytes / 2 ** 30:.2f} "
+        f"GiB); steps {half + 1}-{SLICE_STEPS} resumed {rerun} against "
+        f"{train['losses'][half:]}")
+    if rerun != train["losses"][half:]:
+        raise RuntimeError("offload: the resumed run's losses differ from "
+                           "the uninterrupted run's")
+    # the planted fault: the push skipped, the card trains on stale weights
+    engine, _, _ = _offload_engine(SLICE_MODEL, SLICE_MICRO, SLICE_GAS)
+    engine._push_params = lambda: None
+    fault = [float(engine.train_batch(batch=batch))
+             for _ in range(OFFLOAD_FAULT_STEPS)]
+    del engine
+    torch.cuda.empty_cache()
+    diff = max(abs(a - b) for a, b in zip(train["losses"], stage0["losses"]))
+    planted = max(abs(a - b) for a, b in zip(fault, stage0["losses"]))
+    log(f"offload: losses against phase 4's: max |diff| {diff:.3e} (per "
+        f"step {[round(a - b, 6) for a, b in zip(train['losses'], stage0['losses'])]}), "
+        f"gate {OFFLOAD_LOSS_GATE}; planted fault (push skipped) {planted:.3e} "
+        f"= {planted / OFFLOAD_LOSS_GATE:.1f}x the gate; its losses {fault}")
+    log(f"offload: step ms (median of steps 2..{SLICE_STEPS}) stage 0 "
+        f"{stage0['step_ms']:.1f} / offload {train['step_ms']:.1f}; tokens/s "
+        f"{stage0['tokens_per_s']:.0f} / {train['tokens_per_s']:.0f}; idle "
+        f"share {stage0['idle_share']:.3f} / {profile['idle_share']:.3f}; "
+        f"device busy {profile['busy_ms']:.1f} ms/step; max_memory_allocated "
+        f"{stage0['peak_bytes'] / 2 ** 30:.2f} / "
+        f"{train['peak_bytes'] / 2 ** 30:.2f} GiB on {env['smi']}")
+    if diff > OFFLOAD_LOSS_GATE:
+        raise RuntimeError(f"offload: losses differ from phase 4's by "
+                           f"{diff:.3e}, beyond {OFFLOAD_LOSS_GATE}")
+    if planted < OFFLOAD_FAULT_FACTOR * OFFLOAD_LOSS_GATE:
+        raise RuntimeError(f"offload: the planted fault reads {planted:.3e},"
+                           f" under {OFFLOAD_FAULT_FACTOR}x the gate")
+    return train
+
+
+def phase_offload_large(env):
+    """gpt2-4b under ZeRO-Offload: module docstring, phase 18."""
+    import torch
+
+    from deepspeed_tpu_torch.runtime import memory_accounting
+
+    left = _release_earlier_phases()
+    engine, cfg, init_s = _offload_engine(OFFLOAD_LARGE_MODEL, 1, 1,
+                                          OFFLOAD_LARGE_REMAT)
+    n = sum(p.numel() for p in engine.params)
+    stage0 = memory_accounting.train_state_bytes(n, torch.bfloat16)
+    mem = engine._analytic_memory_components()
+    log(f"offload large: {OFFLOAD_LARGE_MODEL} ({n / 1e9:.3f}B params, "
+        f"{cfg.n_layer} layers, n_embd {cfg.n_embd}) built in {init_s:.1f} "
+        f"s; stage-0 analytic state {stage0['persistent_bytes'] / 1e9:.2f} "
+        f"GB ({stage0['persistent_bytes'] / 2 ** 30:.2f} GiB); offload "
+        f"analytic device {mem['device_bytes'] / 2 ** 30:.2f} GiB, host "
+        f"{mem['host_bytes'] / 2 ** 30:.2f} GiB; host RSS "
+        f"{_rss()[0]:.2f} GiB; card bytes left by earlier phases {left}")
+    times = _time_host_calls(engine)
+    batch = _slice_batch(cfg.vocab_size, 1, 1, SLICE_SEQ, seed=0)
+    steps = OFFLOAD_LARGE_STEPS
+    # remat attn_out runs the flash forward twice per layer
+    want = {"flash_fwd": 2 * cfg.n_layer * steps,
+            "flash_bwd_dkdv": cfg.n_layer * steps,
+            "flash_bwd_dq": cfg.n_layer * steps}
+    want.update({name: 0 for name, _ in SPARSE_KERNELS})
+    train = _train_steps(env, engine, batch, f"{OFFLOAD_LARGE_MODEL} offload",
+                         SLICE_SEQ, 1, 1, steps, want, falling=False)
+    log(f"offload large: {_host_times_line(times, steps - 1)} (steps "
+        f"2..{steps}); peak device memory {train['peak_bytes'] / 2 ** 30:.2f}"
+        f" GiB against stage 0's analytic "
+        f"{stage0['persistent_bytes'] / 2 ** 30:.2f} GiB of state alone; "
+        f"host RSS / peak {_rss()[0]:.2f} / {_rss()[1]:.2f} GiB on "
+        f"{env['smi']}")
+    d2h, h2d = _pcie_rates(engine, iters=2)
+    nbytes = engine._dev_flat.numel() * engine._dev_flat.element_size()
+    log(f"offload large: PCIe, {nbytes / 1e9:.3f} GB per copy: D2H "
+        f"{d2h:.1f} GB/s, H2D {h2d:.1f} GB/s on {env['smi']}")
+    phase_profile(env, train, f"{OFFLOAD_LARGE_MODEL} offload", steps=1)
+    train.pop("engine")
+    del engine
+    torch.cuda.empty_cache()
+    return train
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "deepspeed_tpu_torch")):
         print("chip_smoke.py: the deepspeed_tpu_torch package is not beside "
@@ -2126,10 +2541,14 @@ def main():
     train = phase_train(env)
     for row in rows:
         row["launches"] = train["launches"][row["name"]]
-    phase_profile(env, train, SLICE_MODEL)
+    profile = phase_profile(env, train, SLICE_MODEL)
     train.pop("engine")
     torch.cuda.empty_cache()
     phase_zero(env, train)
+    # what phase 17 is held against
+    stage0 = {k: train[k] for k in ("losses", "step_ms", "tokens_per_s",
+                                    "peak_bytes")}
+    stage0["idle_share"] = profile["idle_share"]
     del train
     torch.cuda.empty_cache()
     phase_parity()
@@ -2153,6 +2572,10 @@ def main():
     phase_optimizers(env)
     torch.cuda.empty_cache()
     phase_serve(env)
+    torch.cuda.empty_cache()
+    phase_offload(env, stage0)
+    torch.cuda.empty_cache()
+    phase_offload_large(env)
     print(json.dumps({"kernels": rows + sparse_rows + fp16_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,7 @@ The flags map as in the JAX package:
 - contiguous_checkpointing: accepted for config parity (the caching
   allocator owns buffer layout), and needs ``num_checkpoints``;
 - checkpoint_in_cpu (activations in host memory) is not ported yet
-  (ROADMAP A14).
+  (ROADMAP A14b).
 The RNG tracker keeps named ``torch.Generator`` streams (the reference's
 CudaRNGStatesTracker, :148-263); ``fork(name)`` hands out a new generator
 seeded from the named stream and advances it, as the JAX package's
@@ -72,7 +72,7 @@ def configure(mpu_=None, deepspeed_config=None, partition_activations=None,
         _NUM_LAYERS = num_checkpoints
     if _CONFIG["checkpoint_in_cpu"]:
         raise NotImplementedError("checkpoint_in_cpu (activations in host "
-                                  "memory) is not ported yet (ROADMAP A14)")
+                                  "memory) is not ported yet (ROADMAP A14b)")
     if _CONFIG["contiguous_checkpointing"]:
         logger.info("contiguous_checkpointing: the caching allocator owns "
                     "buffer layout; flag accepted for parity")
@@ -112,7 +112,7 @@ def _policy():
     (the JAX package's nothing_saveable and its default coincide here)."""
     if _CONFIG["checkpoint_in_cpu"]:
         raise NotImplementedError("checkpoint_in_cpu is not ported yet "
-                                  "(ROADMAP A14)")
+                                  "(ROADMAP A14b)")
     return None
 
 

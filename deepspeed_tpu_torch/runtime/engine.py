@@ -42,9 +42,23 @@ overflow flag is a MAX and the global norm a SUM over the group, so every
 rank takes or skips the same step. In a world of one every leaf is
 replicated, and the step is the single-process one bit for bit.
 
+ZeRO-Offload (``"cpu_offload": true`` with Adam or AdamW; the JAX engine's
+``_ensure_state_offload``, ``_take_model_step_offload``): the fp32 master
+weights, the Adam moments and the gradient accumulator live in host
+memory, and the device holds only the compute-dtype parameters. After
+each backward the gradients (at dp > 1 this rank's part of the exchanged
+fp32 ones) are copied into a pinned staging buffer on a side stream, and
+the host adds micro step k into its fp32 accumulator while the device
+runs micro step k + 1. The step is the host's: a finite check and a
+float64 sum of squares of the accumulator, the clip folded into the
+gradient scale, the port's C++ Adam (ops/adam/cpu_adam.py) over the
+master, and the master rounded to the compute dtype and copied back into
+the parameters (at dp > 1 this rank's shard, then one all-gather).
+
 Configurations that need parts of the port still to come raise at
 construction, naming their ROADMAP item.
 """
+import math
 import os
 import pickle
 
@@ -54,6 +68,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from deepspeed_tpu_torch.ops.adam.cpu_adam import (DeepSpeedCPUAdam,
+                                                  accumulate, sum_of_squares)
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
 from deepspeed_tpu_torch.ops.adam.sgd import SGD
 from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
@@ -73,7 +89,7 @@ from deepspeed_tpu_torch.runtime.constants import (ADAM_OPTIMIZER,
                                                    ZEROONE_ADAM_OPTIMIZER)
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (
-    make_loss_scale_state, update_loss_scale)
+    CreateLossScaler, make_loss_scale_state, update_loss_scale)
 from deepspeed_tpu_torch.runtime.lr_schedules import SCHEDULER_REGISTRY
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
     ProgressiveLayerDrop
@@ -114,10 +130,23 @@ def _refuse_unported(raw, cfg):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                   f"{item})")
 
+    if cfg.zero_config.cpu_offload:
+        # the combinations of ZeRO-Offload this port does not run yet
+        if cfg.zero_optimization_stage >= 3:
+            no("ZeRO-Offload (cpu_offload) with ZeRO stage 3", "A13")
+        if cfg.zero_config.quantized_weights:
+            no("ZeRO-Offload with quantized_weights (the qwZ int8 push)",
+               "A13")
+        if cfg.sparse_gradients_enabled:
+            no("ZeRO-Offload with sparse_gradients (CSR gradients on the "
+               "device-to-host wire)", "A13")
+        if cfg.pipeline.get("stages", 1) not in (1, None):
+            no("ZeRO-Offload with pipeline parallelism", "A12")
     if cfg.zero_optimization_stage >= 3:
         no("ZeRO stage 3", "A13")
-    if cfg.zero_config.cpu_offload:
-        no("ZeRO-Offload (cpu_offload)", "A14")
+    if cfg.activation_checkpointing_config.cpu_checkpointing:
+        no("activation checkpoints in host memory (cpu_checkpointing)",
+           "A14b")
     if cfg.zero_config.quantized_gradients \
             or cfg.zero_config.quantized_weights:
         no("quantized ZeRO collectives", "A13")
@@ -204,15 +233,29 @@ class DeepSpeedEngine:
         self.partition = ZeroPartition(
             self.module, self.param_names, self.params, self.dp_world_size,
             self.dp_rank, self.zero_optimization_stage())
-        self._build_state()
+        self.optimizer = self._configure_basic_optimizer()
+        # ZeRO-Offload: Adam/AdamW with cpu_offload steps on the host (LAMB
+        # and SGD keep their device step, as in the JAX engine)
+        self._offload = getattr(self.optimizer, "needs_host_state", False)
+        # the micro steps' gradients leave the exchange as this rank's
+        # shards: at stage 2, and under offload from stage 1 (the JAX
+        # engine's offload regions follow the ZeRO spec from stage 1)
+        stage = self.zero_optimization_stage()
+        self._grad_sharded = stage >= 2 or (self._offload and stage >= 1)
+        if self._offload:
+            self._build_offload_state()
+        else:
+            self._build_state()
         self._mark_params()
 
-        self.optimizer = self._configure_basic_optimizer()
-        if hasattr(self.optimizer, "set_partition"):
-            self.optimizer.set_partition(self.dp_group,
-                                         self.partition.sharded)
-        self.optimizer.init_state(self.master)
+        if not self._offload:
+            if hasattr(self.optimizer, "set_partition"):
+                self.optimizer.set_partition(self.dp_group,
+                                             self.partition.sharded)
+            self.optimizer.init_state(self.master)
         self.lr_scheduler = self._configure_lr_scheduler()
+        self._host_scaler = None
+        self._host_skipped = 0
         self.scaler = self._make_scaler()
         self._skipped = torch.zeros((), dtype=torch.int32, device=self.device)
         self.progressive_layer_drop = None
@@ -284,6 +327,8 @@ class DeepSpeedEngine:
     def loss_scale(self):
         """The current loss scale (a host read of the device scalar), or
         the configured one without a scaler (reference engine.py:283)."""
+        if self._host_scaler is not None:
+            return float(self._host_scaler.cur_scale)
         if self.scaler is not None:
             return float(self.scaler.loss_scale)
         return self._config.loss_scale or self._config.initial_dynamic_scale
@@ -293,8 +338,9 @@ class DeepSpeedEngine:
 
     @property
     def skipped_steps(self):
-        """Overflow-skipped steps (a host read of the device counter)."""
-        return int(self._skipped)
+        """Overflow-skipped steps (a host read of the device counter; under
+        offload the host's skips are added, as in the JAX engine)."""
+        return int(self._skipped) + self._host_skipped
 
     def get_lr(self):
         return [self._current_lr()]
@@ -323,6 +369,10 @@ class DeepSpeedEngine:
         if max_grad_norm and not self._config.gradient_clipping:
             self._config.gradient_clipping = max_grad_norm
         if name in (ADAM_OPTIMIZER, ADAMW_OPTIMIZER):
+            if self._config.zero_config.cpu_offload:
+                # ZeRO-Offload: the host Adam (JAX engine.py:452-459)
+                params.setdefault("adamw_mode", name == ADAMW_OPTIMIZER)
+                return DeepSpeedCPUAdam(**params)
             params.setdefault("adam_w_mode", name == ADAMW_OPTIMIZER)
             return FusedAdam(**params)
         if name == LAMB_OPTIMIZER:
@@ -351,6 +401,17 @@ class DeepSpeedEngine:
         if not self.fp16_enabled():
             return None
         args = self._config.dynamic_loss_scale_args or {}
+        if self._offload:
+            # the policy runs on the host (JAX engine.py:1463-1475); the
+            # device state holds the scale the loss is multiplied by
+            host_args = dict(args)
+            host_args.setdefault("init_scale",
+                                 self._config.initial_dynamic_scale)
+            self._host_scaler = CreateLossScaler(
+                static_loss_scale=self._config.loss_scale or 0,
+                dynamic_scale_args=host_args)
+            return make_loss_scale_state(self._host_scaler.cur_scale,
+                                         device=self.device)
         if self._config.loss_scale and self._config.loss_scale > 0:
             return make_loss_scale_state(self._config.loss_scale,
                                          device=self.device)
@@ -396,7 +457,7 @@ class DeepSpeedEngine:
         self._rep_idx = [i for i, s in enumerate(sharded) if not s]
         # accumulator: full-shaped for the leaves all-reduced each micro
         # step, then (stage 2) this rank's shards of the others
-        stage2 = self.zero_optimization_stage() >= 2
+        stage2 = self._grad_sharded
         self._ar_idx = [i for i, s in enumerate(sharded)
                         if not (stage2 and s)]
         sizes = [self.params[i].numel() for i in self._ar_idx]
@@ -418,20 +479,106 @@ class DeepSpeedEngine:
         self._partitioned = sharded if any(sharded) else None
         if self.dp_group is None:
             return
-        self._ar_buf = torch.empty(self._n_ar, dtype=f32, device=dev)
+        self._exchange_buffers(
+            torch.empty(self._n_ar + (part.seg_size if stage2 else 0),
+                        dtype=f32, device=dev),
+            torch.empty(part.seg_size, dtype=self.param_dtype, device=dev))
+
+    def _exchange_buffers(self, xchg, ag_send):
+        """The device buffers of the gradient exchange over the group:
+        ``xchg`` (fp32) holds the all-reduced replicated part, then at
+        stage 2 this rank's reduce-scattered shards; ``ag_send`` (the
+        parameters' dtype, ``seg_size`` elements) this rank's shards of
+        the updated parameters for the all-gather."""
+        part, dev, f32 = self.partition, self.device, torch.float32
+        sizes = [self.params[i].numel() for i in self._ar_idx]
+        self._xchg = xchg
+        self._ar_buf = xchg[:self._n_ar]
         self._ar_views = [b.view(self.params[i].shape) for i, b in
                           zip(self._ar_idx, self._ar_buf.split(sizes))]
         self._ar_leaves = [(leaf.name, leaf.elements)
                            for leaf in part.leaves
-                           if not (stage2 and leaf.shard_dim is not None)]
+                           if not (self._grad_sharded
+                                   and leaf.shard_dim is not None)]
         self._sh_leaves = part.leaf_elements(sharded=True)
         n = self.dp_world_size * part.seg_size
-        if stage2:
+        if self._grad_sharded:
             self._rs_send = torch.empty(n, dtype=f32, device=dev)
-            self._rs_recv = torch.empty(part.seg_size, dtype=f32, device=dev)
-        self._ag_send = torch.empty(part.seg_size, dtype=self.param_dtype,
-                                    device=dev)
+            self._rs_recv = xchg[self._n_ar:]
+        self._ag_send = ag_send
         self._ag_recv = torch.empty(n, dtype=self.param_dtype, device=dev)
+
+    @torch.no_grad()
+    def _build_offload_state(self):
+        """ZeRO-Offload's state (JAX engine ``_ensure_state_offload``,
+        engine.py:1420): this rank's fp32 master, Adam moments and
+        gradient accumulator in pageable host memory, each one flat buffer
+        laid out as the stage-2 accumulator (the replicated parameters
+        whole, then this rank's shards of the others; at dp 1, every
+        parameter whole); on the device only the compute-dtype parameters
+        and one flat buffer of them (the gradients packed for the copy
+        down at dp 1, and the push up), and at dp > 1 PR 8's exchange
+        buffers. Two pinned staging buffers (pinned on CUDA only; one at
+        gas 1, where no micro step follows within the step), allocated
+        here once, carry the micro steps' gradients down (the compute
+        dtype at dp 1, the exchanged fp32 at dp > 1); the first also
+        carries the pushed parameters up."""
+        part, dev, f32 = self.partition, self.device, torch.float32
+        sharded = part.sharded
+        self._master_separate = True
+        self._rep_idx = self._ar_idx = [i for i, s in enumerate(sharded)
+                                        if not s]
+        sizes = [self.params[i].numel() for i in self._ar_idx]
+        self._n_ar = sum(sizes)
+        n = self._n_ar + part.seg_size
+
+        def views(flat):
+            out = [None] * len(self.params)
+            for i, v in zip(self._ar_idx, flat[:self._n_ar].split(sizes)):
+                out[i] = v.view(self.params[i].shape)
+            for i, v in zip(part.sharded_idx,
+                            part.segment_views(flat[self._n_ar:])):
+                out[i] = v
+            return out
+
+        self._host_master = torch.empty(n, dtype=f32)
+        self.master = views(self._host_master)
+        for i, p in enumerate(self.params):
+            self.master[i].copy_(part.local(p, i))
+        self._host_accum = torch.zeros(n, dtype=f32)
+        self.accum = views(self._host_accum)
+        self._host_opt = self.optimizer.init_state([self._host_master])
+        self._host_m = views(self._host_opt["m"][0])
+        self._host_v = views(self._host_opt["v"][0])
+        for p in self.params:
+            p.data = p.data.to(self.param_dtype)
+        # the host Adam's OpenMP pool, sized on purpose: torch's intra-op
+        # pool's size (the host's cores, unless OMP_NUM_THREADS or
+        # torch.set_num_threads says otherwise); the two run in turn
+        self._host_lib = self.optimizer._lib
+        self._host_lib.ds_set_num_threads(torch.get_num_threads())
+        cuda = dev.type == "cuda"
+        stage_dtype = self.param_dtype if self.dp_group is None else f32
+        slots = 2 if self.gradient_accumulation_steps() > 1 else 1
+        self._staging = [torch.empty(n, dtype=stage_dtype, pin_memory=cuda)
+                         for _ in range(slots)]
+        elem = torch.empty((), dtype=self.param_dtype).element_size()
+        self._push_host = self._staging[0].view(torch.uint8)[:n * elem] \
+            .view(self.param_dtype)
+        self._dev_flat = torch.empty(n, dtype=self.param_dtype, device=dev)
+        self._dev_views = views(self._dev_flat)
+        self._d2h_stream = torch.cuda.Stream(dev) if cuda else None
+        self._d2h_events = [torch.cuda.Event() for _ in self._staging] \
+            if cuda else None
+        self._d2h_last = None
+        self._h2d_done = torch.cuda.Event() if cuda else None
+        self._slot = 0
+        self._pending_fetches = []
+        self._host_waits = 0
+        if self.dp_group is not None:
+            self._exchange_buffers(
+                torch.empty(n, dtype=f32, device=dev),
+                self._dev_flat[self._n_ar:])
 
     def deepspeed_io(self, dataset, batch_size=None, pin_memory=False,
                      data_sampler=None, collate_fn=None,
@@ -571,7 +718,16 @@ class DeepSpeedEngine:
         (scaled / (self.gradient_accumulation_steps()
                    * self.dp_world_size)).backward()
         # the gradients, in the compute dtype, into the fp32 accumulator
-        if self.dp_group is not None:
+        if self._offload:
+            # this micro step's copy down starts; the previous one's (its
+            # copy overlapped this micro step's compute) goes into the
+            # host accumulator (JAX engine.py:3260-3271)
+            slot = self._start_grad_fetch([p.grad for p in self.params])
+            for p in self.params:
+                p.grad = None
+            self._drain_pending_fetches()
+            self._pending_fetches.append(slot)
+        elif self.dp_group is not None:
             self._exchange_grads([p.grad for p in self.params])
         else:
             got = [(a, p.grad) for a, p in zip(self.accum, self.params)
@@ -585,28 +741,146 @@ class DeepSpeedEngine:
 
     @torch.no_grad()
     def _exchange_grads(self, grads):
-        """One micro step's gradients (None: zero) over the group, summed
-        into the accumulator: one fp32 all-reduce of the replicated part,
-        and at stage 2 one reduce-scatter of the sharded leaves into this
-        rank's shards. Both enqueue on the current stream."""
+        """One micro step's gradients (None: zero) over the group, into
+        ``_xchg``: one fp32 all-reduce of the replicated part, and at stage
+        2 one reduce-scatter of the sharded leaves into this rank's shards;
+        without offload then summed into the accumulator. All enqueue on
+        the current stream."""
         group = self.dp_group
         if self._ar_idx:
-            dst, src = [], []
-            for v, i in zip(self._ar_views, self._ar_idx):
-                if grads[i] is None:
-                    v.zero_()
-                else:
-                    dst.append(v)
-                    src.append(grads[i])
-            if dst:
-                torch._foreach_copy_(dst, src)
+            _copy_or_zero(self._ar_views, [grads[i] for i in self._ar_idx])
             group.all_reduce(self._ar_buf, leaves=self._ar_leaves)
-            self._flat_accum[:self._n_ar].add_(self._ar_buf)
-        if self._flat_accum.numel() > self._n_ar:
+            if not self._offload:
+                self._flat_accum[:self._n_ar].add_(self._ar_buf)
+        if self._grad_sharded and self.partition.seg_size:
             self.partition.pack(self._rs_send, grads)
             group.reduce_scatter(self._rs_recv, self._rs_send,
                                  leaves=self._sh_leaves)
-            self._flat_accum[self._n_ar:].add_(self._rs_recv)
+            if not self._offload:
+                self._flat_accum[self._n_ar:].add_(self._rs_recv)
+
+    # ------------------------------------------------------------------
+    # ZeRO-Offload: the gradient stream and the host step
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def _start_grad_fetch(self, grads):
+        """Start the copy of one micro step's gradients into a staging
+        buffer (JAX ``_start_grad_fetch``, engine.py:1930); returns its
+        slot. At dp 1 the compute-dtype gradients are packed into
+        ``_dev_flat``; at dp > 1 the exchange leaves this rank's fp32 part
+        in ``_xchg``. Either buffer is rewritten only after the previous
+        copy out of it (the current stream waits on its event). On CUDA
+        the copy runs on a side stream that waits on an event recorded
+        after backward, so the next micro step's compute overlaps it."""
+        if self._d2h_last is not None:
+            torch.cuda.current_stream(self.device).wait_event(self._d2h_last)
+        if self.dp_group is None:
+            _copy_or_zero(self._dev_views, grads)
+            src = self._dev_flat
+        else:
+            self._exchange_grads(grads)
+            src = self._xchg
+        slot = self._slot
+        self._slot = (slot + 1) % len(self._staging)
+        if slot in self._pending_fetches:
+            # one slot (gas 1) still holding a micro step not yet added
+            self._drain_pending_fetches()
+        staging = self._staging[slot]
+        if self._d2h_stream is None:
+            staging.copy_(src)
+            return slot
+        ready = torch.cuda.Event()
+        ready.record()
+        self._d2h_stream.wait_event(ready)
+        with torch.cuda.stream(self._d2h_stream):
+            staging.copy_(src, non_blocking=True)
+        self._d2h_events[slot].record(self._d2h_stream)
+        self._d2h_last = self._d2h_events[slot]
+        return slot
+
+    def _drain_pending_fetches(self):
+        """Add each pending staging buffer into the fp32 host accumulator,
+        once its copy has completed (JAX ``_consume_grad_fetch``)."""
+        for slot in self._pending_fetches:
+            if self._d2h_events is not None:
+                self._d2h_events[slot].synchronize()
+                self._host_waits += 1
+            accumulate(self._host_lib, self._host_accum, self._staging[slot])
+        self._pending_fetches = []
+
+    @torch.no_grad()
+    def _take_model_step_offload(self):
+        """The host step (JAX ``_take_model_step_offload``,
+        engine.py:3298-3395): the finite check of the host accumulator and
+        its float64 sum of squares over the regions this rank owns (the
+        replicated part on rank 0 only), at dp > 1 summed over the group
+        with the overflow flag in one reduction; the clip folded into the
+        gradient scale; one host Adam call over this rank's regions (one
+        flat buffer); the push; the accumulator zeroed and the loss-scale
+        policy run on the host. An overflowed step pushes nothing."""
+        lr = self._advance_lr()
+        self._sync_master()
+        self._drain_pending_fetches()
+        lib, acc = self._host_lib, self._host_accum
+        scale = self._host_scaler.cur_scale \
+            if self._host_scaler is not None else 1.0
+        sq_rep = sum_of_squares(lib, acc[:self._n_ar])
+        sq_own = sum_of_squares(lib, acc[self._n_ar:])
+        finite = math.isfinite(sq_rep) and math.isfinite(sq_own)
+        total_sq = (sq_own + (sq_rep if self.dp_rank == 0 else 0.0)) \
+            if finite else 0.0
+        if self.dp_group is not None:
+            stats = torch.tensor([total_sq, 0.0 if finite else 1.0],
+                                 dtype=torch.float64, device=self.device)
+            stats = self.dp_group.all_reduce(stats).cpu()
+            total_sq, finite = float(stats[0]), float(stats[1]) == 0.0
+        clip = self.gradient_clipping()
+        if finite:
+            gnorm = math.sqrt(total_sq) / scale
+            clip_factor = min(1.0, clip / (gnorm + 1e-6)) if clip else 1.0
+            self.optimizer.step([self._host_master], [acc], self._host_opt,
+                                lr=lr, grad_scale=scale / clip_factor)
+            self._push_params()
+        else:
+            self._host_skipped += 1
+            gnorm = 0.0
+        acc.zero_()
+        if self._host_scaler is not None:
+            self._host_scaler.update_scale(not finite)
+            if self._host_scaler.cur_scale != scale:
+                # the scale the next forward reads, without a host sync
+                self.scaler.loss_scale.fill_(self._host_scaler.cur_scale)
+            if not finite:
+                log_dist(f"ZeRO-Offload: OVERFLOW, skipping step "
+                         f"{self.global_steps + 1}, scale -> "
+                         f"{self._host_scaler.cur_scale:g}", ranks=[0])
+        self._finish_step(lr, {"overflow": not finite, "grad_norm": gnorm,
+                               "loss_scale": scale})
+
+    @torch.no_grad()
+    def _push_params(self):
+        """The updated master into the module's parameters (JAX
+        ``_push_local_params``, engine.py:2097): rounded to the compute
+        dtype on the host into pinned staging, one non-blocking copy up
+        into ``_dev_flat`` on the current stream, then the replicated
+        parameters copied out of it and, at dp > 1, this rank's shards
+        all-gathered into the sharded ones (``_gather_params``). The host
+        rewrites the staging only after the last copy up out of it has
+        completed (it has, unless no micro step ran since)."""
+        if self._h2d_done is not None:
+            self._h2d_done.synchronize()
+        self.optimizer.cast_into(self._host_master, self._push_host)
+        self._dev_flat.copy_(self._push_host, non_blocking=True)
+        if self._h2d_done is not None:
+            self._h2d_done.record()
+        if self._rep_idx:
+            torch._foreach_copy_([self.params[i] for i in self._rep_idx],
+                                 [self._dev_views[i] for i in self._rep_idx])
+        if self.partition.sharded_idx:
+            self.dp_group.all_gather(self._ag_recv, self._ag_send,
+                                     leaves=self._sh_leaves)
+            self.partition.unpack(self._ag_recv, self.params)
+        self._mark_params()
 
     @torch.no_grad()
     def _gather_params(self):
@@ -640,7 +914,10 @@ class DeepSpeedEngine:
         """The apply fn of engine.py:2184-2240: overflow = a non-finite
         element of the (scaled) accumulator; unscale, clip by the global
         norm, optimizer step, all skipped on overflow; scaler update; zero
-        the accumulator. Every decision stays on the device."""
+        the accumulator. Every decision stays on the device. Under offload,
+        the host step (``_take_model_step_offload``)."""
+        if self._offload:
+            return self._take_model_step_offload()
         lr = self._advance_lr()
         self._sync_master()
         flat = self._flat_accum
@@ -668,12 +945,16 @@ class DeepSpeedEngine:
             self.scaler = update_loss_scale(self.scaler, overflow,
                                             **self._scaler_hparams())
         flat.zero_()
+        self._finish_step(lr, {"overflow": overflow, "grad_norm": gnorm,
+                               "loss_scale": 1.0 if scale is None else scale})
+
+    def _finish_step(self, lr, metrics):
+        """The counters, the step's metrics and collectives, the log line."""
         self.global_steps += 1
         if self.progressive_layer_drop is not None:
             self.progressive_layer_drop.update_state(self.global_steps)
-        self._last_grad_norm = gnorm
-        self._last_metrics = {"overflow": overflow, "grad_norm": gnorm,
-                              "loss_scale": 1.0 if scale is None else scale}
+        self._last_grad_norm = metrics["grad_norm"]
+        self._last_metrics = metrics
         if self.dp_group is not None:
             self.last_step_comm = self.dp_group.counter.take()
         if self.global_steps % self.steps_per_print() == 0:
@@ -734,7 +1015,9 @@ class DeepSpeedEngine:
         order, which maps through the reference's parameter tree;
         ``sharded``, a list that holds this rank's shards of the sharded
         parameters (ZeRO: the optimizer state and master, and at stage 2
-        the accumulator)."""
+        the accumulator). Under offload the TrainState holds no optimizer
+        state, master or accumulator (they are the host's, in
+        ``offload_states.npz``)."""
         def scalar(v):
             return torch.tensor(v, dtype=torch.int32)
 
@@ -743,14 +1026,15 @@ class DeepSpeedEngine:
         layout = [("step", "leaf", [scalar(self.global_steps)], False),
                   ("micro_step", "leaf", [scalar(self.micro_steps % gas)],
                    False),
-                  ("params", "tree", self.params, False),
-                  ("opt", "leaf", [self.optimizer.step], False)]
-        layout += [("opt", "tree", lst, zero)
-                   for lst in self.optimizer.state_lists()]
-        if self.mixed_precision:
-            layout.append(("master", "tree", self.master, zero))
-        layout.append(("accum", "tree", self.accum,
-                       zero and self.zero_optimization_stage() >= 2))
+                  ("params", "tree", self.params, False)]
+        if not self._offload:
+            layout.append(("opt", "leaf", [self.optimizer.step], False))
+            layout += [("opt", "tree", lst, zero)
+                       for lst in self.optimizer.state_lists()]
+            if self.mixed_precision:
+                layout.append(("master", "tree", self.master, zero))
+            layout.append(("accum", "tree", self.accum,
+                           zero and self._grad_sharded))
         if self.scaler is not None:
             layout.append(("scaler", "leaf", list(self.scaler), False))
         # the rng leaf: jax.random.PRNGKey(seed), never read back (a torch
@@ -776,6 +1060,25 @@ class DeepSpeedEngine:
                 if part.sharded[i] else t for i, t in enumerate(tensors)]
         part.unpack(out, full)
         return full
+
+    def _host_full(self, tensors):
+        """Full-shaped host copies of a host parameter-shaped list that
+        holds this rank's regions (the offload state): gathered over the
+        group through the device (JAX ``_replicate_host_leaves``); every
+        rank takes part."""
+        if not self.partition.sharded_idx:
+            return tensors
+        dev = [t.to(self.device) for t in tensors]
+        return [t.cpu() for t in self._gather_full(dev)]
+
+    def _offload_leaves(self):
+        """``offload_states.npz``'s leaves (JAX engine.py:4161-4175): the
+        master, then m, then v, each full-shaped in the reference tree's
+        order."""
+        leaves = []
+        for lst in (self.master, self._host_m, self._host_v):
+            leaves += self._tree_leaves(self._host_full(lst))
+        return leaves
 
     def _tree_leaves(self, tensors):
         """A parameter-shaped list -> the reference tree's leaves."""
@@ -848,6 +1151,7 @@ class DeepSpeedEngine:
         self._checkpoint_tag_validation(tag)
         res = self._config.resilience
         leaves = self._state_leaves()
+        offload = self._offload_leaves() if self._offload else None
         meta = {
             "global_steps": self.global_steps,
             "micro_steps": self.micro_steps,
@@ -868,10 +1172,23 @@ class DeepSpeedEngine:
                     "data_position": meta["data_position"],
                     "backend": "npz"}
         manifest.update(manifest_meta or {})
+        if self._host_scaler is not None:
+            # the host policy's counters (the JAX engine keeps only the
+            # scale), so that a resumed fp16 run goes on as it would have
+            h = self._host_scaler
+            meta["host_scaler"] = {
+                k: getattr(h, k) for k in ("cur_iter", "last_overflow_iter",
+                                           "cur_hysteresis")
+                if hasattr(h, k)}
 
         def write(path):
             atomic.savez_hashed(os.path.join(path, "model_states.npz"),
                                 **checkpoint_utils.leaves_to_npz_dict(leaves))
+            if offload is not None:
+                atomic.savez_hashed(
+                    os.path.join(path, "offload_states.npz"),
+                    **checkpoint_utils.leaves_to_npz_dict(offload),
+                    opt_step=np.int64(self._host_opt["step"]))
             with open(os.path.join(path, "metadata.pkl"), "wb") as f:
                 pickle.dump(meta, f)
 
@@ -899,9 +1216,8 @@ class DeepSpeedEngine:
     def _comm_leaf_specs(self):
         """A LeafSpec of every JAX leaf: its name, shape and the dimension
         the accumulator's layout shards over ``data`` (stage 2 only)."""
-        stage2 = self.zero_optimization_stage() >= 2
         return [ca.LeafSpec(leaf.name, leaf.shape,
-                            leaf.shard_dim if stage2 else None)
+                            leaf.shard_dim if self._grad_sharded else None)
                 for leaf in self.partition.leaves]
 
     def comm_volume_report(self):
@@ -910,14 +1226,16 @@ class DeepSpeedEngine:
         gradient exchange of every micro step (a reduce-scatter of each
         leaf the accumulator shards, an all-reduce of the others) and the
         compute-dtype all-gather of the sharded leaves after each step,
-        with ring bytes (w-1)/w."""
+        with ring bytes (w-1)/w. Under offload the leaves shard as the
+        offload regions do (the ZeRO spec from stage 1), and the push's
+        all-gather is priced at any stage (JAX engine.py:2935-3017)."""
         dp = self.dp_world_size
         stage = self.zero_optimization_stage()
         compute = ca.dtype_name(self.param_dtype)
         report = ca.volume_report(
             self._comm_leaf_specs(), dp,
             gas=self.gradient_accumulation_steps(), param_dtype=compute,
-            gather_params=dp > 1 and stage in (1, 2))
+            gather_params=dp > 1 and (self._offload or stage in (1, 2)))
         report["config"].update({"zero_stage": stage,
                                  "compute_dtype": compute})
         report["grad_path_modeled"] = True
@@ -929,7 +1247,16 @@ class DeepSpeedEngine:
         parameters (whole on every rank), the fp32 accumulator, the master
         and the optimizer state (this rank's shards of the sharded leaves
         from stage 1, of the accumulator at stage 2), the loss scaler. A
-        master that is the parameters themselves counts under params."""
+        master that is the parameters themselves counts under params.
+
+        Under offload (the ``cpu_offload`` branch of the JAX package's
+        memory_accounting.py:297-355) the device holds the parameters, the
+        flat compute-dtype buffer and the exchange buffers (staging) and,
+        while backward's output waits to be packed, one gradient tree
+        (transient); the master, the moments and the accumulator are
+        host bytes, beside the pinned staging."""
+        if self._offload:
+            return self._offload_memory_components()
         own = {id(p) for p in self.params}
         opt = [self.optimizer.step] + [
             t for lst in self.optimizer.state_lists() for t in lst]
@@ -945,6 +1272,29 @@ class DeepSpeedEngine:
         }
         return {"components": components,
                 "persistent_bytes": sum(components.values())}
+
+    def _offload_memory_components(self):
+        tb = memory_accounting.tensor_bytes
+        staging = [self._dev_flat]
+        if self.dp_group is not None:
+            staging += [self._xchg, self._ag_recv] + (
+                [self._rs_send] if self._grad_sharded else [])
+        components = {"params_bytes": tb(self.params),
+                      "grad_accum_bytes": 0, "master_bytes": 0,
+                      "optimizer_state_bytes": 0,
+                      "scaler_bytes": tb(list(self.scaler or ())),
+                      "offload_staging_bytes": tb(staging)}
+        transient = {"grad_tree_bytes": tb(self.params)}
+        host = {"master_bytes": tb([self._host_master]),
+                "optimizer_state_bytes":
+                    tb(self._host_opt["m"] + self._host_opt["v"]),
+                "grad_accum_bytes": tb([self._host_accum]),
+                "pinned_staging_bytes": tb(self._staging)}
+        persistent = sum(components.values())
+        return {"components": components, "persistent_bytes": persistent,
+                "transient": transient,
+                "device_bytes": persistent + sum(transient.values()),
+                "host": host, "host_bytes": sum(host.values())}
 
     def _topology(self):
         """The writing mesh's identity card (resilience/reshard.py
@@ -1006,13 +1356,21 @@ class DeepSpeedEngine:
         if meta.get("backend") == "orbax":
             raise NotImplementedError("orbax checkpoints are not ported yet "
                                       "(ROADMAP A16)")
-        if os.path.exists(os.path.join(path, "offload_states.npz")):
-            raise NotImplementedError("ZeRO-Offload checkpoint states are "
-                                      "not ported yet (ROADMAP A14)")
+        has_offload = os.path.exists(os.path.join(path,
+                                                  "offload_states.npz"))
+        if has_offload != self._offload:
+            raise ValueError(
+                f"checkpoint at {path} was written "
+                f"{'with' if has_offload else 'without'} ZeRO-Offload "
+                f"(offload_states.npz), this engine runs "
+                f"{'with' if self._offload else 'without'} it")
         with np.load(os.path.join(path, "model_states.npz")) as data:
             flat = checkpoint_utils.npz_dict_to_leaves(data)
         self._restore_leaves(flat, path, load_module_strict,
                              load_optimizer_states)
+        if self._offload:
+            self._restore_offload(path, meta, load_module_strict,
+                                  load_optimizer_states)
         self.global_steps = meta["global_steps"]
         self.micro_steps = meta["micro_steps"]
         if load_lr_scheduler_states and self.lr_scheduler is not None \
@@ -1045,7 +1403,6 @@ class DeepSpeedEngine:
                 f"checkpoint at {path} holds {len(flat)} state leaves, this "
                 f"engine's layout has {n_want}: saved under another "
                 f"precision, optimizer or model")
-        index = {n: i for i, n in enumerate(self.param_names)}
         part = self.partition
         at = 0
         for field, kind, tensors, sharded in layout:
@@ -1062,28 +1419,78 @@ class DeepSpeedEngine:
                 for dst, src in zip(tensors, got):
                     dst.copy_(src)
                 continue
-            for (names, transposed), src in zip(specs, got):
-                group = names if isinstance(names, tuple) else (names,)
-                parts = src.unbind(0) if isinstance(names, tuple) else [src]
-                for name, full in zip(group, parts):
-                    i = index[name]
-                    full = full.t() if transposed else full
-                    if tuple(full.shape) != part.shapes[i]:
-                        if strict:
-                            raise ValueError(
-                                f"checkpoint leaf for {name} has shape "
-                                f"{tuple(full.shape)}, the model's is "
-                                f"{part.shapes[i]}")
-                        logger.warning(f"load_checkpoint: {name} skipped "
-                                       f"(shape {tuple(full.shape)})")
-                        continue
-                    tensors[i].copy_(part.local(full, i) if sharded
-                                     else full)
+            self._copy_tree(got, tensors, sharded, strict)
+        if self._offload:
+            self._mark_params()
+            return
         if not self.mixed_precision:
             # fp32: the master shards are the restored parameters' slices
             for i in part.sharded_idx:
                 self.master[i].copy_(part.narrow(self.params[i], i))
         self._mark_params()
+
+    def _copy_tree(self, got, tensors, sharded, strict):
+        """The reference tree's leaves ``got`` (full arrays) into the
+        parameter-shaped list ``tensors`` (this rank's part of each where
+        ``sharded``)."""
+        index = {n: i for i, n in enumerate(self.param_names)}
+        part = self.partition
+        for (names, transposed), src in zip(self._leaf_specs(), got):
+            group = names if isinstance(names, tuple) else (names,)
+            parts = src.unbind(0) if isinstance(names, tuple) else [src]
+            for name, full in zip(group, parts):
+                i = index[name]
+                full = full.t() if transposed else full
+                if tuple(full.shape) != part.shapes[i]:
+                    if strict:
+                        raise ValueError(
+                            f"checkpoint leaf for {name} has shape "
+                            f"{tuple(full.shape)}, the model's is "
+                            f"{part.shapes[i]}")
+                    logger.warning(f"load_checkpoint: {name} skipped "
+                                   f"(shape {tuple(full.shape)})")
+                    continue
+                tensors[i].copy_(part.local(full, i) if sharded else full)
+
+    @torch.no_grad()
+    def _restore_offload(self, path, meta, strict, load_optimizer_states):
+        """The host state from ``offload_states.npz`` (JAX
+        engine.py:4996-5014): master, m and v (this rank's regions of the
+        full arrays), the host Adam's step, the host's skipped steps (the
+        metadata's count less the device's) and the scale."""
+        with np.load(os.path.join(path, "offload_states.npz")) as data:
+            leaves = checkpoint_utils.npz_dict_to_leaves(data)
+            opt_step = int(data["opt_step"])
+        n = len(self._leaf_specs())
+        if len(leaves) != 3 * n:
+            raise ValueError(f"offload_states.npz at {path} holds "
+                             f"{len(leaves)} leaves, this engine's layout "
+                             f"has {3 * n} (master, m, v)")
+        lists = [self.master]
+        if load_optimizer_states:
+            lists += [self._host_m, self._host_v]
+            self._host_opt["step"] = opt_step
+        for k, lst in enumerate(lists):
+            self._copy_tree(leaves[k * n:(k + 1) * n], lst, True, strict)
+        self._host_skipped = max(0, int(meta.get("skipped_steps", 0))
+                                 - int(self._skipped))
+        if self._host_scaler is not None:
+            self._host_scaler.cur_scale = float(self.scaler.loss_scale)
+            for k, v in (meta.get("host_scaler") or {}).items():
+                setattr(self._host_scaler, k, v)
+
+
+def _copy_or_zero(dst, src):
+    """``dst[j] = src[j]`` for each pair, zero where ``src[j]`` is None (a
+    parameter the loss did not reach), in one multi-tensor copy."""
+    pairs = []
+    for d, g in zip(dst, src):
+        if g is None:
+            d.zero_()
+        else:
+            pairs.append((d, g))
+    if pairs:
+        torch._foreach_copy_([d for d, _ in pairs], [g for _, g in pairs])
 
 
 def _micro_at(batch, i):

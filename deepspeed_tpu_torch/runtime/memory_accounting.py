@@ -1,9 +1,10 @@
 """Analytic device bytes of the serving KV pool and of the train state.
 
 Port of ``kv_pool_bytes`` of deepspeed_tpu/runtime/memory_accounting.py,
-the builder ``PagedKVPool.stats()`` prices the pool through, and of the
-training engine's analytic components (per rank, ZeRO shards included);
-the measured side comes with ROADMAP A17.
+the builder ``PagedKVPool.stats()`` prices the pool through, of the
+training engine's analytic components (per rank, ZeRO shards included)
+and of ``train_memory_report``'s persistent components at dp 1 with its
+``cpu_offload`` branch; the measured side comes with ROADMAP A17.
 """
 import torch
 
@@ -48,3 +49,25 @@ def tensor_bytes(tensors) -> int:
     (``DeepSpeedEngine._analytic_memory_components``)."""
     return sum(t.numel() * t.element_size() for t in tensors)
 
+
+
+def train_state_bytes(numel: int, compute_dtype, *, optimizer_slots=2,
+                      cpu_offload: bool = False) -> dict:
+    """Analytic persistent bytes of one training process at dp 1 for
+    ``numel`` parameters (the JAX package's ``train_memory_report`` at dp
+    1, without transients): on the device the compute-dtype parameters,
+    the fp32 gradient accumulator, the fp32 master under mixed precision
+    and ``optimizer_slots`` fp32 slots (Adam's m and v); under
+    ``cpu_offload`` the last three are host bytes instead, the master at
+    any precision (the host Adam steps a copy of its own)."""
+    compute = _itemsize(compute_dtype)
+    fp32 = 4 * numel
+    state = {"grad_accum_bytes": fp32,
+             "master_bytes": fp32 if compute < 4 or cpu_offload else 0,
+             "optimizer_state_bytes": optimizer_slots * fp32}
+    device = dict({"params_bytes": compute * numel},
+                  **({k: 0 for k in state} if cpu_offload else state))
+    host = state if cpu_offload else {k: 0 for k in state}
+    return {"components": device,
+            "persistent_bytes": sum(device.values()),
+            "host": host, "host_bytes": sum(host.values())}

@@ -542,6 +542,136 @@ def _sharded_leaves(result, sizes):
 
 
 # ---------------------------------------------------------------------------
+# ZeRO-Offload on the card
+# ---------------------------------------------------------------------------
+def _offload_engine(cuda, offload=True, precision="bf16"):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+
+    dtype = {"fp16": torch.float16, "bf16": torch.bfloat16}[precision]
+    cfg = GPT2Config(vocab_size=256, n_positions=128, n_embd=128, n_layer=2,
+                     n_head=2, dtype=dtype)
+    ds = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+          "gradient_accumulation_steps": 2, "gradient_clipping": 1.0,
+          "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+          "zero_optimization": {"stage": 2, "cpu_offload": offload},
+          "steps_per_print": 10 ** 9, precision: {"enabled": True}}
+    eng, _, _, _ = deepspeed_tpu_torch.initialize(model=GPT2Model(cfg),
+                                                  config_params=ds)
+    ids = torch.randint(0, 256, (2, 2, 128), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    return eng, {"input_ids": ids, "labels": ids}
+
+
+@pytest.mark.cuda
+def test_offload_state_is_on_the_host_and_the_staging_pinned(cuda):
+    """Under cpu_offload the device holds the bf16 parameters and the
+    engine's flat bf16 buffer, and no fp32 master, accumulator or Adam
+    moment: the engine's fp32 state is host tensors, the two staging
+    buffers are pinned, and the bytes the engine allocated on the card
+    are its analytic device bytes (params + staging + scaler)."""
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    eng, _ = _offload_engine(cuda)
+    allocated = torch.cuda.memory_allocated() - before
+    assert eng._offload and not hasattr(eng, "_flat_accum")
+    assert not hasattr(eng.optimizer, "m")
+    assert all(p.is_cuda and p.dtype == torch.bfloat16 for p in eng.params)
+    for t in (eng.master + eng.accum + eng._host_m + eng._host_v
+              + [eng._host_master, eng._host_accum]
+              + eng._host_opt["m"] + eng._host_opt["v"]):
+        assert t.device.type == "cpu" and t.dtype == torch.float32
+        assert not t.is_pinned()
+    assert all(s.is_pinned() for s in eng._staging)
+    mem = eng._analytic_memory_components()
+    assert mem["components"]["master_bytes"] == 0
+    assert mem["components"]["grad_accum_bytes"] == 0
+    assert mem["components"]["optimizer_state_bytes"] == 0
+    n = sum(p.numel() for p in eng.params)
+    assert mem["host"]["master_bytes"] == 4 * n
+    assert mem["host"]["optimizer_state_bytes"] == 8 * n
+    # the allocator rounds each block to 512 bytes
+    assert mem["persistent_bytes"] <= allocated \
+        <= mem["persistent_bytes"] + 512 * (len(eng.params) + 8)
+
+
+@pytest.mark.cuda
+def test_offload_gradients_go_down_on_a_side_stream(cuda, tmp_path):
+    """The device-to-pinned copies of the micro steps' gradients run on a
+    stream other than the one the model's kernels run on (read from the
+    profiler's trace), and the push up runs on the compute stream."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    eng, batch = _offload_engine(cuda)
+    eng.train_batch(batch=batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        eng.train_batch(batch=batch)
+        torch.cuda.synchronize()
+    trace = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = json.loads(trace.read_text())["traceEvents"]
+
+    def streams(pred):
+        return {e["args"]["stream"] for e in events
+                if e.get("ph") == "X" and "stream" in e.get("args", {})
+                and pred(e["name"])}
+
+    compute = streams(lambda n: "flash_fwd" in n)
+    down = streams(lambda n: "DtoH" in n and "Pinned" in n)
+    up = streams(lambda n: "HtoD" in n and "Pinned" in n)
+    assert len(compute) == 1 and len(down) == 1 and up
+    assert down != compute and up == compute
+    assert len([e for e in events if e.get("ph") == "X"
+                and "DtoH" in e["name"] and "Pinned" in e["name"]]) == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp16", "bf16"])
+def test_offload_step_makes_no_host_sync_but_its_decision(cuda, precision):
+    """A train_batch under offload runs under
+    torch.cuda.set_sync_debug_mode("warn") with no synchronizing call
+    counted: the host waits only on the events of the gradient copies
+    (one per micro step), which the host step's decision needs, as the
+    JAX engine's; the push up and the loss-scale update do not block."""
+    import warnings
+
+    eng, batch = _offload_engine(cuda, precision=precision)
+    eng.train_batch(batch=batch)          # builds and loads the libraries
+    torch.cuda.synchronize()
+    waits = eng._host_waits
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loss = eng.train_batch(batch=batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert syncs == [], [str(w.message) for w in syncs]
+    assert eng._host_waits - waits == eng.gradient_accumulation_steps()
+    assert torch.isfinite(loss).item()
+
+
+@pytest.mark.cuda
+def test_offload_trains_as_the_device_engine(cuda):
+    """bf16: 5 steps with the host Adam track the device FusedAdam's
+    losses (rtol 2e-3, as the JAX package's test_engine_offload_e2e holds
+    its two engines); both fall."""
+    got, want = [], []
+    for offload, out in ((True, got), (False, want)):
+        eng, batch = _offload_engine(cuda, offload)
+        out += [eng.train_batch(batch=batch).item() for _ in range(5)]
+        del eng
+    assert got[-1] < got[0] and want[-1] < want[0]
+    import numpy as np
+
+    np.testing.assert_allclose(got, want, rtol=2e-3)
+
+
+# ---------------------------------------------------------------------------
 # serving on the card
 # ---------------------------------------------------------------------------
 # a small GPT-2 with the kernels' head_dim, bf16 over fp32 weights

@@ -215,7 +215,11 @@ def test_lr_schedules_match_jax(name, params):
     ({"zero_optimization": {"stage": 2, "quantized_gradients": True}},
      "A13"),
     ({"zero_optimization": {"stage": 3}}, "A13"),
-    ({"zero_optimization": {"stage": 2, "cpu_offload": True}}, "A14"),
+    # ZeRO-Offload runs since A14 was ported; activation checkpoints in
+    # host memory, beside it, are still to come
+    pytest.param({"zero_optimization": {"stage": 2, "cpu_offload": True},
+                  "activation_checkpointing": {"cpu_checkpointing": True}},
+                 "A14b", id="extra2-A14"),
     pytest.param({"mesh": {"model": 2}}, "A7b", id="extra3-A7"),
     ({"mesh": {"pipe": 2}}, "A12"),
     ({"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}}, "A13"),

@@ -170,3 +170,29 @@ def test_seeded_init_is_deterministic_and_flax_shaped():
     std = (1.0 / w.shape[1]) ** 0.5 / 0.87962566103423978
     assert w.abs().max() <= 2 * std
     assert abs(a.wte.std().item() - 0.02) < 2e-3
+
+
+@pytest.mark.parametrize("shape,seed", [((64, 256), 0), ((128, 3), 7),
+                                        ((4099,), 3)])
+def test_truncated_normal_draws_as_the_redraw_everything_loop(shape, seed):
+    """The Dense initializer redraws only out-of-range elements and scales
+    in place; its values are those of redrawing every out-of-range element
+    of the whole tensor each round, draw for draw."""
+    from deepspeed_tpu_torch.ops.transformer.transformer import _trunc_normal_
+
+    def plain(t, std, generator):
+        x = torch.empty(t.shape).normal_(generator=generator)
+        bad = x.abs() > 2.0
+        while bad.any():
+            x[bad] = torch.empty(int(bad.sum())).normal_(generator=generator)
+            bad = x.abs() > 2.0
+        t.copy_(x * std)
+
+    got, want = torch.empty(shape), torch.empty(shape)
+    gen_a, gen_b = (torch.Generator().manual_seed(seed) for _ in range(2))
+    _trunc_normal_(got, 0.05, gen_a)
+    plain(want, 0.05, gen_b)
+    assert torch.equal(got, want)
+    # both generators drew alike: the next draw is the same
+    assert torch.equal(torch.randn(4, generator=gen_a),
+                       torch.randn(4, generator=gen_b))

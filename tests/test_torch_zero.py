@@ -37,6 +37,18 @@ ids from numpy seeds. fp32 throughout but for the overflow case.
 - A dp-2 stage-2 checkpoint resumes bit for bit at dp 2 and goes on at
   dp 1; it loads into the JAX engine, and a JAX dp-2 tag loads into the
   port.
+- ZeRO-Offload (stage 2, ``cpu_offload``) at dp 2 and 4, gas 2: the
+  losses and gradient norms at rtol 1e-4 and the full host master that
+  rank 0 writes at save (rebuilt over the group) at rtol 1e-4, atol 5e-5
+  (the key biases as above) against the JAX offload engine at ``mesh
+  {"data": dp}``. The atol is tests/test_torch_checkpoint.py's: Adam
+  moves an element whose gradient is near zero by lr times the ratio of
+  two tiny moments, and the JAX engine sums the dp ranks' gradients in
+  another order (one element of a 4096-element leaf read 4.5e-5 apart
+  at dp 2 on the CPU, 4.5 % of lr). Each rank's host master and moments are its shards
+  (it steps only its regions); the norm equals the JAX engine's, whose
+  regions count a replicated leaf once; the counted collectives of each
+  step are the report's, which is the JAX engine's.
 """
 import fcntl
 import functools
@@ -63,6 +75,7 @@ from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 STEPS = 5
 LR = 1e-3
 RTOL, ATOL = 1e-4, 1e-5
+OFFLOAD_ATOL = 5e-5
 SEED = 11
 CASES = [(2, 0, 1), (2, 0, 2), (2, 1, 1), (2, 1, 2), (2, 2, 1), (2, 2, 2),
          (4, 2, 1), (4, 2, 2)]
@@ -80,8 +93,9 @@ def _jax_init():
     return jax.tree_util.tree_map(np.asarray, jax.device_get(jeng.state.params))
 
 
-def _jax_engine(dp, stage, gas, optimizer="Adam"):
-    cfg = dict(W.ds_config(dp, stage, gas, optimizer, lr=LR),
+def _jax_engine(dp, stage, gas, optimizer="Adam", offload=False):
+    cfg = dict(W.ds_config(dp, stage, gas, optimizer, lr=LR,
+                           offload=offload),
                mesh={"data": dp, "allow_partial": True})
     return deepspeed_tpu.initialize(
         model=JGPT2Model(JGPT2Config(dtype=jnp.float32, **W.TINY)),
@@ -89,9 +103,9 @@ def _jax_engine(dp, stage, gas, optimizer="Adam"):
 
 
 def _train(name, dp, stage, gas, **kw):
-    return (name, "train", dict(dict(dp=dp, stage=stage, gas=gas,
-                                     steps=STEPS, seed=SEED,
-                                     init=_jax_init()), **kw))
+    kw.setdefault("init", _jax_init())
+    return (name, "train", dict(dp=dp, stage=stage, gas=gas, steps=STEPS,
+                                seed=SEED, **kw))
 
 
 def _world_dp2(out):
@@ -115,16 +129,38 @@ def _world_dp2(out):
                                            plant_rank=1,
                                            param="h.0.mlp.c_fc.weight")),
              ("sampler", "sampler", dict(dp=2, n=21)),
-             ("tag_check", "tag_check", dict(dp=2))]
+             ("tag_check", "tag_check", dict(dp=2)),
+             _offload_job(2, out)]
     results = W.run_world(2, jobs, out)
     for r in results:
         r["port_tag"] = ptag
     return results
 
 
+def _host_master_tree(jeng):
+    return jax.tree_util.tree_unflatten(
+        jeng._host_treedef, [np.asarray(x) for x in jeng._host_master_flat])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_offload_init():
+    """The JAX offload engine's initial host master (seed 42): its host
+    init gives the device init's values within an ulp, not bit for bit."""
+    jeng = _jax_engine(1, 2, 1, offload=True)
+    ids = W.global_batches(0, 1, 1, W.MICRO)[0]
+    jeng._ensure_state(_first_micro({"input_ids": ids, "labels": ids}))
+    return _host_master_tree(jeng)
+
+
+def _offload_job(dp, out):
+    """Stage 2 with cpu_offload, gas 2; a save after the last step."""
+    return _train("offload", dp, 2, 2, offload=True, init=_jax_offload_init(),
+                  save=os.path.join(out, "offload_tag"), save_at=STEPS)
+
+
 def _world_dp4(out):
     jobs = [_train(f"s2g{g}", 4, 2, g) for g in (1, 2)]
-    jobs.append(("sampler", "sampler", dict(dp=4, n=21)))
+    jobs += [("sampler", "sampler", dict(dp=4, n=21)), _offload_job(4, out)]
     return W.run_world(4, jobs, out)
 
 
@@ -430,6 +466,70 @@ def test_jax_dp2_tag_loads_into_the_port(world):
                                           err_msg=str(i))
         # and each rank holds its shards of it
         assert got["layout"]["wte"]["master"] == (128, 16)
+
+
+@pytest.mark.parametrize("dp", [2, 4])
+def test_offload_matches_the_jax_offload_engine(world, dp):
+    ranks = world(f"dp{dp}")
+    got = ranks[0]["offload"]
+    for r in ranks[1:]:
+        assert r["offload"]["losses"] == got["losses"]
+        assert r["offload"]["norms"] == got["norms"]
+    jeng = _jax_engine(dp, 2, 2, offload=True)
+    batches = W.global_batches(SEED, STEPS, 2, dp * W.MICRO)
+    jeng._ensure_state(_first_micro({"input_ids": batches[0],
+                                     "labels": batches[0]}))
+    assert jeng._offload
+    jax.tree_util.tree_map(np.testing.assert_array_equal,
+                           _host_master_tree(jeng), _jax_offload_init())
+    jl, jn = [], []
+    for b in batches:
+        jl.append(float(jeng.train_batch(batch={"input_ids": b,
+                                                "labels": b})))
+        jn.append(float(jeng.get_global_grad_norm()))
+    np.testing.assert_allclose(got["losses"], jl, rtol=RTOL)
+    # a replicated leaf's square counted once over the group
+    np.testing.assert_allclose(got["norms"], jn, rtol=RTOL)
+    # the full master rank 0 wrote, rebuilt over the group
+    with np.load(os.path.join(got["saved"], "offload_states.npz")) as data:
+        saved = npz_dict_to_leaves(data)
+        assert int(data["opt_step"]) == jeng._host_opt["step"] == STEPS
+    n = len(jeng._host_master_flat)
+    assert len(saved) == 3 * n
+    names = [name for name, _ in _port_names()[0].reference_leaf_specs()]
+    for k, (m_saved, m_jax) in enumerate(zip(saved[:n],
+                                             jeng._host_master_flat)):
+        W.assert_master_close({names[k]: np.asarray(m_saved)},
+                              {names[k]: np.asarray(m_jax)}, RTOL,
+                              OFFLOAD_ATOL, STEPS, LR, f"offload dp {dp}")
+    jrep = jeng.comm_volume_report()
+    assert _collectives(got["report"]["collectives"]) == \
+        _collectives(jrep["collectives"])
+    for key in ("grad_exchange_bytes_per_step",
+                "param_gather_bytes_per_step", "total_bytes_per_step"):
+        assert got["report"][key] == jrep[key], key
+    for step in got["comm"]:
+        assert _collectives(step["collectives"]) == \
+            _collectives(got["report"]["collectives"])
+
+
+@pytest.mark.parametrize("dp", [2, 4])
+def test_offload_ranks_hold_their_regions_on_the_host(world, dp):
+    dims = _jax_zero_dims(dp)
+    for rank in world(f"dp{dp}"):
+        layout = rank["offload"]["layout"]
+        for _, name, transposed, d in dims:
+            want = list(layout[name]["full"])
+            if d is not None:
+                want[1 - d if transposed else d] //= dp
+            want = tuple(want)
+            assert layout[name]["master"] == want, name
+            assert layout[name]["opt"] == [want, want], name
+            assert layout[name]["accum"] == want, name
+        mem = rank["offload"]["memory"]
+        assert mem["components"]["master_bytes"] == 0
+        assert mem["host"]["master_bytes"] == 4 * sum(
+            int(np.prod(layout[name]["master"])) for _, name, _, _ in dims)
 
 
 def test_distributed_sampler_shards_are_disjoint_and_cover(world):

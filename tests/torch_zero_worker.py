@@ -28,14 +28,14 @@ MICRO = 2          # per rank
 
 
 def ds_config(dp, stage, gas, optimizer="Adam", fp16=False, lr=1e-3,
-              micro=MICRO):
+              micro=MICRO, offload=False):
     cfg = {"train_batch_size": micro * gas * dp,
            "train_micro_batch_size_per_gpu": micro,
            "gradient_accumulation_steps": gas,
            "optimizer": {"type": optimizer,
                          "params": {"lr": lr, "weight_decay": 0.01}},
            "gradient_clipping": 1.0,
-           "zero_optimization": {"stage": stage},
+           "zero_optimization": {"stage": stage, "cpu_offload": offload},
            "steps_per_print": 10 ** 9}
     if fp16:
         cfg["fp16"] = {"enabled": True, "loss_scale": 0,
@@ -86,8 +86,9 @@ def _full_master(eng):
 
 def _layout(eng):
     """Each parameter's full shape and the shapes this rank holds of its
-    master, optimizer state and accumulator."""
-    opt = eng.optimizer.state_lists()
+    master, optimizer state and accumulator (under offload, the host's)."""
+    opt = [eng._host_m, eng._host_v] if eng._offload \
+        else eng.optimizer.state_lists()
     return {n: {"full": tuple(p.shape),
                 "master": tuple(eng.master[i].shape),
                 "opt": [tuple(lst[i].shape) for lst in opt],
@@ -97,14 +98,15 @@ def _layout(eng):
 
 def job_train(dp, stage, gas, steps, seed, init, optimizer="Adam",
               micro=MICRO, save=None, save_at=None, device="cpu",
-              model=None):
+              model=None, offload=False):
     """``steps`` train_batch steps; losses, grad norms, the final master
     and the counted collectives of each step. With ``save``, a checkpoint
-    after step ``save_at``."""
+    after step ``save_at``; ``offload``: ZeRO-Offload (cpu_offload)."""
     import torch.distributed as dist
 
     rank = dist.get_rank()
-    eng = _engine(ds_config(dp, stage, gas, optimizer, micro=micro), init,
+    eng = _engine(ds_config(dp, stage, gas, optimizer, micro=micro,
+                            offload=offload), init,
                   device=device, model=model)
     batches = global_batches(seed, steps, gas, micro * dp)
     out = {"losses": [], "norms": [], "comm": [], "layout": _layout(eng)}
@@ -115,6 +117,7 @@ def job_train(dp, stage, gas, steps, seed, init, optimizer="Adam",
         out["comm"].append(eng.last_step_comm)
         if save is not None and step + 1 == save_at:
             eng.save_checkpoint(save)
+            out["saved"] = os.path.join(save, f"global_step{save_at}")
     out["master"] = _full_master(eng)
     out["report"] = eng.comm_volume_report()
     out["memory"] = eng._analytic_memory_components()
