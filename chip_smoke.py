@@ -142,6 +142,32 @@ failure:
               attn_out: 3 steps with finite losses and every flash launch
               counted; peak device memory beside the analytic stage-0
               bytes; step ms, host Adam ms, host RSS
+ 19. serve (A10b)
+              the prefix cache, speculative decoding and the sparse page
+              context on phase 16's gpt2-350m engine (bf16 over fp32
+              weights, seed 42, 8 slots, blocks of 16, chunks of 128,
+              greedy, warmup() first). Every pass: requests finished in
+              vocab, no new dispatch signature after warmup, the pool never
+              moved; TTFT p50/p95, TPOT p50, tokens/s, peak memory,
+              pool.stats(); 5 decode (or verify) steps under torch.profiler
+              beside phase 16's dense decode step. Pass E: 32 requests of a
+              shared 392-token prefix + tails of 16-128 (default_rng(0)),
+              with and without prefix_cache: >= 2x fewer prefill tokens
+              computed, hits and COW splits, the replay gate, a 97-block
+              sub-run that evicts while shared blocks are mapped, and the
+              planted fault (the COW copy skipped) at >= 10x the gate.
+              Pass H: sparse context with the full window on pass E's
+              traffic equals the dense engine's tokens bit for bit. Pass F:
+              speculative=3 on phase 16's traffic: the replay gate, the
+              accept histogram sums to the accepted tokens, fewer verify
+              dispatches than output tokens, the planted fault (one draft
+              accepted beyond the match) at >= 10x; at 2 layers, fp32, TF32
+              off, engine tokens equal generate()'s but at near ties. Pass
+              G: sparse context, window 16 blocks + 1 global (K = 17 of 64
+              pages), 16 prompts of 600-900 tokens: the active page fraction
+              equals the LUT's, window-expired frees > 0, the replay gate
+              against a plain forward masked by the policy's token mask and
+              the planted fault (view bases shifted one block) at >= 10x
 The line before the last is the kernels JSON (the fp16 rows named
 <kernel>_fp16, their launches from phase 13); the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card and nvcc.
@@ -1862,10 +1888,12 @@ def _rotated_view():
     return rotated
 
 
-def _profile_decode(env, eng, steps):
+def _profile_decode(env, eng, steps, max_new=SERVE_MAX_NEW,
+                    label="serve decode step"):
     """Wall ms per decode-only step unprofiled, then ``steps`` steps under
-    torch.profiler: device busy ms, idle share and device operations per
-    step."""
+    torch.profiler: device busy ms, idle share, device operations and
+    device ms by kernel group per step. ``max_new`` must outlast the 15
+    steps (a verify step may deliver several tokens per lane)."""
     import time as _time
 
     import torch
@@ -1875,7 +1903,7 @@ def _profile_decode(env, eng, steps):
     # prefill or queue is left
     prompts, _ = _serve_traffic(eng.cfg.vocab_size)
     for p in prompts[:SERVE_SLOTS]:
-        eng.submit(p[:16], max_new_tokens=SERVE_MAX_NEW)
+        eng.submit(p[:16], max_new_tokens=max_new)
     sch = eng.scheduler
     while len(sch.running) < SERVE_SLOTS or sch.prefilling is not None \
             or sch.queue_depth():
@@ -1903,7 +1931,7 @@ def _profile_decode(env, eng, steps):
     busy = sum(by_name.values()) / steps / 1e3
     if len(sch.running) != SERVE_SLOTS:
         raise RuntimeError("a lane finished inside the profiled steps")
-    log(f"serve decode step ({SERVE_SLOTS} lanes, view "
+    log(f"{label} ({SERVE_SLOTS} lanes, view "
         f"{eng.W * eng.bs} positions, {env['smi']}): wall "
         f"{wall:.2f} ms/step unprofiled, {prof_wall:.2f} profiled; "
         f"device busy {busy:.3f} ms/step; idle share of the unprofiled "
@@ -1918,7 +1946,8 @@ def _profile_decode(env, eng, steps):
     for name, us in sorted(by_name.items(), key=lambda x: -x[1])[:8]:
         log(f"  {us / steps / 1e3:9.3f} ms/step  {name[:100]}")
     eng.serve()
-    return {"wall_ms": wall, "busy_ms": busy, "ops": n_device // steps}
+    return {"wall_ms": wall, "busy_ms": busy, "ops": n_device // steps,
+            "groups": {g: us / steps / 1e3 for g, us in groups.items()}}
 
 
 def _greedy_matches(model, prompt, got_new, generate):
@@ -2524,6 +2553,433 @@ def phase_offload_large(env):
     return train
 
 
+# ---------------------------------------------------------------------------
+# phase 19: serving A10b (prefix cache, speculative decoding, sparse context)
+# ---------------------------------------------------------------------------
+# pass E: a shared system prompt of 24.5 blocks (every hit also COW-splits
+# the 25th block at 8 trusted positions), then each request's own tail
+PREFIX_LEN = 392
+PREFIX_TAILS = (16, 128)               # uniform, both ends included
+PREFIX_RATIO = 2                       # the JAX package's prefill guard
+# the eviction sub-run's pool: 1 trash block + 96. Phase 16's 193 blocks
+# never evict under this traffic once the prefix is shared (the tree
+# reclaims instead); 97 evicts while shared blocks are mapped
+PREFIX_EVICT_BLOCKS = 1 + 96
+# the planted fault's prefix: 15 positions, all in the block a hit
+# COW-splits. On pass E's traffic a skipped copy leaves 8 of 400-518
+# context positions at zero, which random weights barely feel (2.2x the
+# gate on an H100); here the wrong rows are the whole shared part
+PREFIX_FAULT_LEN = SERVE_BLOCK - 1
+SPEC_K = 3
+# pass G: K = 1 + 16 = 17 of W = 64 pages; prefill_K(128) = 26
+SPARSE_NARROW = {"num_sliding_window_blocks": 16, "num_global_blocks": 1}
+SPARSE_FULL = {"num_sliding_window_blocks": 64, "num_global_blocks": 0}
+SPARSE_REQUESTS = 16
+SPARSE_PROMPT_LENS = (600, 900)        # uniform, both ends included
+
+
+def _prefix_traffic(vocab, prefix_len=PREFIX_LEN):
+    """32 prompts: one shared 392-token prefix, then tails of 16-128
+    tokens, all from numpy's default_rng(0); priority 0."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    prefix = rng.integers(0, vocab, prefix_len)
+    tails = rng.integers(PREFIX_TAILS[0], PREFIX_TAILS[1] + 1,
+                         SERVE_REQUESTS)
+    prompts = [np.concatenate([prefix, rng.integers(0, vocab, int(n))])
+               .astype(np.int32) for n in tails]
+    return prompts, [0] * SERVE_REQUESTS
+
+
+def _long_traffic(vocab):
+    """16 prompts of 600-900 tokens from numpy's default_rng(0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    lens = rng.integers(SPARSE_PROMPT_LENS[0], SPARSE_PROMPT_LENS[1] + 1,
+                        SPARSE_REQUESTS)
+    return ([rng.integers(0, vocab, int(n)).astype(np.int32) for n in lens],
+            [0] * SPARSE_REQUESTS)
+
+
+def _dispatch_counts(eng):
+    out = {}
+    for sig, n in eng.dispatch_shapes.signatures.items():
+        out[sig[0]] = out.get(sig[0], 0) + n
+    return out
+
+
+def _a10b_pass(env, model, label, prompts, prios, warm=True, **kw):
+    """One pass of phase 19: warmup(), the traffic, and the gates every
+    pass holds (requests finished in vocab, no new dispatch signature
+    after warmup, the pool tensors never moved); logs the latency line
+    and pool.stats(). Returns (engine, rids, report, dispatches by name
+    during the traffic)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    eng = _serve_engine(model, **kw)
+    if warm:
+        eng.warmup()
+    sigs = set(eng.dispatch_shapes.signatures)
+    before = _dispatch_counts(eng)
+    ptrs = [t.data_ptr() for t in eng.pool.tensors.arrays]
+    rids, wall = _drive_traffic(eng, prompts, prios)
+    _check_finished(eng, rids, prompts, model.config.vocab_size, label)
+    if warm and set(eng.dispatch_shapes.signatures) != sigs:
+        raise RuntimeError(f"serve {label}: new dispatch signatures after "
+                           f"warmup: {set(eng.dispatch_shapes.signatures) - sigs}")
+    if [t.data_ptr() for t in eng.pool.tensors.arrays] != ptrs:
+        raise RuntimeError(f"serve {label}: the pool tensors moved")
+    counts = {k: v - before.get(k, 0)
+              for k, v in _dispatch_counts(eng).items()}
+    rep = eng.serving_report()
+    gen = rep["tokens"]["generated"]
+    log(f"serve {label} ({env['smi']}): {len(rids)} requests, "
+        f"{rep['steps']['total']} engine steps ({rep['steps']['decode']} "
+        f"decode), {wall:.2f} s; TTFT p50 "
+        f"{rep['ttft_s']['p50'] * 1e3:.1f} ms, p95 "
+        f"{rep['ttft_s']['p95'] * 1e3:.1f} ms; TPOT p50 "
+        f"{rep['tpot_p50_s'] * 1e3:.2f} ms; output {gen / wall:.1f} "
+        f"tokens/s; peak max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; "
+        f"dispatches {json.dumps(counts, sort_keys=True)}")
+    log(f"  pool.stats() {json.dumps(eng.pool.stats())}")
+    return eng, rids, rep, counts
+
+
+def _gate(label, replay, fault=None):
+    """The replay gate on every generated token, and the planted fault's
+    reading at >= SERVE_FAULT_FACTOR x the gate."""
+    log(f"  {label} replay gate: max deficit {replay['max']:.4f} over "
+        f"{replay['n']} positions (p99 {replay['p99']:.4f}, "
+        f"{replay['nonzero']} > 0); gate {SERVE_DELTA}")
+    if not replay["max"] <= SERVE_DELTA:
+        raise RuntimeError(f"serve {label}: replay deficit "
+                           f"{replay['max']} > {SERVE_DELTA}")
+    if fault is None:
+        return
+    log(f"  {label} planted fault: max deficit {fault['max']:.4f} = "
+        f"{fault['max'] / SERVE_DELTA:.1f} x the gate (needs >= "
+        f"{SERVE_FAULT_FACTOR})")
+    if not fault["max"] >= SERVE_FAULT_FACTOR * SERVE_DELTA:
+        raise RuntimeError(f"serve {label}: the planted fault passes the "
+                           f"replay gate")
+
+
+def _policy_replay_excess(eng, rids, prompts, sparse):
+    """_replay_excess against a plain masked forward: the engine's own
+    decode math (models/generation.py) over prompt + generated[:-1]
+    with each query restricted to the policy's token mask
+    (layout_to_token_mask of SparseContext.layout()) and the causal
+    mask."""
+    import torch
+
+    from deepspeed_tpu_torch.models.generation import (_attn_core, _dense,
+                                                       _ffn, _lm_logits,
+                                                       _ln, _split_heads)
+    from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention \
+        import layout_to_token_mask
+
+    params, cfg, dev = eng.params, eng.cfg, eng.device
+    H, D, eps = cfg.n_head, cfg.head_dim, cfg.layer_norm_epsilon
+    policy = layout_to_token_mask(sparse.layout()[None], sparse.bs,
+                                  device=dev)[0]
+    out, tops = [], []
+    with torch.no_grad():
+        for rid, p in zip(rids, prompts):
+            toks = eng.results[rid]["tokens"]
+            ids = torch.as_tensor(toks[:-1], device=dev).long()
+            T = ids.numel()
+            allowed = (policy[:T, :T] & torch.ones(
+                T, T, dtype=torch.bool, device=dev).tril())[None, None]
+            x = (params["wte"][ids] + params["wpe"][:T])[None]
+            for bp in params["blocks"]:
+                h = _ln(x, bp["ln_1"], eps)
+                q, k, v = (_split_heads(t, 1, T, H, D) for t in
+                           _dense(h, bp["attn"]["c_attn"])
+                           .split(cfg.n_embd, dim=-1))
+                x = x + _attn_core(q, k, v, allowed, bp["attn"], x.dtype)
+                x = x + _ffn(_ln(x, bp["ln_2"], eps), bp)
+            x = _ln(x, params["ln_f"], eps)
+            logits = _lm_logits(params, cfg, x[0, len(p) - 1:])
+            gen = torch.as_tensor(toks[len(p):], device=dev).long()
+            best = logits.max(dim=-1).values
+            out.append((best - logits.gather(1, gen[:, None])[:, 0])
+                       .cpu().numpy())
+            tops.append(best.cpu().numpy())
+    return out, tops
+
+
+def _shifted_sbase():
+    """The planted fault of pass G: every live view base of the sparse
+    gather rows, decode and prefill, shifted one block up."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.serving.sparse_context import SparseContext
+
+    def shift(fn):
+        def wrapped(self, *args):
+            stables, sbase = fn(self, *args)
+            return stables, np.where(sbase != self.sentinel,
+                                     sbase + self.bs, sbase)
+        return wrapped
+    return {"active_row": shift(SparseContext.active_row),
+            "prefill_active_row": shift(SparseContext.prefill_active_row)}
+
+
+def _accept_one_more(plain):
+    """The planted fault of pass F: where a lane's drafts stop matching
+    below its budget, the first draft past the matched prefix is accepted
+    as if it had matched: it is delivered in place of the bonus token,
+    and the dispatch's token after it becomes the new bonus. The fault's
+    run drafts a constant token (the JAX package's rigged constant
+    drafter): the n-gram drafter proposes tokens the model produced
+    before, which random weights score within 0.59 of their best logit
+    (9.5x the gate on an H100), so an accepted miss of it hides."""
+    def accepted(drafts, row, nvalid):
+        m = plain(drafts, row, nvalid)
+        if m < min(len(drafts) + 1, int(nvalid)):
+            row[m - 1] = drafts[m - 1]
+            return m + 1
+        return m
+    return accepted
+
+
+def _profile_line(label, prof, dense):
+    """The pass's decode (or verify) step beside phase 16's dense decode
+    step: wall and device ms, the copy/element-wise and GEMM groups."""
+    other = "other (elementwise, norms, reductions, optimizer)"
+    gemm = "GEMM (cuBLAS)"
+    log(f"  {label} step vs phase 16's dense decode step: wall "
+        f"{prof['wall_ms']:.2f} vs {dense['wall_ms']:.2f} ms, device "
+        f"{prof['busy_ms']:.3f} vs {dense['busy_ms']:.3f} ms (copies and "
+        f"element-wise {prof['groups'].get(other, 0.0):.3f} vs "
+        f"{dense['groups'].get(other, 0.0):.3f}, GEMM "
+        f"{prof['groups'].get(gemm, 0.0):.3f} vs "
+        f"{dense['groups'].get(gemm, 0.0):.3f}), operations {prof['ops']} "
+        f"vs {dense['ops']}")
+
+
+def phase_serve_a10b(env, dense):
+    """The serving prefix cache, speculative decoding and the sparse page
+    context on gpt2-350m: module docstring, phase 19. ``dense`` is phase
+    16's decode profile, printed beside each pass's."""
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.models.generation import generate
+    from deepspeed_tpu_torch.serving import engine as serving_engine
+    from deepspeed_tpu_torch.serving.kv_cache import PagedKVPool
+    from deepspeed_tpu_torch.serving.sparse_context import SparseContext
+
+    model = _serve_model(dtype=torch.bfloat16)
+    vocab = model.config.vocab_size
+    steps = PROFILE_DECODE_STEPS
+    out = {}
+
+    # -- pass E: prefix cache ---------------------------------------------
+    prompts, prios = _prefix_traffic(vocab)
+    log(f"serve E traffic: {len(prompts)} requests, a shared "
+        f"{PREFIX_LEN}-token prefix + tails {PREFIX_TAILS[0]}-"
+        f"{PREFIX_TAILS[1]} (prompts {min(map(len, prompts))}-"
+        f"{max(map(len, prompts))} tokens), {SERVE_MAX_NEW} new tokens")
+    off, off_rids, off_rep, _ = _a10b_pass(env, model, "E (cache off)",
+                                           prompts, prios)
+    dense_tokens = [off.results[r]["tokens"] for r in off_rids]
+    del off
+    eng, rids, rep, _ = _a10b_pass(env, model, "E (prefix cache)", prompts,
+                                   prios, prefix_cache=True)
+    model.cuda()
+    pc, st = rep["prefix_cache"], eng.pool.stats()
+    c_off = off_rep["prefix_cache"]["prefill_tokens_computed"]
+    c_on = pc["prefill_tokens_computed"]
+    log(f"  prefill tokens computed {c_on} with the cache against {c_off} "
+        f"without ({c_off / max(c_on, 1):.2f}x fewer; gate "
+        f">= {PREFIX_RATIO}x); lookups {pc['lookups']}, hits {pc['hits']},"
+        f" avoided {pc['avoided_prefill_tokens']}; COW splits "
+        f"{st['prefix_cow_splits']}; TTFT p50 "
+        f"{rep['ttft_s']['p50'] * 1e3:.1f} ms against "
+        f"{off_rep['ttft_s']['p50'] * 1e3:.1f} without")
+    if not c_off >= PREFIX_RATIO * c_on:
+        raise RuntimeError(f"serve E: the cache computed {c_on} prefill "
+                           f"tokens against {c_off} without")
+    if pc["hits"] < 1 or st["prefix_cow_splits"] < 1:
+        raise RuntimeError(f"serve E: hits {pc['hits']}, COW splits "
+                           f"{st['prefix_cow_splits']}")
+    replay = _deficit_summary(_replay_excess(model, eng, rids, prompts))
+    out["E"] = {"profile": _profile_decode(env, eng, steps,
+                                           label="serve E decode step")}
+    _profile_line("E decode", out["E"]["profile"], dense)
+    del eng
+    faults = {}
+    for plen in (PREFIX_LEN, PREFIX_FAULT_LEN):
+        fprompts, _ = _prefix_traffic(vocab, plen)
+        with mock.patch.object(PagedKVPool, "_cow_copy",
+                               lambda self, src, dst: None):
+            bad, brids, _, _ = _a10b_pass(
+                env, model, f"E (fault: COW copy skipped, prefix {plen})",
+                fprompts, prios, warm=False, prefix_cache=True)
+        faults[plen] = _deficit_summary(_replay_excess(model, bad, brids,
+                                                       fprompts))
+        del bad
+    log(f"  E planted fault on pass E's own traffic (logged only): max "
+        f"deficit {faults[PREFIX_LEN]['max']:.4f} = "
+        f"{faults[PREFIX_LEN]['max'] / SERVE_DELTA:.1f} x the gate")
+    _gate("E", replay, faults[PREFIX_FAULT_LEN])
+    # the eviction sub-run: each eviction notes the refs the tree's
+    # blocks held at that moment
+    eng = _serve_engine(model, prefix_cache=True,
+                        kv_blocks=PREFIX_EVICT_BLOCKS)
+    live, evict = [], eng._evict
+
+    def counted(req, events):
+        live.append(eng.pool.stats()["prefix_shared_refs"])
+        evict(req, events)
+    eng._evict = counted
+    rids, _ = _drive_traffic(eng, prompts, prios)
+    _check_finished(eng, rids, prompts, vocab, "E (eviction)")
+    shared_live = sum(1 for n in live if n > 0)
+    log(f"  eviction sub-run (kv_blocks {PREFIX_EVICT_BLOCKS}): {len(live)} "
+        f"evictions, {shared_live} of them "
+        f"while shared blocks were mapped; reclaims "
+        f"{eng.pool.stats()['prefix_cache_reclaims']}")
+    if shared_live < 1:
+        raise RuntimeError("serve E: no eviction while shared blocks were "
+                           "live")
+    _gate("E (eviction)", _deficit_summary(
+        _replay_excess(model, eng, rids, prompts)))
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- pass H: sparse context, full window (E's traffic) ----------------
+    eng, rids, rep, _ = _a10b_pass(env, model, "H (sparse, full window)",
+                                   prompts, prios,
+                                   sparse_context=SPARSE_FULL)
+    if eng.sparse is None or eng.sparse.K != eng.W:
+        raise RuntimeError("serve H: the full window did not arm at K = W")
+    same = sum(bool(np.array_equal(eng.results[r]["tokens"], t))
+               for r, t in zip(rids, dense_tokens))
+    log(f"  H: {same} of {len(rids)} requests equal the dense engine's "
+        f"tokens (E, cache off) bit for bit; active page fraction "
+        f"{rep['sparse_context']['active_page_fraction']}")
+    if same != len(rids):
+        raise RuntimeError(f"serve H: {len(rids) - same} requests differ "
+                           f"from the dense engine's")
+    out["H"] = {"profile": _profile_decode(env, eng, steps,
+                                           label="serve H sparse decode")}
+    _profile_line("H sparse decode", out["H"]["profile"], dense)
+    del eng
+    torch.cuda.empty_cache()
+
+    # -- pass F: speculative decoding ---------------------------------------
+    prompts, prios = _serve_traffic(vocab)
+    eng, rids, rep, counts = _a10b_pass(env, model, f"F (speculative="
+                                        f"{SPEC_K})", prompts, prios,
+                                        speculative=SPEC_K)
+    sp = rep["speculative"]
+    hist = sp["accept_len_hist"]
+    gen = rep["tokens"]["generated"]
+    verifies = counts.get("spec_verify", 0)
+    log(f"  accept histogram {json.dumps(hist)}; accepted "
+        f"{sp['accepted_tokens']} tokens in {sp['verify_steps']} lane "
+        f"verifies ({sp['tokens_per_verify']:.3f} per verify); "
+        f"{verifies} verify dispatches for {gen} output tokens "
+        f"({verifies / gen:.4f} decode dispatches per output token)")
+    if sum(int(k) * v for k, v in hist.items()) != sp["accepted_tokens"]:
+        raise RuntimeError(f"serve F: histogram {hist} does not sum to "
+                           f"{sp['accepted_tokens']}")
+    if not 0 < verifies < gen:
+        raise RuntimeError(f"serve F: {verifies} verify dispatches for "
+                           f"{gen} tokens")
+    replay = _deficit_summary(_replay_excess(model, eng, rids, prompts))
+    out["F"] = {"profile": _profile_decode(env, eng, steps, max_new=512,
+                                           label="serve F verify step")}
+    _profile_line("F verify", out["F"]["profile"], dense)
+    del eng
+    with mock.patch.object(serving_engine, "_accepted",
+                           _accept_one_more(serving_engine._accepted)), \
+            mock.patch.object(serving_engine.InferenceEngine,
+                              "_draft_tokens",
+                              lambda self, req, k: [vocab - 1] * k):
+        bad, brids, _, _ = _a10b_pass(env, model, "F (fault: one draft "
+                                      "beyond the match)", prompts, prios,
+                                      warm=False, speculative=SPEC_K)
+    fault = _deficit_summary(_replay_excess(model, bad, brids, prompts))
+    _gate("F", replay, fault)
+    del bad, model
+    torch.cuda.empty_cache()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("serve F (fp32) needs TF32 off")
+    model32 = _serve_model(dtype=torch.float32, n_layer=2)
+    eng = _serve_engine(model32, speculative=SPEC_K)
+    model32.cuda()
+    rids, _ = _drive_traffic(eng, prompts, prios)
+    _check_finished(eng, rids, prompts, vocab, "F (fp32)")
+    ties = 0
+    for rid, p in zip(rids, prompts):
+        bad_step, t = _greedy_matches(model32, p,
+                                      eng.results[rid]["tokens"][len(p):],
+                                      generate)
+        ties += t
+        if bad_step is not None:
+            raise RuntimeError(f"serve F (fp32): request {rid} parts from "
+                               f"generate() at step {bad_step[0]}, top-2 "
+                               f"gap {bad_step[1]:.3g} relative")
+    log(f"serve F (fp32, 2 layers, TF32 off, speculative={SPEC_K}): engine "
+        f"greedy tokens equal generate()'s for all {len(rids)} requests "
+        f"with {ties} near-tie steps (top-2 gap < {TIE_REL} relative); "
+        f"{eng.metrics.tokens_per_verify():.3f} tokens per verify")
+    del eng, model32
+    torch.cuda.empty_cache()
+
+    # -- pass G: sparse context, narrow window --------------------------------
+    model = _serve_model(dtype=torch.bfloat16)
+    prompts, prios = _long_traffic(vocab)
+    eng, rids, rep, _ = _a10b_pass(env, model, "G (sparse, window 16 + 1 "
+                                   "global)", prompts, prios,
+                                   sparse_context=SPARSE_NARROW)
+    sparse = eng.sparse
+    sc = rep["sparse_context"]
+    want = sparse.lut.shape[1] / eng.W
+    log(f"  G: K {sparse.K} of W {eng.W} pages, prefill_K("
+        f"{SERVE_CHUNK}) {sparse.prefill_K(SERVE_CHUNK)}; active page "
+        f"fraction {sc['active_page_fraction']} (the LUT's {want}); "
+        f"active pages per lane step {sc['active_pages_per_lane_step']}; "
+        f"window-expired frees {sc['window_expired_frees']}")
+    if sc["active_page_fraction"] != want:
+        raise RuntimeError(f"serve G: active page fraction "
+                           f"{sc['active_page_fraction']} != {want}")
+    if not sc["window_expired_frees"] > 0:
+        raise RuntimeError("serve G: no window-expired frees")
+    model.cuda()
+    replay = _deficit_summary(_policy_replay_excess(eng, rids, prompts,
+                                                    sparse))
+    dense_replay = _deficit_summary(_replay_excess(model, eng, rids,
+                                                   prompts))
+    log(f"  G against the dense replay (flash, no policy; logged only): "
+        f"max deficit {dense_replay['max']:.4f}, p50 "
+        f"{dense_replay['p50']:.4f}")
+    out["G"] = {"profile": _profile_decode(env, eng, steps,
+                                           label="serve G sparse decode")}
+    _profile_line("G sparse decode", out["G"]["profile"], dense)
+    del eng
+    with mock.patch.multiple(SparseContext, **_shifted_sbase()):
+        bad, brids, _, _ = _a10b_pass(env, model, "G (fault: sbase "
+                                      "shifted one block)", prompts, prios,
+                                      warm=False,
+                                      sparse_context=SPARSE_NARROW)
+    fault = _deficit_summary(_policy_replay_excess(bad, brids, prompts,
+                                                   sparse))
+    _gate("G (plain masked forward)", replay, fault)
+    del bad, model
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "deepspeed_tpu_torch")):
         print("chip_smoke.py: the deepspeed_tpu_torch package is not beside "
@@ -2571,11 +3027,13 @@ def main():
     torch.cuda.empty_cache()
     phase_optimizers(env)
     torch.cuda.empty_cache()
-    phase_serve(env)
+    serve = phase_serve(env)
     torch.cuda.empty_cache()
     phase_offload(env, stage0)
     torch.cuda.empty_cache()
     phase_offload_large(env)
+    torch.cuda.empty_cache()
+    phase_serve_a10b(env, serve["decode"])
     print(json.dumps({"kernels": rows + sparse_rows + fp16_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

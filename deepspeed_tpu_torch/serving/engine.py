@@ -36,10 +36,27 @@ continuations after a host crash), and per-request poison quarantine —
 non-finite logits abort only the offending lane, detected on the same
 batched fetch as the sampled tokens.
 
-Not ported yet, each raising NotImplementedError naming its ROADMAP
-item: pools split into shards and the fleet's request hand-off (A10c),
-the prefix cache, speculative decoding and sparse context (A10b), and
-the telemetry session, traces, memory report and program registry (A17).
+The single-pool feature set (ROADMAP A10b):
+
+- ``prefix_cache=True``: the pool's radix tree (kv_cache.py) is consulted
+  at admission; cached prompt blocks are mapped read-only into the new
+  request's page table, the first divergent block COW-split, and the
+  covered prefill chunks never dispatched. Finished prefills publish
+  their prompt blocks.
+- ``speculative=k`` (greedy only): ONE fixed-shape draft-verify dispatch
+  scores each lane's current token plus k host-drafted tokens; the host
+  accepts the longest draft prefix equal to the dispatch's own argmax
+  continuation plus one bonus token, which equals step-by-step greedy by
+  construction.
+- ``sparse_context={...}`` (sparse_context.py): decode and prefill gather
+  K active pages per lane instead of all W, and pages that fall below
+  every remaining query's window return to the allocator early.
+
+Each option that cannot arm warns DISARMED naming its blocker and serves
+without it. Not ported yet, each raising NotImplementedError naming its
+ROADMAP item: pools split into shards and the fleet's request hand-off
+(A10c), and the telemetry session, traces, memory report and program
+registry (A17).
 """
 import itertools
 import time
@@ -66,6 +83,8 @@ from deepspeed_tpu_torch.serving.reliability import (ABORT_BUDGET,
                                                      RequestJournal)
 from deepspeed_tpu_torch.serving.scheduler import (Request, RequestState,
                                                    Scheduler)
+from deepspeed_tpu_torch.serving.sparse_context import (SparseContext,
+                                                        _policy_layout)
 from deepspeed_tpu_torch.utils.logging import logger
 
 _MIN_BUCKET = 4
@@ -110,7 +129,7 @@ def _pool_view(pool, scales, l, tables, quantized, out_dtype):
 
 
 def _paged_forward(params, cfg, pools, tables, pos, maxpos, blk, off, x,
-                   quantized):
+                   quantized, sparse=None, allowed=None):
     """Shared transformer pass of decode and chunked prefill: per layer,
     write this step's K/V rows into the pool, gather the page view, and
     run the SAME attention core the contiguous cache uses. x: (B, T, E)
@@ -124,16 +143,35 @@ def _paged_forward(params, cfg, pools, tables, pos, maxpos, blk, off, x,
     stale non-finite garbage in a reused/trash block (a quarantined
     request's poisoned writes) would leak into every lane that merely
     gathers the block at a masked position. For finite garbage the
-    zeroing is bit-neutral."""
+    zeroing is bit-neutral.
+
+    ``sparse`` (serving/sparse_context.py): ``(stables, sbase)``, a (B, K)
+    physical-page gather table and the absolute view position of each
+    page's first token. The GATHER then reads only K active pages per
+    lane while WRITES keep addressing the full page table through
+    ``blk``/``off``; padded and window-expired entries carry the
+    sentinel position (beyond every valid pos and maxpos), so both masks
+    reject them like dense trash padding. The masks are built from the
+    TRUE view positions, so the view's order does not matter.
+    ``allowed`` (B, T, K*bs) further restricts each query to its OWN
+    policy blocks (a prefill chunk gathers the union of its queries'
+    sets)."""
     pk, pv, ksc, vsc = pools
     B, T, _ = x.shape
     H, D = cfg.n_head, cfg.head_dim
-    W = tables.shape[1]
     bs = pk.shape[3]
-    view = torch.arange(W * bs, device=x.device)
-    validj = (view[None, None, :]
-              <= pos.reshape(B, T)[:, :, None])[:, None]    # (B, 1, T, K)
-    validk = (view[None, :] <= maxpos[:, None])[:, None, :, None]
+    if sparse is None:
+        gtables = tables
+        view = torch.arange(tables.shape[1] * bs, device=x.device)[None]
+    else:
+        gtables, sbase = sparse
+        view = (sbase[:, :, None] + torch.arange(bs, device=x.device)) \
+            .reshape(B, -1)                                 # (B, K*bs)
+    validj = view[:, None, :] <= pos.reshape(B, T)[:, :, None]
+    if allowed is not None:
+        validj = validj & allowed
+    validj = validj[:, None]                                # (B, 1, T, V)
+    validk = (view <= maxpos[:, None])[:, None, :, None]    # (B, 1, V, 1)
     eps = cfg.layer_norm_epsilon
     for l, bp in enumerate(params["blocks"]):
         h = _ln(x, bp["ln_1"], eps)
@@ -141,8 +179,8 @@ def _paged_forward(params, cfg, pools, tables, pos, maxpos, blk, off, x,
         q = _split_heads(q, B, T, H, D)                     # (B, H, T, D)
         _pool_write(pk, ksc, l, blk, off, k.reshape(B * T, H, D), quantized)
         _pool_write(pv, vsc, l, blk, off, v.reshape(B * T, H, D), quantized)
-        kview = _pool_view(pk, ksc, l, tables, quantized, x.dtype)
-        vview = _pool_view(pv, vsc, l, tables, quantized, x.dtype)
+        kview = _pool_view(pk, ksc, l, gtables, quantized, x.dtype)
+        vview = _pool_view(pv, vsc, l, gtables, quantized, x.dtype)
         kview = torch.where(validk, kview, 0)
         vview = torch.where(validk, vview, 0)
         x = x + _attn_core(q, kview, vview, validj, bp["attn"], x.dtype)
@@ -158,17 +196,28 @@ def _pick_next(logits, seeds, pos, sampling):
     return _sample(logits, seeds, pos, temperature, top_k, top_p)
 
 
-def _decode_step(params, cfg, pools, buf, S, W, quantized, sampling):
+def _decode_step(params, cfg, pools, buf, S, W, quantized, sampling, K=0):
     """ONE fixed-shape decode step over every slot lane. ``buf`` packs
     the (S, W) page tables, then positions, tokens, active mask and
     sampling seeds (S each), then the per-lane poison stream as fp32
     bits (0.0 in production, bit-neutral on the embedding sum; chaos
     writes NaN into one lane to model a numeric blow-up). Returns (2, S):
-    the next tokens and the per-lane finiteness flags, fetched together."""
+    the next tokens and the per-lane finiteness flags, fetched together.
+
+    ``K`` > 0 is the sparse decode step (dispatched as
+    ``sparse_decode_step``): the (S, K) active-page table and its (S, K)
+    view bases follow the page tables in ``buf``, and the gather reads
+    those K pages per lane instead of all W. The single query needs no
+    per-query mask: its active row IS its policy set."""
     bs = pools[0].shape[3]
     ints = buf[:-S].long()
     tables = ints[:S * W].reshape(S, W)
-    pos, tok, active, seeds = ints[S * W:].reshape(4, S)
+    o = S * W
+    sparse = None
+    if K:
+        sparse = ints[o:o + 2 * S * K].reshape(2, S, K).unbind(0)
+        o += 2 * S * K
+    pos, tok, active, seeds = ints[o:].reshape(4, S)
     poison = buf[-S:].view(torch.float32)
     active = active.bool()
     x = params["wte"][tok][:, None, :] + params["wpe"][pos][:, None, :]
@@ -177,7 +226,7 @@ def _decode_step(params, cfg, pools, buf, S, W, quantized, sampling):
     blk = torch.where(active, tables[lanes, pos // bs], TRASH_BLOCK)
     off = pos % bs
     x = _paged_forward(params, cfg, pools, tables, pos, pos, blk, off, x,
-                       quantized)
+                       quantized, sparse=sparse)
     logits = _lm_logits(params, cfg, x[:, 0])
     finite = torch.isfinite(logits).all(dim=-1)
     nxt = _pick_next(logits, seeds, pos, sampling)
@@ -186,17 +235,30 @@ def _decode_step(params, cfg, pools, buf, S, W, quantized, sampling):
 
 
 def _prefill_chunk(params, cfg, pools, buf, C, W, quantized, final,
-                   sampling):
+                   sampling, layout=None):
     """One prefill chunk of (padded) length C for ONE sequence. ``buf``
     packs its (W,) page-table row, the C tokens, then start, n_valid and
     the sampling seed. Positions past n_valid are padding: their writes
     land in the trash block and nothing attends them. The final chunk
-    returns (2, 1): the first token and its finiteness flag."""
+    returns (2, 1): the first token and its finiteness flag.
+
+    ``layout`` (the sparse policy's (W, W) bool block layout, on the
+    device) makes it the sparse prefill chunk (dispatched as
+    ``sparse_prefill_chunk<C>``): the chunk's K-page gather row and its
+    view bases follow the page-table row in ``buf``, K = (len(buf) - W -
+    C - 3) / 2. The row is the UNION of the chunk queries' active sets,
+    so each (query, key block) pair is masked by the layout."""
     bs = pools[0].shape[3]
     ints = buf.long()
     row = ints[:W]
-    tokens = ints[W:W + C]
-    start, n_valid, seed = ints[W + C:W + C + 3]
+    o = W
+    sparse = None
+    if layout is not None:
+        K = (buf.numel() - W - C - 3) // 2
+        sparse = ints[o:o + 2 * K].reshape(2, 1, K).unbind(0)
+        o += 2 * K
+    tokens = ints[o:o + C]
+    start, n_valid, seed = ints[o + C:o + C + 3]
     ar = torch.arange(C, device=buf.device)
     posns = start + ar                                  # (C,)
     x = params["wte"][tokens][None] \
@@ -206,8 +268,14 @@ def _prefill_chunk(params, cfg, pools, buf, C, W, quantized, final,
                       TRASH_BLOCK)
     off = posns % bs
     last = (start + n_valid - 1).reshape(1)
+    allowed = None
+    if sparse is not None:
+        qb = (posns // bs).clamp(max=W - 1)                 # (C,)
+        sblk = (sparse[1][0] // bs).clamp(max=W - 1)        # (K,)
+        allowed = layout[qb[:, None], sblk[None, :]] \
+            .repeat_interleave(bs, dim=1)[None]             # (1, C, K*bs)
     x = _paged_forward(params, cfg, pools, row[None], posns, last, blk, off,
-                       x, quantized)
+                       x, quantized, sparse=sparse, allowed=allowed)
     if not final:
         return None
     xe = x[0].index_select(0, (n_valid - 1).reshape(1))    # (1, E)
@@ -215,6 +283,62 @@ def _prefill_chunk(params, cfg, pools, buf, C, W, quantized, final,
     finite = torch.isfinite(logits).all(dim=-1)
     nxt = _pick_next(logits, seed.reshape(1), last, sampling)
     return torch.stack([nxt, finite.long()])
+
+
+def _spec_verify(params, cfg, pools, buf, S, T, W, quantized):
+    """Self-speculative draft-verify: T = k+1 query tokens per lane (the
+    current token plus k drafted) scored in ONE fixed-shape step.
+    ``buf`` packs the (S, W) page tables, the positions (S), the (S, T)
+    tokens, then ``nvalid``, active (S each) and the poison stream as
+    fp32 bits. Greedy only (the arming gate enforces temperature 0), so
+    no seeds enter.
+
+    ``nvalid`` bounds the query positions that may write and that feed
+    the finiteness detector: a lane within k tokens of its budget sends
+    its surplus positions to the trash block, so it neither writes past
+    its page table nor trips a false quarantine on clamped-gather
+    garbage. Rejected positions are overwritten by the next dispatch
+    before any query can attend them unmasked. Returns (S, T+1): the T
+    argmax tokens and the lane's finiteness flag, fetched together."""
+    bs = pools[0].shape[3]
+    ints = buf[:-S].long()
+    tables = ints[:S * W].reshape(S, W)
+    o = S * W
+    pos = ints[o:o + S]
+    toks = ints[o + S:o + S + S * T].reshape(S, T)
+    nvalid, active = ints[o + S + S * T:].reshape(2, S)
+    poison = buf[-S:].view(torch.float32)
+    active = active.bool()
+    ar = torch.arange(T, device=buf.device)
+    posns = pos[:, None] + ar[None, :]                      # (S, T)
+    x = params["wte"][toks] \
+        + params["wpe"][posns.clamp(max=cfg.n_positions - 1)]
+    x = x + poison.to(x.dtype)[:, None, None]
+    valid_q = ar[None, :] < nvalid[:, None]                 # (S, T)
+    writable = active[:, None] & valid_q & (posns < W * bs)
+    lanes = torch.arange(S, device=buf.device)[:, None]
+    blk = torch.where(writable,
+                      tables[lanes, (posns // bs).clamp(max=W - 1)],
+                      TRASH_BLOCK)
+    off = posns % bs
+    maxpos = pos + nvalid - 1
+    x = _paged_forward(params, cfg, pools, tables, posns, maxpos,
+                       blk.reshape(-1), off.reshape(-1), x, quantized)
+    logits = _lm_logits(params, cfg, x.reshape(S * T, -1)).reshape(S, T, -1)
+    finite = torch.where(valid_q, torch.isfinite(logits).all(dim=-1),
+                         True).all(dim=1)                   # (S,)
+    nxt = torch.where(active[:, None], torch.argmax(logits, dim=-1), 0)
+    return torch.cat([nxt, finite.long()[:, None]], dim=1)
+
+
+def _accepted(drafts, row, nvalid):
+    """Tokens one verify delivers to a lane: the longest prefix of
+    ``drafts`` equal to the dispatch's own argmax continuation ``row``,
+    plus the bonus token, at most ``nvalid``."""
+    m = 1
+    while m <= len(drafts) and drafts[m - 1] == row[m - 1]:
+        m += 1
+    return min(m, int(nvalid))
 
 
 class InferenceEngine:
@@ -244,14 +368,6 @@ class InferenceEngine:
         if shards != 1 or mesh is not None:
             raise _not_ported("serving over pools split into shards "
                               "(shards > 1, mesh)", "A10c")
-        if prefix_cache:
-            raise _not_ported("the serving prefix cache (prefix_cache)",
-                              "A10b")
-        if speculative:
-            raise _not_ported("speculative decoding (speculative)", "A10b")
-        if sparse_context:
-            raise _not_ported("sparse serving context (sparse_context)",
-                              "A10b")
         if telemetry is not None:
             raise _not_ported("serving telemetry (telemetry)", "A17")
         assert prefill_chunk >= _MIN_BUCKET \
@@ -278,9 +394,11 @@ class InferenceEngine:
         self.top_p = float(top_p or 0.0)
         self._sampling = (self.temperature, self.top_k, self.top_p)
         self.scheduler = Scheduler(max_slots, policy=policy)
+        self.scheduler.prefix_probe = self._prefix_probe
         self.clock = clock
         self.metrics = ServingMetrics(clock)
         self.dispatch_shapes = DispatchShapes()
+        self.pool.dispatch_shapes = self.dispatch_shapes
         self.results = {}
         self._watchdog = watchdog
         self._last_metrics = {}
@@ -298,6 +416,14 @@ class InferenceEngine:
         self._active = np.zeros(S, bool)
         self._seeds = np.zeros(S, np.uint32)
         self._poison = np.zeros(S, np.float32)
+        self.prefix_cache = self._arm_prefix_cache(prefix_cache,
+                                                   quantize_kv)
+        self._readmit_rids = set()
+        self.spec_k = self._arm_speculative(speculative)
+        self._drafts = np.zeros((S, max(1, self.spec_k)), np.int32)
+        # sparse page attention arms AFTER speculation (draft-k is one of
+        # its DISARMED blockers) and picks the decode dispatch
+        self.sparse = self._arm_sparse_context(sparse_context)
         self.prefill_fairness = int(prefill_fairness or 0)
         if self.prefill_fairness and policy != "continuous":
             logger.warning(
@@ -305,6 +431,144 @@ class InferenceEngine:
                 "already runs each batch to completion; the pause "
                 "quantum only applies to continuous batching.")
             self.prefill_fairness = 0
+        self._stables = self._sbase = self._layout = None
+        self._decode_name = "decode_step"
+        if self.sparse is not None:
+            sp = self.sparse
+            self._stables = np.full((S, sp.K), TRASH_BLOCK, np.int32)
+            self._sbase = np.full((S, sp.K), int(sp.sentinel), np.int32)
+            self._layout = torch.as_tensor(
+                _policy_layout(sp.win, sp.g, self.W) > 0, device=self.device)
+            self._decode_name = "sparse_decode_step"
+
+    # -- arming ---------------------------------------------------------
+    def _arm_prefix_cache(self, requested, quantize_kv_requested):
+        """COW shared-prefix caching arms only where its bookkeeping is
+        honest; every blocked request warns naming the blocker (the
+        armed-or-warns DISARMED discipline). The cache itself is
+        sampling-safe (cached KV rows are a pure function of the token
+        prefix), so unlike speculation it does not require greedy."""
+        if not requested:
+            return False
+        if quantize_kv_requested and not self.pool.quantized:
+            logger.warning(
+                "prefix cache: DISARMED — int8 KV was requested but the "
+                "pool disarmed it (off-profitability: scale overhead >= "
+                "byte savings at this head_dim/dtype); refusing to stack "
+                "block sharing on a pool whose storage already silently "
+                "differs from the asked-for config.  Serving without "
+                "prefix caching.")
+            return False
+        if self.scheduler.draining:
+            logger.warning(
+                "prefix cache: DISARMED — the engine is draining: "
+                "admission is closed, so no request could ever consult "
+                "the tree; arming now would only pin blocks a successor "
+                "cannot inherit.")
+            return False
+        return True
+
+    def _arm_speculative(self, spec):
+        """Self-speculative decoding (``speculative=k`` or ``{"draft_len":
+        k}``) arms only in the greedy configuration: acceptance compares
+        ARGMAX continuations token for token, so with sampling the
+        accepted prefix would not equal the sampled stream. Blocked
+        requests warn DISARMED naming the blocker and serve the plain
+        decode step. Returns the armed draft length (0 = disarmed)."""
+        if not spec:
+            return 0
+        k = int(spec.get("draft_len", 4)) if isinstance(spec, dict) \
+            else int(spec)
+        if k < 1:
+            logger.warning(
+                "speculative decoding: DISARMED — draft_len=%d < 1 "
+                "drafts nothing; serving the plain decode step.", k)
+            return 0
+        if self.temperature != 0.0:
+            logger.warning(
+                "speculative decoding: DISARMED — sampling != greedy: "
+                "temperature=%g, but the acceptance rule (accepted "
+                "prefix == step-by-step greedy argmax) is only defined "
+                "at temperature=0; a sampled stream would diverge from "
+                "the verified continuations.  Serving the plain decode "
+                "step.", self.temperature)
+            return 0
+        return k
+
+    def _arm_sparse_context(self, spec):
+        """Sparse page attention (``sparse_context=`` as a policy dict, an
+        ``ops/sparse_attention`` SparsityConfig-style object, or a
+        prebuilt :class:`SparseContext`) arms only where the policy maps
+        soundly onto the paged pool; every blocked request warns DISARMED
+        naming the blocker and the engine serves dense attention.
+        Blockers: a token window that is not a multiple of the pool block
+        size, beam search (active-page lists are single-hypothesis),
+        draft-k speculation (the verify gathers the full table), and
+        non-prefix global anchors. Returns the SparseContext or None."""
+        if not spec:
+            return None
+        if self.spec_k:
+            logger.warning(
+                "sparse context: DISARMED — draft-k speculative decoding "
+                "is armed (draft_len=%d): the verify step scores K+1 "
+                "query tokens against the FULL page table and its "
+                "acceptance rule assumes dense attention; composing the "
+                "two gather policies is not supported yet.  Serving "
+                "dense attention.", self.spec_k)
+            return None
+        if isinstance(spec, SparseContext):
+            if spec.bs != self.bs or spec.W != self.W:
+                logger.warning(
+                    "sparse context: DISARMED — the supplied "
+                    "SparseContext was compiled for block_size=%d/"
+                    "table_width=%d but this engine runs %d/%d; its LUT "
+                    "would address the wrong pages.  Serving dense "
+                    "attention.", spec.bs, spec.W, self.bs, self.W)
+                return None
+            return spec
+        if isinstance(spec, dict):
+            d = dict(spec)
+            beam = int(d.pop("beam_width", 1) or 1)
+            if beam > 1:
+                logger.warning(
+                    "sparse context: DISARMED — beam_width=%d > 1: beam "
+                    "lanes share pages under different hypotheses and "
+                    "the per-lane active-page lists are single-"
+                    "hypothesis.  Serving dense attention.", beam)
+                return None
+            wt = d.pop("window_tokens", None)
+            if wt is not None:
+                if int(wt) % self.bs != 0:
+                    logger.warning(
+                        "sparse context: DISARMED — window_tokens=%d is "
+                        "not a multiple of the KV block size %d: the "
+                        "policy's block granularity must BE the pool's "
+                        "block size or the window edge lands mid-page.  "
+                        "Round the window to a block multiple (e.g. %d "
+                        "or %d).  Serving dense attention.",
+                        int(wt), self.bs,
+                        (int(wt) // self.bs) * self.bs,
+                        (int(wt) // self.bs + 1) * self.bs)
+                    return None
+                d.setdefault("num_sliding_window_blocks",
+                             int(wt) // self.bs)
+            win = int(d.get("num_sliding_window_blocks", 0))
+            if win < 1:
+                logger.warning(
+                    "sparse context: DISARMED — num_sliding_window_"
+                    "blocks=%d < 1 cannot cover the query's own block.  "
+                    "Serving dense attention.", win)
+                return None
+            return SparseContext(block_size=self.bs, table_width=self.W,
+                                 **d)
+        try:
+            return SparseContext.from_sparsity_config(
+                spec, block_size=self.bs, table_width=self.W)
+        except ValueError as e:
+            logger.warning(
+                "sparse context: DISARMED — %s.  Serving dense "
+                "attention.", e)
+            return None
 
     # -- not ported yet -------------------------------------------------
     @property
@@ -419,7 +683,9 @@ class InferenceEngine:
             if _readmit:
                 # already-admitted work (recovery): bypass the shedding
                 # gate, but journal it here so THIS engine's crash covers
-                # it too
+                # it too; tagged so the prefix probe can attribute cache
+                # savings to the recovery path
+                self._readmit_rids.add(rid)
                 if self.reliability.journal is not None:
                     self.reliability.journal.record_submit(req)
             elif self.reliability.on_submit(req) == "reject":
@@ -481,8 +747,14 @@ class InferenceEngine:
             "poisoned": rel.aborts[ABORT_POISONED],
             "journal_depth": rel.journal_depth(),
             "draining": self.scheduler.draining,
+            "prefix_hit_rate": self.metrics.prefix_hit_rate(),
+            "prefix_avoided_tokens": self.metrics.prefix_avoided_tokens,
             "prefill_tokens_computed":
                 self.metrics.prefill_computed_tokens,
+            "tokens_per_verify": self.metrics.tokens_per_verify(),
+            "spec_accept_hist": dict(self.metrics.spec_accept_hist),
+            "active_page_fraction": self.metrics.active_page_fraction(),
+            "window_expired_frees": self.metrics.window_expired_frees,
             "short_ttft_p95": self.metrics.class_ttft_p95("short"),
         }
         return events
@@ -576,10 +848,12 @@ class InferenceEngine:
 
     def warmup(self) -> None:
         """Dispatch every program the steady state can need — the decode
-        step plus each (bucket, final/non-final) prefill variant that an
-        ADMISSIBLE request can reach — by serving throwaway requests,
-        then reset results/metrics.  After warmup, request churn adds
-        NO new dispatch signature.
+        step (or the draft-verify, or the sparse decode step) plus each
+        (bucket, final/non-final) prefill variant (sparse ones under a
+        sparse policy) that an ADMISSIBLE request can reach, and the
+        prefix cache's COW copy — by serving throwaway requests, then
+        reset results/metrics.  After warmup, request churn adds NO new
+        dispatch signature.
 
         Coverage argument: a final chunk of residue r takes the same
         shapes as any residue in its power-of-two bucket, and every
@@ -611,6 +885,10 @@ class InferenceEngine:
             # max_new=1
             self.submit(np.zeros(1, np.int32), max_new_tokens=2)
         self.serve()
+        if self.prefix_cache:
+            # the COW copy is the one device write outside the dispatch
+            # functions that the cache can reach: record it here
+            self.pool.warm_cow()
         self._warming = False
         self.results.clear()
         self.metrics.reset()
@@ -634,6 +912,10 @@ class InferenceEngine:
             "policy": self.scheduler.policy,
             "temperature": self.temperature, "top_k": self.top_k,
             "top_p": self.top_p,
+            "prefix_cache": self.prefix_cache,
+            "speculative_draft_len": self.spec_k,
+            "sparse_context": self.sparse.describe()
+            if self.sparse is not None else None,
             "prefill_fairness": self.prefill_fairness,
             "device": str(self.device),
         }
@@ -686,6 +968,22 @@ class InferenceEngine:
                 return b
         raise AssertionError(f"chunk {n} > prefill_chunk")
 
+    def _prefix_probe(self, req):
+        """Admission-time prefix consult (the scheduler's
+        ``prefix_probe``): map cached prompt blocks read-only into the new
+        request's page table and advance ``prefill_done`` past them, so
+        the covered chunks are never dispatched. Journal-replayed
+        requests take the same path: their re-prefill shares the prompt
+        blocks."""
+        if not self.prefix_cache or self._warming:
+            return 0
+        hit = self.pool.prefix_attach(req.rid, req.shard, req.full_tokens)
+        if hit:
+            req.prefill_done = hit
+        self.metrics.record_prefix_lookup(
+            hit, readmit=req.rid in self._readmit_rids)
+        return hit
+
     def _ensure_blocks(self, req, n_positions, *, admission, events):
         """Grow ``req``'s page table to cover ``n_positions``, preempting
         victims from the scheduler's policy until the pool has room.
@@ -720,6 +1018,9 @@ class InferenceEngine:
         self._tables[slot] = TRASH_BLOCK
         self._pos[slot] = 0
         self._tok[slot] = 0
+        if self.sparse is not None:
+            self._stables[slot] = TRASH_BLOCK
+            self._sbase[slot] = int(self.sparse.sentinel)
 
     def _cleanup(self, req, reason):
         self.pool.free(req.rid)
@@ -800,16 +1101,31 @@ class InferenceEngine:
         if not self._ensure_blocks(req, start + n + (1 if final else 0),
                                    admission=True, events=events):
             return
+        sp = self.sparse
+        if sp is not None:
+            # blocks below the chunk's FIRST query window (keeping the
+            # global anchors) are already unreachable: free them before
+            # building the table row, as the decode tick does
+            freed = self.pool.window_expired_free(
+                req.rid, sp.first_active_block(start), keep_blocks=sp.g)
+            if freed:
+                self.metrics.record_window_expired(freed)
         bucket = self._bucket(n)
-        buf = np.zeros(self.W + bucket + 3, np.int32)
-        buf[:self.W] = self.pool.table_row(req.rid, self.W)
-        buf[self.W:self.W + n] = toks[start:start + n]
-        buf[self.W + bucket:] = (start, n, np.uint32(req.seed & _M32)
-                                 .view(np.int32))
-        name = f"prefill_chunk{bucket}" + ("_final" if final else "")
+        row = self.pool.table_row(req.rid, self.W)
+        parts = [row]
+        if sp is not None:
+            parts += list(sp.prefill_active_row(row, start, n, bucket))
+        tok_pad = np.zeros(bucket, np.int32)
+        tok_pad[:n] = toks[start:start + n]
+        seed = np.uint32(req.seed & _M32).view(np.int32)
+        buf = np.concatenate(parts + [tok_pad,
+                                      np.asarray([start, n, seed],
+                                                 np.int32)])
+        name = ("sparse_" if sp is not None else "") \
+            + f"prefill_chunk{bucket}" + ("_final" if final else "")
         out = self._dispatch(name, _prefill_chunk, self._upload(buf), bucket,
                              self.W, self.pool.quantized, final,
-                             self._sampling)
+                             self._sampling, self._layout)
         req.work_done += n
         self.metrics.record_prefill(n)
         if final:
@@ -818,6 +1134,10 @@ class InferenceEngine:
             if not fins[0]:
                 self._abort(req, ABORT_POISONED, events)
                 return
+            if self.prefix_cache and not self._warming:
+                # publish the (finite-checked) prompt blocks: the next
+                # request sharing this prefix skips their chunks
+                self.pool.prefix_insert(req.rid, req.shard, req.prompt)
             self._on_new_token(req, int(toks_out[0]), events, promote=True)
         else:
             req.prefill_done = start + n
@@ -831,12 +1151,107 @@ class InferenceEngine:
 
     def _pack_decode(self):
         """The decode step's packed input (see ``_decode_step``)."""
-        return np.concatenate([
-            self._tables.reshape(-1), self._pos, self._tok,
+        sparse = [] if self.sparse is None \
+            else [self._stables.reshape(-1), self._sbase.reshape(-1)]
+        return np.concatenate([self._tables.reshape(-1)] + sparse + [
+            self._pos, self._tok,
             self._active.astype(np.int32), self._seeds.view(np.int32),
             self._poison.view(np.int32)])
 
+    def _draft_tokens(self, req, k):
+        """Host-side n-gram drafter: propose the continuation that
+        followed the most recent earlier occurrence of the current last
+        token (repeating the last token when history has none).
+        Deterministic and correctness-free: the verify accepts only the
+        exact greedy prefix, so a bad draft costs speed, never parity."""
+        toks = req.full_tokens
+        last = int(toks[-1])
+        out = None
+        for i in range(len(toks) - 2, -1, -1):
+            if int(toks[i]) == last:
+                cont = [int(t) for t in toks[i + 1:i + 1 + k]]
+                if cont:
+                    out = cont
+                break
+        if out is None:
+            out = [last]
+        while len(out) < k:
+            out.append(out[-1])
+        return out[:k]
+
+    def _spec_decode_tick(self, events):
+        """Speculative variant of the decode tick: ONE fixed-shape
+        draft-verify dispatch scores the current token plus K drafts per
+        lane; the host accepts the longest draft prefix matching the
+        dispatch's own argmax stream (plus the bonus token). Same single
+        fetch, poison quarantine and fixed shapes as the plain tick."""
+        sch = self.scheduler
+        if not sch.running:
+            return 0
+        K, S = self.spec_k, self.max_slots
+        # growth: each lane writes up to min(K+1, remaining) positions
+        # this step; cover them, preempting if the pool is full
+        for slot in sorted(sch.running):
+            req = sch.running.get(slot)
+            if req is None:
+                continue
+            n = min(K + 1, req.max_new_tokens - len(req.generated))
+            self._ensure_blocks(req, int(self._pos[slot]) + n,
+                                admission=False, events=events)
+        running = dict(sch.running)
+        if not running:
+            return 0
+        if chaos.serving_poison_step(self._step_idx):
+            victim = max(running.values(), key=lambda r: r.submit_seq)
+            self._poison[victim.slot] = np.nan
+            chaos.record_serving_poison(victim.rid)
+        nvalid = np.zeros(S, np.int32)
+        toks_in = np.zeros((S, K + 1), np.int32)
+        for slot, req in running.items():
+            self._tables[slot] = self.pool.table_row(req.rid, self.W)
+            n = min(K + 1, req.max_new_tokens - len(req.generated))
+            nvalid[slot] = n
+            toks_in[slot, 0] = self._tok[slot]
+            drafts = self._draft_tokens(req, K)
+            toks_in[slot, 1:] = drafts
+            self._drafts[slot] = drafts
+            req.work_done += n
+        lanes = len(running)
+        self.metrics.record_gather(
+            lanes, lanes * self.W, lanes * self.W,
+            sum(self.pool.blocks_of(r.rid) for r in running.values()))
+        buf = np.concatenate([
+            self._tables.reshape(-1), self._pos, toks_in.reshape(-1), nvalid,
+            self._active.astype(np.int32), self._poison.view(np.int32)])
+        out = self._dispatch("spec_verify", _spec_verify, self._upload(buf),
+                             S, K + 1, self.W, self.pool.quantized)
+        self._poison[:] = 0.0
+        chaos.serving_kill_step(self._step_idx)
+        # ONE fetch: K+1 argmax tokens per lane and the finiteness flags
+        host = out.cpu().numpy()
+        outs, fins = host[:, :-1], host[:, -1].astype(bool)
+        for slot, req in running.items():
+            if not fins[slot]:
+                self._abort(req, ABORT_POISONED, events)
+                continue
+            row = outs[slot]
+            m = _accepted(self._drafts[slot], row, nvalid[slot])
+            consumed = 0
+            for i in range(m):
+                consumed += 1
+                self._on_new_token(req, int(row[i]), events,
+                                   promote=False)
+                if req.done:
+                    break
+            self.metrics.record_verify(consumed)
+            if sch.running.get(slot) is req:
+                self._pos[slot] += consumed
+                self._tok[slot] = int(row[consumed - 1])
+        return lanes
+
     def _decode_tick(self, events):
+        if self.spec_k:
+            return self._spec_decode_tick(events)
         sch = self.scheduler
         if not sch.running:
             return 0
@@ -858,17 +1273,37 @@ class InferenceEngine:
             victim = max(running.values(), key=lambda r: r.submit_seq)
             self._poison[victim.slot] = np.nan
             chaos.record_serving_poison(victim.rid)
+        sp = self.sparse
         for slot, req in running.items():
+            if sp is not None:
+                # pages below every remaining query's window (keeping the
+                # global anchors) can never be gathered again: return
+                # them before refreshing the row, so this step's row
+                # already shows the holes
+                freed = self.pool.window_expired_free(
+                    req.rid, sp.first_active_block(int(self._pos[slot])),
+                    keep_blocks=sp.g)
+                if freed:
+                    self.metrics.record_window_expired(freed)
             self._tables[slot] = self.pool.table_row(req.rid, self.W)
+            if sp is not None:
+                self._stables[slot], self._sbase[slot] = sp.active_row(
+                    self._tables[slot], int(self._pos[slot]))
             req.work_done += 1
         lanes = len(running)
-        self.metrics.record_gather(
-            lanes, lanes * self.W, lanes * self.W,
-            sum(self.pool.blocks_of(r.rid) for r in running.values()))
-        out = self._dispatch("decode_step", _decode_step,
+        if sp is not None:
+            nonpad = int(sum((self._sbase[slot] != int(sp.sentinel)).sum()
+                             for slot in running))
+            self.metrics.record_gather(lanes, lanes * sp.K, lanes * self.W,
+                                       nonpad)
+        else:
+            self.metrics.record_gather(
+                lanes, lanes * self.W, lanes * self.W,
+                sum(self.pool.blocks_of(r.rid) for r in running.values()))
+        out = self._dispatch(self._decode_name, _decode_step,
                              self._upload(self._pack_decode()),
                              self.max_slots, self.W, self.pool.quantized,
-                             self._sampling)
+                             self._sampling, sp.K if sp is not None else 0)
         self._poison[:] = 0.0
         # kill-mid-decode chaos: the dispatch happened, NO host
         # bookkeeping has — the journal holds the last committed step

@@ -807,3 +807,94 @@ def test_serving_pool_storage_stable_on_card(cuda):
         assert eng.pool.device_bytes() == sum(
             t.numel() * t.element_size() for t in eng.pool.tensors.arrays)
         assert all(eng.results[r]["status"] == "finished" for r in rids)
+
+
+def _shared_prefix_prompts(n, prefix_len=40):
+    import numpy as np
+
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, 256, prefix_len).astype(np.int32)
+    return [np.concatenate([prefix, rng.integers(0, 256, int(t))
+                            .astype(np.int32)])
+            for t in rng.integers(3, 30, n)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(prefix_cache=True, speculative=3),
+    dict(sparse_context={"num_sliding_window_blocks": 2,
+                         "num_global_blocks": 1}),
+])
+def test_a10b_dispatches_fetch_once_and_cow_never_syncs(cuda, kw):
+    """Under torch.cuda.set_sync_debug_mode("warn") a step syncs exactly
+    once per dispatch that samples (the draft-verify or the sparse
+    decode step, and final prefill chunks) and nowhere else: COW splits
+    and window-expired frees add no sync."""
+    import warnings
+
+    model, eng, _ = _serve_setup(cuda, **kw)
+    eng.warmup()
+    torch.cuda.synchronize()
+    prompts = _shared_prefix_prompts(6)
+    rids = [eng.submit(p, max_new_tokens=40) for p in prompts]
+    fetching = ("decode_step", "sparse_decode_step", "spec_verify")
+    steps = 0
+    while eng.scheduler.has_work():
+        before = dict(eng.dispatch_shapes.signatures)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                eng.step()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        fetches = sum(n - before.get(sig, 0) for sig, n in
+                      eng.dispatch_shapes.signatures.items()
+                      if sig[0] in fetching or sig[0].endswith("_final"))
+        syncs = [w for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        assert len(syncs) == fetches, (steps, fetches,
+                                       [str(w.message) for w in syncs])
+        steps += 1
+    assert all(eng.results[r]["status"] == "finished" for r in rids)
+    st = eng.pool.stats()
+    if eng.prefix_cache:
+        assert st["prefix_cow_splits"] >= 1
+        assert eng.metrics.spec_verify_steps > 0
+    else:
+        assert st["window_expired_frees"] > 0
+
+
+@pytest.mark.cuda
+def test_a10b_pool_storage_stable_across_cow_and_window_frees(cuda):
+    """COW splits and window-expired frees write the pool in place: the
+    tensors keep their storage, int8 scales included."""
+    for quantize in (False, True):
+        for kw in (dict(prefix_cache=True),
+                   dict(sparse_context={"num_sliding_window_blocks": 2})):
+            model, eng, _ = _serve_setup(cuda, quantize_kv=quantize, **kw)
+            ptrs = [t.data_ptr() for t in eng.pool.tensors.arrays]
+            rids = [eng.submit(p, max_new_tokens=24)
+                    for p in _shared_prefix_prompts(6)]
+            eng.serve()
+            assert [t.data_ptr() for t in eng.pool.tensors.arrays] == ptrs
+            assert all(eng.results[r]["status"] == "finished" for r in rids)
+            st = eng.pool.stats()
+            assert st["prefix_cow_splits"] + st["window_expired_frees"] > 0
+
+
+@pytest.mark.cuda
+def test_full_window_sparse_equals_dense_bit_for_bit_on_card(cuda):
+    """With the window covering the whole table the sparse dispatches
+    gather the dense view in the dense order: the same kernels, the same
+    tokens."""
+    _, dense, prompts = _serve_setup(cuda)
+    _, sparse, _ = _serve_setup(
+        cuda, sparse_context={"num_sliding_window_blocks": dense.W,
+                              "num_global_blocks": 0})
+    assert sparse.sparse.K == dense.W
+    got = [_serve(e, prompts) for e in (dense, sparse)]
+    for a, b in zip(*got):
+        assert (dense.results[a]["tokens"]
+                == sparse.results[b]["tokens"]).all()
+    assert "sparse_decode_step" in sparse.dispatch_shapes.names()

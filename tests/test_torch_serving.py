@@ -16,8 +16,10 @@ port's engine (CPU, fp32), plus the cross-package checks:
   same greedy tokens, prefill tokens computed, evictions and step count;
   the int8 row quantizers are bit-exact against the reference's at fp32.
 - **Deferred options** raise NotImplementedError naming their ROADMAP
-  item (sharded pools and the fleet A10c; prefix cache, speculation and
-  sparse context A10b; telemetry A17).
+  item (sharded pools and the fleet A10c; telemetry A17). The prefix
+  cache, speculation and sparse context (A10b) have their own files:
+  test_torch_prefix_cache.py, test_torch_speculative.py and
+  test_torch_sparse_context.py.
 
 Latency/deadline tests run on a STEP-COUNT clock (1.0 per serving step),
 so TTFT, deadlines and the predicted-TTFT admission model are
@@ -1198,6 +1200,71 @@ def test_same_traffic_as_the_jax_engine(toy, kind):
         assert got[2] >= 1
 
 
+def a10b_counters(eng):
+    """The step-clock counters the prefix cache, speculation and sparse
+    context tests hold the port's engine to the JAX engine's with."""
+    rep = eng.serving_report()
+    now, pc = rep["kv_pool"]["now"], rep["prefix_cache"]
+    sp, sc = rep["speculative"], rep["sparse_context"]
+    return {
+        "prefill_tokens_computed": pc["prefill_tokens_computed"],
+        "prefix_lookups": pc["lookups"], "prefix_hits": pc["hits"],
+        "avoided_prefill_tokens": pc["avoided_prefill_tokens"],
+        "readmit_avoided": pc["readmit_avoided_prefill_tokens"],
+        "cow_splits": now["prefix_cow_splits"],
+        "cache_reclaims": now["prefix_cache_reclaims"],
+        "cached_blocks": now["prefix_cached_blocks"],
+        "shared_refs": now["prefix_shared_refs"],
+        "verify_steps": sp["verify_steps"],
+        "accepted_tokens": sp["accepted_tokens"],
+        "accept_len_hist": {int(k): int(v)
+                            for k, v in sp["accept_len_hist"].items()},
+        "gathered_pages": sc["gathered_pages"],
+        "dense_equivalent_pages": sc["dense_equivalent_pages"],
+        "active_pages_per_lane_step": sc["active_pages_per_lane_step"],
+        "window_expired_frees": sc["window_expired_frees"],
+        "pool_window_frees": now["window_expired_frees"],
+        "evictions": rep["requests"]["evictions"],
+        "steps": rep["steps"]["total"], "decode_steps": rep["steps"]["decode"],
+    }
+
+
+def serve_both(toy, prompts, maxnew, *, stagger=2, **kw):
+    """The same traffic through the JAX engine and the port's, each on a
+    step clock (``stagger`` steps after each submit, then to the end).
+    The port's tokens and statuses must equal the JAX engine's bit for
+    bit and its :func:`a10b_counters` must equal the JAX engine's.
+    Returns (port engine, tokens by request)."""
+    model, tree, _, (jm, jparams) = toy
+    runs = []
+    for cls, m, p, extra in ((JEngine, jm, jparams, {}),
+                             (InferenceEngine, model, tree,
+                              {"device": "cpu"})):
+        clock = StepClock()
+        args = dict(max_slots=3, kv_block_size=4, prefill_chunk=8,
+                    max_blocks_per_seq=8, clock=clock)
+        args.update(kw)
+        args.update(extra)
+        eng = cls(m, p, **args)
+        rids = []
+        for prompt, n in zip(prompts, maxnew):
+            rids.append(eng.submit(prompt, max_new_tokens=n))
+            for _ in range(stagger):
+                eng.step()
+                clock.t += 1.0
+        while eng.scheduler.has_work():
+            eng.step()
+            clock.t += 1.0
+        runs.append((eng, [np.asarray(eng.results[r]["tokens"]).tolist()
+                           for r in rids],
+                     [eng.results[r]["status"] for r in rids]))
+    (jeng, jtoks, jstat), (eng, toks, stat) = runs
+    assert toks == jtoks
+    assert stat == jstat
+    assert a10b_counters(eng) == a10b_counters(jeng)
+    return eng, toks
+
+
 # ---------------------------------------------------------------------------
 # deferred options
 # ---------------------------------------------------------------------------
@@ -1205,9 +1272,6 @@ def test_same_traffic_as_the_jax_engine(toy, kind):
 @pytest.mark.parametrize("kw,item", [
     (dict(shards=2), "A10c"),
     (dict(mesh=object()), "A10c"),
-    (dict(prefix_cache=True), "A10b"),
-    (dict(speculative=3), "A10b"),
-    (dict(sparse_context={"num_sliding_window_blocks": 2}), "A10b"),
     (dict(telemetry={"enabled": True}), "A17"),
 ])
 def test_deferred_options_raise_naming_their_roadmap_item(toy, kw, item):
