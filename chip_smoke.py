@@ -168,6 +168,32 @@ failure:
               equals the LUT's, window-expired frees > 0, the replay gate
               against a plain forward masked by the policy's token mask and
               the planted fault (view bases shifted one block) at >= 10x
+ 20. telemetry
+              phase 4's run (gpt2-350m bf16, seq 1024, micro 8, gas 2, 10
+              steps, steps_per_print 5) disarmed, then armed with
+              telemetry {trace, mfu, memory}, flops_profiler (profile_step
+              2) and tensorboard, then the same with metrics_jsonl too:
+              (a) the armed losses equal phase 4's and the disarmed run's
+              bit for bit and B1-B3 launch as in phase 4; (b) the MFU report names the card,
+              knows its peak, its hardware FLOPs per step equal the closed
+              form (the matmuls written out plus the kernels' own FLOP
+              formulas) and HFU >= MFU; (c) the report's device peak equals
+              what max_memory_allocated would have read had the engine's
+              windows not reset it (every reset observed), the analytic
+              persistent bytes sit at or under the measured bytes in use
+              and within 15 % of them, and with the optimizer state left
+              out of the analytic side (a planted fault) the cross-check
+              fires; (d) the Chrome trace parses, each step has 2
+              forward_micro, 2 backward_micro and 1 optimizer_step on lane
+              train, none dropped; (e) the JSONL replays to 10 records whose
+              losses are the returned ones; (f) the TensorBoard file reads
+              back with its CRCs and the scalars of steps 5 and 10; (g) step
+              ms of the three runs and the telemetry's host step time.
+              Then phase 16's pass A traffic (its first 8 requests) served
+              with telemetry= armed: the greedy tokens equal an unarmed
+              engine's, memory_report()'s pool bytes equal the pool
+              tensors' bytes, one serving_step span and one JSONL record
+              per engine step after warmup, the decode MFU printed
 The line before the last is the kernels JSON (the fp16 rows named
 <kernel>_fp16, their launches from phase 13); the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card and nvcc.
@@ -2980,6 +3006,323 @@ def phase_serve_a10b(env, dense):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: telemetry and accounting (ROADMAP A17)
+# ---------------------------------------------------------------------------
+TEL_PRINT_EVERY = 5
+TEL_SERVE_REQUESTS = 8
+TEL_TOLERANCE = 0.15
+
+
+def _closed_form_step_flops(cfg, micro, seq, gas):
+    """One optimizer step's hardware FLOPs of a GPT-2 (no dropout, no
+    remat): per layer the four matmuls forward, 2 T E (3E + E + 4E + 4E) =
+    24 T E^2, and twice that backward; the tied LM head over the T' =
+    micro (seq - 1) shifted tokens and the padded vocabulary forward, its
+    chunk recomputed in the backward and its two backward products; per
+    layer one flash forward, dK/dV and dQ sweep at their own FLOP formulas
+    (ops/transformer/flash_attention.py)."""
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    e, n_layer, vocab = cfg.n_embd, cfg.n_layer, cfg.padded_vocab_size
+    t, t1 = micro * seq, micro * (seq - 1)
+    bh, d = micro * cfg.n_head, cfg.head_dim
+    kernels = sum(fn(bh, seq, seq, d, True, cfg.dtype)
+                  for fn in fa.FLOPS.values())
+    return gas * (n_layer * (72 * t * e * e + kernels)
+                  + 4 * 2 * t1 * e * vocab)
+
+
+def _telemetry_run(engine, batch, steps):
+    """``steps`` train_batch calls, each synced by its loss; returns
+    (losses, step ms, launches)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bsk
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    fa.reset_launch_counts()
+    bsk.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch=batch)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return losses, step_ms, dict(fa.LAUNCHES, **bsk.LAUNCHES)
+
+
+def phase_telemetry(env, ref):
+    """Telemetry on the slice's train step and serving engine: module
+    docstring, phase 20. ``ref`` is phase 4's run."""
+    import shutil
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
+    from deepspeed_tpu_torch.runtime import memory_accounting as mem_acc
+    from deepspeed_tpu_torch.telemetry.metrics import MetricsStream
+    from deepspeed_tpu_torch.utils.tb_writer import read_events
+
+    out = tempfile.mkdtemp(prefix="telemetry_")
+    # what earlier phases left in reference cycles would sit in the
+    # disarmed run's peak only
+    _release_earlier_phases()
+    try:
+        cfg = gpt2_config(SLICE_MODEL, n_positions=SLICE_SEQ,
+                          dtype=torch.bfloat16, remat=False)
+        batch = _slice_batch(cfg.vocab_size, SLICE_GAS, SLICE_MICRO,
+                             SLICE_SEQ, seed=0)
+        ds = dict(_ds_config(SLICE_MICRO, SLICE_GAS),
+                  steps_per_print=TEL_PRINT_EVERY)
+        engine = initialize(model=GPT2Model(cfg), config_params=ds)[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        off_losses, off_ms, _ = _telemetry_run(engine, batch, SLICE_STEPS)
+        off_peak = torch.cuda.max_memory_allocated()
+        del engine
+        _release_earlier_phases()
+
+        def armed_config(jsonl, job):
+            tel = {"enabled": True, "trace": True, "mfu": True,
+                   "memory": True}
+            if jsonl:
+                tel["metrics_jsonl"] = jsonl
+            return dict(ds, telemetry=tel,
+                        flops_profiler={"enabled": True, "profile_step": 2},
+                        tensorboard={"enabled": True, "output_path": out,
+                                     "job_name": job})
+
+        # armed without the stream: what the stream's fetch adds is the
+        # difference to the armed run below
+        engine = initialize(model=GPT2Model(cfg),
+                            config_params=armed_config(None, "nostream"))[0]
+        nostream_losses, nostream_ms, _ = _telemetry_run(engine, batch,
+                                                         SLICE_STEPS)
+        del engine
+        _release_earlier_phases()
+
+        jsonl = os.path.join(out, "metrics.jsonl")
+        engine = initialize(model=GPT2Model(cfg),
+                            config_params=armed_config(jsonl, "armed"))[0]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # every reset the engine makes, observed: the peak before it
+        real_reset, seen = torch.cuda.reset_peak_memory_stats, [0]
+
+        def observed_reset(device=None):
+            seen[0] = max(seen[0], torch.cuda.max_memory_allocated(device))
+            real_reset(device)
+
+        with mock.patch.object(torch.cuda, "reset_peak_memory_stats",
+                               observed_reset):
+            losses, on_ms, launches = _telemetry_run(engine, batch,
+                                                     SLICE_STEPS)
+        unreset_peak = max(seen[0], torch.cuda.max_memory_allocated())
+        tel = engine.telemetry
+        med = [sorted(x[1:])[len(x[1:]) // 2]
+               for x in (off_ms, nostream_ms, on_ms)]
+
+        # (a) what the armed run computes
+        log(f"telemetry (a): armed losses {[round(x, 4) for x in losses]}")
+        if losses != ref["losses"] or losses != off_losses \
+                or nostream_losses != off_losses:
+            raise RuntimeError(f"telemetry: armed losses {losses} (without "
+                               f"the stream {nostream_losses}) differ from "
+                               f"phase 4's {ref['losses']} or the disarmed "
+                               f"run's {off_losses}")
+        if launches != ref["launches"]:
+            raise RuntimeError(f"telemetry: launches {launches}, phase 4 "
+                               f"{ref['launches']}")
+        log(f"  bit for bit phase 4's and the disarmed run's; launches "
+            f"{launches}")
+
+        # (b) MFU
+        report = engine.telemetry_report()
+        mfu = report["mfu"]
+        want = _closed_form_step_flops(cfg, SLICE_MICRO, SLICE_SEQ,
+                                       SLICE_GAS)
+        log(f"telemetry (b) on {env['smi']}: MFU {mfu['mfu']:.4f}, HFU "
+            f"{mfu['hfu']:.4f}, achieved {mfu['achieved_tflops_per_device']:.1f}"
+            f" model TFLOP/s and {mfu['achieved_hw_tflops_per_device']:.1f}"
+            f" hardware TFLOP/s (peak {mfu['peak_flops_per_device'] / 1e12:g}"
+            f" TFLOP/s for {mfu['device_kind']}); model FLOPs/step "
+            f"{mfu['model_flops_per_step']:.6g}, hardware "
+            f"{mfu['hw_flops_per_step']:.6g} (closed form {want:.6g}; "
+            f"kernels {mfu['per_jit']['micro_step']['kernel_flops']} per "
+            f"micro step); telemetry step time "
+            f"{mfu['step_time_s'] * 1e3:.1f} ms (mean between step "
+            f"boundaries, the profile step's included); at the synced "
+            f"median step {med[2]:.2f} ms MFU "
+            f"{mfu['model_flops_per_step'] / (med[2] / 1e3) / mfu['peak_flops_per_device']:.4f}"
+            f", HFU "
+            f"{mfu['hw_flops_per_step'] / (med[2] / 1e3) / mfu['peak_flops_per_device']:.4f}")
+        if mfu["device_kind"] != env["name"] or not mfu["peak_known"]:
+            raise RuntimeError(f"telemetry: MFU report names "
+                               f"{mfu['device_kind']!r}, peak known "
+                               f"{mfu['peak_known']}")
+        if mfu["hw_flops_per_step"] != want:
+            raise RuntimeError(f"telemetry: hardware FLOPs "
+                               f"{mfu['hw_flops_per_step']} != closed form "
+                               f"{want}")
+        if not mfu["hfu"] >= mfu["mfu"] > 0:
+            raise RuntimeError(f"telemetry: HFU {mfu['hfu']} < MFU "
+                               f"{mfu['mfu']}")
+
+        # (c) memory
+        mem = report["memory"]
+        dev = mem["devices"][0]
+        state = mem["measured"]["train_state"]
+        check = mem["cross_check"]["train_state"]
+        analytic = mem["analytic"]["persistent_bytes"]
+        micro = mem["measured"]["micro_step"]
+        log(f"telemetry (c) on {env['smi']}: device peak "
+            f"{dev['peak_bytes_in_use']} B (unreset max_memory_allocated "
+            f"{unreset_peak}; the disarmed run's {off_peak}), in use at the "
+            f"step boundary {state['in_use_bytes']} B, analytic persistent "
+            f"{analytic} B (ratio {check['ratio']:.4f}), micro step "
+            f"transient {micro['transient_bytes']} B, apply step "
+            f"{mem['measured']['apply_step']['transient_bytes']} B, limit "
+            f"{dev['bytes_limit']} B")
+        if dev["peak_bytes_in_use"] != unreset_peak:
+            raise RuntimeError(f"telemetry: report peak "
+                               f"{dev['peak_bytes_in_use']} != unreset "
+                               f"{unreset_peak}")
+        if not analytic <= state["in_use_bytes"] or check["underestimated"]:
+            raise RuntimeError(f"telemetry: analytic {analytic} vs in use "
+                               f"{state['in_use_bytes']}: {check}")
+        opt = mem["analytic"]["components"]["optimizer_state_bytes"]
+        acct = engine._memacct
+        acct.expect("train_state", "planted fault: no optimizer state",
+                    analytic - opt, field="in_use_bytes")
+        planted = acct.cross_check(warn=False)["train_state"]
+        log(f"  planted fault (optimizer state left out): ratio "
+            f"{planted['ratio']:.4f}, underestimated "
+            f"{planted['underestimated']}")
+        if not planted["underestimated"]:
+            raise RuntimeError("telemetry: the planted fault passed the "
+                               "cross-check")
+
+        # (d) the trace
+        path = engine.export_trace(os.path.join(out, "trace.json"))
+        trace = json.load(open(path))
+        lanes = {e["tid"]: e["args"]["name"] for e in trace["traceEvents"]
+                 if e["name"] == "thread_name"}
+        steps, cur = [], {}
+        for e in trace["traceEvents"]:
+            if e["ph"] != "X" or lanes.get(e["tid"]) != "train":
+                continue
+            cur[e["name"]] = cur.get(e["name"], 0) + 1
+            if e["name"] == "optimizer_step":
+                steps.append(cur)
+                cur = {}
+        dropped = trace["otherData"]["dropped_events"]
+        log(f"telemetry (d): {len(trace['traceEvents'])} trace events, "
+            f"lanes {sorted(lanes.values())}, {dropped} dropped; spans per "
+            f"step {steps[0]}; trace summary {report['trace']}")
+        per_step = {"forward_micro": SLICE_GAS, "backward_micro": SLICE_GAS,
+                    "optimizer_step": 1}
+        if len(steps) != SLICE_STEPS or any(st != per_step for st in steps) \
+                or dropped:
+            raise RuntimeError(f"telemetry: train spans per step {steps}, "
+                               f"{dropped} dropped")
+
+        # (e) the metrics stream
+        engine.close_telemetry()
+        records = MetricsStream.replay(jsonl)
+        log(f"telemetry (e): {len(records)} records; keys "
+            f"{sorted(records[0])}")
+        if [r["loss"] for r in records] != losses:
+            raise RuntimeError("telemetry: the stream's losses differ from "
+                               "the returned ones")
+
+        # (f) TensorBoard
+        events = read_events(engine.summary_writer.path)
+        scalars = {(e["step"], tag): v for e in events
+                   for tag, v in e.get("scalars", {}).items()}
+        by_step = {r["step"]: r for r in records}
+        for step in range(TEL_PRINT_EVERY, SLICE_STEPS + 1, TEL_PRINT_EVERY):
+            got = scalars.get((step, "Train/Samples/grad_norm"))
+            want_norm = float(torch.tensor(by_step[step]["grad_norm"],
+                                           dtype=torch.float32))
+            if got != want_norm or (step, "Train/Samples/lr") not in scalars:
+                raise RuntimeError(f"telemetry: TensorBoard step {step}: "
+                                   f"grad_norm {got} != {want_norm}")
+        log(f"telemetry (f): {len(events)} TensorBoard records, CRCs good, "
+            f"scalars {sorted(scalars.items())}")
+
+        # (g) what arming costs the step
+        log(f"telemetry (g) on {env['smi']}: step ms (median of steps "
+            f"2..{SLICE_STEPS}, each step synced by its loss) disarmed "
+            f"{med[0]:.2f}, armed without the stream {med[1]:.2f} "
+            f"({med[1] - med[0]:+.2f}), armed {med[2]:.2f} "
+            f"({med[2] - med[0]:+.2f} ms, {(med[2] / med[0] - 1) * 100:+.2f}"
+            f" %); the telemetry's host step time {tel.step_time_s() * 1e3:.2f}"
+            f" ms (mean of {tel.step_time_hist.count} intervals); steps "
+            f"disarmed {[round(x, 1) for x in off_ms]}, without the stream "
+            f"{[round(x, 1) for x in nostream_ms]}, armed "
+            f"{[round(x, 1) for x in on_ms]}")
+        del engine, tel, report
+        _release_earlier_phases()
+        _telemetry_serve(env, out)
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def _telemetry_serve(env, out):
+    """Phase 16's pass A traffic, its first TEL_SERVE_REQUESTS requests,
+    unarmed and armed."""
+    import torch
+
+    from deepspeed_tpu_torch.telemetry.metrics import MetricsStream
+
+    model = _serve_model(dtype=torch.bfloat16)
+    vocab = model.config.vocab_size
+    prompts, prios = _serve_traffic(vocab)
+    prompts = prompts[:TEL_SERVE_REQUESTS]
+    prios = prios[:TEL_SERVE_REQUESTS]
+    tokens = []
+    for telemetry in (None, {"metrics_jsonl":
+                             os.path.join(out, "serve.jsonl")}):
+        eng = _serve_engine(model, telemetry=telemetry)
+        eng.warmup()
+        if telemetry is not None:
+            eng.telemetry.tracer.reset()        # the traffic's spans only
+        rids, wall = _drive_traffic(eng, prompts, prios)
+        _check_finished(eng, rids, prompts, vocab, "telemetry")
+        tokens.append([eng.results[r]["tokens"].tolist() for r in rids])
+    if tokens[0] != tokens[1]:
+        raise RuntimeError("telemetry serve: arming changed the tokens")
+    rep = eng.telemetry_report()
+    pool = sum(t.numel() * t.element_size()
+               for t in eng.pool.tensors.arrays)
+    got_pool = rep["memory"]["analytic"]["components"]["kv_pool_bytes"]
+    names = [e["name"] for e in eng.telemetry.tracer.events()]
+    n_steps = eng._step_idx
+    eng.close_telemetry()
+    records = MetricsStream.replay(os.path.join(out, "serve.jsonl"))
+    mfu = rep["mfu"]
+    log(f"telemetry serve on {env['smi']}: {TEL_SERVE_REQUESTS} requests, "
+        f"tokens equal the unarmed engine's; {n_steps} engine steps, "
+        f"{names.count('serving_step')} serving_step spans, {len(records)} "
+        f"records; pool {got_pool} B (tensors {pool} B); decode MFU "
+        f"{mfu['mfu']:.5f}, HFU {mfu['hfu']:.5f} at "
+        f"{mfu['step_time_s'] * 1e3:.2f} ms/step, hardware FLOPs/step "
+        f"{mfu['hw_flops_per_step']:.6g} over {sorted(mfu['per_jit'])}; "
+        f"dispatch windows {rep['memory']['measured']}")
+    if got_pool != pool:
+        raise RuntimeError(f"telemetry serve: pool bytes {got_pool} != "
+                           f"tensors {pool}")
+    if names.count("serving_step") != n_steps or len(records) != n_steps:
+        raise RuntimeError(f"telemetry serve: {names.count('serving_step')} "
+                           f"serving_step spans, {len(records)} records, "
+                           f"{n_steps} steps")
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "deepspeed_tpu_torch")):
         print("chip_smoke.py: the deepspeed_tpu_torch package is not beside "
@@ -3003,7 +3346,7 @@ def main():
     phase_zero(env, train)
     # what phase 17 is held against
     stage0 = {k: train[k] for k in ("losses", "step_ms", "tokens_per_s",
-                                    "peak_bytes")}
+                                    "peak_bytes", "launches")}
     stage0["idle_share"] = profile["idle_share"]
     del train
     torch.cuda.empty_cache()
@@ -3034,6 +3377,8 @@ def main():
     phase_offload_large(env)
     torch.cuda.empty_cache()
     phase_serve_a10b(env, serve["decode"])
+    torch.cuda.empty_cache()
+    phase_telemetry(env, stage0)
     print(json.dumps({"kernels": rows + sparse_rows + fp16_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

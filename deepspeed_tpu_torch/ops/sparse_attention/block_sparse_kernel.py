@@ -24,7 +24,11 @@ Each kernel has one wrapper (``sparse_fwd``, ``sparse_bwd_dq``,
 (``sparse_fwd_plain`` ...), which walks the same tables with the same -1e30
 arithmetic. A wrapper given CPU tensors runs the plain version; given CUDA
 tensors it launches the kernel or raises. ``LAUNCHES`` counts kernel
-launches per kernel, and only kernel launches.
+launches per kernel, and only kernel launches. Each kernel also states the
+FLOPs one launch computes (``sparse_fwd_flops`` ...), summed over the
+layout's active blocks; meta tensors inside the telemetry's FLOP count
+(telemetry/mfu.py ``count_flops``) run neither kernel nor plain version
+and add those FLOPs to the count.
 
 The forward saves the per-row logsumexp; the backward computes
 ``delta = rowsum(dO * O)`` in fp32 and runs the dQ and dK/dV sweeps, as
@@ -35,6 +39,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from deepspeed_tpu_torch.telemetry.mfu import add_kernel_flops, counting
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 96, 128)
@@ -47,6 +53,46 @@ LAUNCHES = {"sparse_fwd": 0, "sparse_bwd_dq": 0, "sparse_bwd_dkdv": 0}
 def reset_launch_counts():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# FLOPs of one launch (two per multiply-add), from the shapes and the layout
+# alone: each kernel's products over every active (query block, key block)
+# pair, block x block x head_dim each. The tensor-core kernels (bf16 at
+# block 64 or 128) split p and dS into two bf16 parts for their second
+# products, so each of those is computed twice (csrc/block_sparse_
+# attention.cu): forward S and 2 x P.V; dQ S, dP and 2 x dS.K; dK/dV S^T,
+# dP^T, 2 x P^T.dO and 2 x dS^T.Q. The scalar kernels take each product
+# once.
+# ---------------------------------------------------------------------------
+_PRODUCTS = {"sparse_fwd": (3, 2), "sparse_bwd_dq": (4, 3),
+             "sparse_bwd_dkdv": (6, 4)}
+
+
+def _sparse_flops(kernel, batch, layout, block, d, dtype):
+    tc = dtype == torch.bfloat16 and block in (64, 128)
+    products = _PRODUCTS[kernel][0 if tc else 1]
+    active = int((np.asarray(layout) != 0).sum())
+    return products * 2 * block * block * d * active * batch
+
+
+def sparse_fwd_flops(batch, layout, block, d, dtype) -> int:
+    """B5 over ``batch`` sequences of the (H, nb, nb) ``layout``."""
+    return _sparse_flops("sparse_fwd", batch, layout, block, d, dtype)
+
+
+def sparse_bwd_dq_flops(batch, layout, block, d, dtype) -> int:
+    """B6 over ``batch`` sequences of the (H, nb, nb) ``layout``."""
+    return _sparse_flops("sparse_bwd_dq", batch, layout, block, d, dtype)
+
+
+def sparse_bwd_dkdv_flops(batch, layout, block, d, dtype) -> int:
+    """B7 over ``batch`` sequences of the (H, nb, nb) ``layout``."""
+    return _sparse_flops("sparse_bwd_dkdv", batch, layout, block, d, dtype)
+
+
+FLOPS = {"sparse_fwd": sparse_fwd_flops, "sparse_bwd_dq": sparse_bwd_dq_flops,
+         "sparse_bwd_dkdv": sparse_bwd_dkdv_flops}
 
 
 def build_luts(layout):
@@ -413,6 +459,30 @@ class _BlockSparseAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None
 
 
+class _CountedBlockSparseAttention(torch.autograd.Function):
+    """The kernels' stand-in on meta tensors (see flash_attention.py's):
+    the output's shape, each launch's FLOPs added to the replay's count."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, layout, block, batch):
+        out = torch.empty_like(q)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.layout, ctx.block, ctx.batch = layout, block, batch
+        add_kernel_flops("sparse_fwd", sparse_fwd_flops(
+            batch, layout, block, q.shape[-1], q.dtype))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, _ = ctx.saved_tensors
+        for name in ("sparse_bwd_dq", "sparse_bwd_dkdv"):
+            add_kernel_flops(name, FLOPS[name](ctx.batch, ctx.layout,
+                                               ctx.block, q.shape[-1],
+                                               q.dtype))
+        return (torch.empty_like(q), torch.empty_like(k),
+                torch.empty_like(v), None, None, None)
+
+
 def _prepare(q, layout, block, scale, key_bias):
     """(B, H, S, D) inputs -> (bh, S, D) operands, LUTs, scale, key bias."""
     b, h, s, d = q.shape
@@ -442,11 +512,16 @@ def pallas_block_sparse_attention(q, k, v, layout, block: int,
     """(B, H, S, D) block-sparse attention over a (H, S/block, S/block)
     layout through the LUT-driven kernels (the name and signature of the
     JAX package's entry). Differentiable in q/k/v. CUDA tensors launch the
-    kernels; CPU tensors run their plain versions.
+    kernels; CPU tensors run their plain versions; meta tensors inside a
+    FLOP count count the kernels' FLOPs (module docstring).
 
     key_bias: optional (B, S) ADDITIVE per-key bias (key padding, -1e30 for
     a padded key), a constant (no gradient)."""
     b, h, s, d = q.shape
+    if q.device.type == "meta" and counting():
+        # the FLOP replay: no kernel, no plain version (module docstring)
+        out = _CountedBlockSparseAttention.apply(q, k, v, layout, block, b)
+        return out.reshape(b, h, s, d)
     luts, scale, key_bias = _prepare(q, layout, block, scale, key_bias)
     out = _BlockSparseAttention.apply(_flat(q), _flat(k), _flat(v), key_bias,
                                       luts, scale, block, h)

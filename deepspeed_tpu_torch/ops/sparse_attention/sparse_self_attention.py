@@ -23,6 +23,7 @@ from deepspeed_tpu_torch.ops.sparse_attention.block_sparse_kernel import (
     NEG_INF, kernel_refusal, pallas_block_sparse_attention)
 from deepspeed_tpu_torch.ops.sparse_attention.sparsity_config import (
     FixedSparsityConfig, SparsityConfig)
+from deepspeed_tpu_torch.telemetry.mfu import counting
 
 _MODES = ("add", "mul")
 
@@ -73,8 +74,13 @@ def block_sparse_attention(q, k, v, layout, block: int,
     and True the kernels' plain versions. Any other tensor takes the
     kernels: None or True launches them or raises when they cannot serve
     the call, and False raises, since the masked path runs on CPU tensors
-    only.
+    only. Meta tensors inside the FLOP count of telemetry/mfu.py count the
+    kernels' FLOPs.
     """
+    if q.device.type == "meta" and counting():
+        # the telemetry's FLOP replay: the kernels' count, whichever route
+        # the tensors' real device takes (block_sparse_kernel.py)
+        return pallas_block_sparse_attention(q, k, v, layout, block)
     if q.device.type != "cpu":
         if use_pallas is False:
             raise ValueError(f"use_pallas=False: the masked block-sparse path "

@@ -14,7 +14,13 @@ Each kernel has one wrapper (``flash_fwd``, ``flash_bwd_dkdv``,
 ``flash_bwd_dq``) and one plain PyTorch version of the same function
 (``flash_fwd_plain`` ...). A wrapper given CPU tensors runs the plain
 version; given CUDA tensors it launches the kernel or raises. ``LAUNCHES``
-counts kernel launches per kernel, and only kernel launches.
+counts kernel launches per kernel, and only kernel launches. Each kernel
+also states the FLOPs one launch computes at given shapes
+(``flash_fwd_flops`` ...): the products over the tiles it visits. META
+tensors reaching ``flash_attention`` inside the telemetry's FLOP count
+(telemetry/mfu.py ``count_flops``) run neither kernel nor plain
+version: they take the output's shape, and each launch the kernels
+would make adds its FLOPs to the count.
 
 The forward saves the per-row logsumexp; the backward recomputes the
 probabilities blockwise in two sweeps (dK/dV, then dQ), with
@@ -29,6 +35,8 @@ themselves, so drawing it on the device costs no host sync.
 from typing import Optional
 
 import torch
+
+from deepspeed_tpu_torch.telemetry.mfu import add_kernel_flops, counting
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 96, 128)
@@ -45,6 +53,72 @@ _PLAIN_BLOCK = 128
 def reset_launch_counts():
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# FLOPs of one launch (two per multiply-add), from the shapes alone: the
+# products each kernel computes over the tiles it visits, padding rows of a
+# ragged last tile and the masked part of a diagonal tile included (the
+# kernels compute them). bf16 and fp16 take the tensor-core kernels' tiles,
+# fp32 the scalar kernels' 64 x 64 (csrc/flash_attention.cu).
+# ---------------------------------------------------------------------------
+_TC_TILES = {"fwd": (128, 128), "dkdv": (64, 128), "dq": (128, 64)}
+_SCALAR_TILE = 64
+
+
+def _tiles(dtype, kernel):
+    """(q rows, k rows) of one tile pair of ``kernel`` at ``dtype``."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return _TC_TILES[kernel]
+    return _SCALAR_TILE, _SCALAR_TILE
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+def flash_fwd_flops(bh, s_q, s_k, d, causal, dtype) -> int:
+    """B1: S = Q.K^T and O += P.V (2 products) over each q tile's k tiles,
+    causal: up to the diagonal tile."""
+    tq, tk = _tiles(dtype, "fwd")
+    n_k, pairs = _cdiv(s_k, tk), 0
+    for qt in range(_cdiv(s_q, tq)):
+        pairs += min(n_k, (qt * tq + tq - 1) // tk + 1) if causal else n_k
+    return 2 * 2 * tq * tk * d * pairs * bh
+
+
+def flash_bwd_dkdv_flops(bh, s_q, s_k, d, causal, dtype) -> int:
+    """B2: the recomputed S^T = K.Q^T, dP^T = V.dO^T, dV += P^T.dO and
+    dK += dS^T.Q (4 products) over each k tile's q tiles, causal: from
+    the first q tile that reaches the k tile's first row."""
+    tq, tk = _tiles(dtype, "dkdv")
+    n_q, pairs = _cdiv(s_q, tq), 0
+    for kt in range(_cdiv(s_k, tk)):
+        pairs += max(n_q - (kt * tk) // tq, 0) if causal else n_q
+    return 4 * 2 * tq * tk * d * pairs * bh
+
+
+def flash_bwd_dq_flops(bh, s_q, s_k, d, causal, dtype) -> int:
+    """B3: the recomputed S = Q.K^T, dP = dO.V^T and dQ += dS.K (3
+    products) over each q tile's k tiles, causal: up to the diagonal; the
+    tensor-core kernel's two 64-row warpgroups skip each k tile that lies
+    wholly right of their own rows."""
+    tq, tk = _tiles(dtype, "dq")
+    n_k, pairs = _cdiv(s_k, tk), 0
+    rows = 64 if tq == 128 else tq          # rows of a warpgroup's slice
+    for qt in range(_cdiv(s_q, tq)):
+        q0 = qt * tq
+        if not causal:
+            pairs += n_k * (tq // rows)
+            continue
+        for r0 in range(q0, q0 + tq, rows):
+            n = min(n_k, (q0 + tq - 1) // tk + 1)
+            pairs += sum(1 for kt in range(n) if kt * tk <= r0 + rows - 1)
+    return 3 * 2 * rows * tk * d * pairs * bh
+
+
+FLOPS = {"flash_fwd": flash_fwd_flops, "flash_bwd_dkdv": flash_bwd_dkdv_flops,
+         "flash_bwd_dq": flash_bwd_dq_flops}
 
 
 def dropout_threshold(rate: float) -> int:
@@ -427,6 +501,33 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None, None
 
 
+class _CountedFlashAttention(torch.autograd.Function):
+    """The kernels' stand-in on meta tensors: the output's shape, and each
+    launch's FLOPs added to the replay's count (telemetry/mfu.py). It
+    saves what ``_FlashAttention`` saves, so that a remat recompute runs
+    it again as it runs the kernel again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, num_heads):
+        bh, s_q, d = q.shape
+        out = torch.empty_like(q)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal = causal
+        add_kernel_flops("flash_fwd", flash_fwd_flops(
+            bh, s_q, k.shape[1], d, causal, q.dtype))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, _ = ctx.saved_tensors
+        bh, s_q, d = q.shape
+        for name in ("flash_bwd_dkdv", "flash_bwd_dq"):
+            add_kernel_flops(name, FLOPS[name](bh, s_q, k.shape[1], d,
+                                               ctx.causal, q.dtype))
+        return (torch.empty_like(q), torch.empty_like(k),
+                torch.empty_like(v), None, None)
+
+
 def _prepare(q, k, v, bias, causal, scale, dropout_rate, dropout_seed):
     """JAX-layout (B, H, S, D) inputs -> (bh, s, d) operands + statics."""
     b, h, s_q, d = q.shape
@@ -473,9 +574,15 @@ def flash_attention(q, k, v, *, bias=None, causal: bool = False,
     dropout_rate/dropout_seed: in-kernel attention dropout; the seed (an
     int, or a one-element int32 tensor on the device, as the JAX package
     passes an array) fully determines the keep mask. Differentiable in q/k/v. CUDA tensors
-    run the kernels; CPU tensors run their plain versions.
+    run the kernels; CPU tensors run their plain versions; meta tensors
+    inside a FLOP count count the kernels' FLOPs (module docstring).
     """
     b, h, s_q, d = q.shape
+    if q.device.type == "meta" and counting():
+        # the FLOP replay: no kernel, no plain version (module docstring)
+        q3, k3, v3 = (t.reshape(b * h, t.shape[2], d) for t in (q, k, v))
+        out = _CountedFlashAttention.apply(q3, k3, v3, causal, h)
+        return out.reshape(b, h, s_q, d)
     q3, k3, v3, bias3, seed, scale, kind, heads, rate = _prepare(
         q, k, v, bias, causal, scale, dropout_rate, dropout_seed)
     out = _FlashAttention.apply(q3, k3, v3, bias3, seed, scale, causal, kind,

@@ -12,6 +12,7 @@ import torch.nn.functional as F
 
 from deepspeed_tpu_torch.ops.transformer.flash_attention import (
     HEAD_DIMS, flash_attention)
+from deepspeed_tpu_torch.telemetry.mfu import counting
 
 
 def _key_padding_shaped(m):
@@ -48,9 +49,15 @@ def scaled_dot_product_attention(q, k, v, *, mask=None, bias=None,
     and True takes ``flash_attention`` (whose CPU route is the kernels'
     plain versions). Any other tensor takes the flash kernels: None or True
     launches them or raises when they cannot serve the call, and False
-    raises, since the plain path runs on CPU tensors only.
+    raises, since the plain path runs on CPU tensors only. Meta tensors
+    inside the FLOP count of telemetry/mfu.py count the flash kernels'
+    FLOPs.
     dropout_rng: a ``torch.Generator`` for the dropout randomness.
     """
+    if q.device.type == "meta" and counting():
+        # the telemetry's FLOP replay: the kernels' count, whichever route
+        # the tensors' real device takes (flash_attention.py)
+        return flash_attention(q, k, v, causal=causal)
     if q.device.type != "cpu":
         if use_pallas is False:
             raise ValueError(f"use_pallas=False: the plain attention path "

@@ -55,12 +55,25 @@ gradient scale, the port's C++ Adam (ops/adam/cpu_adam.py) over the
 master, and the master rounded to the compute dtype and copied back into
 the parameters (at dp > 1 this rank's shard, then one all-gather).
 
+Telemetry (``"telemetry"``, ``"flops_profiler"``, ``"tensorboard"``,
+``"wall_clock_breakdown"``; the JAX engine's ``_arm_telemetry``,
+engine.py:1023-1145, 1205-1411): host-time spans on lanes ``train``
+(``forward_micro``, ``backward_micro``, ``optimizer_step``,
+``overflow_skip``), ``ckpt`` (``ckpt_sync_commit``) and ``mem``
+(``hbm_in_use``); the JSONL step stream; MFU/HFU from FLOPs counted by a
+replay on meta tensors; the memory report, whose measured side is the
+CUDA allocator's. Armed with trace, MFU and memory, a step makes no host
+sync; with ``metrics_jsonl`` it makes one: the step's scalars stacked and
+fetched in one copy. Nothing armed changes what the step computes.
+
 Configurations that need parts of the port still to come raise at
 construction, naming their ROADMAP item.
 """
+import logging
 import math
 import os
 import pickle
+import time
 
 import hashlib
 
@@ -81,12 +94,12 @@ from deepspeed_tpu_torch.runtime import memory_accounting
 from deepspeed_tpu_torch.runtime.config import (DeepSpeedConfig,
                                                 get_mesh_shape)
 from deepspeed_tpu_torch.runtime.config_utils import load_config_json
-from deepspeed_tpu_torch.runtime.constants import (ADAM_OPTIMIZER,
-                                                   ADAMW_OPTIMIZER,
-                                                   LAMB_OPTIMIZER,
-                                                   ONEBIT_ADAM_OPTIMIZER,
-                                                   SGD_OPTIMIZER,
-                                                   ZEROONE_ADAM_OPTIMIZER)
+from deepspeed_tpu_torch.runtime.constants import (
+    ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER,
+    SGD_OPTIMIZER, TELEMETRY_ENABLED, TELEMETRY_MEMORY,
+    TELEMETRY_METRICS_FSYNC, TELEMETRY_METRICS_JSONL, TELEMETRY_MFU,
+    TELEMETRY_PEAK_TFLOPS, TELEMETRY_TRACE, TELEMETRY_TRACE_CAPACITY,
+    ZEROONE_ADAM_OPTIMIZER)
 from deepspeed_tpu_torch.runtime.dataloader import DeepSpeedDataLoader
 from deepspeed_tpu_torch.runtime.fp16.loss_scaler import (
     CreateLossScaler, make_loss_scale_state, update_loss_scale)
@@ -100,12 +113,18 @@ from deepspeed_tpu_torch.runtime.utils import (clip_grad_by_global_norm,
 from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartition
 from deepspeed_tpu_torch.utils.distributed import init_distributed
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
+from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
+                                             ThroughputTimer)
 
 # optimizer names and the ROADMAP item that ports them
 _LATER_OPTIMIZERS = {ONEBIT_ADAM_OPTIMIZER: "A13",
                      ZEROONE_ADAM_OPTIMIZER: "A13"}
 _OPTIMIZERS = (FusedAdam, FusedLamb, SGD)
 _M32 = 0xFFFFFFFF
+# wall_clock_breakdown's timers (the JAX engine's names)
+FORWARD_MICRO_TIMER = "forward_microstep"
+BACKWARD_MICRO_TIMER = "backward_microstep"
+STEP_MICRO_TIMER = "step_microstep"
 
 
 def resolve_device(device=None) -> torch.device:
@@ -152,10 +171,6 @@ def _refuse_unported(raw, cfg):
         no("quantized ZeRO collectives", "A13")
     if cfg.pipeline.get("stages", 1) not in (1, None):
         no("pipeline parallelism", "A12")
-    if cfg.telemetry.get("enabled"):
-        no("telemetry", "A17")
-    if cfg.flops_profiler_config.enabled or cfg.tensorboard_enabled:
-        no("the flops profiler and tensorboard", "A17")
     res = cfg.resilience
     if res.watchdog_enabled or res.integrity_enabled:
         no("the resilience watchdog and integrity monitor", "A16")
@@ -271,6 +286,29 @@ class DeepSpeedEngine:
         self._pending_loss = None
         self._last_metrics = None
         self._last_grad_norm = None
+        self._step_loss = None
+        self._comm_metrics = None
+
+        # --- telemetry (JAX engine.py:195-238) --------------------------
+        self._arm_telemetry()
+        # after telemetry: the memory gauges ride its registry and lanes
+        self._arm_memory_accounting()
+        # timers sync the device: run only under wall_clock_breakdown
+        self.timers = SynchronizedWallClockTimer(self.device)
+        self.tput_timer = ThroughputTimer(
+            batch_size=self.train_micro_batch_size_per_gpu()
+            * self.dp_world_size, num_workers=1,
+            steps_per_output=self.steps_per_print(), device=self.device)
+        self._profiled = False
+        self._profile_window = None
+        self.summary_writer = None
+        if self.tensorboard_enabled() and self.dp_rank == 0:
+            from deepspeed_tpu_torch.utils.tb_writer import SummaryWriter
+
+            # the TensorBoard event-file format, written natively
+            self.summary_writer = SummaryWriter(log_dir=os.path.join(
+                self.tensorboard_output_path() or ".",
+                self.tensorboard_job_name() or "DeepSpeedJobName"))
         n = sum(p.numel() for p in self.params)
         log_dist(f"DeepSpeedEngine: device={self.device} "
                  f"dtype={self.param_dtype} params={n / 1e6:.1f}M "
@@ -323,6 +361,24 @@ class DeepSpeedEngine:
 
     def dynamic_loss_scale(self):
         return self._config.loss_scale == 0
+
+    def wall_clock_breakdown(self):
+        return self._config.wall_clock_breakdown
+
+    def tensorboard_enabled(self):
+        return self._config.tensorboard_enabled
+
+    def tensorboard_output_path(self):
+        return self._config.tensorboard_output_path
+
+    def tensorboard_job_name(self):
+        return self._config.tensorboard_job_name
+
+    def flops_profiler_enabled(self):
+        return self._config.flops_profiler_config.enabled
+
+    def flops_profiler_profile_step(self):
+        return self._config.flops_profiler_config.profile_step
 
     def loss_scale(self):
         """The current loss scale (a host read of the device scalar), or
@@ -688,15 +744,29 @@ class DeepSpeedEngine:
             return self.eval_loss(batch)
         if self._pending_loss is not None:
             raise RuntimeError("forward() called twice without backward()")
+        if self.wall_clock_breakdown():
+            self.timers(FORWARD_MICRO_TIMER).start()
         if self.progressive_layer_drop is not None:
             # theta rides the batch (reference engine.py:3144-3149)
             batch = dict(batch)
             batch["pld_theta"] = np.float32(
                 self.progressive_layer_drop.get_theta())
-        loss, _ = self.module.loss(self._to_device(batch),
+        dev_batch = self._to_device(batch)
+        self._maybe_profile(dev_batch)
+        if self._telemetry is not None:
+            self._register_micro_step(dev_batch)
+        tr = self._tracer
+        _t0 = tr.begin() if tr is not None else 0.0
+        if self._memacct is not None:
+            self._memacct.begin("micro_step")
+        loss, _ = self.module.loss(dev_batch,
                                    generator=self._micro_generator(),
                                    train=True)
         self._pending_loss = loss
+        if tr is not None:
+            tr.complete("forward_micro", self._lane_train, _t0)
+        if self.wall_clock_breakdown():
+            self.timers(FORWARD_MICRO_TIMER).stop()
         return loss
 
     def __call__(self, batch):
@@ -709,6 +779,10 @@ class DeepSpeedEngine:
         if self._pending_loss is None:
             raise RuntimeError("backward() called without a preceding "
                                "forward()")
+        if self.wall_clock_breakdown():
+            self.timers(BACKWARD_MICRO_TIMER).start()
+        tr = self._tracer
+        _t0 = tr.begin() if tr is not None else 0.0
         pending = self._pending_loss
         self._pending_loss = None
         scaled = pending.float()
@@ -722,11 +796,14 @@ class DeepSpeedEngine:
             # this micro step's copy down starts; the previous one's (its
             # copy overlapped this micro step's compute) goes into the
             # host accumulator (JAX engine.py:3260-3271)
+            _tg = tr.begin() if tr is not None else 0.0
             slot = self._start_grad_fetch([p.grad for p in self.params])
             for p in self.params:
                 p.grad = None
             self._drain_pending_fetches()
             self._pending_fetches.append(slot)
+            if tr is not None:
+                tr.complete("grad_exchange_d2h", self._lane_train, _tg)
         elif self.dp_group is not None:
             self._exchange_grads([p.grad for p in self.params])
         else:
@@ -737,6 +814,14 @@ class DeepSpeedEngine:
         for p in self.params:
             p.grad = None
         self.micro_steps += 1
+        if self._memacct is not None:
+            self._memacct.end("micro_step")
+        if self._profile_window is not None:
+            self._finish_profile()
+        if tr is not None:
+            tr.complete("backward_micro", self._lane_train, _t0)
+        if self.wall_clock_breakdown():
+            self.timers(BACKWARD_MICRO_TIMER).stop()
         return pending if loss is None else loss
 
     @torch.no_grad()
@@ -818,6 +903,7 @@ class DeepSpeedEngine:
         gradient scale; one host Adam call over this rank's regions (one
         flat buffer); the push; the accumulator zeroed and the loss-scale
         policy run on the host. An overflowed step pushes nothing."""
+        _t0 = self._begin_apply()
         lr = self._advance_lr()
         self._sync_master()
         self._drain_pending_fetches()
@@ -855,7 +941,7 @@ class DeepSpeedEngine:
                          f"{self.global_steps + 1}, scale -> "
                          f"{self._host_scaler.cur_scale:g}", ranks=[0])
         self._finish_step(lr, {"overflow": not finite, "grad_norm": gnorm,
-                               "loss_scale": scale})
+                               "loss_scale": scale}, _t0)
 
     @torch.no_grad()
     def _push_params(self):
@@ -906,8 +992,12 @@ class DeepSpeedEngine:
         if self._pending_loss is not None:
             raise RuntimeError("step() called between forward() and "
                                "backward()")
+        if self.wall_clock_breakdown():
+            self.timers(STEP_MICRO_TIMER).start()
         if self.is_gradient_accumulation_boundary():
             self._take_model_step()
+        if self.wall_clock_breakdown():
+            self.timers(STEP_MICRO_TIMER).stop()
 
     @torch.no_grad()
     def _take_model_step(self):
@@ -918,6 +1008,7 @@ class DeepSpeedEngine:
         the host step (``_take_model_step_offload``)."""
         if self._offload:
             return self._take_model_step_offload()
+        _t0 = self._begin_apply()
         lr = self._advance_lr()
         self._sync_master()
         flat = self._flat_accum
@@ -946,19 +1037,94 @@ class DeepSpeedEngine:
                                             **self._scaler_hparams())
         flat.zero_()
         self._finish_step(lr, {"overflow": overflow, "grad_norm": gnorm,
-                               "loss_scale": 1.0 if scale is None else scale})
+                               "loss_scale": 1.0 if scale is None else scale},
+                          _t0)
 
-    def _finish_step(self, lr, metrics):
-        """The counters, the step's metrics and collectives, the log line."""
+    def _begin_apply(self):
+        """The optimizer step's span start and memory window."""
+        if self._memacct is not None:
+            self._memacct.begin("apply_step")
+        return self._tracer.begin() if self._tracer is not None else 0.0
+
+    def _finish_step(self, lr, metrics, _t0=0.0):
+        """The counters, the step's metrics (with the JAX engine's comm
+        annotation, and the mean loss under train_batch) and collectives,
+        the telemetry step boundary, the log line."""
         self.global_steps += 1
+        if self._memacct is not None:
+            self._memacct.end("apply_step")
+        tr = self._tracer
+        if tr is not None:
+            tr.complete("optimizer_step", self._lane_train, _t0,
+                        a0=self.global_steps)
         if self.progressive_layer_drop is not None:
             self.progressive_layer_drop.update_state(self.global_steps)
         self._last_grad_norm = metrics["grad_norm"]
+        metrics.update(self._annotate_comm())
+        if self._step_loss is not None:
+            metrics["loss"] = self._step_loss
+            self._step_loss = None
         self._last_metrics = metrics
         if self.dp_group is not None:
             self.last_step_comm = self.dp_group.counter.take()
+        tel, host = self._telemetry, None
+        if tel is not None:
+            if tel.stream is not None:
+                # THE one device-to-host copy of the step (module docstring)
+                host = self._host_metrics(metrics)
+            overflow = (host or metrics)["overflow"]
+            if tr is not None and isinstance(overflow, bool) and overflow:
+                # an overflow the host knows of (offload's host step, or
+                # the stream's fetch): the scaler halves on this skip
+                tr.instant("overflow_skip", self._lane_train,
+                           a0=self.global_steps)
+            self._memory_step_gauges()
+            tel.on_step(self.global_steps, host)
         if self.global_steps % self.steps_per_print() == 0:
             self._report_progress(lr)
+            self._write_monitor(lr, host or metrics)
+            if self.wall_clock_breakdown():
+                self.timers.log([FORWARD_MICRO_TIMER, BACKWARD_MICRO_TIMER,
+                                 STEP_MICRO_TIMER], ranks=[0])
+
+    def _annotate_comm(self):
+        """The step's communication figures (JAX ``_annotate_comm``,
+        engine.py:3071): the analytic report's totals, computed once."""
+        if self._comm_metrics is None:
+            report = self.comm_volume_report()
+            self._comm_metrics = {k: report[v] for k, v in (
+                ("comm_bytes_per_step", "total_bytes_per_step"),
+                ("param_gather_bytes_per_step",
+                 "param_gather_bytes_per_step"),
+                ("param_gather_dense_bytes_per_step",
+                 "param_gather_dense_bytes_per_step"),
+                ("param_gather_quantized_bytes_per_step",
+                 "param_gather_quantized_bytes_per_step"))}
+        return self._comm_metrics
+
+    @torch.no_grad()
+    def _host_metrics(self, metrics):
+        """``metrics`` with every tensor a host number: the tensors stacked
+        on their device and fetched in ONE copy (a bool stays a bool)."""
+        keys = [k for k, v in metrics.items() if isinstance(v, torch.Tensor)]
+        out = dict(metrics)
+        if keys:
+            host = torch.stack([metrics[k].detach().reshape(())
+                                .to(torch.float64) for k in keys]).cpu()
+            for k, x in zip(keys, host.tolist()):
+                out[k] = bool(x) if metrics[k].dtype == torch.bool else x
+        return out
+
+    def _write_monitor(self, lr, metrics):
+        """TensorBoard scalars at ``steps_per_print`` (JAX
+        ``_write_monitor``), read on the host here only."""
+        if self.summary_writer is None:
+            return
+        for tag, v in (("lr", lr), ("loss_scale", metrics["loss_scale"]),
+                       ("grad_norm", metrics["grad_norm"])):
+            self.summary_writer.add_scalar(f"Train/Samples/{tag}", float(v),
+                                           self.global_steps)
+        self.summary_writer.flush()
 
     def _report_progress(self, lr):
         """The step's flags, read on the host only here (reference
@@ -982,6 +1148,8 @@ class DeepSpeedEngine:
             micros = [_micro_at(batch, i) for i in range(gas)]
         was_training = self._train_mode
         self._train_mode = True
+        if self.wall_clock_breakdown():
+            self.tput_timer.start()
         losses = []
         for micro in micros:
             losses.append(self.forward(micro).detach())
@@ -991,8 +1159,10 @@ class DeepSpeedEngine:
         if self.dp_group is not None:
             # the global batch's mean loss
             loss = self.dp_group.all_reduce(loss) / self.dp_world_size
+        self._step_loss = loss
         self._take_model_step()
-        self._last_metrics["loss"] = loss
+        if self.wall_clock_breakdown():
+            self.tput_timer.stop()
         return loss
 
     @torch.no_grad()
@@ -1001,6 +1171,252 @@ class DeepSpeedEngine:
                                    generator=self._micro_generator(),
                                    train=False)
         return loss
+
+    # ------------------------------------------------------------------
+    # telemetry (deepspeed_tpu_torch/telemetry/; JAX engine.py:1023-1145,
+    # 1205-1411, 2898-2920)
+    # ------------------------------------------------------------------
+    def _arm_telemetry(self):
+        """Build the telemetry session (span tracer + metrics registry/
+        stream + MFU accounting) when the ``telemetry`` config block asks
+        for it. Disarmed engines hold ``self._tracer = None``: every
+        instrumentation site is one attribute check and the step is
+        unchanged. A stream asked for with the master switch off would
+        observe nothing, so that DISARMED state warns. The metrics
+        stream is rank 0's; every rank traces and counts."""
+        tc = self._config.telemetry
+        self._telemetry = None
+        self._tracer = None
+        self._lane_train = self._lane_ckpt = 0
+        self._mfu_n_params = self._mfu_tokens_per_step = None
+        if not tc[TELEMETRY_ENABLED]:
+            if tc[TELEMETRY_METRICS_JSONL]:
+                log_dist("telemetry: DISARMED — telemetry.metrics_jsonl is "
+                         "set but telemetry.enabled=false, so no trace, step "
+                         "stream or MFU accounting will be produced; set "
+                         "telemetry.enabled=true to arm it", ranks=[0],
+                         level=logging.WARNING)
+            return
+        from deepspeed_tpu_torch.telemetry import Telemetry
+
+        self._telemetry = Telemetry(
+            trace=tc[TELEMETRY_TRACE],
+            trace_capacity=tc[TELEMETRY_TRACE_CAPACITY],
+            metrics_jsonl=tc[TELEMETRY_METRICS_JSONL]
+            if self.dp_rank == 0 else None,
+            metrics_fsync=tc[TELEMETRY_METRICS_FSYNC],
+            mfu=tc[TELEMETRY_MFU],
+            peak_tflops_per_device=tc[TELEMETRY_PEAK_TFLOPS])
+        tr = self._tracer = self._telemetry.tracer
+        if tr is not None:
+            self._lane_train = tr.lane("train")
+            self._lane_ckpt = tr.lane("ckpt")
+            tr.intern("optimizer_step", args=("global_step",))
+            tr.intern("overflow_skip", args=("global_step",))
+        log_dist(f"telemetry armed: trace={tc[TELEMETRY_TRACE]} (capacity "
+                 f"{tc[TELEMETRY_TRACE_CAPACITY]}), metrics_jsonl="
+                 f"{tc[TELEMETRY_METRICS_JSONL] or 'off'}, "
+                 f"mfu={tc[TELEMETRY_MFU]}", ranks=[0])
+
+    def close_telemetry(self):
+        """Close the metrics stream's file handle. Idempotent; also runs at
+        GC. The session stays readable."""
+        tel = getattr(self, "_telemetry", None)
+        if tel is not None:
+            tel.close()
+
+    def __del__(self):
+        try:
+            self.close_telemetry()
+        except Exception:  # interpreter teardown can fail imports mid-GC;
+            # never raise from __del__
+            pass
+
+    @property
+    def telemetry(self):
+        """The armed Telemetry session, or None."""
+        return self._telemetry
+
+    def export_trace(self, path, complete_events=True):
+        """Write the retained trace as Chrome-trace-event JSON (loadable in
+        chrome://tracing / Perfetto); None when tracing is disarmed. Spans
+        are host time (telemetry/trace.py)."""
+        tr = self._tracer
+        if tr is None:
+            return None
+        return tr.export_chrome_trace(path, complete_events=complete_events)
+
+    def _register_micro_step(self, dev_batch):
+        """First dispatch: the 6ND inputs, and the micro step's capture by
+        shape with the MFU ledger (its FLOPs are counted at report time)
+        and with the memory ledger (its transient, every micro step)."""
+        if self._mfu_tokens_per_step is not None:
+            return
+        self._note_mfu_workload(dev_batch)
+        gas = self.gradient_accumulation_steps()
+        from deepspeed_tpu_torch.telemetry import mfu
+
+        mfu.register_loss_step(self._telemetry.mfu, "micro_step",
+                               self.module, dev_batch, calls_per_step=gas)
+        if self._memacct is not None:
+            batch_bytes = memory_accounting.tree_device_bytes(dev_batch)
+            self._memacct.register("micro_step", calls_per_step=gas,
+                                   argument_bytes=batch_bytes)
+            self._memacct.register("apply_step")
+
+    def _note_mfu_workload(self, batch):
+        """Record the 6ND inputs once: the parameter count and the tokens of
+        one optimizer step (the largest integer leaf of a micro-batch times
+        gas, over every rank of the data-parallel group)."""
+        self._mfu_n_params = sum(p.numel() for p in self.params)
+        tokens = 0
+        leaves = batch.values() if isinstance(batch, dict) else [batch]
+        for leaf in leaves:
+            if isinstance(leaf, torch.Tensor) and not leaf.is_floating_point():
+                tokens = max(tokens, leaf.numel())
+        self._mfu_tokens_per_step = tokens * self.gradient_accumulation_steps() \
+            * self.dp_world_size
+
+    def _mfu_report(self):
+        from deepspeed_tpu_torch.telemetry import mfu
+
+        tel = self._telemetry
+        model_flops = None
+        if self._mfu_n_params and self._mfu_tokens_per_step:
+            model_flops = mfu.model_flops_per_step(self._mfu_n_params,
+                                                   self._mfu_tokens_per_step)
+        rep = tel.mfu.report(
+            step_time_s=tel.step_time_s(), n_devices=self.dp_world_size,
+            model_flops=model_flops, device_kind=mfu.device_kind(self.device))
+        rep["n_params"] = self._mfu_n_params
+        rep["tokens_per_step"] = self._mfu_tokens_per_step
+        return rep
+
+    def telemetry_report(self):
+        """ONE observability report (JAX ``telemetry_report``): the legacy
+        builders (``_last_metrics``, ``comm_volume_report()``) behind one
+        dict without replacing them, the memory report, and, when armed,
+        the metrics-registry snapshot, the trace summary and the MFU/HFU
+        ledger (``mfu``; its first call counts the registered programs'
+        FLOPs). Reading ``last_metrics`` here fetches its tensors."""
+        last = self._last_metrics
+        report = {
+            "engine": type(self).__name__,
+            "global_steps": self.global_steps,
+            "telemetry_armed": self._telemetry is not None,
+            "last_metrics": self._host_metrics(last)
+            if isinstance(last, dict) else last,
+            "comm": self.comm_volume_report(),
+            "memory": self.memory_report(),
+        }
+        tel = self._telemetry
+        if tel is None:
+            return report
+        report["metrics"] = tel.registry.snapshot()
+        if tel.tracer is not None:
+            report["trace"] = tel.tracer.summary()
+        if tel.mfu is not None:
+            report["mfu"] = self._mfu_report()
+        return report
+
+    # -- memory accounting (runtime/memory_accounting.py) ---------------
+    def _arm_memory_accounting(self):
+        """Arm the measured side of the memory accounting when telemetry is
+        on and ``telemetry.memory`` asks for it: each micro step and
+        optimizer step is a window over the CUDA allocator's peak, the step
+        boundary notes the bytes in use and the ``mem`` gauges, and the
+        analytic persistent bytes are held against those within
+        ``UNDERESTIMATE_TOLERANCE``. A disarmed engine never touches the
+        allocator's peak counter."""
+        tc = self._config.telemetry
+        self._memacct = None
+        self._lane_mem = 0
+        if not tc[TELEMETRY_ENABLED]:
+            return
+        if not tc[TELEMETRY_MEMORY]:
+            log_dist("memory accounting: DISARMED — telemetry.memory=false; "
+                     "memory_report() will carry the analytic component "
+                     "model only, with no measured windows and no per-step "
+                     "memory gauges", ranks=[0], level=logging.WARNING)
+            return
+        self._memacct = memory_accounting.MemoryAccounting(self.device)
+        self._memacct.expect(
+            "train_state", "persistent train state: parameters, fp32 "
+            "accumulator, master, optimizer state, loss scaler",
+            lambda: self._analytic_memory_components()["persistent_bytes"],
+            field="in_use_bytes")
+        if self._tracer is not None:
+            self._lane_mem = self._tracer.lane("mem")
+            self._tracer.intern("hbm_in_use", args=("bytes", "peak"))
+
+    def memory_report(self):
+        """The memory leg of the accounting (JAX ``memory_report``): the
+        analytic per-component state bytes (this rank's tensors), the
+        measured windows with their cross-checks when armed, and the
+        allocator's in-use/peak bytes and headroom (None on the CPU)."""
+        return memory_accounting.memory_report(
+            analytic=self._analytic_memory_components(),
+            accounting=self._memacct, devices=self.device,
+            extra={"engine": type(self).__name__})
+
+    def _memory_step_gauges(self):
+        """Per-step ``mem`` gauges: the allocator's bytes in use and its
+        peak (host-side counters, no sync; nothing on the CPU)."""
+        acct = self._memacct
+        if acct is None or not acct.cuda:
+            return
+        in_use = torch.cuda.memory_allocated(self.device)
+        peak = acct.device_peak_bytes()
+        acct.note("train_state", in_use_bytes=in_use)
+        reg = self._telemetry.registry
+        reg.gauge("mem_bytes_in_use").set(in_use)
+        reg.gauge("mem_peak_bytes_in_use").set(peak)
+        if self._tracer is not None:
+            self._tracer.instant("hbm_in_use", self._lane_mem, a0=in_use,
+                                 a1=peak)
+
+    # -- the flops profiler (JAX engine.py:2898-2920) -------------------
+    def _maybe_profile(self, dev_batch):
+        """At ``profile_step``'s first micro step: count the micro step's
+        FLOPs (a replay on meta tensors: no launch) and open a timing
+        window around the real one (CUDA events, read once at its end);
+        ``_finish_profile`` prints the profile."""
+        cfg = self._config.flops_profiler_config
+        if not cfg.enabled or self._profiled \
+                or self.global_steps + 1 < cfg.profile_step \
+                or self.micro_steps % self.gradient_accumulation_steps():
+            return
+        self._profiled = True
+        from deepspeed_tpu_torch.profiling.flops_profiler import \
+            FlopsProfiler
+
+        prof = FlopsProfiler(engine=self)
+        prof.profile_params(self.params)
+        prof.profile_comm(self.comm_volume_report())
+        prof.profile_step(self.module, dev_batch)
+        if self.device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+        else:
+            start = time.perf_counter()
+        self._profile_window = (prof, start)
+
+    def _finish_profile(self):
+        prof, start = self._profile_window
+        self._profile_window = None
+        if self.device.type == "cuda":
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            end.synchronize()
+            prof._duration = start.elapsed_time(end) / 1e3
+        else:
+            prof._duration = time.perf_counter() - start
+        cfg = self._config.flops_profiler_config
+        self.flops_profile = prof
+        prof.print_model_profile(profile_step=cfg.profile_step,
+                                 module_depth=cfg.module_depth,
+                                 top_modules=cfg.top_modules,
+                                 detailed=cfg.detailed)
 
     # ------------------------------------------------------------------
     # checkpoints (reference engine.py:4144-4216, 4312, 4671, 4941-5049):
@@ -1148,6 +1564,7 @@ class DeepSpeedEngine:
             raise RuntimeError("save_checkpoint between forward() and "
                                "backward(): commit the micro-batch first")
         tag = f"global_step{self.global_steps}" if tag is None else tag
+        _t0 = time.perf_counter()
         self._checkpoint_tag_validation(tag)
         res = self._config.resilience
         leaves = self._state_leaves()
@@ -1208,6 +1625,9 @@ class DeepSpeedEngine:
             self.dp_group.barrier()
         log_dist(f"Saved checkpoint {os.path.join(save_dir, str(tag))}",
                  ranks=[0])
+        if self._tracer is not None:
+            self._tracer.complete("ckpt_sync_commit", self._lane_ckpt, _t0,
+                                  a0=self.global_steps)
         return True
 
     # ------------------------------------------------------------------
@@ -1270,8 +1690,12 @@ class DeepSpeedEngine:
             "scaler_bytes":
                 memory_accounting.tensor_bytes(list(self.scaler or ())),
         }
-        return {"components": components,
-                "persistent_bytes": sum(components.values())}
+        transient = {"gathered_stage3_bytes": 0,
+                     "quantization_scratch_bytes": 0}
+        persistent = sum(components.values())
+        return {"components": components, "transient": transient,
+                "persistent_bytes": persistent, "transient_bytes": 0,
+                "peak_bytes": persistent}
 
     def _offload_memory_components(self):
         tb = memory_accounting.tensor_bytes
@@ -1291,9 +1715,11 @@ class DeepSpeedEngine:
                 "grad_accum_bytes": tb([self._host_accum]),
                 "pinned_staging_bytes": tb(self._staging)}
         persistent = sum(components.values())
+        transient_total = sum(transient.values())
         return {"components": components, "persistent_bytes": persistent,
-                "transient": transient,
-                "device_bytes": persistent + sum(transient.values()),
+                "transient": transient, "transient_bytes": transient_total,
+                "peak_bytes": persistent + transient_total,
+                "device_bytes": persistent + transient_total,
                 "host": host, "host_bytes": sum(host.values())}
 
     def _topology(self):

@@ -52,11 +52,21 @@ The single-pool feature set (ROADMAP A10b):
   K active pages per lane instead of all W, and pages that fall below
   every remaining query's window return to the allocator early.
 
+Telemetry (``telemetry=``: a ``Telemetry`` or a dict of its keyword
+arguments; the JAX engine's ``_arm_telemetry``): host-time spans and
+instants on lane ``serve`` (``serving_step``, ``deadline_sweep``,
+``prefill_tick``, ``decode_step``, ``admit``, ``drain_requested``,
+``journal_commit``, ``abort_<reason>``, ``recover``), one JSONL record
+per step (host values only: no fetch of its own), the decode MFU from the
+dispatched programs' FLOPs (counted on meta tensors at report time), and
+the memory report (the pool priced byte for byte, each dispatch a window
+over the CUDA allocator's peak). Warmup traffic emits spans but no step
+record.
+
 Each option that cannot arm warns DISARMED naming its blocker and serves
 without it. Not ported yet, each raising NotImplementedError naming its
 ROADMAP item: pools split into shards and the fleet's request hand-off
-(A10c), and the telemetry session, traces, memory report and program
-registry (A17).
+(A10c), and the program registry (A17b).
 """
 import itertools
 import time
@@ -93,6 +103,16 @@ _M32 = 0xFFFFFFFF
 
 def _not_ported(what, item):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+def _tree_numel(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return tree.numel()
+    if isinstance(tree, dict):
+        return sum(_tree_numel(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_numel(v) for v in tree)
+    return 0
 
 
 def _pool_write(pool, scales, l, blk, off, rows, quantized):
@@ -368,8 +388,6 @@ class InferenceEngine:
         if shards != 1 or mesh is not None:
             raise _not_ported("serving over pools split into shards "
                               "(shards > 1, mesh)", "A10c")
-        if telemetry is not None:
-            raise _not_ported("serving telemetry (telemetry)", "A17")
         assert prefill_chunk >= _MIN_BUCKET \
             and (prefill_chunk & (prefill_chunk - 1)) == 0, \
             f"prefill_chunk must be a power of two >= {_MIN_BUCKET}"
@@ -406,6 +424,7 @@ class InferenceEngine:
         self._rids = itertools.count()
         self._warming = False
         self._drain_requested = False
+        self._arm_telemetry(telemetry)
         rel_cfg = reliability if isinstance(reliability, ReliabilityConfig) \
             else ReliabilityConfig(**(reliability or {}))
         self.reliability = Reliability(self, rel_cfg)
@@ -570,19 +589,80 @@ class InferenceEngine:
                 "attention.", e)
             return None
 
+    def _arm_telemetry(self, spec):
+        """Arm the serving telemetry session from the ``telemetry=``
+        kwarg: ``None`` (off), a ``Telemetry`` instance, or a dict of
+        Telemetry kwargs (plus ``"enabled"``). Disarmed serving holds
+        ``self._tracer = None``: one attribute check per step. A config
+        handed in with ``enabled=false`` or with every channel off would
+        observe nothing, so it warns DISARMED instead of silently dropping
+        the ask."""
+        self.telemetry = None
+        self._tracer = None
+        self._owns_telemetry = False
+        self._lane_serve = 0
+        self._memacct = None
+        if spec is None:
+            return
+        from deepspeed_tpu_torch.runtime.memory_accounting import \
+            MemoryAccounting
+        from deepspeed_tpu_torch.telemetry import Telemetry
+
+        if isinstance(spec, Telemetry):
+            tel = spec
+        else:
+            self._owns_telemetry = True
+            cfg = dict(spec)
+            if not cfg.pop("enabled", True):
+                logger.warning(
+                    "serving telemetry: DISARMED — a telemetry config was "
+                    "passed with enabled=false; no trace, step stream or "
+                    "MFU accounting will be produced")
+                return
+            tel = Telemetry(**cfg)
+        if tel.tracer is None and tel.stream is None and tel.mfu is None:
+            logger.warning(
+                "serving telemetry: every channel is off (trace=false, "
+                "metrics_jsonl unset, mfu=false) — effectively DISARMED")
+        self.telemetry = tel
+        self._tracer = tel.tracer
+        if self._tracer is not None:
+            self._lane_serve = self._tracer.lane("serve")
+            self._tracer.intern("serving_step", args=("step",))
+            self._tracer.intern("decode_step", args=("lanes",))
+            self._tracer.intern("admit", args=("rid",))
+        # the measured side: each dispatch a window over the allocator
+        self._memacct = MemoryAccounting(self.device)
+
+    def export_trace(self, path, complete_events=True):
+        """Chrome-trace JSON of the retained events (None when tracing
+        is disarmed); spans are host time."""
+        tr = self._tracer
+        if tr is None:
+            return None
+        return tr.export_chrome_trace(path, complete_events=complete_events)
+
+    def close_telemetry(self):
+        """Close the metrics-stream file handle of a telemetry session
+        THIS engine created from a dict spec (a caller-provided
+        ``Telemetry`` instance is the caller's to close). Idempotent;
+        also runs at GC."""
+        if getattr(self, "_owns_telemetry", False) \
+                and self.telemetry is not None:
+            self.telemetry.close()
+
+    def __del__(self):
+        try:
+            self.close_telemetry()
+        except Exception:  # interpreter teardown can fail imports mid-GC;
+            # never raise from __del__
+            pass
+
     # -- not ported yet -------------------------------------------------
     @property
     def program_registry(self):
-        raise _not_ported("the serving program registry", "A17")
-
-    def export_trace(self, path, complete_events=True):
-        raise _not_ported("serving traces (export_trace)", "A17")
-
-    def telemetry_report(self):
-        raise _not_ported("the serving telemetry report", "A17")
-
-    def memory_report(self):
-        raise _not_ported("the serving memory report", "A17")
+        raise _not_ported("the serving program registry (contracts on the "
+                          "dispatched programs)", "A17b")
 
     def export_request(self, rid):
         raise _not_ported("request hand-off between replicas "
@@ -662,6 +742,9 @@ class InferenceEngine:
                     "evictions": 0,
                 }
                 self.metrics.record_finish(rid, ABORT_EXPIRED)
+                if self._tracer is not None:
+                    self._tracer.instant(f"abort_{ABORT_EXPIRED}",
+                                         self._lane_serve, a0=rid)
                 return rid
         req = Request(rid=rid, prompt=prompt,
                       max_new_tokens=int(max_new_tokens),
@@ -711,12 +794,17 @@ class InferenceEngine:
         host-side bookkeeping on a SINGLE batched token+finiteness
         fetch, and the journal's step-boundary commit."""
         self._step_idx += 1
+        tr = self._tracer
+        _t0 = tr.begin() if tr is not None else 0.0
         slow = chaos.serving_slow_step_s(self._step_idx)
         if slow:
             time.sleep(slow)
         if self._watchdog is not None:
             self._watchdog.observe_serving_step(self._step_idx)
         if self._drain_requested:
+            if tr is not None and not self.scheduler.draining:
+                tr.instant("drain_requested", self._lane_serve,
+                           a0=self._step_idx)
             self.scheduler.draining = True
         events = {"admitted": [], "finished": [], "evicted": [],
                   "cancelled": [], "expired": [], "budget": [],
@@ -724,11 +812,27 @@ class InferenceEngine:
         rid = self.scheduler.chaos_cancel()
         if rid is not None and self.cancel(rid):
             events["cancelled"].append(rid)
-        self._enforce_deadlines(events)
-        self._prefill_tick(events)
-        decoded = self._decode_tick(events)
+        if tr is None:
+            self._enforce_deadlines(events)
+            self._prefill_tick(events)
+            decoded = self._decode_tick(events)
+        else:
+            _t = tr.begin()
+            self._enforce_deadlines(events)
+            tr.complete("deadline_sweep", self._lane_serve, _t)
+            _t = tr.begin()
+            self._prefill_tick(events)
+            tr.complete("prefill_tick", self._lane_serve, _t)
+            _t = tr.begin()
+            decoded = self._decode_tick(events)
+            tr.complete("decode_step", self._lane_serve, _t, a0=decoded)
+            for rid_ in events["admitted"]:
+                tr.instant("admit", self._lane_serve, a0=rid_)
         self.scheduler.on_drained()
         self.reliability.on_step_end()
+        if tr is not None and self.reliability.journal is not None:
+            tr.instant("journal_commit", self._lane_serve,
+                       a0=self.reliability.journal_depth())
         occ = self.pool.occupancy()
         frag = self.pool.fragmentation()
         qd = self.scheduler.queue_depth()
@@ -757,6 +861,11 @@ class InferenceEngine:
             "window_expired_frees": self.metrics.window_expired_frees,
             "short_ttft_p95": self.metrics.class_ttft_p95("short"),
         }
+        if tr is not None:
+            tr.complete("serving_step", self._lane_serve, _t0,
+                        a0=self._step_idx)
+        if self.telemetry is not None and not self._warming:
+            self.telemetry.on_step(self._step_idx, self._last_metrics)
         return events
 
     def serve(self, *, max_steps=100000) -> dict:
@@ -842,6 +951,8 @@ class InferenceEngine:
             rids.append(rid)
             max_rid = max(max_rid, rid)
         self._rids = itertools.count(max_rid + 1)
+        if self._tracer is not None:
+            self._tracer.instant("recover", self._lane_serve, a0=len(rids))
         logger.info("recover: re-submitted %d journaled requests from %s",
                     len(rids), journal_path)
         return rids
@@ -926,6 +1037,63 @@ class InferenceEngine:
                            "programs": self.dispatch_shapes.names()}
         return rep
 
+    def telemetry_report(self) -> dict:
+        """Unified observability report (the serving face of the training
+        engine's ``telemetry_report()``): the full ``serving_report()`` plus
+        the telemetry sections — metrics registry snapshot, trace summary,
+        the memory report and the decode MFU/HFU ledger (``mfu``; its first
+        call counts the dispatched programs' FLOPs on meta tensors)."""
+        rep = self.serving_report()
+        tel = self.telemetry
+        # the training engine's top-level schema, mirrored under
+        # "telemetry" as the JAX engine does
+        rep["telemetry_armed"] = tel is not None
+        rep["telemetry"] = {"armed": tel is not None}
+        rep["memory"] = self.memory_report()
+        if tel is None:
+            return rep
+        rep["metrics"] = rep["telemetry"]["metrics"] = \
+            tel.registry.snapshot()
+        if tel.tracer is not None:
+            rep["trace"] = rep["telemetry"]["trace"] = tel.tracer.summary()
+        if tel.mfu is not None:
+            from deepspeed_tpu_torch.telemetry import mfu
+
+            n_params = _tree_numel(self.params)
+            # decode model FLOPs: 2ND forward-only over every dispatched
+            # lane (idle lanes still compute)
+            rep["mfu"] = tel.mfu.report(
+                step_time_s=self.metrics.step_time() or tel.step_time_s(),
+                n_devices=max(1, self.shards),
+                model_flops=mfu.model_flops_per_step(
+                    n_params, self.max_slots, fwd_only=True),
+                device_kind=mfu.device_kind(self.device))
+            rep["mfu"]["n_params"] = n_params
+            rep["mfu"]["tokens_per_step"] = self.max_slots
+        return rep
+
+    def memory_report(self) -> dict:
+        """The serving face of the memory accounting: analytic device
+        bytes — the decode weights plus the paged KV block pool, priced
+        through ``memory_accounting.kv_pool_bytes`` (the pool's own
+        ``device_bytes()``, byte-exact against its tensors) — beside the
+        measured windows of each dispatched program and the allocator's
+        in-use/peak bytes (None on the CPU). Cold report builder."""
+        from deepspeed_tpu_torch.runtime import memory_accounting as mem_acc
+
+        pool_bytes = self.pool.device_bytes()
+        params_bytes = mem_acc.tree_device_bytes(self.params)
+        analytic = {
+            "components": {"params_bytes": params_bytes,
+                           "kv_pool_bytes": pool_bytes},
+            "persistent_bytes": params_bytes + pool_bytes,
+            "transient_bytes": 0,
+            "peak_bytes": params_bytes + pool_bytes,
+        }
+        return mem_acc.memory_report(
+            analytic=analytic, accounting=self._memacct, devices=self.device,
+            extra={"engine": type(self).__name__})
+
     def n_pool_tensors(self) -> int:
         return len(self.pool.tensors.arrays)
 
@@ -944,8 +1112,21 @@ class InferenceEngine:
         signature."""
         pools = self.pool.tensors
         self.dispatch_shapes.record(name, pools.arrays + (buf,))
+        acct = self._memacct
+        if self.telemetry is not None:
+            # capture by shape: the FLOPs are counted at report time
+            from deepspeed_tpu_torch.telemetry import mfu
+
+            mfu.register_fn(self.telemetry.mfu, name, fn,
+                            (self.params, self.cfg, tuple(pools), buf)
+                            + args)
+            acct.register(name)
+            acct.begin(name)
         with torch.no_grad():
-            return fn(self.params, self.cfg, tuple(pools), buf, *args)
+            out = fn(self.params, self.cfg, tuple(pools), buf, *args)
+        if acct is not None:
+            acct.end(name)
+        return out
 
     @staticmethod
     def _fetch(out):
@@ -1040,6 +1221,9 @@ class InferenceEngine:
         result recorded with the explicit reason."""
         self.scheduler.finish(req, reason)
         self._cleanup(req, reason)
+        if self._tracer is not None:
+            self._tracer.instant(f"abort_{reason}", self._lane_serve,
+                                 a0=req.rid)
         if events is not None and reason in events:
             events[reason].append(req.rid)
 

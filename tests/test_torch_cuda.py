@@ -421,6 +421,122 @@ def test_dropout_and_the_step_make_no_host_sync(cuda, precision):
     assert torch.isfinite(loss).item()
 
 
+def _telemetry_engine(cuda, tmp_path, jsonl, precision="bf16"):
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+
+    dtype = {"fp16": torch.float16, "bf16": torch.bfloat16}[precision]
+    cfg = GPT2Config(vocab_size=256, n_positions=128, n_embd=128, n_layer=2,
+                     n_head=2, dtype=dtype)
+    tel = {"enabled": True, "trace": True, "mfu": True, "memory": True}
+    if jsonl:
+        tel["metrics_jsonl"] = str(tmp_path / "m.jsonl")
+    ds = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+          "gradient_accumulation_steps": 2, "gradient_clipping": 1.0,
+          "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+          "steps_per_print": 10 ** 9, precision: {"enabled": True},
+          "telemetry": tel}
+    eng = deepspeed_tpu_torch.initialize(model=GPT2Model(cfg),
+                                         config_params=ds)[0]
+    ids = torch.randint(0, 256, (2, 2, 128), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    batch = {"input_ids": ids, "labels": ids}
+    eng.train_batch(batch=batch)          # builds and loads the library
+    torch.cuda.synchronize()
+    return eng, batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["fp16", "bf16"])
+def test_armed_step_without_a_stream_makes_no_host_sync(cuda, tmp_path,
+                                                        precision):
+    """Trace, MFU and memory armed (spans on the host clock, the
+    allocator's host-side counters, the micro step's shapes captured): a
+    train_batch runs under torch.cuda.set_sync_debug_mode("error")."""
+    eng, batch = _telemetry_engine(cuda, tmp_path, jsonl=False,
+                                   precision=precision)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        eng.train_batch(batch=batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rep = eng.telemetry_report()
+    assert rep["memory"]["measured"]["micro_step"]["transient_bytes"] > 0
+    assert "hbm_in_use" in [e["name"] for e in eng.telemetry.tracer.events()]
+
+
+@pytest.mark.cuda
+def test_the_metrics_stream_costs_one_fetch_per_step(cuda, tmp_path):
+    """With metrics_jsonl the step's scalars are stacked and fetched in ONE
+    device-to-host copy: exactly one synchronizing call per step."""
+    import warnings
+
+    from deepspeed_tpu_torch.telemetry.metrics import MetricsStream
+
+    eng, batch = _telemetry_engine(cuda, tmp_path, jsonl=True)
+    for _ in range(2):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                eng.train_batch(batch=batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        assert len(syncs) == 1, [str(w.message) for w in syncs]
+    eng.close_telemetry()
+    recs = MetricsStream.replay(str(tmp_path / "m.jsonl"))
+    assert [r["step"] for r in recs] == [1, 2, 3]
+    assert all(isinstance(r["loss"], float) and r["overflow"] is False
+               for r in recs)
+
+
+@pytest.mark.cuda
+def test_peak_counter_disarmed_untouched_armed_kept(cuda, tmp_path):
+    """A disarmed engine leaves the allocator's peak counter as it found
+    it; an armed one resets it for its windows, and its report's device
+    peak is what the counter would have read with no reset."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+
+    cfg = GPT2Config(vocab_size=256, n_positions=128, n_embd=128, n_layer=2,
+                     n_head=2, dtype=torch.bfloat16)
+    ds = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+          "gradient_accumulation_steps": 2,
+          "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+          "steps_per_print": 10 ** 9, "bf16": {"enabled": True}}
+    ids = torch.randint(0, 256, (2, 2, 128), device=cuda)
+    batch = {"input_ids": ids, "labels": ids}
+    eng = deepspeed_tpu_torch.initialize(model=GPT2Model(cfg),
+                                         config_params=ds)[0]
+    eng.train_batch(batch=batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    big = torch.empty(2 ** 30, dtype=torch.uint8, device=cuda)
+    del big
+    marked = torch.cuda.max_memory_allocated()
+    eng.train_batch(batch=batch)
+    assert torch.cuda.max_memory_allocated() == marked
+    del eng         # the step boundary's bytes in use are the armed one's
+    torch.cuda.reset_peak_memory_stats()
+    big = torch.empty(2 ** 30, dtype=torch.uint8, device=cuda)
+    del big
+    marked = torch.cuda.max_memory_allocated()
+    # the armed engine's windows all open after this reset
+    armed, _ = _telemetry_engine(cuda, tmp_path, jsonl=False)
+    armed.train_batch(batch=batch)
+    assert torch.cuda.max_memory_allocated() < marked       # it was reset
+    rep = armed.memory_report()
+    assert rep["devices"][0]["peak_bytes_in_use"] == marked
+    # the state is priced from the tensors held: at most what is in use
+    # (at this tiny width the process's other allocations, cuBLAS
+    # workspaces among them, outweigh it: the 15 % gate is phase 20's,
+    # at full width)
+    check = rep["cross_check"]["train_state"]
+    assert check["analytic_bytes"] <= check["measured_bytes"]
+
+
 @pytest.mark.cuda
 def test_nccl_world_of_one_stage2_step_makes_no_host_sync(cuda, monkeypatch):
     """A 1-rank NCCL world at ZeRO stage 2 (bf16): the micro steps'

@@ -513,6 +513,33 @@ def test_offload_matches_the_jax_offload_engine(world, dp):
             _collectives(got["report"]["collectives"])
 
 
+@pytest.mark.parametrize("job,stage,offload", [
+    ("s0g2", 0, False), ("s1g2", 1, False), ("s2g2", 2, False),
+    ("offload", 2, True)])
+def test_analytic_memory_equals_the_jax_engine_at_dp2(world, job, stage,
+                                                      offload):
+    """Each rank's component bytes in the gloo world of 2 equal the JAX
+    engine's per-device bytes at mesh data 2, byte for byte, but one: at
+    fp32 from stage 1 the JAX engine's parameters are its master (it
+    updates their shards in place), while the port keeps this rank's fp32
+    shards of the sharded leaves as a master of their own, which it prices
+    under ``master_bytes``. Under offload the port's device also holds its
+    flat compute-dtype buffer, a component the JAX engine does not have."""
+    jeng = _jax_engine(2, stage, 2, offload=offload)
+    ids = W.global_batches(0, 1, 1, 2 * W.MICRO)[0]
+    jeng._ensure_state(_first_micro({"input_ids": ids, "labels": ids}))
+    want = dict(jeng._analytic_memory_components()["components"])
+    layout = world("dp1")[0]["s1g2"]["layout"]
+    rep = sum(int(np.prod(layout[name]["full"])) * 4
+              for _, name, _, d in _jax_zero_dims(2) if d is None)
+    assert want["master_bytes"] == 0
+    if stage and not offload:
+        want["master_bytes"] = (want["params_bytes"] - rep) // 2
+    for r, rank in enumerate(world("dp2")):
+        got = rank[job]["memory"]["components"]
+        assert {k: got[k] for k in want} == want, (job, r)
+
+
 @pytest.mark.parametrize("dp", [2, 4])
 def test_offload_ranks_hold_their_regions_on_the_host(world, dp):
     dims = _jax_zero_dims(dp)
