@@ -194,6 +194,34 @@ failure:
               engine's, memory_report()'s pool bytes equal the pool
               tensors' bytes, one serving_step span and one JSONL record
               per engine step after warmup, the decode MFU printed
+ 21. programs the program lint (deepspeed_tpu_torch/telemetry/
+              program_lint.py) over the slice's engines, every dispatch
+              observed on the card under set_sync_debug_mode("error"):
+              gpt2-350m bf16 (phase 4's config) through train_batch,
+              forward/backward/step and eval_loss, linted and unlinted
+              (losses bit for bit, B1-B3 launches equal, zero findings);
+              ZeRO stage 2 in an NCCL world of one under a hand-declared
+              count of its all-reduces (at dp 1 every leaf is replicated:
+              no parameter all-gather), whose planted fault (one gradient
+              all-reduce skipped) is one program-op-count finding;
+              ZeRO-Offload's micro steps; the CPU corpus's three serving
+              engines (plain, prefix cache + speculation, sparse context)
+              at gpt2-350m, linted and unlinted (tokens bit for bit, zero
+              findings), and two planted faults in the decode step (an
+              .item(), the pool replaced by a copy), one finding each
+              (program-host-transfer, program-donation). Every program
+              name equals the CPU corpus's. Wall time of the linted and
+              unlinted drive, of the lint, and the unlinted step's
+ 22. host activations
+              gpt2-350m bf16, dropout 0.1, seq 1024, micro 8, gas 1, each
+              block under checkpointing.checkpoint, Adam, 3 steps: on-device
+              remat, then activation_checkpointing.cpu_checkpointing (the
+              matmul outputs in pinned host memory). Losses and one micro
+              step's gradients bit for bit; the third step under
+              set_sync_debug_mode("error"); 96 saved tensors of 24 x 8192 x
+              18,432 B, all pinned, all served to the recompute; B1 twice
+              and B2/B3 once per block; peak memory, step ms and, from one
+              profiled step, D2H and H2D GB/s
 The line before the last is the kernels JSON (the fp16 rows named
 <kernel>_fp16, their launches from phase 13); the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card and nvcc.
@@ -270,6 +298,24 @@ FP16_REMAT_POLICY = "attn_out"
 
 def log(msg):
     print(msg, flush=True)
+
+
+# {phase function name: wall seconds}, in the order the phases ran
+PHASE_WALLS = {}
+
+
+def timed(phase, *args):
+    """Run ``phase(*args)``, log its wall time and keep it in
+    ``PHASE_WALLS``."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    wall = time.perf_counter() - t0
+    key = phase.__name__
+    if args and isinstance(args[-1], str):       # phase_profile's label
+        key = f"{key} {args[-1]}"
+    PHASE_WALLS[key] = wall
+    log(f"phase wall: {key} {wall:.3f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3322,6 +3368,415 @@ def _telemetry_serve(env, out):
                            f"serving_step spans, {len(records)} records, "
                            f"{n_steps} steps")
 
+# phase 21: the program lint on the slice's engines
+SERVE_FAULTS = ("host-transfer", "donation")
+
+
+def _drive_train(engine, batch):
+    """program_lint.drive_base on ``engine`` with every launch count set
+    to 0 just before and read just after; returns (the losses it
+    produced, B1-B3 launches, wall seconds)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    gas = engine.gradient_accumulation_steps()
+    losses = []
+    torch.cuda.synchronize()
+    fa.reset_launch_counts()
+    t0 = time.perf_counter()
+    losses.append(engine.train_batch(batch=batch))
+    for i in range(gas):
+        micro = {k: v[i] for k, v in batch.items()}
+        loss = engine(micro)
+        engine.backward(loss)
+        engine.step()
+        losses.append(loss.detach())
+    losses.append(engine.eval_loss({k: v[0] for k, v in batch.items()}))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return [float(x) for x in losses], dict(fa.LAUNCHES), wall
+
+
+def _lint(registries, label, want_rules=()):
+    """Lint ``registries``; raises unless the new findings are exactly
+    ``want_rules`` (one each); returns (findings, seconds)."""
+    from deepspeed_tpu_torch.telemetry.program_lint import lint_programs
+
+    t0 = time.perf_counter()
+    res = lint_programs(registries, use_baseline=False)
+    sec = time.perf_counter() - t0
+    got = [f.rule for f in res.new]
+    if sorted(got) != sorted(want_rules):
+        raise RuntimeError(f"programs {label}: findings "
+                           f"{[f.format() for f in res.new]}, expected "
+                           f"{list(want_rules) or 'none'}")
+    return res.new, sec
+
+
+def _names(registries):
+    return {reg.engine: set(reg.names()) for reg in registries}
+
+
+def _serve_fault(model, fault):
+    """One plain engine of the serving corpus (its first request) with a
+    planted fault in the decode step: a host read of the output
+    (``host-transfer``), or the pool replaced by a fresh copy after the
+    dispatch (``donation``)."""
+    import numpy as np
+
+    from deepspeed_tpu_torch.serving import InferenceEngine
+    from deepspeed_tpu_torch.serving import engine as serving_engine
+
+    eng = InferenceEngine(model, None, max_slots=3, kv_block_size=4,
+                          prefill_chunk=8, max_blocks_per_seq=8)
+    eng.program_registry.observing = True
+    original = serving_engine._decode_step
+
+    def decode(*args, **kw):
+        out = original(*args, **kw)
+        if fault == "host-transfer":
+            out.sum().item()
+        else:
+            pool = eng.pool.tensors
+            eng.pool.tensors = pool._replace(k=pool.k.clone(),
+                                             v=pool.v.clone())
+        return out
+
+    serving_engine._decode_step = decode
+    try:
+        eng.submit(np.random.default_rng(1).integers(0, 97, 5)
+                   .astype(np.int32), max_new_tokens=4)
+        eng.serve(max_steps=100)
+    finally:
+        serving_engine._decode_step = original
+    return eng.program_registry
+
+
+def phase_programs(env, stage0):
+    """The program lint (telemetry/program_lint.py) over the slice's
+    engines on the card: module docstring, phase 21. ``stage0`` is phase
+    4's run."""
+    import torch
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch import init_distributed, initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
+    from deepspeed_tpu_torch.serving import InferenceEngine
+    from deepspeed_tpu_torch.telemetry import program_lint as pl
+
+    t_phase = time.perf_counter()
+    cpu = _names(pl.build_corpus(device="cpu"))
+    batch = _slice_batch(gpt2_config(SLICE_MODEL).vocab_size, SLICE_GAS,
+                         SLICE_MICRO, SLICE_SEQ, seed=0)
+    runs = {}
+    for linted in (False, True):
+        engine, _, _ = _slice_engine(0)
+        engine.program_registry.observing = linted
+        runs[linted] = _drive_train(engine, batch)
+        if linted:
+            base = engine.program_registry
+        else:
+            # the unlinted drive's time once warm (the first pays the
+            # process's first launches), then the step's: two more steps,
+            # the second timed
+            wall_u = _drive_train(engine, batch)[2]
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                float(engine.train_batch(batch=batch))
+                step_ms = (time.perf_counter() - t0) * 1e3
+        del engine
+        torch.cuda.empty_cache()
+    (want, want_launch, first_u), (got, got_launch, wall_l) = \
+        runs[False], runs[True]
+    if got != want:
+        raise RuntimeError(f"programs: linted losses {got} != unlinted "
+                           f"{want}")
+    if got_launch != want_launch or not all(want_launch.values()):
+        raise RuntimeError(f"programs: B1-B3 launched {got_launch} linted, "
+                           f"{want_launch} unlinted")
+    _, lint_s = _lint([base], "base")
+    log(f"programs: base {sorted(base.names())}: 0 findings; losses "
+        f"{got} bit for bit the unlinted run's; B1-B3 {got_launch} both; "
+        f"drive_base wall {wall_l:.3f} s linted / {wall_u:.3f} s unlinted "
+        f"(its first: {first_u:.3f} s), "
+        f"lint_programs {lint_s * 1e3:.2f} ms on {env['smi']}; unlinted "
+        f"train_batch {step_ms:.1f} ms (phase 4: {stage0['step_ms']:.1f} "
+        f"ms)")
+
+    # ZeRO stage 2 in an NCCL world of one, then its planted fault: one
+    # gradient all-reduce skipped under a hand-declared count (at dp 1
+    # every leaf is replicated: the step posts no parameter all-gather)
+    count = [("all-reduce", "f32", SLICE_GAS + 2)]   # the gas gradient
+    # buckets, the loss mean and the overflow flag
+    saved = _world_of_one()
+    try:
+        init_distributed()
+        engine, _, _ = _slice_engine(2, mesh={"data": 1})
+        reg = engine.program_registry
+        reg.engine = "zero2"
+        reg.observing = True
+        zloss = float(engine.train_batch(batch=batch))
+        reg.declare("fused_train_step", expect_op_counts=count)
+        _lint([reg], "ZeRO-2")
+        order = [(c.op, c.dtype, c.elements) for c in
+                 reg.get("fused_train_step").observation.collectives]
+        # the sequence the dispatcher's c10d ops show: one fp32 bucket of
+        # every gradient per micro step, then the two scalars
+        n_params = sum(p.numel() for p in engine.params)
+        want_order = [("all-reduce", "f32", n_params)] * SLICE_GAS + \
+            [("all-reduce", "f32", 1)] * 2
+        group = engine.dp_group
+        real, skipped = group.all_reduce, []
+
+        def skip_one(tensor, leaves=(), **kw):
+            if leaves and not skipped:
+                skipped.append(len(leaves))
+                return tensor
+            return real(tensor, leaves=leaves, **kw)
+
+        group.all_reduce = skip_one
+        reg.get("fused_train_step").observation = None
+        engine.train_batch(batch=batch)
+        group.all_reduce = real
+        fault, _ = _lint([reg], "ZeRO-2 fault", ["program-op-count"])
+        zero_names = set(reg.names())
+        del engine
+        torch.cuda.empty_cache()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    if zloss != want[0]:
+        raise RuntimeError(f"programs: ZeRO-2 loss {zloss} != stage 0's "
+                           f"{want[0]}")
+    if order != want_order:
+        raise RuntimeError(f"programs: ZeRO-2 posted {order}, not "
+                           f"{want_order}")
+    log(f"programs: ZeRO-2 NCCL world 1 {sorted(zero_names)}: 0 findings "
+        f"under expect_op_counts {count}, posted {order} (read off the "
+        f"c10d ops); loss bit for bit "
+        f"stage 0's; planted fault (one gradient all-reduce skipped): "
+        f"{fault[0].format()}")
+
+    engine, _, _ = _offload_engine(SLICE_MODEL, SLICE_MICRO, SLICE_GAS)
+    engine.program_registry.observing = True
+    oloss = float(engine.train_batch(batch=batch))
+    offload = engine.program_registry
+    offload.engine = "offload"
+    _lint([offload], "offload")
+    del engine
+    _release_earlier_phases()
+    if oloss != want[0]:
+        raise RuntimeError(f"programs: offload loss {oloss} != stage 0's "
+                           f"{want[0]}")
+    log(f"programs: offload {sorted(offload.names())}: 0 findings; first "
+        f"loss bit for bit stage 0's")
+
+    model = _serve_model(dtype=torch.bfloat16)
+
+    def make(**kw):
+        return InferenceEngine(model, None, **kw)
+
+    tokens = {}
+    for observe in (False, True):
+        engines = pl.serving_engines(make, observe=observe)
+        tokens[observe] = [{r: res["tokens"].tolist()
+                            for r, res in e.results.items()}
+                           for e in engines]
+        if observe:
+            serving = [e.program_registry for e in engines]
+        del engines
+        torch.cuda.empty_cache()
+    if tokens[True] != tokens[False]:
+        raise RuntimeError("programs: linted serving tokens differ from the "
+                           "unlinted run's")
+    _lint(serving, "serving")
+    faults = {}
+    for fault in SERVE_FAULTS:
+        found, _ = _lint([_serve_fault(model, fault)], f"fault {fault}",
+                         [f"program-{fault}"])
+        faults[fault] = found[0].format()
+    got_names = _names([base, offload] + serving)
+    if got_names != {k: cpu[k] for k in got_names} or zero_names != \
+            cpu["base"] - {"micro_step", "apply_step", "eval_loss"}:
+        raise RuntimeError(f"programs: names {got_names} (ZeRO-2 "
+                           f"{zero_names}) differ from the CPU corpus's "
+                           f"{cpu}")
+    log(f"programs: serving {got_names['serving']} / "
+        f"{got_names['serving-spec']} / {got_names['serving-sparse']}: 0 "
+        f"findings, tokens bit for bit the unlinted engines'; every name "
+        f"the CPU corpus's; planted faults: {faults}")
+    log(f"programs: phase wall {time.perf_counter() - t_phase:.1f} s on "
+        f"{env['smi']}")
+
+
+# phase 22: activation checkpoints in host memory
+ACT_GAS = 1
+ACT_STEPS = 3
+ACT_DROPOUT = 0.1
+# the bytes checkpoint_in_cpu saves per token and layer at bf16: the
+# outputs of c_attn (3 n_embd), attn.c_proj (n_embd), mlp.c_fc (4 n_embd)
+# and mlp.c_proj (n_embd)
+ACT_BYTES_PER_TOKEN_LAYER = (3 + 1 + 4 + 1) * 1024 * 2
+
+
+def _checkpoint_blocks(model):
+    """Each GPT-2 block's forward under the user-level
+    ``checkpointing.checkpoint`` (its dropout replayed)."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.transformer.transformer import replayable
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+        checkpointing
+
+    for block in model.h:
+        def forward(x, train, generator, _inner=block.forward):
+            if not torch.is_grad_enabled():
+                return _inner(x, train, generator)
+            return checkpointing.checkpoint(replayable(_inner, generator),
+                                            x, train)
+        block.forward = forward
+    return model
+
+
+def _memcpy_rates(engine, batch):
+    """One more step under torch.profiler: (D2H GB/s, H2D GB/s, D2H GB,
+    H2D GB) of its pinned-memory copies, bytes over their device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+        checkpointing
+
+    acts = checkpointing.HOST_ACTIVATIONS
+    acts.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        engine.train_batch(batch=batch)
+        torch.cuda.synchronize()
+    us = {"DtoH": 0.0, "HtoD": 0.0}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA \
+                and "Memcpy" in evt.name:
+            for kind in us:
+                if kind in evt.name:
+                    us[kind] += evt.time_range.elapsed_us()
+    d2h = acts.saved_bytes
+    h2d = d2h * acts.served // max(1, acts.saved)
+    return (d2h / us["DtoH"] / 1e3 if us["DtoH"] else 0.0,
+            h2d / us["HtoD"] / 1e3 if us["HtoD"] else 0.0,
+            d2h / 1e9, h2d / 1e9)
+
+
+def phase_host_activations(env):
+    """Activation checkpoints in host memory: module docstring, phase
+    22."""
+    import torch
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    from deepspeed_tpu_torch.runtime.activation_checkpointing import \
+        checkpointing
+
+    _release_earlier_phases()
+    acts = checkpointing.HOST_ACTIVATIONS
+    cfg = gpt2_config(SLICE_MODEL, n_positions=SLICE_SEQ,
+                      dtype=torch.bfloat16, dropout=ACT_DROPOUT)
+    batch = _slice_batch(cfg.vocab_size, ACT_GAS, SLICE_MICRO, SLICE_SEQ,
+                         seed=0)
+    micro = {k: v[0] for k, v in batch.items()}
+    runs = {}
+    for in_cpu in (False, True):
+        ds = dict(_ds_config(SLICE_MICRO, ACT_GAS),
+                  activation_checkpointing={"cpu_checkpointing": in_cpu})
+        checkpointing.reset()
+        engine, _, _, _ = initialize(
+            model=_checkpoint_blocks(GPT2Model(cfg)), config_params=ds)
+        checkpointing.configure(deepspeed_config=ds)
+        if checkpointing._CONFIG["checkpoint_in_cpu"] != in_cpu:
+            raise RuntimeError("host activations: configure() did not take "
+                               "cpu_checkpointing from the config")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launch_counts()
+        losses, step_ms = [], []
+        for step in range(ACT_STEPS):
+            acts.reset()
+            torch.cuda.synchronize()
+            if step == ACT_STEPS - 1:
+                # a steady-state step: its pinned buffers come from the
+                # caching host allocator, not a new cudaHostAlloc
+                torch.cuda.set_sync_debug_mode("error")
+            t0 = time.perf_counter()
+            try:
+                loss = engine.train_batch(batch=batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            losses.append(float(loss))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        saved = (acts.saved, acts.saved_bytes, acts.pinned_bytes,
+                 acts.served)
+        launches = dict(fa.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        # one micro step's gradients, before the step zeroes them
+        engine.backward(engine(micro))
+        grads = engine._flat_accum.detach().clone()
+        rates = _memcpy_rates(engine, batch)
+        runs[in_cpu] = dict(losses=losses, step_ms=step_ms, peak=peak,
+                            saved=saved, grads=grads, rates=rates,
+                            launches=launches)
+        del engine
+        _release_earlier_phases()
+    remat, host = runs[False], runs[True]
+    closed = cfg.n_layer * SLICE_MICRO * SLICE_SEQ * ACT_GAS \
+        * ACT_BYTES_PER_TOKEN_LAYER
+    n_saved = 4 * cfg.n_layer * ACT_GAS
+    for label, run in (("on-device remat", remat),
+                       ("checkpoint_in_cpu", host)):
+        d2h, h2d, gb_out, gb_in = run["rates"]
+        log(f"host activations, {label}: losses {run['losses']}; step ms "
+            f"{[round(x, 1) for x in run['step_ms']]} on {env['smi']}; "
+            f"max_memory_allocated {run['peak'] / 2 ** 30:.2f} GiB; "
+            f"saved {run['saved']}; D2H {gb_out:.3f} GB at {d2h:.1f} GB/s, "
+            f"H2D {gb_in:.3f} GB at {h2d:.1f} GB/s; flash launches "
+            f"{run['launches']}")
+    if host["losses"] != remat["losses"]:
+        raise RuntimeError("host activations: losses differ from the "
+                           "on-device remat's")
+    if not torch.equal(host["grads"], remat["grads"]):
+        raise RuntimeError("host activations: gradients differ from the "
+                           "on-device remat's")
+    if remat["saved"] != (0, 0, 0, 0):
+        raise RuntimeError(f"host activations: the remat run saved "
+                           f"{remat['saved']}")
+    if host["saved"] != (n_saved, closed, closed, n_saved):
+        raise RuntimeError(f"host activations: saved {host['saved']}, the "
+                           f"closed form is {n_saved} tensors, {closed} "
+                           f"bytes, all pinned, all served")
+    # B1 twice per block and micro step (forward, recompute), B2/B3 once
+    want = {"flash_fwd": 2 * cfg.n_layer * ACT_GAS * ACT_STEPS,
+            "flash_bwd_dkdv": cfg.n_layer * ACT_GAS * ACT_STEPS,
+            "flash_bwd_dq": cfg.n_layer * ACT_GAS * ACT_STEPS}
+    if host["launches"] != want or remat["launches"] != want:
+        raise RuntimeError(f"host activations: flash launches "
+                           f"{host['launches']} / {remat['launches']}, "
+                           f"expected {want}")
+    log(f"host activations: losses and gradients bit for bit the "
+        f"on-device remat's; step {ACT_STEPS} under "
+        f"set_sync_debug_mode('error'); {n_saved} matmul outputs, "
+        f"{closed} B pinned = {cfg.n_layer} layers x "
+        f"{SLICE_MICRO * SLICE_SEQ} tokens x {ACT_BYTES_PER_TOKEN_LAYER} "
+        f"B; step ms (median) {sorted(remat['step_ms'])[1]:.1f} remat / "
+        f"{sorted(host['step_ms'])[1]:.1f} host on {env['smi']}")
+
 
 def main():
     if not os.path.isdir(os.path.join(HERE, "deepspeed_tpu_torch")):
@@ -3334,51 +3789,59 @@ def main():
         print("chip_smoke.py: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    env = phase_env()
-    tensor_cores = phase_build()
-    rows = phase_kernels(env, tensor_cores)
-    train = phase_train(env)
+    t_main = time.perf_counter()
+    env = timed(phase_env)
+    tensor_cores = timed(phase_build)
+    rows = timed(phase_kernels, env, tensor_cores)
+    train = timed(phase_train, env)
     for row in rows:
         row["launches"] = train["launches"][row["name"]]
-    profile = phase_profile(env, train, SLICE_MODEL)
+    profile = timed(phase_profile, env, train, SLICE_MODEL)
     train.pop("engine")
     torch.cuda.empty_cache()
-    phase_zero(env, train)
+    timed(phase_zero, env, train)
     # what phase 17 is held against
     stage0 = {k: train[k] for k in ("losses", "step_ms", "tokens_per_s",
                                     "peak_bytes", "launches")}
     stage0["idle_share"] = profile["idle_share"]
     del train
     torch.cuda.empty_cache()
-    phase_parity()
-    sparse_rows = phase_sparse_kernels(env, tensor_cores)
+    timed(phase_parity)
+    sparse_rows = timed(phase_sparse_kernels, env, tensor_cores)
     torch.cuda.empty_cache()
-    bert = phase_train_bert(env)
+    bert = timed(phase_train_bert, env)
     for row in sparse_rows:
         row["launches"] = bert["launches"][row["name"]]
-    phase_profile(env, bert, f"{BERT_MODEL} sparse")
+    timed(phase_profile, env, bert, f"{BERT_MODEL} sparse")
     del bert
     torch.cuda.empty_cache()
-    phase_parity_bert()
-    fp16_rows = phase_kernels_fp16(env, tensor_cores)
+    timed(phase_parity_bert)
+    fp16_rows = timed(phase_kernels_fp16, env, tensor_cores)
     torch.cuda.empty_cache()
-    fp16 = phase_train_fp16(env)
+    fp16 = timed(phase_train_fp16, env)
     for row in fp16_rows:
         row["launches"] = fp16["launches"][row["name"][:-len("_fp16")]]
-    phase_profile(env, fp16, f"{SLICE_MODEL} fp16")
+    timed(phase_profile, env, fp16, f"{SLICE_MODEL} fp16")
     del fp16
     torch.cuda.empty_cache()
-    phase_optimizers(env)
+    timed(phase_optimizers, env)
     torch.cuda.empty_cache()
-    serve = phase_serve(env)
+    serve = timed(phase_serve, env)
     torch.cuda.empty_cache()
-    phase_offload(env, stage0)
+    timed(phase_offload, env, stage0)
     torch.cuda.empty_cache()
-    phase_offload_large(env)
+    timed(phase_offload_large, env)
     torch.cuda.empty_cache()
-    phase_serve_a10b(env, serve["decode"])
+    timed(phase_serve_a10b, env, serve["decode"])
     torch.cuda.empty_cache()
-    phase_telemetry(env, stage0)
+    timed(phase_telemetry, env, stage0)
+    torch.cuda.empty_cache()
+    timed(phase_programs, env, stage0)
+    torch.cuda.empty_cache()
+    timed(phase_host_activations, env)
+    log(f"phase walls (s) on {env['smi']}: "
+        f"{json.dumps(PHASE_WALLS)}; all phases "
+        f"{time.perf_counter() - t_main:.3f} s")
     print(json.dumps({"kernels": rows + sparse_rows + fp16_rows}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

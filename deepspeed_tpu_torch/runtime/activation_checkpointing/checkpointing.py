@@ -13,14 +13,28 @@ The flags map as in the JAX package:
   torch's checkpoint keeps anyway (one device: nothing to partition);
 - contiguous_checkpointing: accepted for config parity (the caching
   allocator owns buffer layout), and needs ``num_checkpoints``;
-- checkpoint_in_cpu (activations in host memory) is not ported yet
-  (ROADMAP A14b).
+- checkpoint_in_cpu: the JAX package's policy
+  (``offload_dot_products_with_no_batch_dims("device", "pinned_host")``):
+  the outputs of the matmuls that have no batch dims (``aten.mm`` /
+  ``aten.addmm``, what a dense layer on a (B, S, D) input folds to; not
+  ``bmm`` and not the attention kernels') are saved in host memory,
+  pinned on the card, and everything else is recomputed in the backward.
+  The saved outputs are cached by the checkpoint frame itself, not passed
+  through autograd's saved-tensor hooks (``save_on_cpu`` would not see
+  them), so the offload sits where the policy stores them: a dispatch
+  mode copies each matmul output out (``non_blocking`` into pinned
+  memory, on the current stream) as the forward computes it, and the
+  recompute's mode serves each matmul from that copy (``non_blocking``
+  back) instead of running it. No host sync either way. The JAX package
+  warns and falls back to full recompute where its jax lacks that policy
+  (ROADMAP C-w11); the gradients are the same either way.
 The RNG tracker keeps named ``torch.Generator`` streams (the reference's
 CudaRNGStatesTracker, :148-263); ``fork(name)`` hands out a new generator
 seeded from the named stream and advances it, as the JAX package's
 ``fork`` splits a key.
 """
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.checkpoint import checkpoint as _torch_checkpoint
 
 from deepspeed_tpu_torch.utils.logging import logger
@@ -70,9 +84,6 @@ def configure(mpu_=None, deepspeed_config=None, partition_activations=None,
             _CONFIG[key] = val
     if num_checkpoints is not None:
         _NUM_LAYERS = num_checkpoints
-    if _CONFIG["checkpoint_in_cpu"]:
-        raise NotImplementedError("checkpoint_in_cpu (activations in host "
-                                  "memory) is not ported yet (ROADMAP A14b)")
     if _CONFIG["contiguous_checkpointing"]:
         logger.info("contiguous_checkpointing: the caching allocator owns "
                     "buffer layout; flag accepted for parity")
@@ -105,14 +116,88 @@ def set_num_layers(nlayers):
     _NUM_LAYERS = nlayers
 
 
+# the matmuls with no batch dims: a dense layer's product on a folded
+# (B * S, D) input
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+class HostActivations:
+    """What checkpoint_in_cpu moved through host memory: tensors and bytes
+    saved by the forwards (and of those bytes, the ones in pinned memory),
+    matmuls served to the recomputes, and the other ops the recomputes
+    ran."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self.saved = 0
+        self.saved_bytes = 0
+        self.pinned_bytes = 0
+        self.served = 0
+        self.recomputed = 0
+
+
+HOST_ACTIVATIONS = HostActivations()
+
+
+class _SaveToHost(TorchDispatchMode):
+    """The forward's mode: each matmul's output is copied into host memory
+    (pinned on the card) and the copy queued for the recompute."""
+
+    def __init__(self, storage):
+        super().__init__()
+        self.storage = storage
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func in _MATMULS:
+            host = torch.empty(out.shape, dtype=out.dtype,
+                               pin_memory=out.is_cuda)
+            host.copy_(out, non_blocking=out.is_cuda)
+            self.storage.append((host, out.device))
+            nbytes = host.numel() * host.element_size()
+            HOST_ACTIVATIONS.saved += 1
+            HOST_ACTIVATIONS.saved_bytes += nbytes
+            if out.is_cuda and host.is_pinned():
+                HOST_ACTIVATIONS.pinned_bytes += nbytes
+        return out
+
+
+class _LoadFromHost(TorchDispatchMode):
+    """The recompute's mode: each matmul is served from its host copy, in
+    the forward's order; every other op runs again."""
+
+    def __init__(self, storage):
+        super().__init__()
+        self.storage = storage
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in _MATMULS:
+            host, device = self.storage.pop(0)
+            HOST_ACTIVATIONS.served += 1
+            return host.to(device, non_blocking=True) \
+                if device.type == "cuda" else host
+        if func is not torch.ops.aten.detach.default:   # autograd's own
+            HOST_ACTIVATIONS.recomputed += 1
+        return func(*args, **(kwargs or {}))
+
+
+def _host_offload_contexts():
+    """The (forward, recompute) context pair of one checkpointed call
+    under checkpoint_in_cpu."""
+    storage = []
+    return _SaveToHost(storage), _LoadFromHost(storage)
+
+
 def _policy():
     """The ``context_fn`` that torch.utils.checkpoint takes for the
-    configured flags, None for its default. Every flag that is ported
-    means the default: only the boundary is saved and the rest recomputed
-    (the JAX package's nothing_saveable and its default coincide here)."""
+    configured flags, None for its default. checkpoint_in_cpu saves the
+    matmul outputs in host memory; every other flag means the default:
+    only the boundary is saved and the rest recomputed (the JAX package's
+    nothing_saveable and its default coincide here)."""
     if _CONFIG["checkpoint_in_cpu"]:
-        raise NotImplementedError("checkpoint_in_cpu is not ported yet "
-                                  "(ROADMAP A14b)")
+        return _host_offload_contexts
     return None
 
 

@@ -66,6 +66,15 @@ CUDA allocator's. Armed with trace, MFU and memory, a step makes no host
 sync; with ``metrics_jsonl`` it makes one: the step's scalars stacked and
 fetched in one copy. Nothing armed changes what the step computes.
 
+Programs (telemetry/programs.py; the JAX engine's program registry):
+``train_batch`` is the program ``fused_train_step`` (the micro loop, the
+loss all-reduce and the optimizer step; under offload each micro step is
+``micro_offload`` and the fetch and host step lie outside), forward +
+backward is ``micro_step``, ``step()`` is ``apply_step`` and
+``eval_loss`` is ``eval_loss``, each registered at its first dispatch
+with the JAX engine's contract (``program_registry``). The program lint
+(telemetry/program_lint.py) observes one dispatch of each.
+
 Configurations that need parts of the port still to come raise at
 construction, naming their ROADMAP item.
 """
@@ -111,6 +120,8 @@ from deepspeed_tpu_torch.runtime.utils import (clip_grad_by_global_norm,
                                                global_norm_from_tree,
                                                has_overflow)
 from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartition
+from deepspeed_tpu_torch.telemetry.programs import (NO_OBSERVER,
+                                                    ProgramRegistry)
 from deepspeed_tpu_torch.utils.distributed import init_distributed
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
@@ -163,9 +174,6 @@ def _refuse_unported(raw, cfg):
             no("ZeRO-Offload with pipeline parallelism", "A12")
     if cfg.zero_optimization_stage >= 3:
         no("ZeRO stage 3", "A13")
-    if cfg.activation_checkpointing_config.cpu_checkpointing:
-        no("activation checkpoints in host memory (cpu_checkpointing)",
-           "A14b")
     if cfg.zero_config.quantized_gradients \
             or cfg.zero_config.quantized_weights:
         no("quantized ZeRO collectives", "A13")
@@ -220,6 +228,14 @@ class DeepSpeedEngine:
         self.mp_world_size = self.sp_world_size = 1
         self._config = DeepSpeedConfig(raw, world_size=self.dp_world_size)
         _refuse_unported(raw, self._config)
+        # the dispatched-program registry is ALWAYS on: one dict insert at
+        # each program's first dispatch; the lint
+        # (telemetry/program_lint.py) arms it to observe one dispatch each
+        self._programs = ProgramRegistry("base")
+        # the program forward()/backward() make up: None inside
+        # train_batch's fused_train_step
+        self._micro_name = "micro_step"
+        self._micro_obs = NO_OBSERVER
 
         # --- precision (reference engine.py:136-144) --------------------
         if self.fp16_enabled():
@@ -759,9 +775,22 @@ class DeepSpeedEngine:
         _t0 = tr.begin() if tr is not None else 0.0
         if self._memacct is not None:
             self._memacct.begin("micro_step")
-        loss, _ = self.module.loss(dev_batch,
-                                   generator=self._micro_generator(),
-                                   train=True)
+        obs = NO_OBSERVER
+        if self._micro_name is not None:
+            # one forward + backward: the JAX engine's micro_step
+            # (micro_offload under train_batch with offload)
+            obs = self._dispatch_program(
+                self._micro_name, {"host_transfer_free": True,
+                                   "donates_argnums": (0,)},
+                calls_per_step=self.gradient_accumulation_steps())
+        obs.start()
+        try:
+            loss, _ = self.module.loss(dev_batch,
+                                       generator=self._micro_generator(),
+                                       train=True)
+        finally:
+            obs.stop()
+        self._micro_obs = obs
         self._pending_loss = loss
         if tr is not None:
             tr.complete("forward_micro", self._lane_train, _t0)
@@ -785,13 +814,14 @@ class DeepSpeedEngine:
         _t0 = tr.begin() if tr is not None else 0.0
         pending = self._pending_loss
         self._pending_loss = None
-        scaled = pending.float()
-        if self.scaler is not None:
-            scaled = scaled * self.scaler.loss_scale
-        # the global batch's mean: each rank's share of it
-        (scaled / (self.gradient_accumulation_steps()
-                   * self.dp_world_size)).backward()
-        # the gradients, in the compute dtype, into the fp32 accumulator
+        obs, self._micro_obs = self._micro_obs, NO_OBSERVER
+        obs.start()
+        try:
+            self._backward_micro(pending)
+        finally:
+            obs.stop()
+        obs.outputs(pending)
+        obs.close()
         if self._offload:
             # this micro step's copy down starts; the previous one's (its
             # copy overlapped this micro step's compute) goes into the
@@ -804,13 +834,6 @@ class DeepSpeedEngine:
             self._pending_fetches.append(slot)
             if tr is not None:
                 tr.complete("grad_exchange_d2h", self._lane_train, _tg)
-        elif self.dp_group is not None:
-            self._exchange_grads([p.grad for p in self.params])
-        else:
-            got = [(a, p.grad) for a, p in zip(self.accum, self.params)
-                   if p.grad is not None]
-            if got:
-                torch._foreach_add_([a for a, _ in got], [g for _, g in got])
         for p in self.params:
             p.grad = None
         self.micro_steps += 1
@@ -823,6 +846,27 @@ class DeepSpeedEngine:
         if self.wall_clock_breakdown():
             self.timers(BACKWARD_MICRO_TIMER).stop()
         return pending if loss is None else loss
+
+    def _backward_micro(self, loss):
+        """The device work of backward(): the gradients of ``loss`` (times
+        the loss scale at fp16) / gas, and, without offload, into the fp32
+        accumulator (over the group at dp > 1)."""
+        scaled = loss.float()
+        if self.scaler is not None:
+            scaled = scaled * self.scaler.loss_scale
+        # the global batch's mean: each rank's share of it
+        (scaled / (self.gradient_accumulation_steps()
+                   * self.dp_world_size)).backward()
+        if self._offload:
+            return
+        # the gradients, in the compute dtype, into the fp32 accumulator
+        if self.dp_group is not None:
+            self._exchange_grads([p.grad for p in self.params])
+        else:
+            got = [(a, p.grad) for a, p in zip(self.accum, self.params)
+                   if p.grad is not None]
+            if got:
+                torch._foreach_add_([a for a, _ in got], [g for _, g in got])
 
     @torch.no_grad()
     def _exchange_grads(self, grads):
@@ -999,7 +1043,6 @@ class DeepSpeedEngine:
         if self.wall_clock_breakdown():
             self.timers(STEP_MICRO_TIMER).stop()
 
-    @torch.no_grad()
     def _take_model_step(self):
         """The apply fn of engine.py:2184-2240: overflow = a non-finite
         element of the (scaled) accumulator; unscale, clip by the global
@@ -1008,9 +1051,27 @@ class DeepSpeedEngine:
         the host step (``_take_model_step_offload``)."""
         if self._offload:
             return self._take_model_step_offload()
+        self._finish_step(*self._model_step("apply_step"))
+
+    @torch.no_grad()
+    def _model_step(self, program=None):
+        """The optimizer step up to its bookkeeping: its device work
+        (``_apply``) dispatched as ``program`` (None: inside the caller's
+        program, ``fused_train_step``). Returns ``_finish_step``'s
+        arguments."""
         _t0 = self._begin_apply()
         lr = self._advance_lr()
         self._sync_master()
+        obs = NO_OBSERVER if program is None else self._dispatch_program(
+            program, {"donates_argnums": (0,), "donation_min_elements": 4})
+        with obs:
+            metrics = self._apply(lr)
+        return lr, metrics, _t0
+
+    @torch.no_grad()
+    def _apply(self, lr):
+        """The device work of the optimizer step (``_take_model_step``);
+        returns the step's metrics."""
         flat = self._flat_accum
         inv_scale = scale = None
         if self.scaler is not None:
@@ -1036,9 +1097,8 @@ class DeepSpeedEngine:
             self.scaler = update_loss_scale(self.scaler, overflow,
                                             **self._scaler_hparams())
         flat.zero_()
-        self._finish_step(lr, {"overflow": overflow, "grad_norm": gnorm,
-                               "loss_scale": 1.0 if scale is None else scale},
-                          _t0)
+        return {"overflow": overflow, "grad_norm": gnorm,
+                "loss_scale": 1.0 if scale is None else scale}
 
     def _begin_apply(self):
         """The optimizer step's span start and memory window."""
@@ -1150,27 +1210,106 @@ class DeepSpeedEngine:
         self._train_mode = True
         if self.wall_clock_breakdown():
             self.tput_timer.start()
+        if self._offload:
+            # each micro step's device work is one program, as the JAX
+            # engine's micro_offload jit; the fetch and the host step lie
+            # outside it
+            self._micro_name = "micro_offload"
+            try:
+                loss = self._micro_loop(micros)
+            finally:
+                self._micro_name = "micro_step"
+            self._take_model_step()
+        else:
+            # the micro loop, the loss all-reduce and the optimizer step:
+            # one program, the JAX engine's fused_train_step
+            obs = self._dispatch_program(
+                "fused_train_step", {"host_transfer_free": True,
+                                     "donates_argnums": (0,),
+                                     "donation_min_elements": 4})
+            self._micro_name = None
+            obs.start()
+            try:
+                loss = self._micro_loop(micros)
+                step = self._model_step()
+            finally:
+                obs.stop()
+                self._micro_name = "micro_step"
+            obs.outputs(loss)
+            obs.close()
+            self._finish_step(*step)
+        self._train_mode = was_training
+        if self.wall_clock_breakdown():
+            self.tput_timer.stop()
+        return loss
+
+    def _micro_loop(self, micros):
+        """forward + backward of each micro-batch; the global batch's mean
+        loss, which the optimizer step's metrics carry."""
         losses = []
         for micro in micros:
             losses.append(self.forward(micro).detach())
             self.backward()
-        self._train_mode = was_training
         loss = torch.stack(losses).float().mean()
         if self.dp_group is not None:
             # the global batch's mean loss
             loss = self.dp_group.all_reduce(loss) / self.dp_world_size
         self._step_loss = loss
-        self._take_model_step()
-        if self.wall_clock_breakdown():
-            self.tput_timer.stop()
         return loss
 
     @torch.no_grad()
     def eval_loss(self, batch):
-        loss, _ = self.module.loss(self._to_device(batch),
-                                   generator=self._micro_generator(),
-                                   train=False)
+        dev_batch = self._to_device(batch)
+        with self._dispatch_program(
+                "eval_loss", {"host_transfer_free": True}) as obs:
+            loss, _ = self.module.loss(dev_batch,
+                                       generator=self._micro_generator(),
+                                       train=False)
+            obs.outputs(loss)
         return loss
+
+    # ------------------------------------------------------------------
+    # the dispatched-program registry (telemetry/programs.py; JAX
+    # engine.py:1155-1170, 2729-2818)
+    # ------------------------------------------------------------------
+    @property
+    def program_registry(self):
+        """The engine's dispatched-program registry (always armed): every
+        program the engine has dispatched, with its declarative contract.
+        Read by ``python -m deepspeed_tpu_torch.telemetry.program_lint``."""
+        return self._programs
+
+    def _program_state(self):
+        """The state the step programs update in place, by name: the JAX
+        engine's TrainState, the programs' donated argument, field by
+        field (``params/<name>``, ``opt_state/...``, ``master/<name>``,
+        ``accum/<name>``, ``scaler/<field>``, ``skipped_steps``). Its step
+        counters and rng key are host values here. Under offload the
+        device holds the parameters only."""
+        state = {f"params/{n}": p
+                 for n, p in zip(self.param_names, self.params)}
+        if not self._offload:
+            state["opt_state/step"] = self.optimizer.step
+            for k, lst in enumerate(self.optimizer.state_lists()):
+                state.update({f"opt_state/{k}/{n}": t
+                              for n, t in zip(self.param_names, lst)})
+            if self._master_separate:
+                state.update({f"master/{n}": m
+                              for n, m in zip(self.param_names,
+                                              self.master)})
+            state.update({f"accum/{n}": a
+                          for n, a in zip(self.param_names, self.accum)})
+        if self.scaler is not None:
+            state.update({f"scaler/{f}": t for f, t in
+                          zip(self.scaler._fields, self.scaler)})
+        state["skipped_steps"] = self._skipped
+        return state
+
+    def _dispatch_program(self, name, contract, calls_per_step=1.0):
+        """Register program ``name`` at its first dispatch and return its
+        observer (a no-op unless the lint observes this engine)."""
+        return self._programs.dispatch(
+            name, (self._program_state,), contract, calls_per_step)
 
     # ------------------------------------------------------------------
     # telemetry (deepspeed_tpu_torch/telemetry/; JAX engine.py:1023-1145,

@@ -63,10 +63,19 @@ the memory report (the pool priced byte for byte, each dispatch a window
 over the CUDA allocator's peak). Warmup traffic emits spans but no step
 record.
 
+The program registry (``program_registry``; telemetry/programs.py):
+every decode, prefill, verify and sparse program registers at its first
+dispatch through ``_dispatch``, with the JAX engine's pool contract (no
+host read, no collective, the pool tensors updated in place), and the
+prefix cache's COW copy as ``cow_copy``; the lint
+(telemetry/program_lint.py) observes one dispatch of each. The one host
+fetch after a dispatch lies outside its program, as the JAX engine's
+``device_get`` lies outside its jit.
+
 Each option that cannot arm warns DISARMED naming its blocker and serves
-without it. Not ported yet, each raising NotImplementedError naming its
+without it. Not ported yet, raising NotImplementedError naming its
 ROADMAP item: pools split into shards and the fleet's request hand-off
-(A10c), and the program registry (A17b).
+(A10c).
 """
 import itertools
 import time
@@ -95,6 +104,7 @@ from deepspeed_tpu_torch.serving.scheduler import (Request, RequestState,
                                                    Scheduler)
 from deepspeed_tpu_torch.serving.sparse_context import (SparseContext,
                                                         _policy_layout)
+from deepspeed_tpu_torch.telemetry.programs import ProgramRegistry
 from deepspeed_tpu_torch.utils.logging import logger
 
 _MIN_BUCKET = 4
@@ -417,6 +427,10 @@ class InferenceEngine:
         self.metrics = ServingMetrics(clock)
         self.dispatch_shapes = DispatchShapes()
         self.pool.dispatch_shapes = self.dispatch_shapes
+        # the dispatched-program registry, always on (one dict insert per
+        # program at its first dispatch)
+        self._programs = ProgramRegistry("serving")
+        self.pool.programs = self._programs
         self.results = {}
         self._watchdog = watchdog
         self._last_metrics = {}
@@ -658,12 +672,23 @@ class InferenceEngine:
             # never raise from __del__
             pass
 
-    # -- not ported yet -------------------------------------------------
     @property
     def program_registry(self):
-        raise _not_ported("the serving program registry (contracts on the "
-                          "dispatched programs)", "A17b")
+        """The engine's dispatched-program registry (always armed): every
+        serving program dispatched so far, with its declarative contract.
+        Read by ``python -m deepspeed_tpu_torch.telemetry.program_lint``."""
+        return self._programs
 
+    def _pool_contract(self, **extra):
+        """The contract every pool-threading program shares (JAX
+        ``_pool_contract``): pure device work, no collective, and the
+        paged KV pool (argument 1) updated in place."""
+        contract = {"host_transfer_free": True, "collective_free": True,
+                    "donates_argnums": (1,)}
+        contract.update(extra)
+        return contract
+
+    # -- not ported yet -------------------------------------------------
     def export_request(self, rid):
         raise _not_ported("request hand-off between replicas "
                           "(export_request)", "A10c")
@@ -1107,11 +1132,15 @@ class InferenceEngine:
             return t.pin_memory().to(self.device, non_blocking=True)
         return t
 
-    def _dispatch(self, name, fn, buf, *args):
+    def _dispatch(self, name, fn, buf, *args, group=None):
         """Run one decode/prefill program over the pool, recording its
-        signature."""
+        signature and registering it (``group``: its uniform_group)."""
         pools = self.pool.tensors
         self.dispatch_shapes.record(name, pools.arrays + (buf,))
+        extra = {} if group is None else {"uniform_group": group}
+        obs = self._programs.dispatch(
+            name, (self.params, lambda: self.pool.tensors, buf),
+            self._pool_contract(**extra))
         acct = self._memacct
         if self.telemetry is not None:
             # capture by shape: the FLOPs are counted at report time
@@ -1122,8 +1151,9 @@ class InferenceEngine:
                             + args)
             acct.register(name)
             acct.begin(name)
-        with torch.no_grad():
+        with torch.no_grad(), obs:
             out = fn(self.params, self.cfg, tuple(pools), buf, *args)
+            obs.outputs(out)
         if acct is not None:
             acct.end(name)
         return out
@@ -1305,11 +1335,14 @@ class InferenceEngine:
         buf = np.concatenate(parts + [tok_pad,
                                       np.asarray([start, n, seed],
                                                  np.int32)])
-        name = ("sparse_" if sp is not None else "") \
-            + f"prefill_chunk{bucket}" + ("_final" if final else "")
+        prefix = "sparse_" if sp is not None else ""
+        name = f"{prefix}prefill_chunk{bucket}" + ("_final" if final else "")
+        # bucketed prefills at one schedule slot must post identical
+        # collective sequences (JAX engine.py:1650-1661)
+        group = f"serving:{prefix}prefill" + ("_final" if final else "")
         out = self._dispatch(name, _prefill_chunk, self._upload(buf), bucket,
                              self.W, self.pool.quantized, final,
-                             self._sampling, self._layout)
+                             self._sampling, self._layout, group=group)
         req.work_done += n
         self.metrics.record_prefill(n)
         if final:

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from deepspeed_tpu_torch.runtime.memory_accounting import kv_pool_bytes
+from deepspeed_tpu_torch.telemetry.programs import NO_OBSERVER
 from deepspeed_tpu_torch.utils.logging import logger
 
 TRASH_BLOCK = 0          # block 0 absorbs masked writes
@@ -154,6 +155,7 @@ class PagedKVPool:
         # signature there like the engine's own dispatches (None: a
         # standalone pool records nothing)
         self.dispatch_shapes = None
+        self.programs = None        # the serving engine's ProgramRegistry
 
     # -- arming ---------------------------------------------------------
     def _arm_quantized_kv(self, requested):
@@ -395,7 +397,14 @@ class PagedKVPool:
         arrays = self.tensors.arrays
         if self.dispatch_shapes is not None:
             self.dispatch_shapes.record("cow_copy", arrays)
-        with torch.no_grad():
+        # the COW split is pure device work, collective-free, and updates
+        # the pool in place (JAX kv_cache.py:455-465)
+        obs = NO_OBSERVER if self.programs is None else \
+            self.programs.dispatch(
+                "cow_copy", (lambda: self.tensors, src, dst),
+                {"host_transfer_free": True, "collective_free": True,
+                 "donates_argnums": (0,)})
+        with torch.no_grad(), obs:
             for t in arrays:
                 t[:, dst].copy_(t[:, src])
 

@@ -14,8 +14,12 @@ session per engine bundles the three channels:
 Engines arm it through ``_arm_telemetry`` (config block ``"telemetry"``
 for the training engine, the ``telemetry=`` kwarg for the serving
 engine); disarmed engines hold ``None`` and pay one attribute check per
-instrumentation site.  The contracts on compiled programs
-(``telemetry/programs.py`` of the JAX package) are ROADMAP A17b.
+instrumentation site.
+
+Beside the session, every engine keeps a ``ProgramRegistry``
+(:mod:`.programs`): each program it dispatches, with its declarative
+contract, which the program lint (:mod:`.program_lint`, checks in
+:mod:`.program_checks`) holds to an observed dispatch.
 """
 import time
 
@@ -26,6 +30,8 @@ from deepspeed_tpu_torch.telemetry.metrics import (Counter, Gauge, Histogram,
 from deepspeed_tpu_torch.telemetry.mfu import (MfuAccounting,
                                                model_flops_per_step,
                                                peak_flops_per_device)
+from deepspeed_tpu_torch.telemetry.programs import (ProgramRegistry,
+                                                    register_program)
 from deepspeed_tpu_torch.telemetry.trace import (DEFAULT_CAPACITY, Tracer,
                                                  lane_utilization)
 
@@ -34,6 +40,7 @@ __all__ = [
     "Counter", "Gauge", "Histogram", "MetricsRegistry", "MetricsStream",
     "nearest_rank",
     "MfuAccounting", "model_flops_per_step", "peak_flops_per_device",
+    "ProgramRegistry", "register_program",
 ]
 
 

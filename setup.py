@@ -43,7 +43,8 @@ setup(
     package_data={"deepspeed_tpu_torch": ["ops/transformer/csrc/*.cu",
                                           "ops/transformer/csrc/*.cuh",
                                           "ops/sparse_attention/csrc/*.cu",
-                                          "ops/adam/csrc/*.cpp"]},
+                                          "ops/adam/csrc/*.cpp",
+                                          "telemetry/program_baseline.json"]},
     include_package_data=True,
     data_files=[("csrc/adam", ["csrc/adam/cpu_adam.cpp"])],
     install_requires=["jax", "flax", "numpy", "ml_dtypes"],

@@ -13,6 +13,8 @@ inputs, so they differ by summation order, the final rounding to the
 storage dtype (at most one ulp: 2**-7 of the value at bf16, 2**-10 at
 fp16) and dS values rounded on two sides of a boundary (PERF.md section 2).
 """
+import gc
+
 import pytest
 import torch
 
@@ -686,6 +688,9 @@ def test_offload_state_is_on_the_host_and_the_staging_pinned(cuda):
     moment: the engine's fp32 state is host tensors, the two staging
     buffers are pinned, and the bytes the engine allocated on the card
     are its analytic device bytes (params + staging + scaler)."""
+    # earlier tests' engines sit in reference cycles: collected here, not
+    # while this engine is built, or their frees would count against it
+    gc.collect()
     torch.cuda.empty_cache()
     before = torch.cuda.memory_allocated()
     eng, _ = _offload_engine(cuda)

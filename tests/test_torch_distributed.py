@@ -38,7 +38,11 @@ _WORLD_ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE",
 @pytest.fixture
 def clean_env(monkeypatch):
     for key in _WORLD_ENV:
-        monkeypatch.delenv(key, raising=False)
+        # set, then delete: the undo then also removes a key the test
+        # writes into os.environ itself (mpi_discovery does), which a bare
+        # delenv of an absent key would leave behind for later tests
+        monkeypatch.setenv(key, "")
+        monkeypatch.delenv(key)
     assert not dist.is_initialized()
     return monkeypatch
 

@@ -215,11 +215,11 @@ def test_lr_schedules_match_jax(name, params):
     ({"zero_optimization": {"stage": 2, "quantized_gradients": True}},
      "A13"),
     ({"zero_optimization": {"stage": 3}}, "A13"),
-    # ZeRO-Offload runs since A14 was ported; activation checkpoints in
-    # host memory, beside it, are still to come
+    # ZeRO-Offload (A14) and activation checkpoints in host memory (A14b)
+    # both run now: the engine accepts the pair (item None)
     pytest.param({"zero_optimization": {"stage": 2, "cpu_offload": True},
                   "activation_checkpointing": {"cpu_checkpointing": True}},
-                 "A14b", id="extra2-A14"),
+                 None, id="extra2-A14"),
     pytest.param({"mesh": {"model": 2}}, "A7b", id="extra3-A7"),
     ({"mesh": {"pipe": 2}}, "A12"),
     ({"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}}, "A13"),
@@ -227,10 +227,18 @@ def test_lr_schedules_match_jax(name, params):
     ({"resilience": {"async_commit": True}}, "A16"),
 ])
 def test_unported_configurations_raise(extra, item):
-    with pytest.raises(NotImplementedError, match=item):
-        deepspeed_tpu_torch.initialize(
+    def build():
+        return deepspeed_tpu_torch.initialize(
             model=GPT2Model(GPT2Config(dtype=torch.float32, **TINY)),
-            config_params=dict(DS_CONFIG, **extra), device="cpu")
+            config_params=dict(DS_CONFIG, **extra), device="cpu")[0]
+
+    if item is None:
+        eng = build()
+        assert eng._offload and \
+            eng._config.activation_checkpointing_config.cpu_checkpointing
+        return
+    with pytest.raises(NotImplementedError, match=item):
+        build()
 
 
 def test_zero_stage_2_on_one_device_trains():
@@ -303,9 +311,14 @@ def test_import_does_not_load_jax():
             "deepspeed_tpu_torch.runtime.utils, "
             "deepspeed_tpu_torch.runtime.zero.partition, "
             "deepspeed_tpu_torch.runtime.zero.utils, "
-            "deepspeed_tpu_torch.utils.distributed; "
+            "deepspeed_tpu_torch.utils.distributed, "
+            "deepspeed_tpu_torch.telemetry.programs, "
+            "deepspeed_tpu_torch.telemetry.program_checks, "
+            "deepspeed_tpu_torch.telemetry.program_lint, "
+            "deepspeed_tpu_torch.runtime.activation_checkpointing"
+            ".checkpointing; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'flax', 'deepspeed_tpu')]; assert not bad, bad")
+            "('jax', 'flax', 'deepspeed_tpu', 'tools')]; assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
@@ -346,7 +359,8 @@ def test_no_port_file_imports_jax_flax_or_the_jax_package():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
     for path in files:
-        bad = set(_imported_roots(path)) & {"jax", "flax", "deepspeed_tpu"}
+        bad = set(_imported_roots(path)) & {"jax", "flax", "deepspeed_tpu",
+                                            "tools"}
         assert not bad, f"{path} imports {bad}"
 
 

@@ -224,8 +224,16 @@ def test_checkpoint_api_recomputes_with_the_same_randomness():
     with pytest.raises(ValueError, match="num_checkpoints"):
         ckpt.reset()
         ckpt.configure(contiguous_checkpointing=True)
-    with pytest.raises(NotImplementedError, match="A14"):
-        ckpt.configure(checkpoint_in_cpu=True)
+    # checkpoint_in_cpu (ROADMAP A14b) is accepted and replays the same
+    # dropout: the matmul's output comes back from host memory
+    ckpt.reset()
+    ckpt.configure(checkpoint_in_cpu=True)
+    assert ckpt._CONFIG["checkpoint_in_cpu"]
+    x.grad, lin.weight.grad = None, None
+    torch.manual_seed(0)
+    ckpt.checkpoint(fn, x).sum().backward()
+    assert torch.equal(got[0], x.grad) and torch.equal(got[1],
+                                                       lin.weight.grad)
     ckpt.reset()
 
 

@@ -16,8 +16,9 @@ port's engine (CPU, fp32), plus the cross-package checks:
   same greedy tokens, prefill tokens computed, evictions and step count;
   the int8 row quantizers are bit-exact against the reference's at fp32.
 - **Deferred options** raise NotImplementedError naming their ROADMAP
-  item (sharded pools and the fleet A10c; the program registry A17b;
-  telemetry has its own file, test_torch_telemetry.py). The prefix
+  item (sharded pools and the fleet A10c); telemetry and the program
+  registry have their own files, test_torch_telemetry.py and
+  test_torch_programs.py. The prefix
   cache, speculation and sparse context (A10b) have their own files:
   test_torch_prefix_cache.py, test_torch_speculative.py and
   test_torch_sparse_context.py.
@@ -1282,14 +1283,21 @@ def test_deferred_options_raise_naming_their_roadmap_item(toy, kw, item):
 
 @pytest.mark.parametrize("call,item", [
     # telemetry, traces and the memory report run since A17 was ported
-    # (tests/test_torch_telemetry.py); the program registry is A17b
-    pytest.param(lambda e: e.program_registry, "A17b", id="call3-A17"),
+    # (tests/test_torch_telemetry.py), the program registry since A17b
+    # (tests/test_torch_programs.py): it returns the registry (item None)
+    pytest.param(lambda e: e.program_registry, None, id="call3-A17"),
     pytest.param(lambda e: e.export_request(0), "A10c", id="call4-A10c"),
     pytest.param(lambda e: e.import_request({}), "A10c", id="call5-A10c"),
 ])
 def test_deferred_methods_raise_naming_their_roadmap_item(toy, call, item):
     model, params, _, _ = toy
     eng = _engine(model, params)
+    if item is None:
+        from deepspeed_tpu_torch.telemetry import ProgramRegistry
+
+        reg = call(eng)
+        assert isinstance(reg, ProgramRegistry) and reg.engine == "serving"
+        return
     with pytest.raises(NotImplementedError, match=item):
         call(eng)
 

@@ -212,7 +212,99 @@ def job_tag_check(dp):
     return {"error": None}
 
 
-JOBS = {"tag_check": job_tag_check, "train": job_train, "resume": job_resume, "load": job_load,
+def job_programs(dp, seed, init):
+    """The program lint on a ZeRO-2 world: the clean step's findings,
+    contracts and collective order, then one planted fault per rule —
+    the parameter all-gather skipped under a declared op count, the
+    optimizer state replaced by fresh copies, and two programs of one
+    uniform_group posting their collectives in different orders (a
+    second registry holds a third program of that group name, which must
+    not be compared across engines), a raw ``dist.all_reduce`` posted
+    inside the step around the group's counter (under a declared
+    all-reduce count), and a raw collective in a collective-free
+    program."""
+    from deepspeed_tpu_torch.telemetry.program_lint import lint_programs
+    from deepspeed_tpu_torch.telemetry.programs import ProgramRegistry
+
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    batches = global_batches(seed, 2, 2, MICRO * dp)
+    count = [("all-gather", "f32", 1)]
+
+    def linted(patch=None, expect=count):
+        eng = _engine(ds_config(dp, 2, 2), init)
+        if patch is not None:
+            patch(eng)
+        eng.program_registry.observing = True
+        loss = eng.train_batch(batch=_local(batches[0], rank, MICRO)).item()
+        eng.program_registry.declare("fused_train_step",
+                                     expect_op_counts=expect)
+        res = lint_programs([eng.program_registry], use_baseline=False)
+        return eng, loss, [(f.rule, f.path) for f in res.new]
+
+    def fresh_state(eng):
+        update = eng.optimizer.update
+
+        def copying_update(*a, **k):
+            update(*a, **k)
+            eng.optimizer.m = [t.clone() for t in eng.optimizer.m]
+        eng.optimizer.update = copying_update
+
+    def skip_gather(eng):
+        eng._gather_params = lambda: None
+
+    def stray_all_reduce(eng):
+        gather = eng._gather_params
+
+        def gather_after_a_raw_all_reduce():
+            dist.all_reduce(torch.ones(3))
+            gather()
+        eng._gather_params = gather_after_a_raw_all_reduce
+
+    eng, loss, clean = linted()
+    obs = eng.program_registry.get("fused_train_step").observation
+    out = {"clean": clean, "loss": loss,
+           "summary": eng.program_registry.summary(),
+           "order": [(c.op, c.dtype, c.elements) for c in obs.collectives]}
+    out["op_count"] = linted(skip_gather)[2]
+    reduces = sum(1 for c in obs.collectives
+                  if (c.op, c.dtype) == ("all-reduce", "f32"))
+    out["stray"] = linted(stray_all_reduce, count + [
+        ("all-reduce", "f32", reduces)])[2]
+    out["donation"] = linted(fresh_state)[2]
+
+    group = eng.dp_group
+    a, b = torch.ones(4), torch.ones(2 * dp)
+    regs = [ProgramRegistry("zero-a"), ProgramRegistry("zero-b")]
+    for reg in regs:
+        reg.observing = True
+    programs = [(regs[0], "reduce_then_gather", False),
+                (regs[0], "gather_then_reduce", True),
+                (regs[1], "gather_then_reduce", True)]
+    for reg, name, gather_first in programs:
+        with reg.dispatch(name, (), {"uniform_group": "zero:step"}):
+            if gather_first:
+                group.all_gather(b, torch.ones(2), leaves=[("b", 2)])
+            group.all_reduce(a, leaves=[("a", 4)])
+            if not gather_first:
+                group.all_gather(b, torch.ones(2), leaves=[("b", 2)])
+    group.counter.take()
+    out["order_fault"] = [(f.rule, f.path) for f in
+                          lint_programs(regs, use_baseline=False).new]
+    # a collective posted around the group: the observer reads it off the
+    # dispatcher's c10d op as it reads the group's own
+    raw = ProgramRegistry("raw")
+    raw.observing = True
+    with raw.dispatch("stray_all_reduce", (), {"collective_free": True}):
+        dist.all_reduce(a)
+    out["raw"] = [(f.rule, f.message) for f in
+                  lint_programs([raw], use_baseline=False).new]
+    out["raw_ops"] = list(raw.get("stray_all_reduce").observation.collectives)
+    return out
+
+
+JOBS = {"programs": job_programs, "tag_check": job_tag_check, "train": job_train, "resume": job_resume, "load": job_load,
         "overflow": job_overflow, "sampler": job_sampler}
 
 
