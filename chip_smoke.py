@@ -222,6 +222,28 @@ failure:
               18,432 B, all pinned, all served to the recompute; B1 twice
               and B2/B3 once per block; peak memory, step ms and, from one
               profiled step, D2H and H2D GB/s
+ 23. moe      GPT-2 mixture-of-experts (ROADMAP A15, MoE half): gpt2-350m
+              with 16 experts, top-2, in its 12 odd blocks (1.87B
+              parameters, the expert stacks drawn on the card), bf16, seq
+              1024, micro 8, gas 2, Adam, WarmupLR, clipping 1.0, through
+              initialize() -> 10 x train_batch: losses finite and falling,
+              B1-B3 launched 24 x 2 x 10 times each, an 11th step under
+              set_sync_debug_mode("error"), a 12th observed by the
+              program lint (zero findings); step ms, tokens/s, peak
+              memory, moe_aux_loss and each MoE layer's dropped fraction,
+              two steps under torch.profiler. Parity at 2 layers (layer 1
+              MoE), full width: loss and every gradient with the kernels
+              against the plain attention, the routing of the kernel run
+              pinned on the plain run (its flipped choices counted: they
+              are the only difference the pin removes), within the bf16
+              gate; the planted fault (the second choice dropped) at >=
+              10x it; the combine left in fp32 measured. Decode: generate()
+              greedy, 4 prompts of 16, 32 new tokens, from the trained fp32
+              master at a capacity where nothing drops, under phase 16's
+              replay gate against the training forward with generate()'s
+              routing pinned on it (its flips counted); fp32 at 2 layers,
+              capacity factor 8: greedy tokens equal the training
+              forward's argmax but at near ties
 The line before the last is the kernels JSON (the fp16 rows named
 <kernel>_fp16, their launches from phase 13); the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card and nvcc.
@@ -3778,6 +3800,371 @@ def phase_host_activations(env):
         f"{sorted(host['step_ms'])[1]:.1f} host on {env['smi']}")
 
 
+# ---------------------------------------------------------------------------
+# phase 23: GPT-2 mixture-of-experts (ROADMAP A15, MoE half)
+# ---------------------------------------------------------------------------
+MOE_EXPERTS = 16
+MOE_TOP_K = 2
+MOE_MICRO = 8
+MOE_GAS = 2
+MOE_STEPS = 10
+MOE_PROMPTS = 4
+MOE_PROMPT_LEN = 16
+MOE_NEW = 32
+# a capacity factor at which no token drops: a decode step's token never
+# drops (capacity k), so the replay forward must not either
+MOE_NO_DROP = 8.0
+MOE_FAULT_FACTOR = 10
+
+
+def _moe_config(**overrides):
+    """gpt2-350m with 16 experts, top-2, in its odd blocks, bf16."""
+    import torch
+
+    from deepspeed_tpu_torch.models.gpt2 import gpt2_config
+
+    kw = dict(n_positions=SLICE_SEQ, dtype=torch.bfloat16, remat=False,
+              moe_num_experts=MOE_EXPERTS, moe_top_k=MOE_TOP_K)
+    kw.update(overrides)
+    return gpt2_config(SLICE_MODEL, **kw)
+
+
+def _moe_gating(model, micro):
+    """(moe_aux_loss, [dropped fraction of each MoE layer]) of one
+    micro-batch, train, no gradient."""
+    import torch
+
+    from deepspeed_tpu_torch.moe.sharded_moe import MoE
+
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: seen.append((mod, args[0])))
+        for m in model.modules() if isinstance(m, MoE)]
+    try:
+        with torch.no_grad():
+            _, metrics = model.loss(micro, train=True)
+            dropped = [float(mod.gate(x, train=True)[-1]["moe_dropped_frac"])
+                       for mod, x in seen]
+    finally:
+        for h in hooks:
+            h.remove()
+    return float(metrics["moe_aux_loss"]), dropped
+
+
+class _PinnedRouting:
+    """A stand-in for moe/sharded_moe.py's ``_argmax``: recording, it
+    keeps each choice it makes; replaying, it returns the recorded
+    choices in order and counts where its own argmax would differ (the
+    flipped choices)."""
+
+    def __init__(self):
+        self.choices, self.replay, self.flips, self.total = [], None, [], 0
+
+    def __call__(self, rem):
+        import torch
+
+        own = torch.argmax(rem, dim=-1)
+        if self.replay is None:
+            self.choices.append(own)
+            return own
+        want = self.replay.pop(0)
+        self.flips.append((own != want).sum())
+        self.total += own.numel()
+        return want
+
+
+def _moe_parity(env):
+    """2 layers at full width (layer 1 MoE): the kernels against the plain
+    attention with the kernel run's routing pinned; the planted fault
+    (the second choice dropped) and the fp32 combine measured beside."""
+    import torch
+    from unittest import mock
+
+    from deepspeed_tpu_torch.models import gpt2
+    from deepspeed_tpu_torch.moe import sharded_moe
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    tol = TOL["bfloat16"]
+    model = gpt2.GPT2Model(_moe_config(n_layer=2), device="cuda",
+                           generator=torch.Generator().manual_seed(11))
+    moe = model.h[1].moe
+    batch = {k: v[0].cuda() for k, v in _slice_batch(
+        model.config.vocab_size, 1, 4, SLICE_SEQ, seed=1).items()}
+
+    def run(pin, attend=None, k=MOE_TOP_K, combine_fp32=False):
+        model.zero_grad(set_to_none=True)
+        moe.k = k
+        patches = [mock.patch.object(sharded_moe, "_argmax", pin)]
+        if attend is not None:
+            patches.append(mock.patch.object(
+                gpt2, "scaled_dot_product_attention", attend))
+        if combine_fp32:
+            cast = sharded_moe._cast
+            patches.append(mock.patch.object(
+                sharded_moe, "_cast", lambda t, dt, ct: t.float()
+                if t.dtype == torch.float32 and t.dim() == 4
+                else cast(t, dt, ct)))
+            einsum = torch.einsum
+            patches.append(mock.patch.object(
+                torch, "einsum", lambda eq, a, b: einsum(
+                    eq, a.float(), b.float()).to(a.dtype)
+                if eq == "egcm,gsec->gsm" else einsum(eq, a, b)))
+        before = dict(fa.LAUNCHES)
+        try:
+            for p in patches:
+                p.start()
+            loss, _ = model.loss(batch, train=True)
+            loss.backward()
+        finally:
+            for p in reversed(patches):
+                p.stop()
+            moe.k = MOE_TOP_K
+        launched = {n: fa.LAUNCHES[n] - before[n] for n in before}
+        return loss.item(), {n: p.grad.clone() for n, p in
+                             model.named_parameters()}, launched
+
+    record = _PinnedRouting()
+    runs = {"kernels": run(record)}
+    choices = record.choices
+
+    def pinned():
+        pin = _PinnedRouting()
+        pin.replay = list(choices)
+        return pin
+
+    plain_pin = pinned()
+    runs["plain, pinned"] = run(plain_pin, _plain_attention())
+    runs["plain, own routing"] = run(_PinnedRouting(), _plain_attention())
+    runs["planted fault: second choice dropped"] = run(
+        pinned(), _plain_attention(), k=1)
+    runs["kernels, combine in fp32"] = run(pinned(), combine_fp32=True)
+    flips = int(sum(int(f) for f in plain_pin.flips))
+    for label, (_, _, launched) in runs.items():
+        each = 0 if "plain" in label or "fault" in label else 2
+        if launched != {n: each for n in launched}:
+            raise RuntimeError(f"moe parity: the {label} run launched "
+                               f"{launched}, expected {each} of each")
+    lp, gp, _ = runs["plain, pinned"]
+    errs = {}
+    for label in runs:
+        if label == "plain, pinned":
+            continue
+        loss, grads, _ = runs[label]
+        loss_err = abs(loss - lp) / abs(lp)
+        worst = max((rel_l2(grads[n], gp[n]), n) for n in gp)
+        errs[label] = max(loss_err, worst[0])
+        log(f"moe parity (2 layers, n_embd 1024, {MOE_EXPERTS} experts, "
+            f"bf16) {label} vs plain pinned: loss {loss:.6f} vs {lp:.6f}, "
+            f"rel {loss_err:.3e}; worst gradient {worst[1]} rel l2 "
+            f"{worst[0]:.3e} (gate {tol:g}, {len(gp)} tensors)")
+    log(f"moe parity: {flips} of {plain_pin.total} routing choices flip "
+        f"between the kernel and the plain attention's own routing (H3); "
+        f"the pin removes exactly them, so the gate is phase 7's {tol:g}")
+    if flips == 0 and errs["plain, own routing"] != 0.0:
+        raise RuntimeError("moe parity: no flip, yet the own routing run "
+                           "differs from the pinned one")
+    if not errs["kernels"] <= tol:
+        raise RuntimeError("moe parity: the kernels disagree with the plain "
+                           "attention beyond the gate")
+    fault = errs["planted fault: second choice dropped"]
+    if not fault >= MOE_FAULT_FACTOR * tol:
+        raise RuntimeError(f"moe parity: the planted fault reads {fault:.3e}"
+                           f", under {MOE_FAULT_FACTOR}x the gate")
+    return {"flips": flips, "choices": plain_pin.total,
+            "err": errs["kernels"], "fault": fault,
+            "combine_fp32": errs["kernels, combine in fp32"]}
+
+
+def _moe_decode(env, cfg, master):
+    """generate() greedy from the trained fp32 master (at a capacity where
+    nothing drops), 4 prompts of 16 and 32 new tokens, under phase 16's
+    replay gate against the training forward (the flash kernels) over the
+    same tokens, with generate()'s routing choices pinned on the replay:
+    a choice the two computations decide apart by their rounding (H3)
+    moves a whole token's FFN output, which the gate is not for; those
+    flips are counted, and the unpinned deficits logged."""
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.models.generation import generate
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+    from deepspeed_tpu_torch.moe import sharded_moe
+
+    nodrop = dataclasses.replace(cfg, moe_capacity_factor=MOE_NO_DROP)
+    model = GPT2Model(nodrop, device="cuda")
+    model.load_state_dict(master)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MOE_PROMPTS, MOE_PROMPT_LEN)).astype(np.int32)
+    # what the prompts' prefill drops at the trained capacity factor
+    layers = [m for m in model.modules() if isinstance(m, sharded_moe.MoE)]
+    for m in layers:
+        m.capacity_factor = cfg.moe_capacity_factor
+    ids = torch.as_tensor(prompts, device="cuda").long()
+    _, prefill = _moe_gating(model, {"input_ids": ids, "labels": ids})
+    for m in layers:
+        m.capacity_factor = MOE_NO_DROP
+    record = _PinnedRouting()
+    t0 = time.perf_counter()
+    with mock.patch.object(sharded_moe, "_argmax", record):
+        seq = generate(model, None, prompts, MOE_NEW)
+    gen_s = time.perf_counter() - t0
+    # the choices per layer and rank along the sequence: the prefill's
+    # (rows, 16), then one (rows, 1) per decode step
+    per = len(layers) * MOE_TOP_K
+    steps = len(record.choices) // per - 1
+    pin = _PinnedRouting()
+    pin.replay = [torch.cat([record.choices[j]] + [
+        record.choices[(t + 1) * per + j] for t in range(steps)], dim=1)
+        for j in range(per)]
+    ids = torch.as_tensor(seq[:, :-1], device="cuda").long()
+    new = torch.as_tensor(seq[:, MOE_PROMPT_LEN:], device="cuda").long()
+
+    def deficits():
+        with torch.no_grad():
+            logits = model(ids)[:, MOE_PROMPT_LEN - 1:].float()
+        best = logits.max(dim=-1).values
+        return best - logits.gather(2, new[..., None])[..., 0], best
+
+    with mock.patch.object(sharded_moe, "_argmax", pin):
+        deficit, best = deficits()
+    flips = int(sum(int(f) for f in pin.flips))
+    own, _ = deficits()
+    worst = float(deficit.max())
+    log(f"moe decode: generate() greedy, {MOE_PROMPTS} prompts of "
+        f"{MOE_PROMPT_LEN}, {MOE_NEW} new tokens in {gen_s:.2f} s on "
+        f"{env['smi']}; replay deficit max {worst:.4f} with generate()'s "
+        f"routing pinned (gate {SERVE_DELTA}), {int((deficit > 0).sum())} "
+        f"of {deficit.numel()} positions above 0, top logit max "
+        f"{float(best.abs().max()):.3f}; {flips} of {pin.total} routing "
+        f"choices flip between generate() and the replay (H3), whose own "
+        f"routing reads a deficit max {float(own.max()):.4f}; at capacity "
+        f"factor {cfg.moe_capacity_factor} the prompts' prefill would drop "
+        f"{[round(d, 5) for d in prefill]} by MoE layer")
+    if not worst <= SERVE_DELTA:
+        raise RuntimeError(f"moe decode: a generated token scores "
+                           f"{worst:.4f} under the replay's best")
+    return {"deficit": worst, "decode_flips": flips,
+            "decode_choices": pin.total}
+
+
+def _moe_decode_fp32(env):
+    """fp32, 2 layers, capacity factor 8 (nothing drops): greedy tokens
+    equal the training forward's argmax at every generated position but
+    where its top-2 gap is under TIE_REL (tests/unit/test_generation.py
+    holds the JAX package so)."""
+    import numpy as np
+    import torch
+
+    from deepspeed_tpu_torch.models.generation import generate
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+
+    model = GPT2Model(_moe_config(n_layer=2, dtype=torch.float32,
+                                  moe_capacity_factor=MOE_NO_DROP),
+                      device="cuda", generator=torch.Generator()
+                      .manual_seed(5))
+    prompts = np.random.default_rng(1).integers(
+        0, model.config.vocab_size,
+        (MOE_PROMPTS, MOE_PROMPT_LEN)).astype(np.int32)
+    seq = generate(model, None, prompts, MOE_NEW)
+    with torch.no_grad():
+        logits = model(torch.as_tensor(seq[:, :-1], device="cuda").long())
+        logits = logits[:, MOE_PROMPT_LEN - 1:].float().cpu().numpy()
+    want = logits.argmax(-1)
+    got = seq[:, MOE_PROMPT_LEN:]
+    top2 = -np.sort(-logits, axis=-1)[..., :2]
+    gap = (top2[..., 0] - top2[..., 1]) / np.maximum(np.abs(top2[..., 0]),
+                                                     1e-30)
+    bad = (got != want) & (gap >= TIE_REL)
+    ties = int(((got != want) & (gap < TIE_REL)).sum())
+    log(f"moe decode fp32 (2 layers, capacity factor {MOE_NO_DROP}): "
+        f"{int((got == want).sum())} of {got.size} greedy tokens equal the "
+        f"training forward's argmax, {ties} near ties, smallest top-2 gap "
+        f"{float(gap.min()):.3e} relative")
+    if bad.any():
+        raise RuntimeError(f"moe decode fp32: {int(bad.sum())} greedy tokens "
+                           f"differ from the training forward's argmax away "
+                           f"from a near tie")
+
+
+def phase_moe(env):
+    """GPT-2 mixture-of-experts: module docstring, phase 23."""
+    import torch
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model
+
+    _release_earlier_phases()
+    cfg = _moe_config()
+    t0 = time.perf_counter()
+    model = GPT2Model(cfg, device="cuda")
+    engine, _, _, _ = initialize(model=model,
+                                 config_params=_ds_config(MOE_MICRO, MOE_GAS))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in engine.module.parameters())
+    n_experts = sum(p.numel() for n, p in engine.module.named_parameters()
+                    if ".moe.experts." in n)
+    log(f"moe: {SLICE_MODEL} with {MOE_EXPERTS} experts top-{MOE_TOP_K} in "
+        f"{cfg.n_layer // cfg.moe_layer_freq} blocks: {n_params} parameters "
+        f"({n_experts} in the expert stacks), model and engine built in "
+        f"{init_s:.2f} s (the stacks drawn on the card)")
+    batch = _slice_batch(cfg.vocab_size, MOE_GAS, MOE_MICRO, SLICE_SEQ,
+                         seed=0)
+    want = {name: cfg.n_layer * MOE_GAS * MOE_STEPS
+            for name, _ in FLASH_KERNELS}
+    want.update({name: 0 for name, _ in SPARSE_KERNELS})
+    train = _train_steps(env, engine, batch, f"{SLICE_MODEL}-moe"
+                         f"{MOE_EXPERTS}", SLICE_SEQ, MOE_MICRO, MOE_GAS,
+                         MOE_STEPS, want)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine.train_batch(batch=batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    # the program lint over the MoE engine's step: one observed dispatch
+    from deepspeed_tpu_torch.telemetry.program_lint import lint_programs
+
+    engine.program_registry.observing = True
+    engine.train_batch(batch=batch)
+    engine.program_registry.observing = False
+    findings = lint_programs([engine.program_registry],
+                             use_baseline=False).new
+    log(f"moe: program lint over {sorted(engine.program_registry.names())}"
+        f": {len(findings)} findings {[(f.rule, f.path) for f in findings]}")
+    if findings:
+        raise RuntimeError("moe: the program lint has findings")
+    micro = {k: v[0].cuda() for k, v in batch.items()}
+    aux, dropped = _moe_gating(engine.module, micro)
+    log(f"moe: step {MOE_STEPS + 1} under set_sync_debug_mode('error'): no "
+        f"host sync; moe_aux_loss {aux:.6f}; dropped fraction by MoE layer "
+        f"{[round(d, 5) for d in dropped]} (mean "
+        f"{sum(dropped) / len(dropped):.5f}) at capacity factor "
+        f"{cfg.moe_capacity_factor}")
+    profile = phase_profile(env, train, f"{SLICE_MODEL}-moe{MOE_EXPERTS}")
+    master = {n: m.detach().clone() for n, m in zip(engine.param_names,
+                                                    engine.master)}
+    train.pop("engine")
+    del engine, model
+    _release_earlier_phases()
+    decode = _moe_decode(env, cfg, master)
+    del master
+    _release_earlier_phases()
+    _moe_decode_fp32(env)
+    parity = _moe_parity(env)
+    _release_earlier_phases()
+    summary = dict(step_ms=train["step_ms"],
+                   tokens_per_s=train["tokens_per_s"],
+                   peak_bytes=train["peak_bytes"], aux=aux, dropped=dropped,
+                   idle_share=profile["idle_share"],
+                   launches=train["launches"], **decode, **parity)
+    log(f"moe summary on {env['smi']}: {json.dumps(summary)}")
+    return summary
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "deepspeed_tpu_torch")):
         print("chip_smoke.py: the deepspeed_tpu_torch package is not beside "
@@ -3839,6 +4226,8 @@ def main():
     timed(phase_programs, env, stage0)
     torch.cuda.empty_cache()
     timed(phase_host_activations, env)
+    torch.cuda.empty_cache()
+    timed(phase_moe, env)
     log(f"phase walls (s) on {env['smi']}: "
         f"{json.dumps(PHASE_WALLS)}; all phases "
         f"{time.perf_counter() - t_main:.3f} s")

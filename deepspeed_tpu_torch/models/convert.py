@@ -9,13 +9,17 @@ axis. Handed over as nested dicts of numpy arrays, they map onto
 ``weight`` (out, in), a LayerNorm ``scale`` becomes ``weight``, and ``wte``
 keeps its padded vocab rows. The JAX BERT's tree (deepspeed_tpu
 models/bert.py) maps the same way onto ``BertForPreTraining``
-(``bert_params_from_jax``).
+(``bert_params_from_jax``). An MoE block (``h_{i}/moe``) holds the
+router's ``kernel`` (M, E), which becomes ``moe.router.weight`` (E, M)
+like any Dense kernel, and the expert stacks ``experts/{w_in, b_in, w_out,
+b_out}``, which keep the JAX layout.
 """
 import numpy as np
 import torch
 
 _DENSE = ("attn.c_attn", "attn.c_proj", "mlp.c_fc", "mlp.c_proj")
 _NORMS = ("ln_1", "ln_2")
+_EXPERTS = ("w_in", "b_in", "w_out", "b_out")
 
 
 def _tensor(a):
@@ -33,11 +37,18 @@ def _block(tree, prefix, out, index=None):
     for name in _NORMS:
         out[f"{prefix}.{name}.weight"] = _tensor(leaf(name, "scale"))
         out[f"{prefix}.{name}.bias"] = _tensor(leaf(name, "bias"))
-    for name in _DENSE:
+    moe = "moe" in tree
+    for name in _DENSE[:2] if moe else _DENSE:
         path = name.split(".")
         out[f"{prefix}.{name}.weight"] = _tensor(leaf(*path, "kernel")).t() \
             .contiguous()
         out[f"{prefix}.{name}.bias"] = _tensor(leaf(*path, "bias"))
+    if moe:
+        out[f"{prefix}.moe.router.weight"] = _tensor(
+            leaf("moe", "router", "kernel")).t().contiguous()
+        for name in _EXPERTS:
+            out[f"{prefix}.moe.experts.{name}"] = _tensor(
+                leaf("moe", "experts", name))
 
 
 def params_from_jax(tree, cfg):
@@ -124,13 +135,27 @@ def _norm_spec(prefix):
             "bias": (f"{prefix}.bias", False)}
 
 
-def _gpt2_block_spec(prefix):
-    return {"attn": {"c_attn": _dense_spec(f"{prefix}.attn.c_attn"),
+def _gpt2_block_spec(prefix, moe=False):
+    spec = {"attn": {"c_attn": _dense_spec(f"{prefix}.attn.c_attn"),
                      "c_proj": _dense_spec(f"{prefix}.attn.c_proj")},
             "ln_1": _norm_spec(f"{prefix}.ln_1"),
-            "ln_2": _norm_spec(f"{prefix}.ln_2"),
-            "mlp": {"c_fc": _dense_spec(f"{prefix}.mlp.c_fc"),
-                    "c_proj": _dense_spec(f"{prefix}.mlp.c_proj")}}
+            "ln_2": _norm_spec(f"{prefix}.ln_2")}
+    if moe:
+        spec["moe"] = {
+            "router": {"kernel": (f"{prefix}.moe.router.weight", True)},
+            "experts": {n: (f"{prefix}.moe.experts.{n}", False)
+                        for n in _EXPERTS}}
+    else:
+        spec["mlp"] = {"c_fc": _dense_spec(f"{prefix}.mlp.c_fc"),
+                       "c_proj": _dense_spec(f"{prefix}.mlp.c_proj")}
+    return spec
+
+
+def gpt2_moe_block(cfg, i):
+    """Whether block i of the GPT-2 ``cfg`` is an MoE block (every
+    ``moe_layer_freq``-th, the JAX model's alternation)."""
+    freq = cfg.moe_layer_freq
+    return bool(cfg.moe_num_experts) and i % freq == freq - 1
 
 
 def _stacked(trees):
@@ -148,7 +173,8 @@ def gpt2_reference_tree(cfg):
     the JAX leaf is its transpose."""
     tree = {"wte": ("wte", False), "wpe": ("wpe", False),
             "ln_f": _norm_spec("ln_f")}
-    blocks = [_gpt2_block_spec(f"h.{i}") for i in range(cfg.n_layer)]
+    blocks = [_gpt2_block_spec(f"h.{i}", gpt2_moe_block(cfg, i))
+              for i in range(cfg.n_layer)]
     if cfg.scan_layers:
         tree["h"] = {"block": _stacked(blocks)}
     else:
@@ -216,10 +242,17 @@ def gpt2_tp_taken(path, ndim, stacked=False):
     """The dims of a JAX GPT-2 leaf that its tensor-parallel spec gives to
     the ``model`` axis (deepspeed_tpu models/gpt2.py ``gpt2_tp_leaf_spec``:
     QKV and MLP-in kernels their output dim and biases, the c_proj
-    kernels their input dim, wte its vocab dim; a scanned stack's leading
-    (L,) dim is never taken). ZeRO shards another dim."""
+    kernels their input dim, wte its vocab dim, an MoE leaf the dims its
+    ``moe_leaf_spec`` gives ``model``; a scanned stack's leading (L,) dim
+    is never taken). ZeRO shards another dim."""
     if ndim == 0 or "wpe" in path:
         return ()
+    if "moe" in path:
+        from deepspeed_tpu_torch.moe.sharded_moe import moe_leaf_spec
+
+        spec = moe_leaf_spec(path)
+        if spec is not None:
+            return tuple(d for d, a in enumerate(spec) if a == "model")
     if "wte" in path:
         return (0,)
     lead = 1 if stacked else 0

@@ -21,7 +21,11 @@ share one parameter view and one dtype policy, the reference's:
   D**-0.5 after the product, masks with -1e30, softmaxes in fp32 and casts
   the probabilities to the compute dtype before P.V; ``_lm_logits`` takes
   the head product in the compute dtype, drops the pad columns, then casts
-  to fp32; GELU is the tanh form.
+  to fp32; GELU is the tanh form;
+- an MoE block (``moe``) keeps its router kernel (M, E) in fp32 and its
+  expert stacks in the compute dtype; ``_moe_ffn`` gates as the training
+  layer does (fp32 router product and softmax, combine and dispatch
+  rounded to the compute dtype).
 
 Sampling draws are a pure function of (seed, absolute position, token id):
 Gumbel noise from a counter hash, added to the filtered logits, argmax. No
@@ -36,7 +40,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from deepspeed_tpu_torch.models.convert import params_from_jax
+from deepspeed_tpu_torch.models.convert import (gpt2_moe_block,
+                                                params_from_jax)
+from deepspeed_tpu_torch.moe.sharded_moe import top_k_gating
 from deepspeed_tpu_torch.ops.transformer.flash_attention import (_M32,
                                                                  _mix32,
                                                                  _mul32)
@@ -56,7 +62,10 @@ def decode_params(model, params=None, device=None):
     ``{"wte", "wpe", "ln_f", "blocks": [{"ln_1", "attn": {"c_attn",
     "c_proj"}, "ln_2", "mlp": {"c_fc", "c_proj"}}]}`` with LayerNorm
     ``{"scale", "bias"}`` in fp32 and dense ``{"kernel" (in, out), "bias"}``,
-    ``wte`` (padded vocab rows kept) and ``wpe`` in ``model.config.dtype``.
+    ``wte`` (padded vocab rows kept) and ``wpe`` in ``model.config.dtype``;
+    an MoE block has ``"moe": {"router": {"kernel"}, "experts": {"w_in",
+    "b_in", "w_out", "b_out"}}`` in place of ``"mlp"``, the router kernel
+    (M, E) in fp32 and the full expert stacks in the compute dtype.
 
     ``params``: None (the model's own parameters), a state_dict of
     ``GPT2Model`` names, or the JAX package's parameter tree (nested dicts
@@ -65,9 +74,6 @@ def decode_params(model, params=None, device=None):
     copy, whose LayerNorm weights are rounded; pass its fp32 master,
     ``dict(zip(engine.param_names, engine.master))``, instead."""
     cfg = model.config
-    if cfg.moe_num_experts:
-        raise NotImplementedError(
-            "GPT-2 mixture-of-experts is not ported yet (ROADMAP A15)")
     if params is None:
         sd = {k: v.detach() for k, v in model.state_dict().items()}
     elif _is_jax_tree(params):
@@ -94,13 +100,21 @@ def decode_params(model, params=None, device=None):
     blocks = []
     for i in range(cfg.n_layer):
         p = f"h.{i}"
-        blocks.append({
+        block = {
             "ln_1": norm(f"{p}.ln_1"),
             "attn": {"c_attn": dense(f"{p}.attn.c_attn"),
                      "c_proj": dense(f"{p}.attn.c_proj")},
-            "ln_2": norm(f"{p}.ln_2"),
-            "mlp": {"c_fc": dense(f"{p}.mlp.c_fc"),
-                    "c_proj": dense(f"{p}.mlp.c_proj")}})
+            "ln_2": norm(f"{p}.ln_2")}
+        if gpt2_moe_block(cfg, i):
+            block["moe"] = {
+                "router": {"kernel": sd[f"{p}.moe.router.weight"].t()
+                           .to(device).contiguous()},
+                "experts": {n: sd[f"{p}.moe.experts.{n}"].to(device, dt)
+                            for n in ("w_in", "b_in", "w_out", "b_out")}}
+        else:
+            block["mlp"] = {"c_fc": dense(f"{p}.mlp.c_fc"),
+                            "c_proj": dense(f"{p}.mlp.c_proj")}
+        blocks.append(block)
     return {"wte": sd["wte"].to(device, dt).contiguous(),
             "wpe": sd["wpe"].to(device, dt).contiguous(),
             "ln_f": norm("ln_f"), "blocks": blocks}
@@ -142,7 +156,41 @@ def _attn_core(q, keys, values, valid, p, out_dtype):
     return _dense(y, p["c_proj"])
 
 
-def _ffn(x, bp):
+def _moe_ffn(x, mp, cfg):
+    """The MoE feed-forward of one block at decode: the training layer's
+    dense top-k gating and stacked-expert products (moe/sharded_moe.py),
+    without jitter, at ``cfg.moe_capacity_factor`` as the eval forward of a
+    GPT-2 block gates. x: (B, T, M).
+
+    Capacity: prefill gates the whole prompt per batch row as the training
+    forward does; decode gates ONE token per step at capacity k (it takes
+    at most one slot of each chosen expert, so nothing drops, and the
+    min_capacity floor would only oversize the expert products), so a
+    decoded token never competes with its predecessors for slots. The same
+    as the training forward wherever that drops nothing."""
+    dtype = x.dtype
+    logits = x.float() @ mp["router"]["kernel"]          # (B, T, E)
+    cap = cfg.moe_top_k if x.shape[1] == 1 else None
+    combine, dispatch, _, _ = top_k_gating(
+        logits, k=cfg.moe_top_k, capacity=cap,
+        capacity_factor=cfg.moe_capacity_factor)
+    ex = mp["experts"]
+    E = cfg.moe_num_experts
+    d = torch.einsum("gsec,gsm->egcm", dispatch.to(dtype), x)
+    B, C = d.shape[1], d.shape[2]
+    d = d.reshape(E, B * C, -1)
+    h = torch.bmm(d, ex["w_in"]) + ex["b_in"][:, None, :]
+    h = F.gelu(h, approximate="tanh")
+    y = torch.bmm(h, ex["w_out"]) + ex["b_out"][:, None, :]
+    y = y.reshape(E, B, C, -1)
+    # dropped tokens get zero here and ride the residual, as in training
+    return torch.einsum("egcm,gsec->gsm", y, combine.to(dtype))
+
+
+def _ffn(x, bp, cfg=None):
+    """The block's dense MLP, or its MoE layer (``cfg`` needed)."""
+    if "moe" in bp:
+        return _moe_ffn(x, bp["moe"], cfg)
     mp = bp["mlp"]
     return _dense(F.gelu(_dense(x, mp["c_fc"]), approximate="tanh"),
                   mp["c_proj"])
@@ -166,7 +214,7 @@ def _block_decode(x, bp, ck, cv, pos, cfg):
     eps = cfg.layer_norm_epsilon
     x = x + _attn_decode(_ln(x, bp["ln_1"], eps), bp["attn"], ck, cv, pos,
                          cfg)
-    return x + _ffn(_ln(x, bp["ln_2"], eps), bp)
+    return x + _ffn(_ln(x, bp["ln_2"], eps), bp, cfg)
 
 
 def _attn_prefill(x, p, cfg):
@@ -197,7 +245,7 @@ def _prefill(params, cfg, tokens):
     for bp in params["blocks"]:
         a, k, v = _attn_prefill(_ln(x, bp["ln_1"], eps), bp["attn"], cfg)
         x = x + a
-        x = x + _ffn(_ln(x, bp["ln_2"], eps), bp)
+        x = x + _ffn(_ln(x, bp["ln_2"], eps), bp, cfg)
         ks.append(k)
         vs.append(v)
     x = _ln(x, params["ln_f"], eps)

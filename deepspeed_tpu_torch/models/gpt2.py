@@ -9,6 +9,13 @@ fp16 they are the engine's compute-dtype copy and the casts are no-ops.
 ``remat=True`` recomputes each block in the backward
 (torch.utils.checkpoint) under ``remat_policy``.
 
+Mixture-of-experts (``moe_num_experts > 0``): every ``moe_layer_freq``-th
+block (the odd ones by default, GShard's alternation) swaps its MLP for
+the MoE layer (moe/sharded_moe.py). Each block returns its output and its
+aux loss (None for a dense block), so that a checkpointed block hands its
+aux out of the recomputed segment; ``loss`` adds their sum when training,
+as the JAX model adds its sown ``losses`` collection.
+
 Size table mirrors the reference perf harness configs
 (tests/model/Megatron_GPT2/run_perf_test.py:18-84).
 """
@@ -24,9 +31,12 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from deepspeed_tpu_torch.models.api import (chunked_lm_cross_entropy,
                                             cross_entropy_loss,
                                             pad_to_multiple)
-from deepspeed_tpu_torch.models.convert import (gpt2_reference_tree,
+from deepspeed_tpu_torch.models.convert import (gpt2_moe_block,
+                                                gpt2_reference_tree,
                                                 leaf_paths, leaf_specs,
                                                 gpt2_tp_taken)
+from deepspeed_tpu_torch.moe.sharded_moe import (MoE, moe_leaf_spec,
+                                                 sum_moe_losses)
 from deepspeed_tpu_torch.ops.transformer.functional import (
     dropout, gelu, scaled_dot_product_attention)
 from deepspeed_tpu_torch.ops.transformer.transformer import (Dense,
@@ -97,36 +107,51 @@ REMAT_POLICIES = ("nothing", "", None, "attn_out", "dots")
 # jax.checkpoint's dots_saveable keeps of them: mlp.c_proj's output reaches
 # only the residual add, whose backward does not read it). The attention is
 # the flash kernels on the card; the batched products of the CPU's plain
-# attention are recomputed.
+# attention are recomputed. In an MoE block the third matmul is the router
+# (its logits feed the softmax's backward), and dots_saveable keeps the
+# MoE's batched products too: the dispatched tokens, the experts' hidden
+# and output products are kept (the backward reads each), the combine's
+# output, which reaches only the residual add, is not.
 _MATMULS = {torch.ops.aten.mm.default, torch.ops.aten.addmm.default}
+_BATCHED = torch.ops.aten.bmm.default
 _DOTS_SAVED = 3
+_MOE_BATCHED_SAVED = 3
 
 
-def _dots_policy():
+def _dots_policy(moe=False):
     """The selective-checkpoint policy of one block call under 'dots': its
-    first three matmul outputs are kept, everything else (LayerNorm, GeLU,
-    the attention, whose kernels launch outside PyTorch's dispatcher) is
-    recomputed, as under the JAX package's dots_saveable."""
-    seen = [0]
+    first three matmul outputs are kept (and in an MoE block the first
+    three batched products after them), everything else (LayerNorm, GeLU,
+    the gating, the attention, whose kernels launch outside PyTorch's
+    dispatcher) is recomputed, as under the JAX package's
+    dots_saveable."""
+    seen = [0, 0]
 
     def policy(ctx, op, *args, **kwargs):
-        if op not in _MATMULS:
-            return CheckpointPolicy.PREFER_RECOMPUTE
-        seen[0] += 1
-        return CheckpointPolicy.MUST_SAVE if seen[0] <= _DOTS_SAVED \
+        if op in _MATMULS:
+            seen[0] += 1
+            keep = seen[0] <= _DOTS_SAVED
+        elif moe and op is _BATCHED and seen[0] >= _DOTS_SAVED:
+            seen[1] += 1
+            keep = seen[1] <= _MOE_BATCHED_SAVED
+        else:
+            keep = False
+        return CheckpointPolicy.MUST_SAVE if keep \
             else CheckpointPolicy.PREFER_RECOMPUTE
 
     return policy
 
 
-def _dots_contexts():
-    return create_selective_checkpoint_contexts(_dots_policy())
+def _dots_contexts(moe=False):
+    return lambda: create_selective_checkpoint_contexts(
+        _dots_policy(moe=True) if moe else _dots_policy())
 
 
 def _check_supported(cfg: GPT2Config):
-    if cfg.moe_num_experts:
-        raise NotImplementedError(
-            "GPT-2 mixture-of-experts is not ported yet (ROADMAP A15)")
+    # heterogeneous layers (dense/MoE alternation) cannot share one scanned
+    # body: the JAX model asserts it
+    assert not (cfg.moe_num_experts and cfg.scan_layers), \
+        "moe_num_experts > 0 requires scan_layers=False"
     if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
                          "(expected nothing|attn_out|dots)")
@@ -188,13 +213,26 @@ class MLP(nn.Module):
 
 
 class Block(nn.Module):
-    def __init__(self, config: GPT2Config):
+    """One pre-LN block; its FFN is the MoE layer (``moe``) when
+    ``use_moe``, else the dense ``mlp``. Returns (output, aux): aux is the
+    MoE layer's scaled aux loss, None for a dense block."""
+
+    def __init__(self, config: GPT2Config, use_moe: bool = False,
+                 index: int = 0):
         super().__init__()
         eps = config.layer_norm_epsilon
+        self.use_moe = use_moe
         self.ln_1 = LayerNorm(config.n_embd, eps=eps)
         self.attn = CausalSelfAttention(config)
         self.ln_2 = LayerNorm(config.n_embd, eps=eps)
-        self.mlp = MLP(config)
+        if use_moe:
+            self.moe = MoE(config.n_embd, num_experts=config.moe_num_experts,
+                           d_ff=4 * config.n_embd, k=config.moe_top_k,
+                           capacity_factor=config.moe_capacity_factor,
+                           aux_loss_coef=config.moe_aux_loss_coef,
+                           dtype=config.dtype, name=f"h_{index}/moe")
+        else:
+            self.mlp = MLP(config)
 
     def forward(self, x, train, generator):
         return self.rest(x, self.attend(x, train, generator), train,
@@ -204,9 +242,13 @@ class Block(nn.Module):
         return self.attn.attend(self.ln_1(x), train, generator)
 
     def rest(self, x, y, train, generator):
-        """The block after the attention output y."""
+        """The block after the attention output y: (output, aux)."""
         x = x + self.attn.project(y, train, generator)
-        return x + self.mlp(self.ln_2(x), train, generator)
+        h = self.ln_2(x)
+        if self.use_moe:
+            f, aux = self.moe(h, train, generator)
+            return x + f, aux
+        return x + self.mlp(h, train, generator), None
 
     def remat(self, x, train, generator, policy):
         """The block with its activations recomputed in the backward,
@@ -223,7 +265,8 @@ class Block(nn.Module):
                            use_reentrant=False)
             return checkpoint(replayable(self.rest, generator), x, y, train,
                               use_reentrant=False)
-        kw = {"context_fn": _dots_contexts} if policy == "dots" else {}
+        kw = {"context_fn": _dots_contexts(self.use_moe)} \
+            if policy == "dots" else {}
         return checkpoint(replayable(self, generator), x, train,
                           use_reentrant=False, **kw)
 
@@ -233,33 +276,42 @@ class GPT2Model(nn.Module):
 
     Parameter names follow the JAX package's tree: ``wte``, ``wpe``,
     ``h.<i>.{ln_1,attn.c_attn,attn.c_proj,ln_2,mlp.c_fc,mlp.c_proj}``,
-    ``ln_f``. ``generator`` seeds the initial weights (seed 0 if None).
+    ``ln_f``, and in an MoE block ``h.<i>.moe.router.weight`` and
+    ``h.<i>.moe.experts.{w_in,b_in,w_out,b_out}`` in place of the mlp's.
+    ``generator`` seeds the initial weights (seed 0 if None); ``device``
+    holds the parameters from the start (default: the CPU).
     """
 
     def __init__(self, config: GPT2Config,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         _check_supported(config)
         self.config = config
         e = config.n_embd
         self.wte = nn.Parameter(torch.empty(config.padded_vocab_size, e))
         self.wpe = nn.Parameter(torch.empty(config.n_positions, e))
-        self.h = nn.ModuleList(Block(config) for _ in range(config.n_layer))
+        self.h = nn.ModuleList(
+            Block(config, use_moe=gpt2_moe_block(config, i), index=i)
+            for i in range(config.n_layer))
         self.ln_f = LayerNorm(e, eps=config.layer_norm_epsilon)
+        if device is not None:
+            self.to(device)
         self.init_weights(generator if generator is not None
                           else torch.Generator().manual_seed(0))
 
     def init_weights(self, generator: torch.Generator):
         """Every parameter from ``generator`` (a CPU generator, so a seed
-        gives the same weights on any device): wte ~ N(0, 0.02), wpe ~
-        N(0, 0.01), dense kernels lecun-normal, biases 0, LayerNorm 1/0."""
+        gives the same weights on any device, but the expert stacks:
+        StackedExperts.reset_with): wte ~ N(0, 0.02), wpe ~ N(0, 0.01),
+        dense kernels and the router lecun-normal, expert kernels N(0,
+        0.02), biases 0, LayerNorm 1/0."""
         with torch.no_grad():
             self.wte.copy_(torch.empty(self.wte.shape).normal_(
                 generator=generator) * 0.02)
             self.wpe.copy_(torch.empty(self.wpe.shape).normal_(
                 generator=generator) * 0.01)
         for m in self.modules():
-            if isinstance(m, (Dense, LayerNorm)):
+            if isinstance(m, (Dense, LayerNorm, MoE)):
                 m.reset_with(generator)
 
     def reference_leaf_specs(self):
@@ -277,8 +329,17 @@ class GPT2Model(nn.Module):
         takes; ZeRO shards the leaf along another (runtime/zero)."""
         return gpt2_tp_taken(path, ndim, stacked)
 
-    def hidden(self, input_ids, train=False, generator=None):
-        """Final-LayerNorm activations (B, S, E) in the compute dtype."""
+    @staticmethod
+    def expert_dim(path):
+        """The dim of the JAX leaf ``path`` that expert parallelism splits
+        over ``data`` (an expert stack's E, by ``moe_leaf_spec``), or None;
+        ZeRO leaves such a leaf alone, as ``zero_merge_spec`` does."""
+        spec = moe_leaf_spec(path) if "moe" in path else None
+        return spec.index("data") if spec and "data" in spec else None
+
+    def hidden_and_aux(self, input_ids, train=False, generator=None):
+        """Final-LayerNorm activations (B, S, E) in the compute dtype, and
+        the sum of the MoE blocks' aux losses (None for a dense model)."""
         cfg = self.config
         dt = cfg.dtype
         S = input_ids.shape[1]
@@ -286,12 +347,19 @@ class GPT2Model(nn.Module):
             + self.wpe[:S].to(dt)[None]
         if train and cfg.dropout > 0:
             x = dropout(x, generator, cfg.dropout)
+        losses = []
         for block in self.h:
             if cfg.remat and torch.is_grad_enabled():
-                x = block.remat(x, train, generator, cfg.remat_policy)
+                x, aux = block.remat(x, train, generator, cfg.remat_policy)
             else:
-                x = block(x, train, generator)
-        return self.ln_f(x)
+                x, aux = block(x, train, generator)
+            losses.append(aux)
+        aux = sum_moe_losses(losses) if cfg.moe_num_experts else None
+        return self.ln_f(x), aux
+
+    def hidden(self, input_ids, train=False, generator=None):
+        """Final-LayerNorm activations (B, S, E) in the compute dtype."""
+        return self.hidden_and_aux(input_ids, train, generator)[0]
 
     def forward(self, input_ids, train=False, generator=None):
         """Logits (B, S, vocab_size): the tied head at the padded width,
@@ -301,19 +369,27 @@ class GPT2Model(nn.Module):
         return logits[..., :self.config.vocab_size]
 
     def loss(self, batch, generator=None, train=True):
-        """Next-token LM loss of ``batch`` {"input_ids", "labels"} (B, S)."""
+        """Next-token LM loss of ``batch`` {"input_ids", "labels"} (B, S),
+        and its metrics. With MoE blocks and ``train``, the blocks' aux
+        losses are added and the metrics gain ``moe_aux_loss`` and ``loss``
+        (the eval loss stays comparable to a dense model's)."""
         cfg = self.config
         ids = batch["input_ids"]
         labels = batch["labels"]
+        x, aux = self.hidden_and_aux(ids, train, generator)
         if cfg.loss_chunk_tokens:
-            x = self.hidden(ids, train, generator)
-            return chunked_lm_cross_entropy(
+            loss, metrics = chunked_lm_cross_entropy(
                 x[:, :-1], self.wte, labels[:, 1:],
                 chunk_tokens=cfg.loss_chunk_tokens, ignore_index=-100,
                 valid_vocab=cfg.vocab_size)
-        logits = self.forward(ids, train, generator)
-        return cross_entropy_loss(logits[:, :-1], labels[:, 1:],
-                                  ignore_index=-100)
+        else:
+            logits = (x @ self.wte.to(x.dtype).t())[..., :cfg.vocab_size]
+            loss, metrics = cross_entropy_loss(
+                logits[:, :-1], labels[:, 1:], ignore_index=-100)
+        if aux is not None and train:
+            loss = loss + aux
+            metrics = dict(metrics, moe_aux_loss=aux, loss=loss)
+        return loss, metrics
 
     def num_params(self):
         return sum(p.numel() for p in self.parameters())

@@ -10,6 +10,10 @@ parallel spec leaves free and the data-parallel size divides.
 
 ``DataParallelGroup`` issues the engine's collectives on the current
 stream (no host sync) and records each in a ``CollectiveCounter``.
+``expert_exchange`` is the MoE layer's token exchange over the group (the
+all-to-all GSPMD inserts where the JAX layer's dispatched activations
+flip from batch-sharded to expert-sharded), ``global_mean`` the mean of
+a rank's statistics over the group, both differentiable.
 """
 import torch
 import torch.distributed as dist
@@ -95,6 +99,16 @@ class DataParallelGroup:
         dist.all_gather_into_tensor(out, inp, group=self.group)
         return out
 
+    def all_to_all(self, out, inp, leaves=()):
+        """Chunk j of ``inp`` (split evenly along dim 0) to rank j; rank
+        j's chunk for this rank into chunk j of ``out``. ``leaves`` [(name,
+        elements)] names what the call carries for the counter."""
+        if leaves:
+            self.counter.record("all-to-all", "moe_a2a", inp.dtype, leaves,
+                                self.size)
+        dist.all_to_all_single(out, inp, group=self.group)
+        return out
+
     def all_gather_ints(self, values):
         """A host list of int64 from every rank: (size, len(values)) (a
         checkpoint's check, not counted)."""
@@ -107,3 +121,74 @@ class DataParallelGroup:
 
     def barrier(self):
         dist.barrier(group=self.group)
+
+
+def _exchange(x, group, name, to_experts):
+    """to_experts: (E, G_l, ...) -> (E/dp, dp*G_l, ...): the chunk of
+    experts [j*E/dp, (j+1)*E/dp) goes to rank j, and the groups come back
+    in rank order (the global batch's). Else the reverse: (E/dp, dp*G_l,
+    ...) -> (E, G_l, ...), each rank's groups back to it."""
+    w = group.size
+    rest = tuple(x.shape[2:])
+    if to_experts:
+        E, Gl = x.shape[:2]
+        send = x.contiguous()
+    else:
+        El, G = x.shape[:2]
+        E, Gl = El * w, G // w
+        send = x.reshape((El, w, Gl) + rest).transpose(0, 1).contiguous()
+    out = torch.empty_like(send)
+    if not send.is_meta:     # a FLOP count's replay moves nothing
+        group.all_to_all(out, send, leaves=[(name, send.numel())])
+    if to_experts:
+        return out.view((w, E // w, Gl) + rest).transpose(0, 1) \
+            .reshape((E // w, w * Gl) + rest)
+    return out.view((E, Gl) + rest)
+
+
+class _ExpertExchange(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, name, to_experts):
+        ctx.group, ctx.name, ctx.to_experts = group, name, to_experts
+        return _exchange(x, group, name, to_experts)
+
+    @staticmethod
+    def backward(ctx, grad):
+        # an even all-to-all is its own transpose: the gradient goes back
+        # by the reverse exchange
+        return _exchange(grad, ctx.group, f"{ctx.name}_bwd",
+                         not ctx.to_experts), None, None, None
+
+
+def expert_exchange(x, group, name, to_experts):
+    """The MoE token exchange over ``group`` (one all-to-all, counted as
+    ``moe_a2a:<name>``): ``to_experts`` takes the dispatched tokens (E,
+    G_local, C, M) of this rank's batch rows to (E/dp, G, C, M), this
+    rank's experts over the whole batch; the reverse takes the experts'
+    outputs back. Its backward is the opposite exchange (``<name>_bwd``)."""
+    return _ExpertExchange.apply(x, group, name, to_experts)
+
+
+class _GlobalMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.detach().clone()
+        if not out.is_meta:
+            group.all_reduce(out)
+        return out / group.size
+
+    @staticmethod
+    def backward(ctx, grad):
+        # d mean / d x_r is 1/dp, summed over the dp ranks whose losses
+        # read the mean: every rank's loss reads it alike (the engine
+        # scales each rank's loss alike), so the sum of the dp incoming
+        # gradients over dp is this rank's own, and no exchange is needed
+        return grad, None
+
+
+def global_mean(x, group):
+    """The elementwise mean of ``x`` over ``group``'s ranks (one SUM
+    all-reduce, a scalar reduction for the counter), differentiable for
+    an objective that every rank evaluates on the mean alike, as a data-
+    parallel loss does."""
+    return _GlobalMean.apply(x, group)

@@ -41,7 +41,7 @@ class Collective:
     participating device SENDS per invocation; ``count_per_step`` scales it
     to one optimizer step (e.g. gradient-accumulation micro-steps)."""
     name: str            # e.g. "grad_rs:h_0/attn/c_attn/kernel"
-    op: str              # all-reduce | reduce-scatter | all-gather
+    op: str              # all-reduce | reduce-scatter | all-gather | all-to-all
     dtype: str
     elements: int        # logical elements moved (pre-ring-factor)
     axis_size: int
@@ -70,9 +70,16 @@ def all_gather_bytes(n: int, elem_bytes: int, w: int) -> int:
     return int(round(_ring(w) * n * elem_bytes))
 
 
+def all_to_all_bytes(n: int, elem_bytes: int, w: int) -> int:
+    """An even all-to-all of n elements per device sends all but its own
+    chunk."""
+    return int(round(_ring(w) * n * elem_bytes))
+
+
 _RING_BYTES = {"all-reduce": allreduce_bytes,
                "reduce-scatter": reduce_scatter_bytes,
-               "all-gather": all_gather_bytes}
+               "all-gather": all_gather_bytes,
+               "all-to-all": all_to_all_bytes}
 
 
 @dataclass

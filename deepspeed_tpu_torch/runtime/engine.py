@@ -42,6 +42,17 @@ overflow flag is a MAX and the global norm a SUM over the group, so every
 rank takes or skips the same step. In a world of one every leaf is
 replicated, and the step is the single-process one bit for bit.
 
+Expert parallelism (a model with MoE layers; the JAX engine's placement of
+the expert stacks over ``data`` by ``moe_leaf_spec``, at every ZeRO
+stage): at dp > 1 rank r keeps experts [r*E/dp, (r+1)*E/dp) of each stack
+(``moe.expert_parallel``), and the tokens reach them by all-to-all inside
+the model. The stack's parameter, master, optimizer state and accumulator
+are this rank's experts: its gradients go in neither the all-reduce nor
+ZeRO's shard rule (the exchange's backward already brings every rank's
+tokens' gradient), and the global norm and the overflow flag sum and MAX
+their shards over the group. Checkpoints hold the whole stacks, gathered
+along E; a load keeps this rank's experts.
+
 ZeRO-Offload (``"cpu_offload": true`` with Adam or AdamW; the JAX engine's
 ``_ensure_state_offload``, ``_take_model_step_offload``): the fp32 master
 weights, the Adam moments and the gradient accumulator live in host
@@ -90,6 +101,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from deepspeed_tpu_torch.moe.sharded_moe import expert_parallel
 from deepspeed_tpu_torch.ops.adam.cpu_adam import (DeepSpeedCPUAdam,
                                                   accumulate, sum_of_squares)
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
@@ -257,13 +269,17 @@ class DeepSpeedEngine:
         self._seed = int(raw.get("seed", 42))
         self.module = model.to(self.device)
         self.module.init_weights(torch.Generator().manual_seed(self._seed))
+        # expert parallelism over data: this rank's E/dp experts (the JAX
+        # engine refuses a stack that dp does not divide, and so does this)
+        experts = expert_parallel(self.module, self.dp_group) \
+            if self.dp_world_size > 1 else ()
         named = [(n, p) for n, p in self.module.named_parameters()
                  if p.requires_grad]
         self.param_names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.partition = ZeroPartition(
             self.module, self.param_names, self.params, self.dp_world_size,
-            self.dp_rank, self.zero_optimization_stage())
+            self.dp_rank, self.zero_optimization_stage(), experts)
         self.optimizer = self._configure_basic_optimizer()
         # ZeRO-Offload: Adam/AdamW with cpu_offload steps on the host (LAMB
         # and SGD keep their device step, as in the JAX engine)
@@ -282,7 +298,7 @@ class DeepSpeedEngine:
         if not self._offload:
             if hasattr(self.optimizer, "set_partition"):
                 self.optimizer.set_partition(self.dp_group,
-                                             self.partition.sharded)
+                                             self._split_over_group())
             self.optimizer.init_state(self.master)
         self.lr_scheduler = self._configure_lr_scheduler()
         self._host_scaler = None
@@ -528,27 +544,31 @@ class DeepSpeedEngine:
         self._master_separate = self.mixed_precision or any(sharded)
         self._rep_idx = [i for i, s in enumerate(sharded) if not s]
         # accumulator: full-shaped for the leaves all-reduced each micro
-        # step, then (stage 2) this rank's shards of the others
+        # step, then (stage 2) this rank's shards of the others, then this
+        # rank's experts
         stage2 = self._grad_sharded
         self._ar_idx = [i for i, s in enumerate(sharded)
-                        if not (stage2 and s)]
+                        if not (stage2 and s) and not part.expert[i]]
         sizes = [self.params[i].numel() for i in self._ar_idx]
         self._n_ar = sum(sizes)
         seg = part.seg_size if stage2 else 0
-        self._flat_accum = torch.zeros(self._n_ar + seg, dtype=f32,
-                                       device=dev)
+        self._flat_accum = torch.zeros(self._n_ar + seg + self._n_experts(),
+                                       dtype=f32, device=dev)
         self.accum = [None] * len(self.params)
         for i, a in zip(self._ar_idx, self._flat_accum[:self._n_ar]
                         .split(sizes)):
             self.accum[i] = a.view(self.params[i].shape)
         if stage2:
             for i, a in zip(part.sharded_idx, part.segment_views(
-                    self._flat_accum[self._n_ar:])):
+                    self._flat_accum[self._n_ar:self._n_ar + seg])):
                 self.accum[i] = a
+        for i, a in self._expert_views(self._flat_accum[self._n_ar + seg:]):
+            self.accum[i] = a
         # the gradients the update reads: this rank's part of each
         self._step_grads = [a if stage2 else part.local(a, i)
                             for i, a in enumerate(self.accum)]
-        self._partitioned = sharded if any(sharded) else None
+        split = self._split_over_group()
+        self._partitioned = split if any(split) else None
         if self.dp_group is None:
             return
         self._exchange_buffers(
@@ -556,12 +576,34 @@ class DeepSpeedEngine:
                         dtype=f32, device=dev),
             torch.empty(part.seg_size, dtype=self.param_dtype, device=dev))
 
+    def _split_over_group(self):
+        """Whether each parameter list entry is this rank's part of a leaf
+        split over the group: a ZeRO shard or an expert stack's experts
+        (their squared norms sum over the group)."""
+        part = self.partition
+        return [s or e for s, e in zip(part.sharded, part.expert)]
+
+    def _n_experts(self):
+        return sum(self.params[i].numel()
+                   for i in self.partition.expert_idx)
+
+    def _expert_views(self, flat):
+        """[(i, view)] of the expert parameters' regions at the start of
+        ``flat``, in parameter order."""
+        out, at = [], 0
+        for i in self.partition.expert_idx:
+            n = self.params[i].numel()
+            out.append((i, flat[at:at + n].view(self.params[i].shape)))
+            at += n
+        return out
+
     def _exchange_buffers(self, xchg, ag_send):
         """The device buffers of the gradient exchange over the group:
         ``xchg`` (fp32) holds the all-reduced replicated part, then at
-        stage 2 this rank's reduce-scattered shards; ``ag_send`` (the
-        parameters' dtype, ``seg_size`` elements) this rank's shards of
-        the updated parameters for the all-gather."""
+        stage 2 this rank's reduce-scattered shards (then, under offload,
+        this rank's experts' gradients); ``ag_send`` (the parameters'
+        dtype, ``seg_size`` elements) this rank's shards of the updated
+        parameters for the all-gather."""
         part, dev, f32 = self.partition, self.device, torch.float32
         sizes = [self.params[i].numel() for i in self._ar_idx]
         self._xchg = xchg
@@ -571,12 +613,16 @@ class DeepSpeedEngine:
         self._ar_leaves = [(leaf.name, leaf.elements)
                            for leaf in part.leaves
                            if not (self._grad_sharded
-                                   and leaf.shard_dim is not None)]
+                                   and leaf.shard_dim is not None)
+                           and leaf.expert_dim is None]
         self._sh_leaves = part.leaf_elements(sharded=True)
         n = self.dp_world_size * part.seg_size
+        seg = part.seg_size if self._grad_sharded else 0
+        self._ep_xchg = self._expert_views(xchg[self._n_ar + seg:]) \
+            if self._offload else []
         if self._grad_sharded:
             self._rs_send = torch.empty(n, dtype=f32, device=dev)
-            self._rs_recv = xchg[self._n_ar:]
+            self._rs_recv = xchg[self._n_ar:self._n_ar + seg]
         self._ag_send = ag_send
         self._ag_recv = torch.empty(n, dtype=self.param_dtype, device=dev)
 
@@ -598,18 +644,22 @@ class DeepSpeedEngine:
         part, dev, f32 = self.partition, self.device, torch.float32
         sharded = part.sharded
         self._master_separate = True
-        self._rep_idx = self._ar_idx = [i for i, s in enumerate(sharded)
-                                        if not s]
+        self._rep_idx = [i for i, s in enumerate(sharded) if not s]
+        self._ar_idx = [i for i in self._rep_idx if not part.expert[i]]
         sizes = [self.params[i].numel() for i in self._ar_idx]
         self._n_ar = sum(sizes)
-        n = self._n_ar + part.seg_size
+        seg = part.seg_size
+        n = self._n_ar + seg + self._n_experts()
 
         def views(flat):
+            # the replicated parameters, this rank's shards, its experts
             out = [None] * len(self.params)
             for i, v in zip(self._ar_idx, flat[:self._n_ar].split(sizes)):
                 out[i] = v.view(self.params[i].shape)
-            for i, v in zip(part.sharded_idx,
-                            part.segment_views(flat[self._n_ar:])):
+            for i, v in zip(part.sharded_idx, part.segment_views(
+                    flat[self._n_ar:self._n_ar + seg])):
+                out[i] = v
+            for i, v in self._expert_views(flat[self._n_ar + seg:]):
                 out[i] = v
             return out
 
@@ -650,7 +700,7 @@ class DeepSpeedEngine:
         if self.dp_group is not None:
             self._exchange_buffers(
                 torch.empty(n, dtype=f32, device=dev),
-                self._dev_flat[self._n_ar:])
+                self._dev_flat[self._n_ar:self._n_ar + seg])
 
     def deepspeed_io(self, dataset, batch_size=None, pin_memory=False,
                      data_sampler=None, collate_fn=None,
@@ -735,10 +785,19 @@ class DeepSpeedEngine:
         into the fp32 master (this rank's shards) at the state dict's own
         precision (the module's parameters take the compute-dtype copy).
         Returns what ``module.load_state_dict`` returns."""
+        part = self.partition
+        if part.expert_idx:
+            # the whole expert stacks: this rank's experts of each
+            state_dict = dict(state_dict)
+            for i in part.expert_idx:
+                name = self.param_names[i]
+                if name in state_dict:
+                    state_dict[name] = part.expert_local(
+                        torch.as_tensor(state_dict[name]), i)
         result = self.module.load_state_dict(state_dict, strict=strict)
         for i, (name, m) in enumerate(zip(self.param_names, self.master)):
             if name in state_dict and m is not self.params[i]:
-                m.copy_(self.partition.local(state_dict[name], i))
+                m.copy_(part.local(state_dict[name], i))
         self._mark_params()
         return result
 
@@ -873,9 +932,22 @@ class DeepSpeedEngine:
         """One micro step's gradients (None: zero) over the group, into
         ``_xchg``: one fp32 all-reduce of the replicated part, and at stage
         2 one reduce-scatter of the sharded leaves into this rank's shards;
-        without offload then summed into the accumulator. All enqueue on
-        the current stream."""
+        without offload then summed into the accumulator. This rank's
+        experts' gradients go into their accumulator (under offload into
+        ``_xchg``) as they are. All enqueue on the current stream."""
         group = self.dp_group
+        ep = self.partition.expert_idx
+        if ep:
+            # this rank's experts: theirs alone, nothing to exchange
+            if self._offload:
+                _copy_or_zero([v for _, v in self._ep_xchg],
+                              [grads[i] for i in ep])
+            else:
+                got = [(self.accum[i], grads[i]) for i in ep
+                       if grads[i] is not None]
+                if got:
+                    torch._foreach_add_([a for a, _ in got],
+                                        [g for _, g in got])
         if self._ar_idx:
             _copy_or_zero(self._ar_views, [grads[i] for i in self._ar_idx])
             group.all_reduce(self._ar_buf, leaves=self._ar_leaves)
@@ -886,7 +958,9 @@ class DeepSpeedEngine:
             group.reduce_scatter(self._rs_recv, self._rs_send,
                                  leaves=self._sh_leaves)
             if not self._offload:
-                self._flat_accum[self._n_ar:].add_(self._rs_recv)
+                seg = self.partition.seg_size
+                self._flat_accum[self._n_ar:self._n_ar + seg].add_(
+                    self._rs_recv)
 
     # ------------------------------------------------------------------
     # ZeRO-Offload: the gradient stream and the host step
@@ -1407,7 +1481,9 @@ class DeepSpeedEngine:
         """Record the 6ND inputs once: the parameter count and the tokens of
         one optimizer step (the largest integer leaf of a micro-batch times
         gas, over every rank of the data-parallel group)."""
-        self._mfu_n_params = sum(p.numel() for p in self.params)
+        part = self.partition
+        self._mfu_n_params = sum(math.prod(part.full_shape(i))
+                                 for i in range(len(self.params)))
         tokens = 0
         leaves = batch.values() if isinstance(batch, dict) else [batch]
         for leaf in leaves:
@@ -1616,15 +1692,31 @@ class DeepSpeedEngine:
         part.unpack(out, full)
         return full
 
+    @torch.no_grad()
+    def _gather_experts(self, tensors):
+        """A parameter-shaped list with each expert stack whole: this
+        rank's experts all-gathered along E (every rank takes part)."""
+        out = list(tensors)
+        for i in self.partition.expert_idx:
+            t = tensors[i].contiguous()
+            full = torch.empty(self.partition.full_shape(i), dtype=t.dtype,
+                               device=t.device)
+            self.dp_group.all_gather(full, t, leaves=())
+            out[i] = full
+        return out
+
     def _host_full(self, tensors):
         """Full-shaped host copies of a host parameter-shaped list that
         holds this rank's regions (the offload state): gathered over the
         group through the device (JAX ``_replicate_host_leaves``); every
         rank takes part."""
-        if not self.partition.sharded_idx:
+        part = self.partition
+        if not (part.sharded_idx or part.expert_idx):
             return tensors
         dev = [t.to(self.device) for t in tensors]
-        return [t.cpu() for t in self._gather_full(dev)]
+        if part.sharded_idx:
+            dev = self._gather_full(dev)
+        return [t.cpu() for t in self._gather_experts(dev)]
 
     def _offload_leaves(self):
         """``offload_states.npz``'s leaves (JAX engine.py:4161-4175): the
@@ -1662,8 +1754,10 @@ class DeepSpeedEngine:
         for _, kind, tensors, sharded in self._state_layout():
             if sharded:
                 tensors = self._gather_full(tensors)
-            leaves += self._tree_leaves(tensors) if kind == "tree" \
-                else list(tensors)
+            if kind == "tree":
+                leaves += self._tree_leaves(self._gather_experts(tensors))
+            else:
+                leaves += list(tensors)
         return leaves
 
     def _checkpoint_tag_validation(self, tag):
@@ -1774,9 +1868,13 @@ class DeepSpeedEngine:
     # ------------------------------------------------------------------
     def _comm_leaf_specs(self):
         """A LeafSpec of every JAX leaf: its name, shape and the dimension
-        the accumulator's layout shards over ``data`` (stage 2 only)."""
+        the accumulator's layout shards over ``data`` (ZeRO's at stage 2;
+        an expert stack's E at every stage, as the JAX engine's
+        accumulator places it)."""
         return [ca.LeafSpec(leaf.name, leaf.shape,
-                            leaf.shard_dim if self._grad_sharded else None)
+                            leaf.expert_dim if leaf.expert_dim is not None
+                            else leaf.shard_dim if self._grad_sharded
+                            else None)
                 for leaf in self.partition.leaves]
 
     def comm_volume_report(self):
@@ -1997,7 +2095,7 @@ class DeepSpeedEngine:
     def _copy_tree(self, got, tensors, sharded, strict):
         """The reference tree's leaves ``got`` (full arrays) into the
         parameter-shaped list ``tensors`` (this rank's part of each where
-        ``sharded``)."""
+        ``sharded``, and this rank's experts of each expert stack)."""
         index = {n: i for i, n in enumerate(self.param_names)}
         part = self.partition
         for (names, transposed), src in zip(self._leaf_specs(), got):
@@ -2006,15 +2104,16 @@ class DeepSpeedEngine:
             for name, full in zip(group, parts):
                 i = index[name]
                 full = full.t() if transposed else full
-                if tuple(full.shape) != part.shapes[i]:
+                if tuple(full.shape) != part.full_shape(i):
                     if strict:
                         raise ValueError(
                             f"checkpoint leaf for {name} has shape "
                             f"{tuple(full.shape)}, the model's is "
-                            f"{part.shapes[i]}")
+                            f"{part.full_shape(i)}")
                     logger.warning(f"load_checkpoint: {name} skipped "
                                    f"(shape {tuple(full.shape)})")
                     continue
+                full = part.expert_local(full, i)
                 tensors[i].copy_(part.local(full, i) if sharded else full)
 
     @torch.no_grad()

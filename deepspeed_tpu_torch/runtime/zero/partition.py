@@ -12,6 +12,13 @@ parameter, transposed for a Dense kernel, or, for a scanned stack, the
 the parameters: a slice of each along the matching dimension, or, when
 the stack's layer dimension is the one sharded, whole layers.
 
+Expert parallelism (moe/sharded_moe.py ``expert_parallel``): an MoE
+expert stack's leaf is split over ``data`` along its expert dimension
+(``moe_leaf_spec``), the parameter itself holding this rank's experts. Its
+``data`` dimension is taken, so ZeRO leaves it alone at every stage (as
+``zero_merge_spec`` does), and its master, optimizer state and gradient
+accumulator are this rank's experts too.
+
 A rank's shards of all the sharded parameters pack into one flat
 segment of ``seg_size`` elements, the same size on every rank; a buffer
 of ``dp`` segments, rank-major, is what one ``reduce_scatter_tensor`` or
@@ -31,13 +38,16 @@ class Leaf:
     """One leaf of the JAX parameter tree: its name and shape there, the
     dimension ZeRO shards it along (None: replicated), the indices of the
     port's parameters it holds, whether it is their transpose (a Dense
-    kernel) and whether it stacks them (a scanned stack)."""
+    kernel) and whether it stacks them (a scanned stack), and the
+    dimension expert parallelism splits over ``data`` (None: not an
+    expert stack)."""
     name: str
     shape: Tuple[int, ...]
     shard_dim: Optional[int]
     params: List[int]
     transposed: bool = False
     stacked: bool = False
+    expert_dim: Optional[int] = None
 
     @property
     def elements(self) -> int:
@@ -51,13 +61,18 @@ class ZeroPartition:
     """The per-leaf partition of ``params`` over a data-parallel world of
     ``dp`` ranks at ZeRO ``stage`` (none below stage 1 or at dp 1), seen
     from rank ``rank``. ``slices[i]``: None for a replicated parameter,
-    else each rank's (dim, start, length) of parameter i."""
+    else each rank's (dim, start, length) of parameter i. ``experts``:
+    the names of the parameters that hold this rank's experts of a stack
+    split over the ``dp`` ranks (``expert[i]``)."""
 
-    def __init__(self, module, param_names, params, dp, rank, stage):
+    def __init__(self, module, param_names, params, dp, rank, stage,
+                 experts=()):
         self.dp, self.rank = dp, rank
         self.shapes = [tuple(p.shape) for p in params]
+        self.expert = [n in experts for n in param_names]
+        self.expert_idx = [i for i, e in enumerate(self.expert) if e]
         self.leaves = _leaves(module, param_names, self.shapes,
-                              dp if stage >= 1 else 1)
+                              dp if stage >= 1 else 1, self.expert, dp)
         self.slices = [None] * len(params)
         for leaf in self.leaves:
             if leaf.shard_dim is not None:
@@ -93,6 +108,22 @@ class ZeroPartition:
             if k != dim:
                 n *= s
         return n
+
+    def full_shape(self, i):
+        """Parameter i's shape in the whole model: an expert stack's local
+        shape with its expert dim times dp."""
+        shape = list(self.shapes[i])
+        if self.expert[i]:
+            shape[0] *= self.dp
+        return tuple(shape)
+
+    def expert_local(self, t, i):
+        """This rank's experts of ``t``, the whole of parameter i (a view);
+        ``t`` itself for any other parameter."""
+        if not self.expert[i]:
+            return t
+        per = self.shapes[i][0]
+        return t.narrow(0, self.rank * per, per)
 
     def slice_shape(self, i, r=None):
         r = self.rank if r is None else r
@@ -162,11 +193,13 @@ class ZeroPartition:
                 if (leaf.shard_dim is not None) == sharded]
 
 
-def _leaves(module, param_names, shapes, dp):
+def _leaves(module, param_names, shapes, dp, expert, world):
     """The JAX tree's leaves over the port's parameters, each with its
-    ZeRO dimension at ``dp``. A model without ``reference_leaf_specs``
-    has one leaf per parameter, with no tensor-parallel spec (as a JAX
-    model without ``param_partition_spec``)."""
+    ZeRO dimension at ``dp`` (None for an expert stack split over the
+    ``world`` ranks, whose shape is the whole stack's). A model without
+    ``reference_leaf_specs`` has one leaf per parameter, with no
+    tensor-parallel spec (as a JAX model without
+    ``param_partition_spec``)."""
     index = {n: i for i, n in enumerate(param_names)}
     if hasattr(module, "reference_leaf_specs"):
         specs = module.reference_leaf_specs()
@@ -181,6 +214,13 @@ def _leaves(module, param_names, shapes, dp):
         shape = shapes[idx[0]][::-1] if transposed else shapes[idx[0]]
         if stacked:
             shape = (len(idx),) + shape
+        if expert[idx[0]]:
+            edim = module.expert_dim(path)
+            shape = tuple(s * world if d == edim else s
+                          for d, s in enumerate(shape))
+            out.append(Leaf(path, shape, None, idx, transposed, stacked,
+                            edim))
+            continue
         taken = module.tp_taken(path, len(shape), stacked) \
             if hasattr(module, "tp_taken") else ()
         out.append(Leaf(path, tuple(shape),

@@ -540,6 +540,83 @@ def test_peak_counter_disarmed_untouched_armed_kept(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+def test_moe_train_step_makes_no_host_sync(cuda):
+    """A train_batch of a GPT-2 with MoE blocks (bf16, top-2 over 4
+    experts, remat 'dots' in its MoE block policy) runs under
+    torch.cuda.set_sync_debug_mode("error"): the gating, its capacity drop
+    and the dispatch and combine stay on the device, and B1-B3 launch in
+    every block, dense and MoE."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+
+    cfg = GPT2Config(vocab_size=256, n_positions=128, n_embd=128, n_layer=2,
+                     n_head=2, dtype=torch.bfloat16, moe_num_experts=4,
+                     remat=True, remat_policy="dots")
+    ds = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+          "gradient_accumulation_steps": 2, "gradient_clipping": 1.0,
+          "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+          "steps_per_print": 10 ** 9, "bf16": {"enabled": True}}
+    eng, _, _, _ = deepspeed_tpu_torch.initialize(model=GPT2Model(cfg),
+                                                  config_params=ds)
+    ids = torch.randint(0, 256, (2, 2, 128), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    batch = {"input_ids": ids, "labels": ids}
+    eng.train_batch(batch=batch)          # builds and loads the library
+    torch.cuda.synchronize()
+    before = dict(tfa.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = eng.train_batch(batch=batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == {
+        "flash_fwd": 8, "flash_bwd_dkdv": 4, "flash_bwd_dq": 4}
+    assert torch.isfinite(loss).item()
+
+
+@pytest.mark.cuda
+def test_expert_exchange_in_a_nccl_world_of_one_is_the_identity(
+        cuda, monkeypatch):
+    """The MoE token exchange (parallel/mesh.py expert_exchange) over a
+    1-rank NCCL group: both directions return their input, and so do
+    their backwards; each call is counted as one all-to-all."""
+    import socket
+
+    import torch.distributed as dist
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.parallel.mesh import (DataParallelGroup,
+                                                   expert_exchange)
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for key, value in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                           RANK="0", WORLD_SIZE="1", LOCAL_RANK="0").items():
+        monkeypatch.setenv(key, value)
+    deepspeed_tpu_torch.init_distributed()
+    try:
+        group = DataParallelGroup()
+        assert group.backend == "nccl" and group.size == 1
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        x = torch.randn(4, 3, 5, 8, device=cuda, generator=gen,
+                        requires_grad=True)
+        g = torch.randn(4, 3, 5, 8, device=cuda, generator=gen)
+        y = expert_exchange(x, group, "t/dispatch", True)
+        z = expert_exchange(y, group, "t/combine", False)
+        assert torch.equal(y, x) and torch.equal(z, x)
+        z.backward(g)
+        assert torch.equal(x.grad, g)
+        rec = group.counter.take()
+        assert rec["calls"] == {"all-to-all": 4}
+        assert sorted(c["name"] for c in rec["collectives"]) == [
+            "moe_a2a:t/combine", "moe_a2a:t/combine_bwd",
+            "moe_a2a:t/dispatch", "moe_a2a:t/dispatch_bwd"]
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
 def test_nccl_world_of_one_stage2_step_makes_no_host_sync(cuda, monkeypatch):
     """A 1-rank NCCL world at ZeRO stage 2 (bf16): the micro steps'
     all-reduces, the overflow MAX, the norm and the loss reduction enqueue
@@ -646,6 +723,60 @@ def test_nccl_worlds_of_2_and_4_match_one_card(cuda, tmp_path):
                 for step in got["comm"]:
                     assert {(c["name"], c["op"], c["count_per_step"])
                             for c in step["collectives"]} == report | extra
+
+
+@pytest.mark.cuda
+def test_nccl_moe_worlds_of_2_and_4_match_one_card(cuda, tmp_path):
+    """On a host with 4 cards: expert parallelism over NCCL worlds of 2
+    and 4 ranks (8 experts, E/dp per card; stages 0 and 2; fp32, 4 Adam
+    steps, gas 2, n_embd 128 for the kernels' head_dim 64) trains to one
+    card's losses and master weights at the tolerances of the test above,
+    every rank alike, with the model's moe_aux_loss before each step that
+    of the whole global batch (rtol 1e-5); each step posts 4 all-to-alls
+    per MoE layer and micro step and no collective of an expert leaf.
+    Skips with fewer than 4 cards."""
+    import numpy as np
+
+    import torch_zero_worker as W
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    steps, gas, lr = 4, 2, 1e-3
+    model = dict(W.MOE, n_embd=128)
+    layers = model["n_layer"] // 2
+    for dp in (2, 4):
+        micro = W.MICRO * dp
+        ref = W._engine(W.ds_config(1, 0, gas, micro=micro), None,
+                        device="cuda", model=model)
+        batches = W.global_batches(0, steps, gas, micro)
+        want, want_aux = [], []
+        for b in batches:
+            local = W._local(b, 0, micro)
+            want_aux.append(W._moe_metrics(ref, {k: v[0] for k, v in
+                                                 local.items()})[0])
+            want.append(ref.train_batch(batch=local).item())
+        want_master = W._full_master(ref)
+        del ref
+        jobs = [(f"s{stage}", "moe",
+                 dict(dp=dp, stage=stage, gas=gas, steps=steps, seed=0,
+                      init=None, device="cuda", model=model))
+                for stage in (0, 2)]
+        ranks = W.run_world(dp, jobs, str(tmp_path / f"moe_dp{dp}"),
+                            device="cuda")
+        for stage in (0, 2):
+            for rank in ranks:
+                got = rank[f"s{stage}"]
+                np.testing.assert_allclose(got["losses"], want, rtol=1e-4)
+                np.testing.assert_allclose(got["aux"], want_aux, rtol=1e-5)
+                W.assert_master_close(got["master"], want_master, 1e-4,
+                                      5e-5, steps, lr,
+                                      f"moe dp {dp} stage {stage}")
+                assert got["layout"]["h.1.moe.experts.w_in"]["master"][0] \
+                    == model["moe_num_experts"] // dp
+                for rec in got["comm"]:
+                    assert rec["calls"]["all-to-all"] == gas * 4 * layers
+                    assert not any("/moe/experts/" in c["name"]
+                                   for c in rec["collectives"])
 
 
 def _sharded_leaves(result, sizes):

@@ -332,6 +332,7 @@ def test_import_does_not_load_jax():
     "deepspeed_tpu_torch.models.bert",
     "deepspeed_tpu_torch.models.generation",
     "deepspeed_tpu_torch.serving",
+    "deepspeed_tpu_torch.moe",
 ])
 def test_module_imports_first_in_a_fresh_process(module):
     """Each of these imports on its own (no import cycle between the

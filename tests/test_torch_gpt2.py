@@ -147,8 +147,6 @@ def test_config_mirrors_jax_config():
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(moe_num_experts=4), "A15"),
-    (dict(moe_num_experts=8, moe_top_k=1), "A15"),
     (dict(remat=True, remat_policy="dots", attention_sp_mode="ring"),
      "A15"),
     (dict(attention_sp_mode="ring"), "A15"),

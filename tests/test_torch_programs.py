@@ -419,8 +419,11 @@ def _train_field(program, path, leaf):
     return None if field in HOST_FIELDS else field
 
 
-@pytest.mark.parametrize("family", ["base", "offload"])
+@pytest.mark.parametrize("family", ["base", "offload", "base-moe"])
 def test_train_registry_matches_the_jax_engine(family, jax_args):
+    """``base-moe``: the base family's programs over a GPT-2 with MoE
+    blocks (4 experts), which keep the JAX engine's names and
+    contracts."""
     import jax
     import jax.numpy as jnp
 
@@ -430,16 +433,18 @@ def test_train_registry_matches_the_jax_engine(family, jax_args):
     from deepspeed_tpu.runtime.engine import _first_micro
 
     offload = family == "offload"
+    sizes = dict(pl.TINY_GPT2, moe_num_experts=4 if family == "base-moe"
+                 else 0)
+    family = family.replace("-moe", "")
     batch = pl.train_batch()
     cfg = pl.train_config(offload)
     jeng, _, _, _ = deepspeed_tpu.initialize(
         model=JGPT2Model(JGPT2Config(dtype=jnp.float32, loss_chunk_tokens=0,
-                                     **pl.TINY_GPT2)),
+                                     **sizes)),
         config_params=dict(cfg, mesh={"data": 1, "allow_partial": True}))
     jeng._ensure_state(_first_micro(batch))
     init = jax.tree_util.tree_map(np.asarray, jeng.state.params)
-    tcfg = GPT2Config(dtype=torch.float32, loss_chunk_tokens=0,
-                      **pl.TINY_GPT2)
+    tcfg = GPT2Config(dtype=torch.float32, loss_chunk_tokens=0, **sizes)
     eng, _, _, _ = deepspeed_tpu_torch.initialize(
         model=GPT2Model(tcfg), config_params=cfg, device="cpu")
     eng.load_module_state_dict(params_from_jax(init, tcfg))

@@ -1303,15 +1303,14 @@ def test_deferred_methods_raise_naming_their_roadmap_item(toy, call, item):
 
 
 def test_moe_config_keeps_the_reference_assertion(toy):
-    """A MoE GPT-2 cannot be built in the port (ROADMAP A15); the engine
-    still refuses one as the reference does."""
-    model, params, _, _ = toy
-
-    class MoE:
-        config = GPT2Config(dtype=torch.float32, moe_num_experts=4, **TOY)
-
+    """A MoE GPT-2 is built and decoded by generate() in the port, but the
+    serving engine refuses one as the reference's does (chunked prefill
+    would change its capacity gating)."""
+    model = GPT2Model(GPT2Config(dtype=torch.float32, moe_num_experts=4,
+                                 **TOY))
+    assert model.h[1].use_moe
     with pytest.raises(AssertionError, match="dense blocks only"):
-        InferenceEngine(MoE(), params, device="cpu")
+        InferenceEngine(model, device="cpu")
 
 
 def test_engine_defaults_to_the_card():

@@ -50,10 +50,8 @@ ids from numpy seeds. fp32 throughout but for the overflow case.
   regions count a replicated leaf once; the counted collectives of each
   step are the report's, which is the JAX engine's.
 """
-import fcntl
 import functools
 import os
-import pickle
 
 import jax
 import jax.numpy as jnp
@@ -179,33 +177,7 @@ WORLDS = {"dp2": _world_dp2, "dp4": _world_dp4, "dp1": _world_dp1}
 def world(tmp_path_factory):
     """world(key) -> one result dict per rank; each world runs once per
     session, shared across xdist workers through a lock file."""
-    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
-    root = (tmp_path_factory.getbasetemp().parent / f"worlds-{run}") if run \
-        else tmp_path_factory.getbasetemp() / "worlds"
-    root.mkdir(parents=True, exist_ok=True)
-    cache = {}
-
-    def get(key):
-        if key in cache:
-            return cache[key]
-        with open(root / f"{key}.lock", "w") as lock:
-            fcntl.flock(lock, fcntl.LOCK_EX)
-            done, failed = root / f"{key}.pkl", root / f"{key}.failed"
-            if failed.exists():
-                raise RuntimeError(failed.read_text())
-            if not done.exists():
-                try:
-                    results = WORLDS[key](str(root / key))
-                except Exception as e:
-                    failed.write_text(str(e))
-                    raise
-                with open(done, "wb") as f:
-                    pickle.dump(results, f)
-            with open(done, "rb") as f:
-                cache[key] = pickle.load(f)
-        return cache[key]
-
-    return get
+    return W.session_worlds(tmp_path_factory, WORLDS)
 
 
 def _port_names():

@@ -1,6 +1,7 @@
 """One rank of a gloo world for the data-parallel tests of the PyTorch port
-(tests/test_torch_zero.py, tests/test_torch_distributed.py), and the
-launcher that starts a world of them.
+(tests/test_torch_zero.py, tests/test_torch_distributed.py,
+tests/test_torch_moe_ep.py), and the launcher that starts a world of
+them.
 
     python tests/torch_zero_worker.py SPEC
 
@@ -25,6 +26,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(vocab_size=128, n_positions=32, n_embd=32, n_layer=2, n_head=2)
 SEQ = 16
 MICRO = 2          # per rank
+# the tiny GPT-2 with MoE blocks (the odd layers) of the expert-parallel
+# tests: 8 experts split over the data axis
+MOE = dict(TINY, moe_num_experts=8)
 
 
 def ds_config(dp, stage, gas, optimizer="Adam", fp16=False, lr=1e-3,
@@ -77,9 +81,11 @@ def _local(batch, rank, micro):
 
 
 def _full_master(eng):
-    """The master weights, gathered to full arrays, by parameter name."""
+    """The master weights, gathered to full arrays (the whole expert
+    stacks too), by parameter name."""
     master = eng._gather_full(eng.master) if eng.partition.sharded_idx \
         else eng.master
+    master = eng._gather_experts(master)
     return {n: m.detach().float().cpu().numpy().copy()
             for n, m in zip(eng.param_names, master)}
 
@@ -140,10 +146,10 @@ def job_resume(dp, stage, gas, steps, seed, load, start):
             "global_steps": eng.global_steps}
 
 
-def job_load(dp, stage, gas, load):
+def job_load(dp, stage, gas, load, model=None):
     """Load a tag (e.g. the JAX engine's) and return the full state
     leaves it restored, in the npz's order."""
-    eng = _engine(ds_config(dp, stage, gas), None)
+    eng = _engine(ds_config(dp, stage, gas), None, model=model)
     path, _ = eng.load_checkpoint(load)
     leaves = [t.detach().float().cpu().numpy() if torch.is_tensor(t)
               else np.asarray(t) for t in eng._state_leaves()]
@@ -304,7 +310,77 @@ def job_programs(dp, seed, init):
     return out
 
 
-JOBS = {"programs": job_programs, "tag_check": job_tag_check, "train": job_train, "resume": job_resume, "load": job_load,
+def _moe_metrics(eng, micro):
+    """The model's ``moe_aux_loss`` on one micro-batch (train) and each MoE
+    layer's dropped fraction, with the engine's current weights; every
+    rank takes part (the statistics are the global batch's). What the
+    exchanges posted is taken off the counter, not left to the step's."""
+    from deepspeed_tpu_torch.moe.sharded_moe import MoE
+
+    seen = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: seen.append((mod, args[0])))
+        for m in eng.module.modules() if isinstance(m, MoE)]
+    batch = {k: torch.as_tensor(v).long().to(eng.device)
+             for k, v in micro.items()}
+    try:
+        with torch.no_grad():
+            _, metrics = eng.module.loss(batch, train=True)
+            dropped = [float(mod.gate(x, train=True)[-1]["moe_dropped_frac"])
+                       for mod, x in seen]
+    finally:
+        for h in hooks:
+            h.remove()
+    if eng.dp_group is not None:
+        eng.dp_group.counter.take()
+    return float(metrics["moe_aux_loss"]), dropped
+
+
+def job_moe(dp, stage, gas, steps, seed, init, offload=False, save=None,
+            programs=False, model=MOE, device="cpu"):
+    """``steps`` train_batch steps of an MoE GPT-2 (default ``MOE``) with
+    expert parallelism over the world: before each step the model's aux
+    metric and dropped fractions on the step's first micro-batch; the
+    losses, the counted collectives of each step, the gathered master, the
+    layout, the comm report and the analytic memory; with ``save`` a tag
+    after the last step; with ``programs`` the program lint over the
+    engine."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    eng = _engine(ds_config(dp, stage, gas, offload=offload), init,
+                  model=model, device=device)
+    batches = global_batches(seed, steps, gas, MICRO * dp)
+    out = {"losses": [], "aux": [], "dropped": [], "comm": [],
+           "layout": _layout(eng)}
+    for step in range(steps):
+        local = _local(batches[step], rank, MICRO)
+        aux, dropped = _moe_metrics(eng, {k: v[0] for k, v in local.items()})
+        out["aux"].append(aux)
+        out["dropped"].append(dropped)
+        if programs and step == steps - 1:
+            eng.program_registry.observing = True
+        out["losses"].append(eng.train_batch(batch=local).item())
+        out["comm"].append(eng.last_step_comm)
+    if programs:
+        from deepspeed_tpu_torch.telemetry.program_lint import lint_programs
+
+        res = lint_programs([eng.program_registry], use_baseline=False)
+        out["lint"] = [(f.rule, f.path, f.message) for f in res.new]
+        obs = eng.program_registry.get("fused_train_step").observation
+        out["lint_ops"] = [(c.op, c.dtype, c.elements)
+                           for c in obs.collectives]
+    out["master"] = _full_master(eng)
+    out["report"] = eng.comm_volume_report()
+    out["memory"] = eng._analytic_memory_components()
+    out["norm"] = float(eng._last_metrics["grad_norm"])
+    if save is not None:
+        eng.save_checkpoint(save)
+        out["saved"] = os.path.join(save, f"global_step{steps}")
+    return out
+
+
+JOBS = {"moe": job_moe, "programs": job_programs, "tag_check": job_tag_check, "train": job_train, "resume": job_resume, "load": job_load,
         "overflow": job_overflow, "sampler": job_sampler}
 
 
@@ -352,6 +428,42 @@ def assert_master_close(got, want, rtol, atol, steps, lr, what):
 # ---------------------------------------------------------------------------
 # the launcher's side
 # ---------------------------------------------------------------------------
+def session_worlds(tmp_path_factory, worlds):
+    """get(key) -> one result dict per rank of the world ``worlds[key](out
+    directory)`` builds; each world runs once per test session, shared
+    across xdist workers through a lock file (keys are unique across the
+    test modules that share the directory)."""
+    import fcntl
+
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    root = (tmp_path_factory.getbasetemp().parent / f"worlds-{run}") if run \
+        else tmp_path_factory.getbasetemp() / "worlds"
+    root.mkdir(parents=True, exist_ok=True)
+    cache = {}
+
+    def get(key):
+        if key in cache:
+            return cache[key]
+        with open(root / f"{key}.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            done, failed = root / f"{key}.pkl", root / f"{key}.failed"
+            if failed.exists():
+                raise RuntimeError(failed.read_text())
+            if not done.exists():
+                try:
+                    results = worlds[key](str(root / key))
+                except Exception as e:
+                    failed.write_text(str(e))
+                    raise
+                with open(done, "wb") as f:
+                    pickle.dump(results, f)
+            with open(done, "rb") as f:
+                cache[key] = pickle.load(f)
+        return cache[key]
+
+    return get
+
+
 def free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
