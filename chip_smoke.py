@@ -244,6 +244,28 @@ failure:
               routing pinned on it (its flips counted); fp32 at 2 layers,
               capacity factor 8: greedy tokens equal the training
               forward's argmax but at near ties
+ 24. seq      sequence parallelism (ROADMAP A15, sequence half), on one
+              card: (a) Ulysses's kernels: B1-B3 per rank's heads of
+              gpt2-350m's attention (8, 16, 1024, 64) bf16 causal over 4
+              ranks of 4 heads (head offset r * 4 of 16), with and without
+              dropout 0.1, and B5-B7 per rank's 3 heads of bert-base
+              sparse (4, 12, 4096, 64) over the layout's rows of those
+              heads: out, lse, dQ, dK and dV equal one launch over all
+              heads bit for bit; the head offset left at 0 (a planted
+              fault) must change the dropout output. (b) The ring's rounds
+              composed for 4 virtual ranks (ring_virtual) at (8, 16, 1024)
+              and (1, 16, 8192), d 64: fp32 against plain fp32 attention
+              at tests/unit/test_ring_attention.py's tolerances; bf16
+              against that exact attention (scaled error) and against the
+              flash kernels over the whole sequence (relative L2; the
+              kernels' own element error, which rounds p and dS to bf16,
+              logged beside), all within the bf16 gate; the
+              forward and backward round's ms and one rank's peak bytes at
+              8192. (c) 10 steps of phase 4's run with
+              attention_sp_mode="ring" at mesh {"data": 1, "seq": 1} in an
+              NCCL world of one: losses and the fp32 master equal phase
+              4's bit for bit (the seq route never runs at N = 1), B1-B3
+              480 each, step ms and tokens/s beside phase 4's
 The line before the last is the kernels JSON (the fp16 rows named
 <kernel>_fp16, their launches from phase 13); the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card and nvcc.
@@ -924,8 +946,10 @@ def phase_train(env):
     want.update({name: 0 for name, _ in SPARSE_KERNELS})
     train = _train_steps(env, engine, batch, SLICE_MODEL, SLICE_SEQ,
                          SLICE_MICRO, SLICE_GAS, SLICE_STEPS, want)
-    # the fp32 master after the 10 steps, on the host: phase_zero's gate
+    # the fp32 master after the 10 steps, on the host: phase_zero's gate,
+    # and its digest: phase_seq's
     train["master"] = _host_master(engine)
+    train["digest"] = _master_digest(engine)
     return train
 
 
@@ -4165,6 +4189,370 @@ def phase_moe(env):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# phase 24: sequence parallelism (ROADMAP A15, sequence half)
+# ---------------------------------------------------------------------------
+# virtual sequence ranks of the kernel and ring cases, the long ring case
+# (B, H, S), the dropout rate of the Ulysses kernel case
+SEQ_RANKS = 4
+SEQ_LONG = (1, 16, 8192)
+SEQ_DROPOUT = 0.1
+# the ring against plain fp32 attention: tests/unit/test_ring_attention.py's
+# tolerances (output; gradients)
+RING_TOL = (2e-5, 2e-5)
+RING_GRAD_TOL = (5e-4, 5e-5)
+
+
+def _heads_of(t, r, n):
+    """Rank r's heads of a (B, H, ...) tensor, as the contiguous (B*H/n,
+    ...) operand its launch takes."""
+    h = t.shape[1] // n
+    return t[:, r * h:(r + 1) * h].reshape((-1,) + tuple(t.shape[2:])) \
+        .contiguous()
+
+
+def _joined(parts, like, n):
+    """Rank-major (B*H/n, ...) parts back into ``like``'s (B, H, ...)."""
+    import torch
+
+    b, h = like.shape[:2]
+    return torch.cat([p.view((b, h // n) + tuple(p.shape[1:]))
+                      for p in parts], 1)
+
+
+def _ulysses_flash(env):
+    """B1-B3 per rank's heads (head offset r * H/N of H) against one launch
+    over all heads, bit for bit, with and without dropout; the offset left
+    at 0 (the fault it repairs) must change the dropout output."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    b, h, s, d = SLICE_MICRO, 16, SLICE_SEQ, 64
+    n = SEQ_RANKS
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    seed = torch.tensor(424242, dtype=torch.int32, device="cuda")
+    for rate in (0.0, SEQ_DROPOUT):
+        kw = dict(scale=d ** -0.5, causal=True, bias_kind="none",
+                  num_heads=h, dropout_rate=rate)
+        flat = [t.reshape(b * h, s, d) for t in (q, k, v, do)]
+        out, lse = fa.flash_fwd(*flat[:3], None, seed, **kw)
+        delta = (flat[3].float() * out.float()).sum(-1)
+        dk, dv = fa.flash_bwd_dkdv(*flat[:3], flat[3], lse, delta, None,
+                                   seed, **kw)
+        dq = fa.flash_bwd_dq(*flat[:3], flat[3], lse, delta, None, seed,
+                             **kw)
+        whole = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+        parts = {key: [] for key in whole}
+        for r in range(n):
+            rkw = dict(kw, num_heads=h // n, head_offset=r * h // n,
+                       total_heads=h)
+            qr, kr, vr, dor = (_heads_of(t, r, n) for t in (q, k, v, do))
+            o, l = fa.flash_fwd(qr, kr, vr, None, seed, **rkw)
+            dl = (dor.float() * o.float()).sum(-1)
+            a, c = fa.flash_bwd_dkdv(qr, kr, vr, dor, l, dl, None, seed,
+                                     **rkw)
+            g = fa.flash_bwd_dq(qr, kr, vr, dor, l, dl, None, seed, **rkw)
+            for key, t in zip(("out", "lse", "dq", "dk", "dv"),
+                              (o, l, g, a, c)):
+                parts[key].append(t)
+        for key, t in whole.items():
+            got = _joined(parts[key], t.view((b, h) + tuple(t.shape[1:])),
+                          n)
+            if not torch.equal(got.reshape(t.shape), t):
+                raise RuntimeError(f"seq: Ulysses {key} (dropout {rate}) "
+                                   f"differs from one launch over all "
+                                   f"heads")
+        if rate:
+            # the planted fault: rank 1's heads hashed as heads 0..3
+            o, _ = fa.flash_fwd(*(_heads_of(t, 1, n) for t in (q, k, v)),
+                                None, seed, **dict(kw, num_heads=h // n))
+            want = out.view(b, h, s, d)[:, h // n:2 * h // n]
+            if torch.equal(o.view(b, h // n, s, d), want):
+                raise RuntimeError("seq: the dropout masks ignore the head "
+                                   "offset")
+    log(f"seq (a): B1-B3 over {n} ranks of {h // n} heads of ({b}, {h}, "
+        f"{s}, {d}) bf16 causal, dropout 0 and {SEQ_DROPOUT} (head offset "
+        f"r*{h // n} of {h}): out, lse, dQ, dK, dV equal one {h}-head "
+        f"launch bit for bit; offset 0 on rank 1 (the planted fault) "
+        f"changes its dropout output")
+
+
+def _ulysses_sparse(env):
+    """B5-B7 per rank's heads over the layout's rows of those heads against
+    one launch over all heads, bit for bit."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bsk
+
+    b, h, s, d = BERT_MICRO, 12, BERT_SEQ, 64
+    n, block = SEQ_RANKS, BERT_SPARSITY["block"]
+    layout = _fixed_layout(h, s)
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    bias = torch.zeros(b, s, device="cuda")
+    bias[1, -100:] = bsk.NEG_INF              # padded keys of one row
+    kw = dict(scale=d ** -0.5, block=block, num_heads=h)
+    flat = [t.reshape(b * h, s, d) for t in (q, k, v, do)]
+    luts = bsk.luts_for(layout, "cuda")
+    out, lse = bsk.sparse_fwd(*flat[:3], luts, bias, **kw)
+    delta = (flat[3].float() * out.float()).sum(-1)
+    dq = bsk.sparse_bwd_dq(*flat[:3], flat[3], lse, delta, luts, bias, **kw)
+    dk, dv = bsk.sparse_bwd_dkdv(*flat[:3], flat[3], lse, delta, luts, bias,
+                                 **kw)
+    whole = {"out": out, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+    parts = {key: [] for key in whole}
+    hl = h // n
+    for r in range(n):
+        rl = bsk.luts_for(layout[r * hl:(r + 1) * hl], "cuda")
+        rkw = dict(kw, num_heads=hl)
+        qr, kr, vr, dor = (_heads_of(t, r, n) for t in (q, k, v, do))
+        o, l = bsk.sparse_fwd(qr, kr, vr, rl, bias, **rkw)
+        dl = (dor.float() * o.float()).sum(-1)
+        g = bsk.sparse_bwd_dq(qr, kr, vr, dor, l, dl, rl, bias, **rkw)
+        a, c = bsk.sparse_bwd_dkdv(qr, kr, vr, dor, l, dl, rl, bias, **rkw)
+        for key, t in zip(("out", "lse", "dq", "dk", "dv"), (o, l, g, a, c)):
+            parts[key].append(t)
+    for key, t in whole.items():
+        got = _joined(parts[key], t.view((b, h) + tuple(t.shape[1:])), n)
+        if not torch.equal(got.reshape(t.shape), t):
+            raise RuntimeError(f"seq: Ulysses sparse {key} differs from one "
+                               f"launch over all heads")
+    log(f"seq (a): B5-B7 over {n} ranks of {hl} heads of ({b}, {h}, {s}, "
+        f"{d}) bf16, FixedSparsityConfig({h}, block {block}, local "
+        f"{BERT_SPARSITY['num_local_blocks']}, global "
+        f"{BERT_SPARSITY['num_global_blocks']}) rows of each rank's heads, "
+        f"a padded key tail: out, lse, dQ, dK, dV equal one {h}-head launch "
+        f"bit for bit")
+
+
+def _close(a, b, tol):
+    """assert_allclose's rule: |a - b| <= atol + rtol |b|, every element;
+    returns the largest |a - b|."""
+    import torch
+
+    rtol, atol = tol
+    diff = (a.float() - b.float()).abs()
+    if not bool((diff <= atol + rtol * b.float().abs()).all()):
+        raise RuntimeError(f"seq: {float(diff.max()):.3e} beyond rtol "
+                           f"{rtol}, atol {atol}")
+    return float(diff.max())
+
+
+def _ring_case(env, shape, n):
+    """The ring's rounds for n virtual ranks (``ring_virtual``): fp32
+    against plain fp32 attention (RING_TOL, RING_GRAD_TOL); bf16 against
+    that exact attention of the same values (scaled error) and against the
+    flash kernels over the whole sequence (relative L2), each within the
+    bf16 gate; returns the errors."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    from deepspeed_tpu_torch.parallel.ring_attention import ring_virtual
+
+    b, h, s = shape
+    d = 64
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    x = [torch.randn(b, h, s, d, generator=gen, device="cuda")
+         .to(torch.bfloat16) for _ in range(4)]
+    # fp32: the same bf16 values, upcast
+    q, k, v, do = (t.float() for t in x)
+    (out, _), grads = ring_virtual(q, k, v, n, causal=True, do=do)
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+    scores = torch.matmul(qq, kk.transpose(-1, -2)) * d ** -0.5
+    keep = torch.ones(s, s, dtype=torch.bool, device="cuda").tril()
+    ref = torch.matmul(torch.softmax(scores.masked_fill(~keep, -1e30), -1),
+                       vv)
+    ref.backward(do)
+    del scores
+    err = {"out_fp32": _close(out, ref.detach(), RING_TOL)}
+    for name, g, t in zip(("dq", "dk", "dv"), grads, (qq, kk, vv)):
+        err[f"{name}_fp32"] = _close(g, t.grad, RING_GRAD_TOL)
+    exact = {"out": ref.detach(), "dq": qq.grad, "dk": kk.grad,
+             "dv": vv.grad}
+    del qq, kk, vv, ref, out, grads
+    # bf16: the ring against the exact attention of the same bf16 values
+    # (the fp32 run above), element by element, and against the flash
+    # kernels over the whole sequence in relative L2 (the parity phases'
+    # gate): the kernels round p and dS to bf16 before their second
+    # products, as the Pallas kernels do, where the ring (as the JAX ring)
+    # keeps them in fp32, so the kernels' own element error against exact
+    # attention, reported beside, exceeds the element gate at S 8192
+    (out, _), grads = ring_virtual(*x[:3], n, causal=True, do=x[3])
+    qk = [t.clone().requires_grad_() for t in x[:3]]
+    flash = fa.flash_attention(*qk, causal=True)
+    flash.backward(x[3])
+    tol = TOL["bfloat16"]
+    ring = dict(zip(("out", "dq", "dk", "dv"), (out,) + tuple(grads)))
+    kern = dict(zip(("out", "dq", "dk", "dv"),
+                    (flash.detach(),) + tuple(t.grad for t in qk)))
+    for name in ring:
+        err[f"{name}_bf16"] = scaled_err(ring[name], exact[name])
+        err[f"{name}_kernel_bf16"] = scaled_err(kern[name], exact[name])
+        err[f"{name}_vs_kernel"] = rel_l2(ring[name], kern[name])
+        if not (err[f"{name}_bf16"] <= tol
+                and err[f"{name}_vs_kernel"] <= tol):
+            raise RuntimeError(f"seq: ring {name} at {shape} bf16 reads "
+                               f"{err[f'{name}_bf16']:.3e} against exact "
+                               f"attention and {err[f'{name}_vs_kernel']:.3e}"
+                               f" against the flash kernels, beyond {tol}")
+    return err
+
+
+def _ring_rounds(env, shape, n):
+    """Per-round ms of the forward and the backward round at ``shape``
+    split over n (a diagonal block, the causal mask applied), and the peak
+    bytes one rank's rounds hold over its inputs."""
+    import torch
+
+    from deepspeed_tpu_torch.parallel import ring_attention as ra
+
+    b, h, s = shape
+    d, sl = 64, shape[2] // n
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    q, k, v, do = (torch.randn(b, h, sl, d, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    q32 = q.float() * d ** -0.5
+    m = torch.full((b, h, sl, 1), ra.NEG_INF, device="cuda")
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, h, sl, d, device="cuda")
+    fwd_ms = cuda_ms(lambda: ra.ring_forward_round(
+        q32, k, v, m, l, acc, q_start=0, k_start=0, causal=True))
+    m, l, acc = ra.ring_forward_round(q32, k, v, m, l, acc, q_start=0,
+                                      k_start=0, causal=True)
+    out32, lse = ra.ring_finish(m, l, acc)
+    do32 = do.float()
+    delta = (do32 * out32).sum(-1, keepdim=True)
+    bwd_ms = cuda_ms(lambda: ra.ring_backward_round(
+        q32, k, v, do32, lse, delta, q_start=0, k_start=0, causal=True,
+        scale=d ** -0.5))
+    # one rank's whole rounds: n forward rounds, n backward ones
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mm, ll, aa = m, l, acc
+    for _ in range(n):
+        mm, ll, aa = ra.ring_forward_round(q32, k, v, mm, ll, aa, q_start=0,
+                                           k_start=0, causal=True)
+    for _ in range(n):
+        ra.ring_backward_round(q32, k, v, do32, lse, delta, q_start=0,
+                               k_start=0, causal=True, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    return fwd_ms, bwd_ms, peak
+
+
+def phase_seq(env, stage0):
+    """Sequence parallelism (ROADMAP A15, sequence half): module docstring,
+    phase 24."""
+    import torch
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch import init_distributed
+
+    _release_earlier_phases()
+    t0 = time.perf_counter()
+    _ulysses_flash(env)
+    torch.cuda.empty_cache()
+    _ulysses_sparse(env)
+    torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t0
+    slice_shape = (SLICE_MICRO, 16, SLICE_SEQ)
+    errs = {}
+    for shape in (slice_shape, SEQ_LONG):
+        errs[shape] = _ring_case(env, shape, SEQ_RANKS)
+        torch.cuda.empty_cache()
+        log(f"seq (b): ring over {SEQ_RANKS} virtual ranks at (B, H, S) "
+            f"{shape}, d 64, causal: fp32 against plain fp32 attention, max "
+            f"|diff| out {errs[shape]['out_fp32']:.3e} (gate rtol/atol "
+            f"{RING_TOL}), dQ/dK/dV {errs[shape]['dq_fp32']:.3e} / "
+            f"{errs[shape]['dk_fp32']:.3e} / {errs[shape]['dv_fp32']:.3e} "
+            f"(gate {RING_GRAD_TOL}); bf16 (gate {TOL['bfloat16']}): "
+            f"scaled error against exact attention out/dQ/dK/dV "
+            + " / ".join(f"{errs[shape][f'{x}_bf16']:.3e}"
+                         for x in ("out", "dq", "dk", "dv"))
+            + " (the flash kernels' own: "
+            + " / ".join(f"{errs[shape][f'{x}_kernel_bf16']:.3e}"
+                         for x in ("out", "dq", "dk", "dv"))
+            + "); against the flash kernels, relative L2 out/dQ/dK/dV "
+            + " / ".join(f"{errs[shape][f'{x}_vs_kernel']:.3e}"
+                         for x in ("out", "dq", "dk", "dv")))
+    fwd_ms, bwd_ms, peak = _ring_rounds(env, SEQ_LONG, SEQ_RANKS)
+    log(f"seq (b): ring round at {SEQ_LONG} over {SEQ_RANKS} (a rank's "
+        f"{SEQ_LONG[2] // SEQ_RANKS} queries against one block, bf16 "
+        f"operands, fp32 rounds): forward {fwd_ms:.3f} ms, backward "
+        f"{bwd_ms:.3f} ms per round; one rank's {SEQ_RANKS} forward and "
+        f"{SEQ_RANKS} backward rounds peak at {peak / 2 ** 20:.1f} MiB over "
+        f"its inputs, on {env['smi']}")
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter() - t0 - t_a
+    # (c) one real step: the grid in an NCCL world of one, ring mode
+    saved = _world_of_one()
+    try:
+        init_distributed()
+        from deepspeed_tpu_torch import initialize
+        from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
+
+        cfg = gpt2_config(SLICE_MODEL, n_positions=SLICE_SEQ,
+                          dtype=torch.bfloat16, remat=False,
+                          attention_sp_mode="ring")
+        config = dict(_ds_config(SLICE_MICRO, SLICE_GAS),
+                      mesh={"data": 1, "seq": 1})
+        engine, _, _, _ = initialize(model=GPT2Model(cfg),
+                                     config_params=config)
+        if engine.sp_group is not None or engine.sp_world_size != 1:
+            raise RuntimeError("seq: the grid made a seq group at seq 1")
+        batch = _slice_batch(cfg.vocab_size, SLICE_GAS, SLICE_MICRO,
+                             SLICE_SEQ, seed=0)
+        want = {name: cfg.n_layer * SLICE_GAS * SLICE_STEPS
+                for name, _ in FLASH_KERNELS}
+        want.update({name: 0 for name, _ in SPARSE_KERNELS})
+        run = _train_steps(env, engine, batch, f"{SLICE_MODEL} ring mode, "
+                           f"mesh data 1 seq 1, NCCL world 1", SLICE_SEQ,
+                           SLICE_MICRO, SLICE_GAS, SLICE_STEPS, want)
+        digest = _master_digest(engine)
+        run.pop("engine")
+        del engine
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for key, value in saved.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+    torch.cuda.empty_cache()
+    if run["losses"] != stage0["losses"] or digest != stage0["digest"]:
+        raise RuntimeError(f"seq: the ring-mode step at seq 1 differs from "
+                           f"phase 4's: losses {run['losses']} against "
+                           f"{stage0['losses']}")
+    log(f"seq (c): {SLICE_STEPS} steps equal phase 4's bit for bit (losses "
+        f"and the fp32 master's digest); step ms {run['step_ms']:.1f} "
+        f"against phase 4's {stage0['step_ms']:.1f}, tokens/s "
+        f"{run['tokens_per_s']:.0f} against {stage0['tokens_per_s']:.0f} on "
+        f"{env['smi']}; B1-B3 launched {run['launches']['flash_fwd']} times "
+        f"each")
+    log(f"seq: (a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) "
+        f"{time.perf_counter() - t0 - t_a - t_b:.1f} s")
+    return {"ring": {str(k): v for k, v in errs.items()},
+            "round_ms": (fwd_ms, bwd_ms), "peak_bytes": peak,
+            "step_ms": run["step_ms"], "tokens_per_s": run["tokens_per_s"]}
+
+
+def _master_digest(engine):
+    """sha256 of the fp32 master's bytes, in parameter order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for m in engine.master:
+        h.update(m.detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "deepspeed_tpu_torch")):
         print("chip_smoke.py: the deepspeed_tpu_torch package is not beside "
@@ -4191,6 +4579,8 @@ def main():
     stage0 = {k: train[k] for k in ("losses", "step_ms", "tokens_per_s",
                                     "peak_bytes", "launches")}
     stage0["idle_share"] = profile["idle_share"]
+    # what phase 24's step at seq 1 is held against, bit for bit
+    stage0["digest"] = train["digest"]
     del train
     torch.cuda.empty_cache()
     timed(phase_parity)
@@ -4228,6 +4618,8 @@ def main():
     timed(phase_host_activations, env)
     torch.cuda.empty_cache()
     timed(phase_moe, env)
+    torch.cuda.empty_cache()
+    timed(phase_seq, env, stage0)
     log(f"phase walls (s) on {env['smi']}: "
         f"{json.dumps(PHASE_WALLS)}; all phases "
         f"{time.perf_counter() - t_main:.3f} s")

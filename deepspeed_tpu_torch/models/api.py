@@ -5,11 +5,21 @@ Port of deepspeed_tpu/models/api.py. A model is an ``nn.Module`` exposing
   - ``init_weights(generator)``  (re)initialize every parameter (fp32) from a
     ``torch.Generator``; the engine calls it with its ``seed``
   - ``loss(batch, generator=None, train=True) -> (loss, metrics_dict)``
+
+  - ``set_loss_group(group)`` (optional): in a world of several ranks the
+    engine hands the model the group over which a micro-batch's rows
+    (data) and positions (seq) are spread; the model's loss is then the
+    whole micro-batch's, Σnll / Σcount over the group (parallel/mesh.py
+    ``group_ratio``), the same on every rank, as the JAX engine's, not
+    the mean of the ranks' means, and the engine sums the ranks'
+    gradients. A model without it is averaged over the data axis.
 """
 from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from deepspeed_tpu_torch.parallel.mesh import group_ratio
 
 
 def pad_to_multiple(n: int, multiple: int) -> int:
@@ -18,9 +28,11 @@ def pad_to_multiple(n: int, multiple: int) -> int:
     return -(-n // multiple) * multiple if multiple else n
 
 
-def cross_entropy_loss(logits, labels, ignore_index: Optional[int] = None):
+def cross_entropy_loss(logits, labels, ignore_index: Optional[int] = None,
+                       group=None):
     """Token-level softmax cross entropy in fp32; returns (mean_loss,
-    metrics). Ignored labels count neither in the sum nor the mean."""
+    metrics). Ignored labels count neither in the sum nor the mean.
+    ``group``: the loss group, the mean over its ranks' tokens."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     safe = labels if ignore_index is None else \
@@ -29,7 +41,14 @@ def cross_entropy_loss(logits, labels, ignore_index: Optional[int] = None):
     nll = logz - gold
     if ignore_index is not None:
         mask = (labels != ignore_index).float()
-        loss = (nll * mask).sum() / mask.sum().clamp(min=1.0)
+        num, den = (nll * mask).sum(), mask.sum()
+    else:
+        num, den = nll.sum(), torch.tensor(float(nll.numel()),
+                                           device=nll.device)
+    if group is not None:
+        loss = group_ratio(num, den, group)
+    elif ignore_index is not None:
+        loss = num / den.clamp(min=1.0)
     else:
         loss = nll.mean()
     return loss, {"loss": loss}
@@ -49,7 +68,8 @@ def _chunk_nll(x, y, m, wte, valid_vocab):
 
 def chunked_lm_cross_entropy(hidden, wte, labels, chunk_tokens: int = 2048,
                              ignore_index: Optional[int] = -100,
-                             valid_vocab: Optional[int] = None):
+                             valid_vocab: Optional[int] = None,
+                             group=None):
     """LM head + softmax cross entropy without the full logits tensor.
 
     Walks token chunks; each chunk's (chunk, vocab) logits are recomputed
@@ -59,6 +79,7 @@ def chunked_lm_cross_entropy(hidden, wte, labels, chunk_tokens: int = 2048,
     hidden: (..., E) activations entering the head (already shifted);
     wte: (V, E) tied embedding; labels: (...) targets aligned to hidden;
     valid_vocab: columns >= valid_vocab (alignment padding) are masked.
+    group: the loss group: the mean over its ranks' tokens.
     """
     E = hidden.shape[-1]
     x = hidden.reshape(-1, E)
@@ -77,5 +98,6 @@ def chunked_lm_cross_entropy(hidden, wte, labels, chunk_tokens: int = 2048,
                           use_reentrant=False)
         nll_sum = nll_sum + s
         count = count + c
-    loss = nll_sum / count.clamp(min=1.0)
+    loss = group_ratio(nll_sum, count, group) if group is not None \
+        else nll_sum / count.clamp(min=1.0)
     return loss, {"loss": loss}

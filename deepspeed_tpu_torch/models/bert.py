@@ -9,6 +9,16 @@ With a ``sparsity_config`` every layer attends through the block-sparse
 path (long-sequence BERT). Parameters are fp32 and cast to
 ``config.dtype`` at use; under the engine at bf16 or fp16 they are the
 engine's compute-dtype copy and the casts are no-ops.
+
+Sequence parallelism (``set_sequence_parallel``, called by the engine at
+mesh ``seq`` N > 1): the model sees this rank's chunk of S/N positions
+(``input_ids`` and ``token_type_ids``; the attention mask and the labels
+are the whole row's). Position embeddings start at the chunk's offset,
+every layer attends through Ulysses, dense or block-sparse (its heads'
+rows of the layout), and the NSP head reads [CLS] from seq rank 0, whose
+copy alone takes the NSP loss's gradient. In a world of several ranks the
+losses are the whole micro-batch's (``set_loss_group``, models/api.py):
+MLM Σnll / Σcount, NSP the mean over every row.
 """
 import dataclasses
 from typing import Any, Optional
@@ -18,10 +28,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from deepspeed_tpu_torch.models.api import pad_to_multiple
+from deepspeed_tpu_torch.parallel.mesh import from_first_rank, group_ratio
 from deepspeed_tpu_torch.models.convert import (bert_reference_tree,
                                                 leaf_paths, leaf_specs,
                                                 bert_tp_taken)
-from deepspeed_tpu_torch.ops.transformer.functional import dropout, gelu
+from deepspeed_tpu_torch.ops.transformer.functional import gelu, seq_dropout
 from deepspeed_tpu_torch.ops.transformer.transformer import (
     Dense, DeepSpeedTransformerConfig, DeepSpeedTransformerLayer, LayerNorm)
 
@@ -86,6 +97,8 @@ def _layer_config(cfg: BertConfig) -> DeepSpeedTransformerConfig:
 
 
 class BertEmbeddings(nn.Module):
+    sp_group = None
+
     def __init__(self, config: BertConfig):
         super().__init__()
         self.config = config
@@ -110,12 +123,14 @@ class BertEmbeddings(nn.Module):
         cfg = self.config
         dt = cfg.dtype
         s = input_ids.shape[1]
+        off = 0 if self.sp_group is None else self.sp_group.offset(s)
         x = F.embedding(input_ids, self.word_embeddings).to(dt) \
-            + self.position_embeddings[:s].to(dt)[None] \
+            + self.position_embeddings[off:off + s].to(dt)[None] \
             + F.embedding(token_type_ids, self.token_type_embeddings).to(dt)
         x = self.ln(x)
         if train and cfg.hidden_dropout_prob > 0:
-            x = dropout(x, generator, cfg.hidden_dropout_prob)
+            x = seq_dropout(x, generator, cfg.hidden_dropout_prob,
+                            self.sp_group)
         return x
 
 
@@ -147,6 +162,8 @@ class BertForPreTraining(nn.Module):
     next_sentence_label (optional). ``generator`` seeds the initial weights
     (seed 0 if None).
     """
+    sp_group = None
+    loss_group = None
 
     def __init__(self, config: BertConfig,
                  generator: Optional[torch.Generator] = None):
@@ -179,6 +196,24 @@ class BertForPreTraining(nn.Module):
             m.reset_with(generator)
         with torch.no_grad():
             self.mlm_bias.zero_()
+
+    def set_sequence_parallel(self, group):
+        """Run under sequence parallelism over ``group`` (the engine's seq
+        group; None: off)."""
+        if group is not None:
+            from deepspeed_tpu_torch.parallel.ulysses import check_heads
+            from deepspeed_tpu_torch.ops.transformer.transformer import \
+                _EncoderBody
+
+            check_heads(self.config.num_attention_heads, group)
+        for m in self.modules():
+            if isinstance(m, (BertForPreTraining, BertEmbeddings,
+                              _EncoderBody)):
+                m.sp_group = group
+
+    def set_loss_group(self, group):
+        """The whole micro-batch's losses over ``group`` (models/api.py)."""
+        self.loss_group = group
 
     def reference_leaf_specs(self):
         """This model's parameters in the JAX package's tree order, the
@@ -217,7 +252,11 @@ class BertForPreTraining(nn.Module):
         # drop the alignment pad columns before the loss/softmax
         logits = logits[..., :cfg.vocab_size]
 
-        pooled = torch.tanh(self.pooler(x[:, 0]))
+        cls = x[:, 0]
+        if self.sp_group is not None:
+            # [CLS] lives on seq rank 0
+            cls = from_first_rank(cls, self.sp_group, "cls")
+        pooled = torch.tanh(self.pooler(cls))
         return logits, self.nsp(pooled)
 
     def loss(self, batch, generator=None, train=True):
@@ -227,19 +266,35 @@ class BertForPreTraining(nn.Module):
             batch["input_ids"], batch.get("attention_mask"),
             batch.get("token_type_ids"), train=train, generator=generator)
         labels = batch["masked_lm_labels"]
+        sp = self.sp_group
+        if sp is not None:
+            # this rank's chunk of the whole row's labels
+            labels = sp.chunk(labels, 1)
         logits = logits.float()
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1,
                             labels.clamp(min=0)[..., None].long())[..., 0]
         mask = (labels >= 0).float()
-        mlm_loss = ((logz - gold) * mask).sum() / mask.sum().clamp(min=1.0)
+        num = ((logz - gold) * mask).sum()
+        group = self.loss_group
+        mlm_loss = num / mask.sum().clamp(min=1.0) if group is None \
+            else group_ratio(num, mask.sum(), group)
         total = mlm_loss
         metrics = {"mlm_loss": mlm_loss}
         if "next_sentence_label" in batch:
             nsp_logp = torch.log_softmax(nsp_logits.float(), dim=-1)
-            nsp_loss = -torch.gather(
-                nsp_logp, 1,
-                batch["next_sentence_label"][:, None].long()).mean()
+            nll = -torch.gather(
+                nsp_logp, 1, batch["next_sentence_label"][:, None].long())
+            if group is None:
+                nsp_loss = nll.mean()
+            else:
+                # the mean over every row of the micro-batch: the rows of
+                # a seq line count once, on its rank 0
+                first = sp is None or sp.rank == 0
+                nsp_loss = group_ratio(
+                    nll.sum() if first else nll.sum().detach() * 0.0,
+                    torch.tensor(float(nll.numel() if first else 0),
+                                 device=nll.device), group)
             total = total + nsp_loss
             metrics["nsp_loss"] = nsp_loss
         metrics["loss"] = total

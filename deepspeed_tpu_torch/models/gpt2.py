@@ -16,6 +16,17 @@ aux loss (None for a dense block), so that a checkpointed block hands its
 aux out of the recomputed segment; ``loss`` adds their sum when training,
 as the JAX model adds its sown ``losses`` collection.
 
+Sequence parallelism (``set_sequence_parallel``, called by the engine at
+mesh ``seq`` N > 1): the model sees this rank's chunk of S/N positions
+of each row (position embeddings from the chunk's offset, dropout masks
+the chunk's slice of the whole sequence's), the attention runs through
+Ulysses (parallel/ulysses.py) or, with ``attention_sp_mode="ring"``, ring
+attention (parallel/ring_attention.py), and the loss pairs the chunk's
+hidden states with the next positions' labels of the whole row (the last
+rank's final position has none). At N = 1 nothing of this runs, whatever
+the mode, as in the JAX model. In a world of several ranks the loss is the
+whole micro-batch's (``set_loss_group``, models/api.py).
+
 Size table mirrors the reference perf harness configs
 (tests/model/Megatron_GPT2/run_perf_test.py:18-84).
 """
@@ -38,7 +49,9 @@ from deepspeed_tpu_torch.models.convert import (gpt2_moe_block,
 from deepspeed_tpu_torch.moe.sharded_moe import (MoE, moe_leaf_spec,
                                                  sum_moe_losses)
 from deepspeed_tpu_torch.ops.transformer.functional import (
-    dropout, gelu, scaled_dot_product_attention)
+    gelu, scaled_dot_product_attention, seq_dropout)
+from deepspeed_tpu_torch.parallel.ring_attention import ring_attention
+from deepspeed_tpu_torch.parallel.ulysses import ulysses_attention
 from deepspeed_tpu_torch.ops.transformer.transformer import (Dense,
                                                             LayerNorm,
                                                             replayable)
@@ -155,13 +168,12 @@ def _check_supported(cfg: GPT2Config):
     if cfg.remat and cfg.remat_policy not in REMAT_POLICIES:
         raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
                          "(expected nothing|attn_out|dots)")
-    if cfg.attention_sp_mode == "ring":
-        raise NotImplementedError(
-            "ring attention (sequence parallelism) is not ported yet "
-            "(ROADMAP A15)")
 
 
 class CausalSelfAttention(nn.Module):
+    # the seq group under sequence parallelism (set_sequence_parallel)
+    sp_group = None
+
     def __init__(self, config: GPT2Config):
         super().__init__()
         self.config = config
@@ -184,21 +196,38 @@ class CausalSelfAttention(nn.Module):
             return t.reshape(B, S, cfg.n_head, cfg.head_dim).transpose(1, 2)
 
         drop = train and cfg.dropout > 0
-        y = scaled_dot_product_attention(
-            heads(q), heads(k), heads(v), causal=True,
-            dropout_rng=generator if drop else None,
-            dropout_rate=cfg.dropout if drop else 0.0,
-            use_pallas=cfg.use_pallas_attention)
+        kw = dict(causal=True, dropout_rng=generator if drop else None,
+                  dropout_rate=cfg.dropout if drop else 0.0,
+                  use_pallas=cfg.use_pallas_attention)
+        sp = self.sp_group
+        if sp is None:
+            y = scaled_dot_product_attention(heads(q), heads(k), heads(v),
+                                             **kw)
+        elif cfg.attention_sp_mode == "ring":
+            # K/V blocks pass around the seq group: attention memory
+            # O(S/N) per rank
+            if drop:
+                raise ValueError("attention_sp_mode='ring' has no dropout "
+                                 "path")
+            y = ring_attention(heads(q), heads(k), heads(v), group=sp,
+                               causal=True)
+        else:
+            # the whole sequence of this rank's heads, between two
+            # all-to-alls
+            y = ulysses_attention(heads(q), heads(k), heads(v), group=sp,
+                                  **kw)
         return y.transpose(1, 2).reshape(B, S, E)
 
     def project(self, y, train, generator):
         y = self.c_proj(y)
         if train and self.config.dropout > 0:
-            y = dropout(y, generator, self.config.dropout)
+            y = seq_dropout(y, generator, self.config.dropout, self.sp_group)
         return y
 
 
 class MLP(nn.Module):
+    sp_group = None
+
     def __init__(self, config: GPT2Config):
         super().__init__()
         self.config = config
@@ -208,7 +237,7 @@ class MLP(nn.Module):
     def forward(self, x, train, generator):
         h = self.c_proj(gelu(self.c_fc(x), approximate=True))
         if train and self.config.dropout > 0:
-            h = dropout(h, generator, self.config.dropout)
+            h = seq_dropout(h, generator, self.config.dropout, self.sp_group)
         return h
 
 
@@ -281,6 +310,8 @@ class GPT2Model(nn.Module):
     ``generator`` seeds the initial weights (seed 0 if None); ``device``
     holds the parameters from the start (default: the CPU).
     """
+    sp_group = None
+    loss_group = None
 
     def __init__(self, config: GPT2Config,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -314,6 +345,26 @@ class GPT2Model(nn.Module):
             if isinstance(m, (Dense, LayerNorm, MoE)):
                 m.reset_with(generator)
 
+    def set_sequence_parallel(self, group):
+        """Run under sequence parallelism over ``group`` (the engine's seq
+        group, parallel/mesh.py ``SequenceParallelGroup``; None: off).
+        MoE blocks under it raise, as ROADMAP A15's residue."""
+        if group is not None and self.config.moe_num_experts:
+            raise NotImplementedError(
+                "MoE blocks under sequence parallelism (mesh seq > 1) are "
+                "not ported yet (ROADMAP A15)")
+        if group is not None and self.config.attention_sp_mode != "ring":
+            from deepspeed_tpu_torch.parallel.ulysses import check_heads
+
+            check_heads(self.config.n_head, group)
+        for m in self.modules():
+            if isinstance(m, (GPT2Model, CausalSelfAttention, MLP)):
+                m.sp_group = group
+
+    def set_loss_group(self, group):
+        """The whole micro-batch's loss over ``group`` (models/api.py)."""
+        self.loss_group = group
+
     def reference_leaf_specs(self):
         """This model's parameters in the JAX package's tree order, the
         layout of the engine's checkpoints (models/convert.py)."""
@@ -339,14 +390,17 @@ class GPT2Model(nn.Module):
 
     def hidden_and_aux(self, input_ids, train=False, generator=None):
         """Final-LayerNorm activations (B, S, E) in the compute dtype, and
-        the sum of the MoE blocks' aux losses (None for a dense model)."""
+        the sum of the MoE blocks' aux losses (None for a dense model).
+        Under sequence parallelism ``input_ids`` is this rank's chunk."""
         cfg = self.config
         dt = cfg.dtype
         S = input_ids.shape[1]
+        sp = self.sp_group
+        off = 0 if sp is None else sp.offset(S)
         x = F.embedding(input_ids, self.wte).to(dt) \
-            + self.wpe[:S].to(dt)[None]
+            + self.wpe[off:off + S].to(dt)[None]
         if train and cfg.dropout > 0:
-            x = dropout(x, generator, cfg.dropout)
+            x = seq_dropout(x, generator, cfg.dropout, sp)
         losses = []
         for block in self.h:
             if cfg.remat and torch.is_grad_enabled():
@@ -377,15 +431,24 @@ class GPT2Model(nn.Module):
         ids = batch["input_ids"]
         labels = batch["labels"]
         x, aux = self.hidden_and_aux(ids, train, generator)
+        sp = self.sp_group
+        if sp is None:
+            x, labels = x[:, :-1], labels[:, 1:]
+        else:
+            # this chunk's positions against the next positions' labels of
+            # the whole row; the sequence's last position has none
+            labels = sp.chunk(labels, 1, shift=1)
+            x = x[:, :labels.shape[1]]
         if cfg.loss_chunk_tokens:
             loss, metrics = chunked_lm_cross_entropy(
-                x[:, :-1], self.wte, labels[:, 1:],
-                chunk_tokens=cfg.loss_chunk_tokens, ignore_index=-100,
-                valid_vocab=cfg.vocab_size)
+                x, self.wte, labels, chunk_tokens=cfg.loss_chunk_tokens,
+                ignore_index=-100, valid_vocab=cfg.vocab_size,
+                group=self.loss_group)
         else:
             logits = (x @ self.wte.to(x.dtype).t())[..., :cfg.vocab_size]
-            loss, metrics = cross_entropy_loss(
-                logits[:, :-1], labels[:, 1:], ignore_index=-100)
+            loss, metrics = cross_entropy_loss(logits, labels,
+                                               ignore_index=-100,
+                                               group=self.loss_group)
         if aux is not None and train:
             loss = loss + aux
             metrics = dict(metrics, moe_aux_loss=aux, loss=loss)

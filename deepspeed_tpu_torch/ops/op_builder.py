@@ -51,12 +51,13 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
 # C signatures of each library: {function: argtypes}; every one returns int
-_FLASH_TAIL = [_I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _U, _F, _P, _P]
+_FLASH_TAIL = [_I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _U, _F, _P, _P]
 _BSA_TAIL = [_I, _I, _I, _I, _I, _I, _I, _F, _I, _P]
 SIGNATURES = {
     "flash_attention": {
-        # (dtype, head_dim, bh, heads, s_q, s_k, scale, causal, bias_kind,
-        #  use_dropout, threshold, inv_keep, seed (a device int32), stream)
+        # (dtype, head_dim, bh, heads, head_offset, total_heads, s_q, s_k,
+        #  scale, causal, bias_kind, use_dropout, threshold, inv_keep, seed
+        #  (a device int32), stream)
         "ds_flash_fwd": [_P] * 6 + _FLASH_TAIL,
         "ds_flash_bwd_dkdv": [_P] * 9 + _FLASH_TAIL,
         "ds_flash_bwd_dq": [_P] * 8 + _FLASH_TAIL,

@@ -162,13 +162,21 @@ class SparseSelfAttention(nn.Module):
         return self._layout_cache[seq_len]
 
     def forward(self, query, key, value, rpe=None, key_padding_mask=None,
-                attn_mask=None):
+                attn_mask=None, head_offset=0, total_heads=None):
+        """``head_offset``/``total_heads``: the query holds heads
+        [head_offset, head_offset + H) of ``total_heads`` (a Ulysses
+        rank's, parallel/ulysses.py), and attends over those heads' rows of
+        the layout; by default all of the config's heads."""
         heads = query.shape[1]
-        if heads != self.sparsity_config.num_heads:
-            raise ValueError(f"input has {heads} heads, sparsity config has "
-                             f"{self.sparsity_config.num_heads}")
+        total = heads if total_heads is None else total_heads
+        if total != self.sparsity_config.num_heads \
+                or not 0 <= head_offset <= total - heads:
+            raise ValueError(f"input has heads [{head_offset}, "
+                             f"{head_offset + heads}) of {total}, sparsity "
+                             f"config has {self.sparsity_config.num_heads}")
+        layout = self.get_layout(query.shape[2])
         return block_sparse_attention(
-            query, key, value, self.get_layout(query.shape[2]),
+            query, key, value, layout[head_offset:head_offset + heads],
             self.sparsity_config.block, rpe=rpe,
             key_padding_mask=key_padding_mask, attn_mask=attn_mask,
             key_padding_mask_mode=self.key_padding_mask_mode,

@@ -14,7 +14,10 @@
 // batch*head), the top-left causal mask (q_idx >= k_idx, masked scores set to
 // -1e30), an online softmax with fp32 running max and denominator, and the
 // murmur3-finalizer dropout hash over the global (bh, q, k) position, bit for
-// bit the same uint32 arithmetic as _dropout_keep.
+// bit the same uint32 arithmetic as _dropout_keep. Under sequence parallelism
+// (Ulysses) a launch holds `heads` of `total_heads` heads, from `head_offset`
+// on: the hash indexes b * total_heads + head_offset + h, so the local heads
+// draw the whole model's masks (offset 0 of `heads` heads: b * heads + h).
 //
 // Layout: q, k, v, out, dout, dq, dk, dv are (B*H, S, D) contiguous in the
 // storage dtype (bf16, fp16 or fp32); lse and delta are compact (B*H, S_q)
@@ -101,6 +104,8 @@ struct FlashParams {
   void* dk;
   void* dv;
   int heads;
+  int head_offset;      // the dropout hash's first head and head count
+  int total_heads;
   int s_q;
   int s_k;
   float scale;
@@ -131,16 +136,18 @@ __device__ __forceinline__ uint32_t mix32(uint32_t h) {
   return h ^ (h >> 16);
 }
 
-// the dropout seed, read once by each thread that needs it: the wrapper
-// passes the device int32 that the caller drew, so no launch waits on the
-// host for it
-__device__ __forceinline__ uint32_t load_seed(const FlashParams& p) {
-  return p.use_dropout ? static_cast<uint32_t>(__ldg(p.seed)) : 0u;
+// the dropout seed of batch*head bh, read once by each thread that needs
+// it (the wrapper passes the device int32 that the caller drew, so no launch
+// waits on the host for it) and mixed with the global batch*head index
+__device__ __forceinline__ uint32_t load_seed(const FlashParams& p, int bh) {
+  if (!p.use_dropout) return 0u;
+  const uint32_t g = (uint32_t)((bh / p.heads) * p.total_heads + p.head_offset + bh % p.heads);
+  return static_cast<uint32_t>(__ldg(p.seed)) + 0x9E3779B9u * g;
 }
 
-// _dropout_keep: the keep decision for global position (bh, qi, kj)
-__device__ __forceinline__ bool dropout_keep(const FlashParams& p, uint32_t seed, int bh, int qi, int kj) {
-  seed += 0x9E3779B9u * (uint32_t)bh;
+// _dropout_keep: the keep decision for position (qi, kj) of the batch*head
+// whose seed load_seed gave
+__device__ __forceinline__ bool dropout_keep(const FlashParams& p, uint32_t seed, int qi, int kj) {
   uint32_t rh = mix32(seed ^ (uint32_t)qi);
   uint32_t h = mix32(rh ^ (0x27D4EB2Fu * (uint32_t)kj));
   return h >= p.drop_threshold;
@@ -243,7 +250,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
   const T* v = static_cast<const T*>(p.v) + (size_t)bh * p.s_k * D;
 
   load_tile<T, D>(Qs, q, q0, p.s_q, tid);
-  const uint32_t seed = load_seed(p);
+  const uint32_t seed = load_seed(p, bh);
 
   float acc[4][NJ];
   float m[4], l[4];
@@ -290,7 +297,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(FlashParams p) {
         // the denominator takes the undropped p; dropout scales only the
         // value accumulation
         float pa = pr;
-        if (p.use_dropout) pa = dropout_keep(p, seed, bh, qi, kj) ? pr * p.drop_inv_keep : 0.f;
+        if (p.use_dropout) pa = dropout_keep(p, seed, qi, kj) ? pr * p.drop_inv_keep : 0.f;
         Ps[(ty + 16 * i) * kScorePitch + tx + 16 * j] = pa;
       }
       l[i] = l[i] * alpha + half_warp_sum(row_sum);
@@ -339,7 +346,7 @@ __device__ __forceinline__ void bwd_tile(const FlashParams& p, uint32_t seed, co
         float dpv = dp[i][j];
         pd = pr;
         if (p.use_dropout) {
-          const bool keep = dropout_keep(p, seed, bh, qi, kj);
+          const bool keep = dropout_keep(p, seed, qi, kj);
           pd = keep ? pr * p.drop_inv_keep : 0.f;
           dpv = keep ? dpv * p.drop_inv_keep : 0.f;
         }
@@ -378,7 +385,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(FlashParams p)
 
   load_tile<T, D>(Ks, static_cast<const T*>(p.k) + k_off, k0, p.s_k, tid);
   load_tile<T, D>(Vs, static_cast<const T*>(p.v) + k_off, k0, p.s_k, tid);
-  const uint32_t seed = load_seed(p);
+  const uint32_t seed = load_seed(p, bh);
 
   float dk[4][NJ], dv[4][NJ];
 #pragma unroll
@@ -443,7 +450,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(FlashParams p) {
 
   load_tile<T, D>(Qs, static_cast<const T*>(p.q) + q_off, q0, p.s_q, tid);
   load_tile<T, D>(dOs, static_cast<const T*>(p.dout) + q_off, q0, p.s_q, tid);
-  const uint32_t seed = load_seed(p);
+  const uint32_t seed = load_seed(p, bh);
   if (tid < kTile) {
     const int qi = q0 + tid;
     lse_s[tid] = qi < p.s_q ? p.lse[(size_t)bh * p.s_q + qi] : 0.f;
@@ -511,10 +518,11 @@ template <int D> constexpr size_t dq_tc_smem() {
   return 2 * tc_tile_bytes<D>(kDqRowsQ) + 2 * kTcStages * tc_tile_bytes<D>(kDqRowsK) + 64 + 1024;
 }
 
-// _dropout_keep split in its row and column halves: the row hash of (bh, qi)
-// is computed once per row, the column mix per element
-__device__ __forceinline__ uint32_t dropout_row_hash(uint32_t seed, int bh, int qi) {
-  return mix32((seed + 0x9E3779B9u * (uint32_t)bh) ^ (uint32_t)qi);
+// _dropout_keep split in its row and column halves: the row hash of qi (under
+// load_seed's batch*head seed) is computed once per row, the column mix per
+// element
+__device__ __forceinline__ uint32_t dropout_row_hash(uint32_t seed, int qi) {
+  return mix32(seed ^ (uint32_t)qi);
 }
 __device__ __forceinline__ bool dropout_keep_row(const FlashParams& p, uint32_t row_hash, int kj) {
   return mix32(row_hash ^ (0x27D4EB2Fu * (uint32_t)kj)) >= p.drop_threshold;
@@ -618,7 +626,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   // rows row[h] = q0 + 64 wg + 16 w + lane/4 + 8h and, in each 8-column
   // group j of an accumulator, columns 8j + c_off + {0, 1}
   const int wg = warp / 4, w = warp % 4;
-  const uint32_t seed = load_seed(p);
+  const uint32_t seed = load_seed(p, bh);
   const int c_off = 2 * (lane % 4);
   const int wg_q0 = q0 + 64 * wg;
   int row[2];
@@ -626,7 +634,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     row[h] = wg_q0 + 16 * w + lane / 4 + 8 * h;
-    row_hash[h] = p.use_dropout ? dropout_row_hash(seed, bh, row[h]) : 0u;
+    row_hash[h] = p.use_dropout ? dropout_row_hash(seed, row[h]) : 0u;
   }
   const float* key_bias = p.bias_kind == 1 ? p.bias + (size_t)(bh / p.heads) * p.s_k : nullptr;
 
@@ -864,7 +872,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   // rows kr[h] = k0 + 64 wg + 16 w + lane/4 + 8h and, in each 8-column group
   // j of an accumulator, q columns 8j + c_off + {0, 1}
   const int wg = warp / 4, w = warp % 4;
-  const uint32_t seed = load_seed(p);
+  const uint32_t seed = load_seed(p, bh);
   const int c_off = 2 * (lane % 4);
   int kr[2];
   float kbias[2] = {0.f, 0.f};
@@ -931,7 +939,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     if (p.use_dropout) {
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
-        const bool keep = dropout_keep(p, seed, bh, q0 + tc_col(i, c_off), kr[(i >> 1) & 1]);
+        const bool keep = dropout_keep(p, seed, q0 + tc_col(i, c_off), kr[(i >> 1) & 1]);
         const float dpv = keep ? dpt[i] * p.drop_inv_keep : 0.f;
         dpt[i] = st[i] * (dpv - delta_s[tc_col(i, c_off)]) * p.scale;
         st[i] = keep ? st[i] * p.drop_inv_keep : 0.f;
@@ -1071,7 +1079,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
   // rows row[h] = q0 + 64 wg + 16 w + lane/4 + 8h and, in each 8-column
   // group j of an accumulator, k columns 8j + c_off + {0, 1}
   const int wg = warp / 4, w = warp % 4;
-  const uint32_t seed = load_seed(p);
+  const uint32_t seed = load_seed(p, bh);
   const int c_off = 2 * (lane % 4);
   const int wg_q0 = q0 + 64 * wg;
   int row[2];
@@ -1081,7 +1089,7 @@ __global__ void __launch_bounds__(kTcThreads, 1)
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     row[h] = wg_q0 + 16 * w + lane / 4 + 8 * h;
-    row_hash[h] = p.use_dropout ? dropout_row_hash(seed, bh, row[h]) : 0u;
+    row_hash[h] = p.use_dropout ? dropout_row_hash(seed, row[h]) : 0u;
     // padding rows read an in-range row; they are never written
     const int rc = min(row[h], p.s_q - 1);
     lse[h] = p.lse[(size_t)bh * p.s_q + rc];
@@ -1312,8 +1320,8 @@ int launch(Which which, const FlashParams& p, int dtype, int head_dim, int bh, v
   return -2;
 }
 
-FlashParams make_params(const void* q, const void* k, const void* v, const void* bias, int heads, int s_q,
-                        int s_k, float scale, int causal, int bias_kind, int use_dropout,
+FlashParams make_params(const void* q, const void* k, const void* v, const void* bias, int heads,
+                        int head_offset, int total_heads, int s_q, int s_k, float scale, int causal, int bias_kind, int use_dropout,
                         unsigned int threshold, float inv_keep, const void* seed) {
   FlashParams p = {};
   p.q = q;
@@ -1321,6 +1329,8 @@ FlashParams make_params(const void* q, const void* k, const void* v, const void*
   p.v = v;
   p.bias = static_cast<const float*>(bias);
   p.heads = heads;
+  p.head_offset = head_offset;
+  p.total_heads = total_heads;
   p.s_q = s_q;
   p.s_k = s_k;
   p.scale = scale;
@@ -1344,11 +1354,11 @@ FlashParams make_params(const void* q, const void* k, const void* v, const void*
 extern "C" {
 
 int ds_flash_fwd(const void* q, const void* k, const void* v, const void* bias, void* out, void* lse,
-                 int dtype, int head_dim, int bh, int heads, int s_q, int s_k, float scale, int causal,
-                 int bias_kind, int use_dropout, unsigned int threshold, float inv_keep, const void* seed,
+                 int dtype, int head_dim, int bh, int heads, int head_offset, int total_heads, int s_q,
+                 int s_k, float scale, int causal, int bias_kind, int use_dropout, unsigned int threshold, float inv_keep, const void* seed,
                  void* stream) {
-  FlashParams p = make_params(q, k, v, bias, heads, s_q, s_k, scale, causal, bias_kind, use_dropout,
-                              threshold, inv_keep, seed);
+  FlashParams p = make_params(q, k, v, bias, heads, head_offset, total_heads, s_q, s_k, scale, causal,
+                              bias_kind, use_dropout, threshold, inv_keep, seed);
   p.out = out;
   p.lse_out = static_cast<float*>(lse);
   return launch(kFwd, p, dtype, head_dim, bh, stream);
@@ -1356,10 +1366,11 @@ int ds_flash_fwd(const void* q, const void* k, const void* v, const void* bias, 
 
 int ds_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* bias, const void* dout,
                       const void* lse, const void* delta, void* dk, void* dv, int dtype, int head_dim, int bh,
-                      int heads, int s_q, int s_k, float scale, int causal, int bias_kind, int use_dropout,
+                      int heads, int head_offset, int total_heads, int s_q, int s_k, float scale, int causal,
+                      int bias_kind, int use_dropout,
                       unsigned int threshold, float inv_keep, const void* seed, void* stream) {
-  FlashParams p = make_params(q, k, v, bias, heads, s_q, s_k, scale, causal, bias_kind, use_dropout,
-                              threshold, inv_keep, seed);
+  FlashParams p = make_params(q, k, v, bias, heads, head_offset, total_heads, s_q, s_k, scale, causal,
+                              bias_kind, use_dropout, threshold, inv_keep, seed);
   p.dout = dout;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
@@ -1370,10 +1381,10 @@ int ds_flash_bwd_dkdv(const void* q, const void* k, const void* v, const void* b
 
 int ds_flash_bwd_dq(const void* q, const void* k, const void* v, const void* bias, const void* dout,
                     const void* lse, const void* delta, void* dq, int dtype, int head_dim, int bh, int heads,
-                    int s_q, int s_k, float scale, int causal, int bias_kind, int use_dropout,
+                    int head_offset, int total_heads, int s_q, int s_k, float scale, int causal, int bias_kind, int use_dropout,
                     unsigned int threshold, float inv_keep, const void* seed, void* stream) {
-  FlashParams p = make_params(q, k, v, bias, heads, s_q, s_k, scale, causal, bias_kind, use_dropout,
-                              threshold, inv_keep, seed);
+  FlashParams p = make_params(q, k, v, bias, heads, head_offset, total_heads, s_q, s_k, scale, causal,
+                              bias_kind, use_dropout, threshold, inv_keep, seed);
   p.dout = dout;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
@@ -1385,10 +1396,11 @@ int ds_flash_bwd_dq(const void* q, const void* k, const void* v, const void* bia
 // bf16 route that the tensor-core kernel replaced)
 int ds_flash_bwd_dq_scalar(const void* q, const void* k, const void* v, const void* bias, const void* dout,
                            const void* lse, const void* delta, void* dq, int dtype, int head_dim, int bh,
-                           int heads, int s_q, int s_k, float scale, int causal, int bias_kind, int use_dropout,
+                           int heads, int head_offset, int total_heads, int s_q, int s_k, float scale, int causal,
+                      int bias_kind, int use_dropout,
                            unsigned int threshold, float inv_keep, const void* seed, void* stream) {
-  FlashParams p = make_params(q, k, v, bias, heads, s_q, s_k, scale, causal, bias_kind, use_dropout,
-                              threshold, inv_keep, seed);
+  FlashParams p = make_params(q, k, v, bias, heads, head_offset, total_heads, s_q, s_k, scale, causal,
+                              bias_kind, use_dropout, threshold, inv_keep, seed);
   p.dout = dout;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);

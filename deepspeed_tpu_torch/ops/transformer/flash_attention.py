@@ -28,7 +28,11 @@ probabilities blockwise in two sweeps (dK/dV, then dQ), with
 package's ``_flash_bwd`` does. Attention dropout is the same
 murmur3-finalizer hash of (seed, batch*head, q, k) as ``_dropout_keep``, so
 the keep mask is a pure function of the seed and both backward sweeps
-regenerate it; nothing is stored. The seed is an int32 tensor on the
+regenerate it; nothing is stored. Under Ulysses sequence parallelism
+(parallel/ulysses.py) a rank's launch holds heads [head_offset,
+head_offset + H_local) of ``total_heads``, and the hash indexes
+b * total_heads + head_offset + h, the whole model's masks; offset 0 of
+all heads is the plain b * H + h. The seed is an int32 tensor on the
 device (an int is accepted and copied there): the kernels read it
 themselves, so drawing it on the device costs no host sync.
 """
@@ -148,17 +152,30 @@ def _mix32(h):
     return h ^ (h >> 16)
 
 
+def hash_heads(bh: int, num_heads: int, head_offset: int = 0,
+               total_heads=None, device=None):
+    """The dropout hash's batch*head index of each of ``bh`` local
+    batch*heads: local head h of batch b (``num_heads`` per batch) is head
+    ``head_offset + h`` of ``total_heads`` (default: ``num_heads``)."""
+    i = torch.arange(bh, device=device, dtype=torch.int64)
+    total = num_heads if total_heads is None else total_heads
+    return (i // num_heads) * total + head_offset + i % num_heads
+
+
 def dropout_keep_mask(seed: int, bh: int, q_start: int, q_len: int,
-                      k_start: int, k_len: int, rate: float, device):
+                      k_start: int, k_len: int, rate: float, device,
+                      num_heads: int = 1, head_offset: int = 0,
+                      total_heads=None):
     """(bh, q_len, k_len) keep mask of the dropout hash at global positions
-    q_start.., k_start.. for batch*head indices 0..bh-1."""
+    q_start.., k_start.. for local batch*heads 0..bh-1 (``hash_heads``:
+    by default the hash indexes them as they are)."""
     rows = torch.arange(q_start, q_start + q_len, device=device,
                         dtype=torch.int64)
     # an int or a one-element tensor (the int32 the kernels read)
     seed = torch.as_tensor(seed, device=device).to(torch.int64).reshape(())
     cols = torch.arange(k_start, k_start + k_len, device=device,
                         dtype=torch.int64)
-    heads = torch.arange(bh, device=device, dtype=torch.int64)
+    heads = hash_heads(bh, num_heads, head_offset, total_heads, device)
     s = (seed & _M32) + _mul32(heads, 0x9E3779B9)
     s = s & _M32
     rh = _mix32(s[:, None] ^ rows[None, :])                  # (bh, q)
@@ -186,7 +203,7 @@ def _block_scores(q, k, bias, *, scale, causal, bias_kind, num_heads,
 
 
 def flash_fwd_plain(q, k, v, bias, seed, *, scale, causal, bias_kind,
-                    num_heads, dropout_rate):
+                    num_heads, dropout_rate, head_offset=0, total_heads=None):
     """Plain version of the forward kernel: a blockwise online softmax
     over k blocks with fp32 running max and denominator. Differentiable by
     autograd. Returns (out (bh, s_q, d) in q's dtype, lse (bh, s_q) fp32)."""
@@ -211,7 +228,8 @@ def flash_fwd_plain(q, k, v, bias, seed, *, scale, causal, bias_kind,
         l = l * alpha + p.sum(-1, keepdim=True)
         if dropout_rate > 0.0:
             keep = dropout_keep_mask(seed, bh, 0, s_q, k0, kb.shape[1],
-                                     dropout_rate, q.device)
+                                     dropout_rate, q.device, num_heads,
+                                     head_offset, total_heads)
             p = torch.where(keep, p / (1.0 - dropout_rate),
                             torch.zeros_like(p))
         # p enters the second product in the storage dtype, as the Pallas
@@ -227,7 +245,8 @@ def flash_fwd_plain(q, k, v, bias, seed, *, scale, causal, bias_kind,
 
 
 def _bwd_block(q, k, v, do, lse, delta, bias, seed, *, scale, causal,
-               bias_kind, num_heads, dropout_rate, q_start, k_start):
+               bias_kind, num_heads, dropout_rate, q_start, k_start,
+               head_offset, total_heads):
     """(p_drop, ds) for one (q block, k block) pair: computed in fp32 and
     rounded to the storage dtype, in which the Pallas kernels feed both to
     their second products (back in fp32 for the einsums)."""
@@ -239,7 +258,8 @@ def _bwd_block(q, k, v, do, lse, delta, bias, seed, *, scale, causal,
     p_drop = p
     if dropout_rate > 0.0:
         keep = dropout_keep_mask(seed, q.shape[0], q_start, q.shape[1],
-                                 k_start, k.shape[1], dropout_rate, q.device)
+                                 k_start, k.shape[1], dropout_rate, q.device,
+                                 num_heads, head_offset, total_heads)
         inv = 1.0 / (1.0 - dropout_rate)
         p_drop = torch.where(keep, p * inv, torch.zeros_like(p))
         dp = torch.where(keep, dp * inv, torch.zeros_like(dp))
@@ -248,7 +268,8 @@ def _bwd_block(q, k, v, do, lse, delta, bias, seed, *, scale, causal,
 
 
 def flash_bwd_dkdv_plain(q, k, v, do, lse, delta, bias, seed, *, scale,
-                         causal, bias_kind, num_heads, dropout_rate):
+                         causal, bias_kind, num_heads, dropout_rate,
+                         head_offset=0, total_heads=None):
     """Plain version of the dK/dV kernel: sweep q blocks against all keys."""
     s_q = q.shape[1]
     dk = torch.zeros(k.shape, device=k.device)
@@ -259,14 +280,15 @@ def flash_bwd_dkdv_plain(q, k, v, do, lse, delta, bias, seed, *, scale,
             q[:, sl], k, v, do[:, sl], lse[:, sl], delta[:, sl], bias, seed,
             scale=scale, causal=causal, bias_kind=bias_kind,
             num_heads=num_heads, dropout_rate=dropout_rate, q_start=q0,
-            k_start=0)
+            k_start=0, head_offset=head_offset, total_heads=total_heads)
         dv += torch.einsum("bqk,bqd->bkd", p_drop, do[:, sl].float())
         dk += torch.einsum("bqk,bqd->bkd", ds, q[:, sl].float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_bwd_dq_plain(q, k, v, do, lse, delta, bias, seed, *, scale,
-                       causal, bias_kind, num_heads, dropout_rate):
+                       causal, bias_kind, num_heads, dropout_rate,
+                       head_offset=0, total_heads=None):
     """Plain version of the dQ kernel: sweep k blocks against all queries."""
     s_k = k.shape[1]
     dq = torch.zeros(q.shape, device=q.device)
@@ -275,7 +297,8 @@ def flash_bwd_dq_plain(q, k, v, do, lse, delta, bias, seed, *, scale,
         _, ds = _bwd_block(
             q, k[:, sl], v[:, sl], do, lse, delta, bias, seed, scale=scale,
             causal=causal, bias_kind=bias_kind, num_heads=num_heads,
-            dropout_rate=dropout_rate, q_start=0, k_start=k0)
+            dropout_rate=dropout_rate, q_start=0, k_start=k0,
+            head_offset=head_offset, total_heads=total_heads)
         dq += torch.einsum("bqk,bkd->bqd", ds, k[:, sl].float())
     return dq.to(q.dtype)
 
@@ -371,13 +394,15 @@ def _seed_tensor(seed, device):
 
 
 def _common_args(q, k, bias, seed, scale, causal, bias_kind, num_heads,
-                 dropout_rate):
+                 dropout_rate, head_offset, total_heads):
     """(the C functions' trailing arguments, the seed tensor that they
     point at, which the caller holds until the launch)."""
     bh, s_q, d = q.shape
     use_dropout = dropout_rate > 0.0
     seed_t = _seed_tensor(seed, q.device) if use_dropout else None
-    args = [_DTYPES[q.dtype], d, bh, num_heads, s_q, k.shape[1],
+    total = num_heads if total_heads is None else total_heads
+    args = [_DTYPES[q.dtype], d, bh, num_heads, head_offset, total, s_q,
+            k.shape[1],
             float(scale), int(bool(causal)), BIAS_KINDS[bias_kind],
             int(use_dropout),
             dropout_threshold(dropout_rate) if use_dropout else 0,
@@ -413,17 +438,19 @@ def _route(q, name):
 
 
 def flash_fwd(q, k, v, bias, seed, *, scale, causal, bias_kind, num_heads,
-              dropout_rate):
+              dropout_rate, head_offset=0, total_heads=None):
     """Forward over (bh, s, d) tensors -> (out, lse (bh, s_q) fp32)."""
     kw = dict(scale=scale, causal=causal, bias_kind=bias_kind,
-              num_heads=num_heads, dropout_rate=dropout_rate)
+              num_heads=num_heads, dropout_rate=dropout_rate,
+              head_offset=head_offset, total_heads=total_heads)
     if not _route(q, "flash_fwd"):
         return flash_fwd_plain(q, k, v, bias, seed, **kw)
     _check_cuda((q, k, v), bias, bias_kind, num_heads)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
     args, _seed = _common_args(q, k, bias, seed, scale, causal, bias_kind,
-                               num_heads, dropout_rate)
+                               num_heads, dropout_rate, head_offset,
+                               total_heads)
     err = _library().ds_flash_fwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(out), _ptr(lse), *args)
     _raise_on(err, "flash_fwd")
@@ -432,10 +459,12 @@ def flash_fwd(q, k, v, bias, seed, *, scale, causal, bias_kind, num_heads,
 
 
 def flash_bwd_dkdv(q, k, v, do, lse, delta, bias, seed, *, scale, causal,
-                   bias_kind, num_heads, dropout_rate):
+                   bias_kind, num_heads, dropout_rate, head_offset=0,
+                   total_heads=None):
     """dK/dV sweep -> (dk, dv) in the dtype of k/v."""
     kw = dict(scale=scale, causal=causal, bias_kind=bias_kind,
-              num_heads=num_heads, dropout_rate=dropout_rate)
+              num_heads=num_heads, dropout_rate=dropout_rate,
+              head_offset=head_offset, total_heads=total_heads)
     if not _route(q, "flash_bwd_dkdv"):
         return flash_bwd_dkdv_plain(q, k, v, do, lse, delta, bias, seed,
                                     **kw)
@@ -443,7 +472,8 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, bias, seed, *, scale, causal,
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     args, _seed = _common_args(q, k, bias, seed, scale, causal, bias_kind,
-                               num_heads, dropout_rate)
+                               num_heads, dropout_rate, head_offset,
+                               total_heads)
     err = _library().ds_flash_bwd_dkdv(
         _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(do), _ptr(lse),
         _ptr(delta), _ptr(dk), _ptr(dv), *args)
@@ -453,19 +483,22 @@ def flash_bwd_dkdv(q, k, v, do, lse, delta, bias, seed, *, scale, causal,
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, bias, seed, *, scale, causal,
-                 bias_kind, num_heads, dropout_rate, scalar=False):
+                 bias_kind, num_heads, dropout_rate, head_offset=0,
+                 total_heads=None, scalar=False):
     """dQ sweep -> dq in the dtype of q. ``scalar`` launches the scalar
     kernel at bf16 and fp16 too (the route the tensor-core kernel replaced,
     to time the two side by side); the model never asks for it."""
     kw = dict(scale=scale, causal=causal, bias_kind=bias_kind,
-              num_heads=num_heads, dropout_rate=dropout_rate)
+              num_heads=num_heads, dropout_rate=dropout_rate,
+              head_offset=head_offset, total_heads=total_heads)
     if not _route(q, "flash_bwd_dq"):
         return flash_bwd_dq_plain(q, k, v, do, lse, delta, bias, seed, **kw)
     _check_cuda((q, k, v, do, lse, delta), bias, bias_kind, num_heads)
     dq = torch.empty_like(q)
     lib = _library()
     args, _seed = _common_args(q, k, bias, seed, scale, causal, bias_kind,
-                               num_heads, dropout_rate)
+                               num_heads, dropout_rate, head_offset,
+                               total_heads)
     err = (lib.ds_flash_bwd_dq_scalar if scalar else lib.ds_flash_bwd_dq)(
         _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(do), _ptr(lse),
         _ptr(delta), _ptr(dq), *args)
@@ -480,9 +513,10 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, seed, scale, causal, bias_kind,
-                num_heads, dropout_rate):
+                num_heads, dropout_rate, head_offset, total_heads):
         kw = dict(scale=scale, causal=causal, bias_kind=bias_kind,
-                  num_heads=num_heads, dropout_rate=dropout_rate)
+                  num_heads=num_heads, dropout_rate=dropout_rate,
+                  head_offset=head_offset, total_heads=total_heads)
         out, lse = flash_fwd(q, k, v, bias, seed, **kw)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.bias, ctx.seed, ctx.kw = bias, seed, kw
@@ -498,7 +532,8 @@ class _FlashAttention(torch.autograd.Function):
                                 **ctx.kw)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, ctx.bias, ctx.seed,
                           **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None, None, None, None, \
+            None
 
 
 class _CountedFlashAttention(torch.autograd.Function):
@@ -566,14 +601,18 @@ def _prepare(q, k, v, bias, causal, scale, dropout_rate, dropout_seed):
 
 def flash_attention(q, k, v, *, bias=None, causal: bool = False,
                     scale: Optional[float] = None, dropout_rate: float = 0.0,
-                    dropout_seed=None):
+                    dropout_seed=None, head_offset: int = 0,
+                    total_heads: Optional[int] = None):
     """Flash attention over [batch, heads, seq, head_dim] tensors.
 
     bias: optional ADDITIVE bias, (B, 1, 1, S_k) key-padding form or any
     shape broadcastable to (B, H, S_q, S_k); a constant (no gradient).
     dropout_rate/dropout_seed: in-kernel attention dropout; the seed (an
     int, or a one-element int32 tensor on the device, as the JAX package
-    passes an array) fully determines the keep mask. Differentiable in q/k/v. CUDA tensors
+    passes an array) fully determines the keep mask.
+    head_offset/total_heads: q holds heads [head_offset, head_offset + H)
+    of ``total_heads`` (a Ulysses rank's), and the dropout hash indexes
+    them so (default: heads 0.. of H). Differentiable in q/k/v. CUDA tensors
     run the kernels; CPU tensors run their plain versions; meta tensors
     inside a FLOP count count the kernels' FLOPs (module docstring).
     """
@@ -586,14 +625,15 @@ def flash_attention(q, k, v, *, bias=None, causal: bool = False,
     q3, k3, v3, bias3, seed, scale, kind, heads, rate = _prepare(
         q, k, v, bias, causal, scale, dropout_rate, dropout_seed)
     out = _FlashAttention.apply(q3, k3, v3, bias3, seed, scale, causal, kind,
-                                heads, rate)
+                                heads, rate, head_offset, total_heads)
     return out.reshape(b, h, s_q, d)
 
 
 def flash_attention_reference(q, k, v, *, bias=None, causal: bool = False,
                               scale: Optional[float] = None,
                               dropout_rate: float = 0.0,
-                              dropout_seed=None):
+                              dropout_seed=None, head_offset: int = 0,
+                              total_heads: Optional[int] = None):
     """Plain PyTorch flash attention (same signature and function as
     ``flash_attention``), blockwise online softmax with the same -1e30
     masking and dropout hash; gradients by autograd. Runs on any device."""
@@ -602,5 +642,6 @@ def flash_attention_reference(q, k, v, *, bias=None, causal: bool = False,
         q, k, v, bias, causal, scale, dropout_rate, dropout_seed)
     out, _ = flash_fwd_plain(q3, k3, v3, bias3, seed, scale=scale,
                              causal=causal, bias_kind=kind, num_heads=heads,
-                             dropout_rate=rate)
+                             dropout_rate=rate, head_offset=head_offset,
+                             total_heads=total_heads)
     return out.reshape(b, h, s_q, d)

@@ -42,7 +42,9 @@ def scaled_dot_product_attention(q, k, v, *, mask=None, bias=None,
                                  causal=False, dropout_rng=None,
                                  dropout_rate=0.0,
                                  scale: Optional[float] = None,
-                                 use_pallas: Optional[bool] = None):
+                                 use_pallas: Optional[bool] = None,
+                                 head_offset: int = 0,
+                                 total_heads: Optional[int] = None):
     """Attention over [batch, heads, seq, head_dim] tensors.
 
     use_pallas: for CPU tensors, None or False takes the plain einsum path
@@ -53,6 +55,10 @@ def scaled_dot_product_attention(q, k, v, *, mask=None, bias=None,
     inside the FLOP count of telemetry/mfu.py count the flash kernels'
     FLOPs.
     dropout_rng: a ``torch.Generator`` for the dropout randomness.
+    head_offset/total_heads: q holds heads [head_offset, head_offset + H)
+    of ``total_heads`` (a Ulysses rank's, parallel/ulysses.py): the
+    dropout keep mask is those heads' rows of the whole model's (default:
+    heads 0.. of H).
     """
     if q.device.type == "meta" and counting():
         # the telemetry's FLOP replay: the kernels' count, whichever route
@@ -88,7 +94,8 @@ def scaled_dot_product_attention(q, k, v, *, mask=None, bias=None,
                                  dtype=torch.int32)
         return flash_attention(q, k, v, bias=bias, causal=causal,
                                scale=scale, dropout_rate=dropout_rate,
-                               dropout_seed=seed)
+                               dropout_seed=seed, head_offset=head_offset,
+                               total_heads=total_heads)
 
     head_dim = q.shape[-1]
     scale = (head_dim ** -0.5) if scale is None else scale
@@ -104,7 +111,10 @@ def scaled_dot_product_attention(q, k, v, *, mask=None, bias=None,
         logits = logits.masked_fill(~mask, -1e30)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     if dropout_rate > 0.0 and dropout_rng is not None:
-        probs = dropout(probs, dropout_rng, dropout_rate)
+        heads = q.shape[1]
+        total = heads if total_heads is None else total_heads
+        probs = dropout(probs, dropout_rng, dropout_rate,
+                        within=(1, head_offset, total))
     return torch.einsum("bhqk,bhkd->bhqd", probs, v)
 
 
@@ -131,11 +141,36 @@ def bias_residual_layer_norm(x, bias, residual, gamma, beta, eps=1e-12):
     return layer_norm(x + bias + residual, gamma, beta, eps)
 
 
-def dropout(x, generator, rate, deterministic=False):
-    """Inverted dropout with the keep mask drawn from ``generator``."""
+def seq_dropout(x, generator, rate, group=None):
+    """``dropout`` of a (B, S, ...) activation; under sequence parallelism
+    (``group``: the seq group, x this rank's chunk of S/N positions) the
+    chunk's slice of the whole sequence's mask."""
+    if group is None:
+        return dropout(x, generator, rate)
+    s = x.shape[1]
+    return dropout(x, generator, rate,
+                   within=(1, group.offset(s), group.size * s))
+
+
+def dropout(x, generator, rate, deterministic=False, within=None):
+    """Inverted dropout with the keep mask drawn from ``generator``.
+
+    within: (dim, start, size): x is the slice [start, start +
+    x.shape[dim]) along ``dim`` of a tensor whose ``dim`` has ``size``
+    (a sequence-parallel rank's chunk): the mask is that slice of the whole
+    tensor's, drawn whole, so every rank draws the generator alike and the
+    ranks' masks make up the single process's."""
     if deterministic or rate == 0.0:
         return x
-    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    if within is None:
+        u = torch.rand(x.shape, generator=generator, device=generator.device)
+    else:
+        dim, start, size = within
+        shape = list(x.shape)
+        shape[dim] = size
+        u = torch.rand(shape, generator=generator,
+                       device=generator.device).narrow(dim, start,
+                                                       x.shape[dim])
     keep = u.to(x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x)).to(
         x.dtype)

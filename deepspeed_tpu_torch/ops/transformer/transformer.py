@@ -11,7 +11,12 @@ tensors) or, with a ``sparsity_config``, the block-sparse path
 (ops/sparse_attention: the block-sparse kernels for CUDA tensors). The
 memory-saving flags (normalize_invertible / attn_dropout_checkpoint /
 gelu_checkpoint) recompute the layer body in the backward
-(torch.utils.checkpoint), replaying its dropout generator.
+(torch.utils.checkpoint), replaying its dropout generator. Under sequence
+parallelism (``sp_group``, set by the model) the body holds its rank's
+chunk of the sequence, and the attention core, dense or block-sparse,
+runs on the rank's heads over the whole sequence between Ulysses's
+all-to-alls (parallel/ulysses.py), as the JAX layer's sharding flip does;
+the (B, 1, 1, S) key mask is the whole row's, which every rank holds.
 
 Also home to the building blocks the port's models share: ``Dense`` and
 ``LayerNorm`` (computing in the input's dtype from parameters of any
@@ -28,7 +33,8 @@ from torch.utils.checkpoint import checkpoint
 from deepspeed_tpu_torch.ops.sparse_attention.sparse_self_attention import \
     SparseSelfAttention
 from deepspeed_tpu_torch.ops.transformer.functional import (
-    dropout, gelu, scaled_dot_product_attention)
+    gelu, scaled_dot_product_attention, seq_dropout)
+from deepspeed_tpu_torch.parallel.ulysses import ulysses_attention
 
 
 def _trunc_normal_(t, std, generator):
@@ -181,6 +187,8 @@ class DeepSpeedTransformerConfig(TransformerConfig):
 
 class _EncoderBody(nn.Module):
     """BERT encoder layer body (attention + FFN), pre- or post-LN."""
+    # the seq group under sequence parallelism (the model sets it)
+    sp_group = None
 
     def __init__(self, config: DeepSpeedTransformerConfig):
         super().__init__()
@@ -210,13 +218,25 @@ class _EncoderBody(nn.Module):
         self.ffn_out.reset_with(generator, out_std)
 
     def _attention(self, qh, kh, vh, attention_mask, train, generator):
+        if self.sp_group is None:
+            return self._core(qh, kh, vh, attention_mask, train, generator)
+        return ulysses_attention(
+            qh, kh, vh, group=self.sp_group,
+            attention_fn=lambda q, k, v, **heads: self._core(
+                q, k, v, attention_mask, train, generator, **heads))
+
+    def _core(self, qh, kh, vh, attention_mask, train, generator,
+              head_offset=0, total_heads=None):
+        """The attention over heads [head_offset, head_offset + H) of
+        ``total_heads`` (default: all) over the whole sequence."""
         cfg = self.config
         drop = train and cfg.attn_dropout_ratio > 0
         if self.sparse_attn is None:
             return scaled_dot_product_attention(
                 qh, kh, vh, causal=False, bias=attention_mask,
                 dropout_rng=generator if drop else None,
-                dropout_rate=cfg.attn_dropout_ratio if drop else 0.0)
+                dropout_rate=cfg.attn_dropout_ratio if drop else 0.0,
+                head_offset=head_offset, total_heads=total_heads)
         if drop:
             raise ValueError("sparsity_config does not support attention "
                              "dropout (the reference's sparse path has none "
@@ -233,7 +253,9 @@ class _EncoderBody(nn.Module):
                     f"{tuple(attention_mask.shape)}: per-query masks need "
                     f"the dense path (sparsity_config=None)")
             kpm = attention_mask[:, 0, 0, :]
-        return self.sparse_attn(qh, kh, vh, key_padding_mask=kpm)
+        return self.sparse_attn(qh, kh, vh, key_padding_mask=kpm,
+                                head_offset=head_offset,
+                                total_heads=total_heads)
 
     def forward(self, hidden_states, attention_mask, train, generator=None):
         cfg = self.config
@@ -254,7 +276,8 @@ class _EncoderBody(nn.Module):
                               attention_mask, train, generator)
         attn_out = self.attn_out(ctx.transpose(1, 2).reshape(b, s, e))
         if hidden_drop:
-            attn_out = dropout(attn_out, generator, cfg.hidden_dropout_ratio)
+            attn_out = seq_dropout(attn_out, generator,
+                                   cfg.hidden_dropout_ratio, self.sp_group)
         x = residual + attn_out
         if not cfg.pre_layer_norm:
             x = self.attn_ln(x)
@@ -265,7 +288,8 @@ class _EncoderBody(nn.Module):
         h = gelu(self.ffn_inter(ffn_in), approximate=False)
         h = self.ffn_out(h)
         if hidden_drop:
-            h = dropout(h, generator, cfg.hidden_dropout_ratio)
+            h = seq_dropout(h, generator, cfg.hidden_dropout_ratio,
+                            self.sp_group)
         x = residual + h
         if not cfg.pre_layer_norm:
             x = self.ffn_ln(x)

@@ -41,7 +41,8 @@ class Collective:
     participating device SENDS per invocation; ``count_per_step`` scales it
     to one optimizer step (e.g. gradient-accumulation micro-steps)."""
     name: str            # e.g. "grad_rs:h_0/attn/c_attn/kernel"
-    op: str              # all-reduce | reduce-scatter | all-gather | all-to-all
+    op: str              # all-reduce | reduce-scatter | all-gather |
+    #                      all-to-all | collective-permute | broadcast
     dtype: str
     elements: int        # logical elements moved (pre-ring-factor)
     axis_size: int
@@ -76,10 +77,24 @@ def all_to_all_bytes(n: int, elem_bytes: int, w: int) -> int:
     return int(round(_ring(w) * n * elem_bytes))
 
 
+def collective_permute_bytes(n: int, elem_bytes: int, w: int) -> int:
+    """One hop of a ring: every device sends its n elements to the
+    next."""
+    return n * elem_bytes if w > 1 else 0
+
+
+def broadcast_bytes(n: int, elem_bytes: int, w: int) -> int:
+    """A pipelined ring broadcast: every device but the last forwards the
+    n elements, (w - 1) / w of them per device on average."""
+    return int(round(_ring(w) * n * elem_bytes))
+
+
 _RING_BYTES = {"all-reduce": allreduce_bytes,
                "reduce-scatter": reduce_scatter_bytes,
                "all-gather": all_gather_bytes,
-               "all-to-all": all_to_all_bytes}
+               "all-to-all": all_to_all_bytes,
+               "collective-permute": collective_permute_bytes,
+               "broadcast": broadcast_bytes}
 
 
 @dataclass

@@ -1,8 +1,8 @@
-"""DeepSpeedEngine: one device per process, data parallel over a process
-group with ZeRO stage 0, 1 or 2.
+"""DeepSpeedEngine: one device per process, data and sequence parallel over
+a process grid, with ZeRO stage 0, 1 or 2.
 
-Port of deepspeed_tpu/runtime/engine.py without its tensor, pipeline and
-sequence axes: the optimizer and LR scheduler from the ds_config
+Port of deepspeed_tpu/runtime/engine.py without its tensor and pipeline
+axes: the optimizer and LR scheduler from the ds_config
 (``_configure_basic_optimizer`` :439, ``_configure_lr_scheduler`` :523),
 ``forward`` / ``backward`` / ``step`` (:3111, :3217, :3285), the optimizer
 step with the fp16 loss scale, global-norm clipping and the overflow skip
@@ -31,7 +31,10 @@ coefficients skips the step. No host sync; logging reads the flags at
 
 Data parallelism (``init_distributed``: NCCL on CUDA, gloo on the CPU):
 each process feeds its own micro-batch, and the loss and gradients are the
-global batch's mean, as the JAX engine's over its ``data`` axis. Each
+global batch's, as the JAX engine's over its ``data`` axis: a model with
+``set_loss_group`` (models/api.py) computes the whole micro-batch's loss
+over the world (Σnll / Σcount of every rank's tokens), and the engine sums
+the ranks' gradients; another model's loss is averaged over the ranks. Each
 micro step's fp32 gradients are exchanged on the current stream: an
 all-reduce, and at stage 2 a reduce-scatter of the leaves ZeRO shards
 into the rank's shard of the accumulator (runtime/zero/partition.py: the
@@ -41,6 +44,25 @@ all-gather brings the compute-dtype parameters back to every rank. The
 overflow flag is a MAX and the global norm a SUM over the group, so every
 rank takes or skips the same step. In a world of one every leaf is
 replicated, and the step is the single-process one bit for bit.
+
+Sequence parallelism (``"mesh": {"data": D, "seq": N}``, a world of D*N
+processes; parallel/mesh.py lays the grid in the JAX mesh's order, and
+each rank's ``data`` line and ``seq`` line is a process group): each rank
+feeds its data rows at full sequence, as at N = 1, so the N ranks of a
+seq line feed the same micro-batch. The engine keeps the rank's chunk of
+the sequence of ``input_ids`` (and ``token_type_ids``), and the whole row
+of the labels and masks, which the model's loss reads (the whole
+micro-batch's, the same value on every rank). The model runs
+its attention through Ulysses or the ring (``set_sequence_parallel``).
+The parameters are replicated over ``seq``, and each rank's backward
+holds the terms of its own chunk's tokens: the sum over the seq group
+(``sp_grad_ar``) is one all-reduce, in place, of the buffer that already
+holds the rank's gradients after the data-parallel exchange (a sum is
+the same in either order): the fp32 accumulator at the optimizer step,
+or under offload each micro step's buffer before its copy down. So no
+buffer is added, and the loss scale, the norm, the overflow flag and
+ZeRO's shards are the data axis's alone, as under ``zero_merge_spec``.
+Rank 0 writes checkpoints.
 
 Expert parallelism (a model with MoE layers; the JAX engine's placement of
 the expert stacks over ``data`` by ``moe_leaf_spec``, at every ZeRO
@@ -107,8 +129,11 @@ from deepspeed_tpu_torch.ops.adam.cpu_adam import (DeepSpeedCPUAdam,
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
 from deepspeed_tpu_torch.ops.adam.sgd import SGD
 from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
-from deepspeed_tpu_torch.parallel.mesh import (DataParallelGroup,
-                                               resolve_data_axis)
+from deepspeed_tpu_torch.parallel.mesh import (DATA_AXIS, SEQ_AXIS,
+                                               DataParallelGroup,
+                                               ProcessGrid,
+                                               SequenceParallelGroup,
+                                               resolve_grid)
 from deepspeed_tpu_torch.runtime import checkpoint_utils
 from deepspeed_tpu_torch.runtime import comm_accounting as ca
 from deepspeed_tpu_torch.runtime import memory_accounting
@@ -134,7 +159,8 @@ from deepspeed_tpu_torch.runtime.utils import (clip_grad_by_global_norm,
 from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartition
 from deepspeed_tpu_torch.telemetry.programs import (NO_OBSERVER,
                                                     ProgramRegistry)
-from deepspeed_tpu_torch.utils.distributed import init_distributed
+from deepspeed_tpu_torch.utils.distributed import (grid_groups,
+                                                   init_distributed)
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
                                              ThroughputTimer)
@@ -218,7 +244,6 @@ class DeepSpeedEngine:
             # joins the world the environment names; a no-op without one
             init_distributed(device="cuda" if device is None else device)
         self.device = resolve_device(device)
-        self.dp_group = self._data_parallel_group()
         self.client_optimizer = optimizer
         self.client_lr_scheduler = lr_scheduler
         self.collate_fn = collate_fn
@@ -234,10 +259,14 @@ class DeepSpeedEngine:
             raise ValueError("DeepSpeed requires --deepspeed_config or "
                              "config_params")
         raw = load_config_json(raw) if isinstance(raw, str) else raw
-        world = 1 if self.dp_group is None else self.dp_group.size
-        self.dp_world_size = resolve_data_axis(get_mesh_shape(raw), world)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        self.mesh_shape = resolve_grid(get_mesh_shape(raw), world)
+        self.dp_world_size = self.mesh_shape[DATA_AXIS]
+        self.sp_world_size = self.mesh_shape[SEQ_AXIS]
+        self.mp_world_size = 1
+        self._process_groups()
         self.dp_rank = 0 if self.dp_group is None else self.dp_group.rank
-        self.mp_world_size = self.sp_world_size = 1
+        self.sp_rank = 0 if self.sp_group is None else self.sp_group.rank
         self._config = DeepSpeedConfig(raw, world_size=self.dp_world_size)
         _refuse_unported(raw, self._config)
         # the dispatched-program registry is ALWAYS on: one dict insert at
@@ -269,6 +298,19 @@ class DeepSpeedEngine:
         self._seed = int(raw.get("seed", 42))
         self.module = model.to(self.device)
         self.module.init_weights(torch.Generator().manual_seed(self._seed))
+        # the whole micro-batch's loss, over every rank (models/api.py)
+        self._loss_is_global = self._world_group is not None \
+            and self._world_group.size > 1 \
+            and hasattr(self.module, "set_loss_group")
+        if self._loss_is_global:
+            self.module.set_loss_group(self._world_group)
+        if self.sp_group is not None:
+            if not hasattr(self.module, "set_sequence_parallel"):
+                raise NotImplementedError(
+                    f"mesh seq={self.sp_world_size}: "
+                    f"{type(self.module).__name__} has no sequence-parallel "
+                    f"path (set_sequence_parallel)")
+            self.module.set_sequence_parallel(self.sp_group)
         # expert parallelism over data: this rank's E/dp experts (the JAX
         # engine refuses a stack that dp does not divide, and so does this)
         experts = expert_parallel(self.module, self.dp_group) \
@@ -334,7 +376,7 @@ class DeepSpeedEngine:
         self._profiled = False
         self._profile_window = None
         self.summary_writer = None
-        if self.tensorboard_enabled() and self.dp_rank == 0:
+        if self.tensorboard_enabled() and self.dp_rank == self.sp_rank == 0:
             from deepspeed_tpu_torch.utils.tb_writer import SummaryWriter
 
             # the TensorBoard event-file format, written natively
@@ -507,18 +549,34 @@ class DeepSpeedEngine:
             args.get("init_scale", self._config.initial_dynamic_scale),
             delayed_shift=args.get("delayed_shift", 1), device=self.device)
 
-    def _data_parallel_group(self):
-        """The process group (``DataParallelGroup``), or None in a
-        single-process run. Its backend must be the device's: NCCL on
-        CUDA, gloo on the CPU; nothing falls back."""
+    def _process_groups(self):
+        """The grid's groups (none in a single-process run): ``dp_group``,
+        this rank's ``data`` line (the world when seq is 1, at any size;
+        None when the line is this rank alone), ``sp_group``, its ``seq``
+        line (None at seq 1), both recording into one counter, and
+        ``_world_group``, every rank (the checkpoint's tag check and
+        barrier). The world's backend must be the device's: NCCL on CUDA,
+        gloo on the CPU; nothing falls back."""
+        self.dp_group = self.sp_group = self._world_group = None
+        self._counter = None
         if not dist.is_initialized():
-            return None
-        group = DataParallelGroup()
+            return
+        self._counter = ca.CollectiveCounter()
+        self._world_group = DataParallelGroup(None, self._counter)
         want = "nccl" if self.device.type == "cuda" else "gloo"
-        if group.backend != want:
-            raise RuntimeError(f"the process group runs {group.backend}; a "
+        if self._world_group.backend != want:
+            raise RuntimeError(f"the process group runs "
+                               f"{self._world_group.backend}; a "
                                f"{self.device.type} engine needs {want}")
-        return group
+        if self.sp_world_size == 1:
+            self.dp_group = self._world_group
+            return
+        groups = grid_groups(ProcessGrid(self.mesh_shape, dist.get_rank()))
+        if self.dp_world_size > 1:
+            self.dp_group = DataParallelGroup(groups[DATA_AXIS],
+                                              self._counter)
+        self.sp_group = SequenceParallelGroup(groups[SEQ_AXIS],
+                                              self._counter)
 
     @torch.no_grad()
     def _build_state(self):
@@ -569,12 +627,32 @@ class DeepSpeedEngine:
                             for i, a in enumerate(self.accum)]
         split = self._split_over_group()
         self._partitioned = split if any(split) else None
+        self._seq_leaves()
         if self.dp_group is None:
             return
         self._exchange_buffers(
             torch.empty(self._n_ar + (part.seg_size if stage2 else 0),
                         dtype=f32, device=dev),
             torch.empty(part.seg_size, dtype=self.param_dtype, device=dev))
+
+    def _seq_leaves(self):
+        """The leaves that the gradient all-reduce over the seq group
+        carries: the accumulator's layout, every leaf whole but, where the
+        gradients are sharded, this rank's shard of each sharded leaf."""
+        if self.sp_group is None:
+            return
+        dp = self.dp_world_size
+        self._sp_leaves = [
+            (leaf.name, leaf.elements // dp
+             if self._grad_sharded and leaf.shard_dim is not None
+             else leaf.elements)
+            for leaf in self.partition.leaves]
+
+    def _sum_over_seq(self, flat):
+        """The gradients in ``flat`` summed over the seq group, in place (a
+        no-op at seq 1)."""
+        if self.sp_group is not None:
+            self.sp_group.all_reduce(flat, leaves=self._sp_leaves)
 
     def _split_over_group(self):
         """Whether each parameter list entry is this rank's part of a leaf
@@ -689,6 +767,7 @@ class DeepSpeedEngine:
             .view(self.param_dtype)
         self._dev_flat = torch.empty(n, dtype=self.param_dtype, device=dev)
         self._dev_views = views(self._dev_flat)
+        self._seq_leaves()
         self._d2h_stream = torch.cuda.Stream(dev) if cuda else None
         self._d2h_events = [torch.cuda.Event() for _ in self._staging] \
             if cuda else None
@@ -742,9 +821,26 @@ class DeepSpeedEngine:
             t = torch.as_tensor(x)
             return t.to(self.device, non_blocking=True)
 
+        if self.sp_group is not None:
+            batch = self._seq_chunk(batch)
         if isinstance(batch, dict):
             return {k: put(v) for k, v in batch.items()}
         return put(batch)
+
+    def _seq_chunk(self, batch):
+        """Under sequence parallelism: this rank's chunk of the sequence of
+        the entries the model embeds (``_SEQ_SHARDED``); the labels and
+        masks stay whole (the loss reads the next position's label across
+        the chunk's end)."""
+        if not isinstance(batch, dict):
+            raise ValueError(f"mesh seq={self.sp_world_size} takes a dict "
+                             f"batch (the sequence-sharded entries are "
+                             f"{_SEQ_SHARDED})")
+        out = dict(batch)
+        for key in _SEQ_SHARDED:
+            if key in batch:
+                out[key] = self.sp_group.chunk(torch.as_tensor(batch[key]), 1)
+        return out
 
     def _micro_generator(self):
         """The dropout randomness of one micro-batch: a generator seeded
@@ -913,17 +1009,22 @@ class DeepSpeedEngine:
         scaled = loss.float()
         if self.scaler is not None:
             scaled = scaled * self.scaler.loss_scale
-        # the global batch's mean: each rank's share of it
-        (scaled / (self.gradient_accumulation_steps()
-                   * self.dp_world_size)).backward()
+        # the global batch's mean: a whole-micro-batch loss is every rank's
+        # alike (the exchange sums its ranks' terms), another model's loss
+        # is this rank's share of it
+        div = self.gradient_accumulation_steps()
+        if not self._loss_is_global:
+            div *= self.dp_world_size
+        (scaled / div).backward()
         if self._offload:
             return
         # the gradients, in the compute dtype, into the fp32 accumulator
+        grads = [p.grad for p in self.params]
         if self.dp_group is not None:
-            self._exchange_grads([p.grad for p in self.params])
+            self._exchange_grads(grads)
         else:
-            got = [(a, p.grad) for a, p in zip(self.accum, self.params)
-                   if p.grad is not None]
+            got = [(a, g) for a, g in zip(self.accum, grads)
+                   if g is not None]
             if got:
                 torch._foreach_add_([a for a, _ in got], [g for _, g in got])
 
@@ -983,6 +1084,8 @@ class DeepSpeedEngine:
         else:
             self._exchange_grads(grads)
             src = self._xchg
+        # at dp 1 in the compute dtype: the buffer the copy down reads
+        self._sum_over_seq(src)
         slot = self._slot
         self._slot = (slot + 1) % len(self._staging)
         if slot in self._pending_fetches:
@@ -1147,6 +1250,7 @@ class DeepSpeedEngine:
         """The device work of the optimizer step (``_take_model_step``);
         returns the step's metrics."""
         flat = self._flat_accum
+        self._sum_over_seq(flat)
         inv_scale = scale = None
         if self.scaler is not None:
             scale = self.scaler.loss_scale
@@ -1199,8 +1303,8 @@ class DeepSpeedEngine:
             metrics["loss"] = self._step_loss
             self._step_loss = None
         self._last_metrics = metrics
-        if self.dp_group is not None:
-            self.last_step_comm = self.dp_group.counter.take()
+        if self._counter is not None:
+            self.last_step_comm = self._counter.take()
         tel, host = self._telemetry, None
         if tel is not None:
             if tel.stream is not None:
@@ -1325,7 +1429,7 @@ class DeepSpeedEngine:
             losses.append(self.forward(micro).detach())
             self.backward()
         loss = torch.stack(losses).float().mean()
-        if self.dp_group is not None:
+        if self.dp_group is not None and not self._loss_is_global:
             # the global batch's mean loss
             loss = self.dp_group.all_reduce(loss) / self.dp_world_size
         self._step_loss = loss
@@ -1416,7 +1520,7 @@ class DeepSpeedEngine:
             trace=tc[TELEMETRY_TRACE],
             trace_capacity=tc[TELEMETRY_TRACE_CAPACITY],
             metrics_jsonl=tc[TELEMETRY_METRICS_JSONL]
-            if self.dp_rank == 0 else None,
+            if self.dp_rank == self.sp_rank == 0 else None,
             metrics_fsync=tc[TELEMETRY_METRICS_FSYNC],
             mfu=tc[TELEMETRY_MFU],
             peak_tflops_per_device=tc[TELEMETRY_PEAK_TFLOPS])
@@ -1501,7 +1605,8 @@ class DeepSpeedEngine:
             model_flops = mfu.model_flops_per_step(self._mfu_n_params,
                                                    self._mfu_tokens_per_step)
         rep = tel.mfu.report(
-            step_time_s=tel.step_time_s(), n_devices=self.dp_world_size,
+            step_time_s=tel.step_time_s(),
+            n_devices=self.dp_world_size * self.sp_world_size,
             model_flops=model_flops, device_kind=mfu.device_kind(self.device))
         rep["n_params"] = self._mfu_n_params
         rep["tokens_per_step"] = self._mfu_tokens_per_step
@@ -1765,11 +1870,11 @@ class DeepSpeedEngine:
         engine.py:1472-1487; JAX engine.py:4105-4125): its hash gathered
         over the group, min against max."""
         mode = self._config.checkpoint_tag_validation_mode
-        if mode == "IGNORE" or self.dp_group is None:
+        if mode == "IGNORE" or self._world_group is None:
             return
         digest = int.from_bytes(
             hashlib.sha256(str(tag).encode()).digest()[:4], "big")
-        hashes = self.dp_group.all_gather_ints([digest])
+        hashes = self._world_group.all_gather_ints([digest])
         lo, hi = int(hashes.min()), int(hashes.max())
         if lo != hi:
             msg = (f"checkpoint tag {tag!r} is not consistent across "
@@ -1785,8 +1890,8 @@ class DeepSpeedEngine:
         engine's synchronous npz commit: ``model_states.npz`` (the
         TrainState's leaves, full arrays at any dp), ``metadata.pkl`` and
         the manifest, committed atomically, then the ``latest`` pointer.
-        Every rank takes part; rank 0 writes (JAX engine.py:4365). Returns
-        True."""
+        Every rank takes part; rank 0 (data 0, seq 0) writes (JAX
+        engine.py:4365). Returns True."""
         if backend not in (None, "auto", "npz"):
             raise NotImplementedError(f"checkpoint backend {backend!r} is "
                                       f"not ported yet (ROADMAP A16)")
@@ -1817,7 +1922,8 @@ class DeepSpeedEngine:
         }
         manifest = {"tag": str(tag), "global_steps": self.global_steps,
                     "micro_steps": self.micro_steps,
-                    "world": {"dp": self.dp_world_size, "mp": 1, "sp": 1},
+                    "world": {"dp": self.dp_world_size, "mp": 1,
+                              "sp": self.sp_world_size},
                     "topology": meta["topology"],
                     "data_position": meta["data_position"],
                     "backend": "npz"}
@@ -1842,20 +1948,21 @@ class DeepSpeedEngine:
             with open(os.path.join(path, "metadata.pkl"), "wb") as f:
                 pickle.dump(meta, f)
 
-        if self.dp_rank == 0 and res.atomic_checkpoints:
+        writer = self.dp_rank == 0 and self.sp_rank == 0
+        if writer and res.atomic_checkpoints:
             with atomic.atomic_tag(save_dir, tag, meta=manifest,
                                    update_latest=save_latest,
                                    fsync=res.fsync) as tmp:
                 write(tmp)
-        elif self.dp_rank == 0:
+        elif writer:
             path = os.path.join(save_dir, str(tag))
             os.makedirs(path, exist_ok=True)
             write(path)
             if save_latest:
                 atomic.write_latest(save_dir, tag, fsync=False)
-        if self.dp_group is not None:
+        if self._world_group is not None:
             # no rank goes on (or loads the tag) before rank 0 committed it
-            self.dp_group.barrier()
+            self._world_group.barrier()
         log_dist(f"Saved checkpoint {os.path.join(save_dir, str(tag))}",
                  ranks=[0])
         if self._tracer is not None:
@@ -1962,11 +2069,11 @@ class DeepSpeedEngine:
     def _topology(self):
         """The writing mesh's identity card (resilience/reshard.py
         topology_manifest)."""
-        dp = self.dp_world_size
+        dp, sp = self.dp_world_size, self.sp_world_size
         return {"engine": type(self).__name__,
-                "mesh": {"pipe": 1, "data": dp, "seq": 1, "model": 1},
+                "mesh": {"pipe": 1, "data": dp, "seq": sp, "model": 1},
                 "dp": dp, "mp": 1,
-                "sp": 1, "zero_stage": int(self.zero_optimization_stage()),
+                "sp": sp, "zero_stage": int(self.zero_optimization_stage()),
                 "global_batch": {
                     "train_batch_size": int(self.train_batch_size()),
                     "micro_batch_per_gpu":
@@ -2142,6 +2249,11 @@ class DeepSpeedEngine:
             self._host_scaler.cur_scale = float(self.scaler.loss_scale)
             for k, v in (meta.get("host_scaler") or {}).items():
                 setattr(self._host_scaler, k, v)
+
+
+# the batch entries that shard over ``seq`` (the JAX engine shards every
+# entry's dim 1; the labels and masks stay whole here, module docstring)
+_SEQ_SHARDED = ("input_ids", "token_type_ids")
 
 
 def _copy_or_zero(dst, src):

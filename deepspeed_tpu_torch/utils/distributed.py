@@ -8,6 +8,10 @@ a ``torch.distributed`` process group with one process per device: NCCL
 when the engine runs on CUDA (each process on ``cuda:LOCAL_RANK``), gloo
 on the CPU. There is no fallback: on CUDA the backend is NCCL or the call
 raises, and a world larger than the node's cards raises.
+
+``grid_groups`` then lays the mesh's process grid (parallel/mesh.py
+``ProcessGrid``) over the world: one process group per ``data`` line and
+per ``seq`` line, in the world's backend.
 """
 import os
 from datetime import timedelta
@@ -128,6 +132,29 @@ def mpi_discovery(distributed_port=29500, verbose=True):
     if verbose:
         logger.info(f"MPI discovery: rank={rank}/{world} master={addr}")
     return rank, world, addr
+
+
+def grid_groups(grid):
+    """{axis: this rank's group along it} for the grid's ``data`` and
+    ``seq`` axes above size 1: None (the default group) where the line is
+    the whole world, else a ``dist.new_group`` of the line. Every rank
+    creates every line's group, in the same order, as ``new_group``
+    requires."""
+    from deepspeed_tpu_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS
+
+    out = {}
+    for axis in (DATA_AXIS, SEQ_AXIS):
+        size = grid.shape[axis]
+        if size == 1:
+            continue
+        if size == grid.world:
+            out[axis] = None
+            continue
+        for line in grid.lines(axis):
+            group = dist.new_group(line)
+            if grid.rank in line:
+                out[axis] = group
+    return out
 
 
 def get_rank() -> int:

@@ -14,6 +14,7 @@ storage dtype (at most one ulp: 2**-7 of the value at bf16, 2**-10 at
 fp16) and dS values rounded on two sides of a boundary (PERF.md section 2).
 """
 import gc
+import os
 
 import pytest
 import torch
@@ -777,6 +778,134 @@ def test_nccl_moe_worlds_of_2_and_4_match_one_card(cuda, tmp_path):
                     assert rec["calls"]["all-to-all"] == gas * 4 * layers
                     assert not any("/moe/experts/" in c["name"]
                                    for c in rec["collectives"])
+
+
+# the four-card sequence-parallel cases: name -> (kind, mesh, stage, model,
+# micro, seq); gpt2-350m and bert-base over FixedSparsityConfig(12, block
+# 64, local 4, global 1) at full width
+_GPT2_350M = dict(vocab_size=50257, n_positions=1024, n_embd=1024,
+                  n_layer=24, n_head=16)
+_BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                  num_attention_heads=12, intermediate_size=3072,
+                  max_position_embeddings=4096)
+_SEQ_CASES = {
+    "s4_ulysses": ("gpt2", {"seq": 4}, 0, _GPT2_350M, 8, 1024),
+    "s4_ring": ("gpt2", {"seq": 4}, 0,
+                dict(_GPT2_350M, attention_sp_mode="ring"), 8, 1024),
+    "d2s2_z2": ("gpt2", {"data": 2, "seq": 2}, 2, _GPT2_350M, 8, 1024),
+    "bert_s4_sparse": ("bert", {"seq": 4}, 0, dict(
+        _BERT_BASE, sparse=dict(num_heads=12, block=64, num_local_blocks=4,
+                                num_global_blocks=1)), 4, 4096),
+}
+
+
+def _seq_collectives(kind, mesh, model, micro, seq):
+    """{name: (calls per step, elements)} of the attention's exchanges in
+    one step at gas 1: Ulysses's four all-to-alls per layer, or the ring's
+    N - 1 hops of K/V forward and backward and N of their gradients."""
+    n = mesh["seq"]
+    if kind == "gpt2":
+        layers, width = model["n_layer"], model["n_embd"]
+    else:
+        layers, width = model["num_hidden_layers"], model["hidden_size"]
+    chunk = micro * width * (seq // n)
+    if model.get("attention_sp_mode") == "ring":
+        return {"sp_ring:kv": ((n - 1) * layers, 2 * chunk),
+                "sp_ring:kv_bwd": ((n - 1) * layers, 2 * chunk),
+                "sp_ring:dkv_bwd": (n * layers, 2 * chunk)}
+    return {f"sp_a2a:{x}": (layers, m * chunk) for x, m in
+            (("qkv", 3), ("out", 1), ("out_bwd", 1), ("qkv_bwd", 3))}
+
+
+@pytest.mark.cuda
+def test_nccl_seq_worlds_match_one_card(cuda, tmp_path):
+    """On a host with 4 cards: sequence parallelism over NCCL worlds of 4
+    (rank r on card r) trains gpt2-350m bf16 at full width (seq 1024,
+    micro 8, gas 1, the flash kernels) at {"seq": 4} with Ulysses and with
+    the ring and at {"data": 2, "seq": 2} with ZeRO-2, and bert-base
+    block-sparse at seq 4096 (micro 4) at {"seq": 4} with Ulysses, against
+    one card on the same global batch (``check_seq_worlds``). Correctness
+    only: no timing. Skips with fewer than 4 cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    check_seq_worlds(_SEQ_CASES, "cuda", str(tmp_path))
+
+
+def check_seq_worlds(cases, device, out):
+    """Each of ``cases`` in a world of 4 against one process, every rank
+    alike: over 3 Adam steps, the losses and gradient norms within rtol
+    2e-2 (the bf16 gate of PERF.md section 2), the flash (or block-sparse)
+    kernels launched on every rank under Ulysses and none under the ring
+    (its rounds are plain torch, as the JAX ring's are jnp), each step's
+    counted all-to-alls or hops in closed form, and on the card a peak of
+    allocated bytes below one card's (each rank holds S/N positions). The
+    weights after one SGD step (lr 1, no weight decay) from the same
+    initial ones: each leaf's change from init, which is the clipped
+    gradient, within 2e-2 of one card's in relative L2. (Adam moves an
+    element by about lr a step whatever its gradient's size, so its
+    weights could not tell a wrong gradient from a right one.)"""
+    import numpy as np
+
+    import torch_zero_worker as W
+
+    steps, lr = 3, 1e-3
+    runs = {"adam": dict(steps=steps, lr=lr, master=None),
+            "sgd": dict(steps=1, lr=1.0, optimizer="SGD", weight_decay=0.0,
+                        master="delta")}
+    jobs = [(f"{name}.{run}", "seq", dict(
+        kind=kind, mesh=mesh, stage=stage, gas=1, seed=0, model=model,
+        micro=micro, dtype=torch.bfloat16, device=device, seq=seq, **kw))
+        for name, (kind, mesh, stage, model, micro, seq) in cases.items()
+        for run, kw in runs.items()]
+    ranks = W.run_world(4, jobs, os.path.join(out, "seq"), timeout=1500,
+                        device=device)
+    for name, (kind, mesh, _, model, micro, seq) in cases.items():
+        dp = mesh.get("data", 1)
+        one = dict(model)
+        one.pop("attention_sp_mode", None)
+        ref = {run: W.job_seq(kind, {"data": 1}, 0, 1, seed=0, model=one,
+                              micro=micro * dp, dtype=torch.bfloat16,
+                              device=device, seq=seq, **kw)
+               for run, kw in runs.items()}
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        want = _seq_collectives(kind, mesh, model, micro, seq)
+        for r, rank in enumerate(ranks):
+            got, what = rank[f"{name}.adam"], f"{name} rank {r}"
+            np.testing.assert_allclose(got["losses"], ref["adam"]["losses"],
+                                       rtol=2e-2, err_msg=what)
+            np.testing.assert_allclose(got["norms"], ref["adam"]["norms"],
+                                       rtol=2e-2, err_msg=what)
+            kernels = ("sparse_fwd", "sparse_bwd_dq", "sparse_bwd_dkdv") \
+                if kind == "bert" else ("flash_fwd", "flash_bwd_dkdv",
+                                        "flash_bwd_dq")
+            ring = model.get("attention_sp_mode") == "ring"
+            if device == "cuda":
+                assert all((got["launches"][k] == 0) if ring
+                           else (got["launches"][k] > 0) for k in kernels), \
+                    (what, got["launches"])
+                assert got["peak_bytes"] < ref["adam"]["peak_bytes"], what
+            for step in got["comm"]:
+                seq_ops = {c["name"]: (c["count_per_step"], c["elements"])
+                           for c in step["collectives"]
+                           if c["name"].startswith(("sp_a2a", "sp_ring"))}
+                assert seq_ops == want, what
+            worst = 0.0
+            delta = rank[f"{name}.sgd"]["master"]
+            for leaf, b in ref["sgd"]["master"].items():
+                a = delta[leaf]
+                err = float(np.linalg.norm(a - b))
+                assert err <= 2e-2 * float(np.linalg.norm(b)), (what, leaf,
+                                                                 err)
+                worst = max(worst, err / max(float(np.linalg.norm(b)),
+                                             1e-30))
+            print(f"{what}: losses {got['losses']} against "
+                  f"{ref['adam']['losses']}, grad norms {got['norms']} "
+                  f"against {ref['adam']['norms']}, SGD step's worst leaf "
+                  f"rel L2 {worst:.3e}, peak bytes "
+                  f"{got.get('peak_bytes')} against one card's "
+                  f"{ref['adam'].get('peak_bytes')}")
 
 
 def _sharded_leaves(result, sizes):

@@ -113,7 +113,23 @@ def test_mesh_data_must_be_the_world(clean_env):
         _initialize(_config(mesh={"data": 2}))
     eng = _initialize(_config(mesh={"data": -1}))[0]
     assert eng.dp_world_size == 1 and eng.dp_group is None
-    assert mesh.resolve_data_axis({"data": 4}, 4) == 4
+    assert mesh.resolve_grid({"data": 4}, 4)["data"] == 4
+
+
+@pytest.mark.parametrize("shape,world,match", [
+    ({"data": 1, "seq": 2}, 4, "covers 2 of the world's 4 processes"),
+    ({"data": 1, "seq": 2, "allow_partial": True}, 4,
+     "must cover the world exactly"),
+    ({"seq": 3}, 4, "4 devices not divisible by fixed axes product 3"),
+])
+def test_the_mesh_must_cover_the_world(shape, world, match):
+    """The port has no partial mesh: every process of the world holds a
+    place in it, whatever ``allow_partial`` says (the JAX engine's opt-in
+    to train on a subset of its devices)."""
+    with pytest.raises(ValueError, match=match):
+        mesh.resolve_grid(shape, world)
+    assert mesh.resolve_grid({"data": 2, "seq": 2}, 4) == {
+        "pipe": 1, "data": 2, "seq": 2, "model": 1}
 
 
 @pytest.mark.parametrize("extra,item", [
@@ -123,7 +139,15 @@ def test_mesh_data_must_be_the_world(clean_env):
     ({"mpu": object()}, "A7b"),
 ])
 def test_unported_parallelism_names_its_item(clean_env, extra, item):
+    """The axes still to come raise naming their item; ``seq``, ported by
+    A15, is the grid's now: seq 2 in a world of one raises the JAX mesh's
+    message."""
     kw = {"mpu": extra.pop("mpu")} if "mpu" in extra else {}
+    if item == "A15":
+        with pytest.raises(ValueError, match="1 devices not divisible by "
+                           "fixed axes product 2"):
+            _initialize(_config(**extra), **kw)
+        return
     with pytest.raises(NotImplementedError, match=item):
         _initialize(_config(**extra), **kw)
 

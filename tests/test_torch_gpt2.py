@@ -152,8 +152,23 @@ def test_config_mirrors_jax_config():
     (dict(attention_sp_mode="ring"), "A15"),
 ])
 def test_unported_model_options_raise(override, item):
-    with pytest.raises(NotImplementedError, match=item):
-        GPT2Model(GPT2Config(dtype=torch.float32, **dict(TINY, **override)))
+    """Ring attention, once refused here until ROADMAP ``item`` ported it,
+    builds; outside sequence parallelism (seq 1) it takes the same path
+    as the Ulysses mode, as in the JAX model: loss and gradients bit for
+    bit."""
+    batch = _torch_batch(_batch())
+    results = []
+    for mode in ("ring", "ulysses"):
+        model = GPT2Model(GPT2Config(dtype=torch.float32, **dict(
+            TINY, **dict(override, attention_sp_mode=mode))),
+            torch.Generator().manual_seed(3))
+        loss, _ = model.loss(batch)
+        loss.backward()
+        results.append((loss, [p.grad for p in model.parameters()]))
+    (ring, ring_grads), (uly, uly_grads) = results
+    assert item == "A15" and torch.equal(ring, uly)
+    for a, b in zip(ring_grads, uly_grads):
+        assert torch.equal(a, b)
 
 
 def test_seeded_init_is_deterministic_and_flax_shaped():

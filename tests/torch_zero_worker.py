@@ -1,7 +1,8 @@
-"""One rank of a gloo world for the data-parallel tests of the PyTorch port
-(tests/test_torch_zero.py, tests/test_torch_distributed.py,
-tests/test_torch_moe_ep.py), and the launcher that starts a world of
-them.
+"""One rank of a gloo world for the data- and sequence-parallel tests of
+the PyTorch port (tests/test_torch_zero.py, tests/test_torch_distributed.py,
+tests/test_torch_moe_ep.py, tests/test_torch_ulysses.py,
+tests/test_torch_ring_attention.py), and the launcher that starts a world
+of them.
 
     python tests/torch_zero_worker.py SPEC
 
@@ -10,6 +11,7 @@ a pickle {"out": directory, "jobs": [(name, kind, kwargs)]}; the rank runs
 each job in order in one process group and writes {name: result} to
 ``out/rank<R>.pkl``. Imports torch and the port only, never JAX.
 """
+import gc
 import os
 import pickle
 import socket
@@ -29,15 +31,25 @@ MICRO = 2          # per rank
 # the tiny GPT-2 with MoE blocks (the odd layers) of the expert-parallel
 # tests: 8 experts split over the data axis
 MOE = dict(TINY, moe_num_experts=8)
+# the tiny GPT-2 and BERT of the sequence-parallel tests: 4 heads, so that
+# Ulysses divides them over 4 sequence ranks, and their sequence lengths
+SP_GPT2 = dict(TINY, n_head=4)
+SP_BERT = dict(vocab_size=128, hidden_size=32, num_hidden_layers=2,
+               num_attention_heads=4, intermediate_size=64,
+               max_position_embeddings=64, hidden_dropout_prob=0.0,
+               attention_probs_dropout_prob=0.0)
+SP_BERT_SEQ = 64
+SP_SPARSITY = dict(num_heads=4, block=16, num_local_blocks=2)
 
 
 def ds_config(dp, stage, gas, optimizer="Adam", fp16=False, lr=1e-3,
-              micro=MICRO, offload=False):
+              micro=MICRO, offload=False, weight_decay=0.01):
     cfg = {"train_batch_size": micro * gas * dp,
            "train_micro_batch_size_per_gpu": micro,
            "gradient_accumulation_steps": gas,
            "optimizer": {"type": optimizer,
-                         "params": {"lr": lr, "weight_decay": 0.01}},
+                         "params": {"lr": lr,
+                                    "weight_decay": weight_decay}},
            "gradient_clipping": 1.0,
            "zero_optimization": {"stage": stage, "cpu_offload": offload},
            "steps_per_print": 10 ** 9}
@@ -72,6 +84,22 @@ def _engine(config, init, dtype=torch.float32, device="cpu", model=None):
     if init is not None:
         eng.load_module_state_dict(params_from_jax(init, cfg))
     return eng
+
+
+def bert_batches(seed, steps, gas, rows, seq=SP_BERT_SEQ,
+                 vocab=SP_BERT["vocab_size"]):
+    """(steps, gas, rows, seq) BERT batches from a numpy seed: the last 6
+    keys of every odd row padded, 20 % MLM labels (the rest -100), token
+    types and NSP labels."""
+    rng = np.random.default_rng(seed)
+    shape = (steps, gas, rows, seq)
+    ids = rng.integers(0, vocab, shape)
+    mask = np.ones(shape, np.int64)
+    mask[:, :, 1::2, -6:] = 0
+    return {"input_ids": ids, "attention_mask": mask,
+            "token_type_ids": rng.integers(0, 2, shape),
+            "masked_lm_labels": np.where(rng.random(shape) < 0.2, ids, -100),
+            "next_sentence_label": rng.integers(0, 2, shape[:3])}
 
 
 def _local(batch, rank, micro):
@@ -380,7 +408,236 @@ def job_moe(dp, stage, gas, steps, seed, init, offload=False, save=None,
     return out
 
 
-JOBS = {"moe": job_moe, "programs": job_programs, "tag_check": job_tag_check, "train": job_train, "resume": job_resume, "load": job_load,
+def sp_model(kind, dtype=torch.float32, **over):
+    """The port's sequence-parallel GPT-2 (``SP_GPT2`` and ``over``) or
+    BERT (``SP_BERT`` and ``over``; ``sparse``: a FixedSparsityConfig of
+    ``SP_SPARSITY`` and the dict ``sparse`` gives)."""
+    over = dict(over)
+    if kind == "gpt2":
+        from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+
+        return GPT2Model(GPT2Config(dtype=dtype, **dict(SP_GPT2, **over)))
+    from deepspeed_tpu_torch.models.bert import (BertConfig,
+                                                 BertForPreTraining)
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        FixedSparsityConfig
+
+    sparse = over.pop("sparse", False)
+    layout = dict(SP_SPARSITY, **sparse) if isinstance(sparse, dict) \
+        else SP_SPARSITY
+    return BertForPreTraining(BertConfig(
+        dtype=dtype, sparsity_config=FixedSparsityConfig(**layout)
+        if sparse else None, **dict(SP_BERT, **over)))
+
+
+def sp_batches(kind, seed, steps, gas, rows, seq=None, vocab=None):
+    """The global batches of ``steps`` steps: (steps, gas, rows, seq) per
+    entry (default: the tiny models' seq and vocab)."""
+    if kind == "gpt2":
+        ids = np.random.default_rng(seed).integers(
+            0, vocab or TINY["vocab_size"], (steps, gas, rows, seq or SEQ))
+        return {"input_ids": ids, "labels": ids}
+    return bert_batches(seed, steps, gas, rows, seq or SP_BERT_SEQ,
+                        vocab or SP_BERT["vocab_size"])
+
+
+def job_seq(kind, mesh, stage, gas, steps, seed, init=None, model=None,
+            micro=MICRO, dtype=torch.float32, save=None, load=None,
+            programs=False, device="cpu", lr=1e-3, seq=None,
+            telemetry=False, offload=False, optimizer="Adam",
+            weight_decay=0.01, master="final"):
+    """``steps`` train_batch steps of ``sp_model(kind, **model)`` at
+    ``mesh`` ({"data": D, "seq": N}): every rank feeds its data rows of
+    the global batch at full sequence. The losses, the counted collectives
+    of each step, the gathered master (``master``: "final", "delta" its
+    change from the initial one, or None: left out), the comm report, the
+    analytic memory, the program registry's contracts and (``programs``)
+    the lint of the last step; on the card the peak of the bytes allocated
+    (``peak_bytes``, above what was allocated before); ``save``: a tag
+    after the last step; ``load``: a tag loaded before the first; ``seq``:
+    the batches' sequence length (the model's vocabulary); ``telemetry``:
+    armed, and its MFU report's counts; ``offload``: ZeRO-Offload."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.convert import (bert_params_from_jax,
+                                                    params_from_jax)
+
+    cuda = device == "cuda"
+    if cuda:
+        # an earlier job's engine may sit in a reference cycle
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    module = sp_model(kind, dtype, **(model or {}))
+    dp = mesh.get("data", 1)
+    config = dict(ds_config(dp, stage, gas, micro=micro, lr=lr,
+                            offload=offload, optimizer=optimizer,
+                            weight_decay=weight_decay), mesh=mesh)
+    if dtype == torch.bfloat16:
+        config["bf16"] = {"enabled": True}
+    if telemetry:
+        config["telemetry"] = {"enabled": True}
+    eng, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=module, config_params=config,
+        device=None if device == "cuda" else device)
+    if init is not None:
+        convert = params_from_jax if kind == "gpt2" else bert_params_from_jax
+        eng.load_module_state_dict(convert(init, module.config))
+    if load is not None:
+        eng.load_checkpoint(load)
+    batches = sp_batches(kind, seed, steps, gas, micro * dp, seq,
+                         module.config.vocab_size)
+    rows = slice(eng.dp_rank * micro, (eng.dp_rank + 1) * micro)
+    out = {"losses": [], "comm": [], "norms": [],
+           "grid": (eng.dp_rank, eng.sp_rank)}
+    init_master = _full_master(eng) if master == "delta" else None
+    _launches(reset=True)
+    for step in range(steps):
+        if programs and step == steps - 1:
+            eng.program_registry.observing = True
+        local = {k: v[step][:, rows] for k, v in batches.items()}
+        out["losses"].append(eng.train_batch(batch=local).item())
+        out["norms"].append(float(eng._last_metrics["grad_norm"]))
+        out["comm"].append(eng.last_step_comm)
+    if programs:
+        from deepspeed_tpu_torch.telemetry.program_lint import lint_programs
+
+        res = lint_programs([eng.program_registry], use_baseline=False)
+        out["lint"] = [(f.rule, f.path, f.message) for f in res.new]
+    out["contracts"] = {name: eng.program_registry.get(name).contract
+                        for name in eng.program_registry.names()}
+    if cuda:
+        torch.cuda.synchronize()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    if master is not None:
+        out["master"] = _full_master(eng)
+    if init_master is not None:
+        out["master"] = {n: m - init_master[n]
+                         for n, m in out["master"].items()}
+    out["report"] = eng.comm_volume_report()
+    out["memory"] = eng._analytic_memory_components()
+    out["launches"] = _launches()
+    if telemetry:
+        mfu = eng.telemetry_report()["mfu"]
+        out["mfu"] = {k: mfu[k] for k in (
+            "n_devices", "n_params", "tokens_per_step",
+            "model_flops_per_step", "hw_flops_per_step")}
+    if save is not None:
+        eng.save_checkpoint(save)
+        out["saved"] = os.path.join(save, f"global_step{steps}")
+    return out
+
+
+def _launches(reset=False):
+    """The port's kernel launch counts (0 on the CPU); ``reset``: set them
+    to 0 first."""
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bsk
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    if reset:
+        fa.reset_launch_counts()
+        bsk.reset_launch_counts()
+    return dict(fa.LAUNCHES, **bsk.LAUNCHES)
+
+
+def job_seq_attention(mode, q, k, v, do, causal=True, dtype=torch.float32,
+                      heads_dropout=None):
+    """Ulysses (``mode="ulysses"``, through the port's default attention)
+    or the ring over the world as one seq group: this rank's chunk of the
+    full (B, H, S, D) q, k, v in, its chunk of the output and of dQ, dK, dV
+    (against the output gradient ``do``) out; the collectives counted.
+    ``heads_dropout``: (rate, seed) of the attention's dropout, through
+    the flash kernels' plain versions (Ulysses only)."""
+    from deepspeed_tpu_torch.parallel.mesh import SequenceParallelGroup
+    from deepspeed_tpu_torch.parallel.ring_attention import \
+        make_ring_attention
+    from deepspeed_tpu_torch.parallel.ulysses import (make_ulysses_attention,
+                                                      ulysses_attention)
+
+    group = SequenceParallelGroup()
+    n, r = group.size, group.rank
+    s = q.shape[2] // n
+
+    def chunk(x, grad=True):
+        t = torch.as_tensor(x[:, :, r * s:(r + 1) * s]).to(dtype)
+        return t.clone().requires_grad_(grad)
+
+    qc, kc, vc = chunk(q), chunk(k), chunk(v)
+    if heads_dropout is not None:
+        rate, seed = heads_dropout
+        out = ulysses_attention(
+            qc, kc, vc, group=group, causal=causal, use_pallas=True,
+            dropout_rate=rate,
+            dropout_rng=torch.Generator().manual_seed(seed))
+    else:
+        make = make_ring_attention if mode == "ring" \
+            else make_ulysses_attention
+        out = make(group, causal=causal)(qc, kc, vc)
+    out.backward(chunk(do, grad=False))
+    host = lambda t: t.detach().float().numpy()  # noqa: E731
+    return {"out": host(out), "dq": host(qc.grad), "dk": host(kc.grad),
+            "dv": host(vc.grad), "dtype": str(out.dtype),
+            "comm": group.counter.take()}
+
+
+def job_seq_load(mesh, stage, load, gas=2):
+    """The sequence-parallel GPT-2 at ``mesh`` loads ``load``; the full
+    state leaves it restored, in the npz's order."""
+    import deepspeed_tpu_torch
+
+    config = dict(ds_config(mesh.get("data", 1), stage, gas), mesh=mesh)
+    eng, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=sp_model("gpt2"), config_params=config, device="cpu")
+    path, _ = eng.load_checkpoint(load)
+    leaves = [t.detach().float().cpu().numpy() if torch.is_tensor(t)
+              else np.asarray(t) for t in eng._state_leaves()]
+    return {"path": path, "leaves": leaves, "master": _full_master(eng),
+            "global_steps": eng.global_steps}
+
+
+def job_seq_refusals():
+    """What the seq axis refuses, in a world of one seq line: {case:
+    (exception type, message)} of an MoE model, ring attention with
+    dropout, heads Ulysses cannot divide (the model, and the function),
+    and a sequence the axis does not divide."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.parallel.mesh import SequenceParallelGroup
+    from deepspeed_tpu_torch.parallel.ulysses import ulysses_attention
+
+    n = torch.distributed.get_world_size()
+    config = dict(ds_config(1, 0, 1), mesh={"data": 1, "seq": n})
+    ids = global_batches(0, 1, 1, MICRO)[0]
+    batch = {"input_ids": ids, "labels": ids}
+
+    def engine(**over):
+        return deepspeed_tpu_torch.initialize(
+            model=sp_model("gpt2", **over), config_params=config,
+            device="cpu")[0]
+
+    cases = {
+        "moe": lambda: engine(moe_num_experts=4),
+        "ring_dropout": lambda: engine(attention_sp_mode="ring",
+                                       dropout=0.1).train_batch(batch=batch),
+        "model_heads": lambda: engine(n_head=1),
+        "function_heads": lambda: ulysses_attention(
+            *[torch.zeros(1, 3, 8, 16)] * 3, group=SequenceParallelGroup()),
+        "sequence": lambda: engine().train_batch(
+            batch={k: v[:, :, :-1] for k, v in batch.items()}),
+    }
+    out = {}
+    for name, case in cases.items():
+        try:
+            case()
+            out[name] = None
+        except Exception as e:   # the type and message are the result
+            out[name] = (type(e).__name__, str(e))
+    return out
+
+
+JOBS = {"seq": job_seq, "seq_attention": job_seq_attention,
+        "seq_load": job_seq_load, "seq_refusals": job_seq_refusals,
+        "moe": job_moe, "programs": job_programs, "tag_check": job_tag_check, "train": job_train, "resume": job_resume, "load": job_load,
         "overflow": job_overflow, "sampler": job_sampler}
 
 
@@ -408,14 +665,15 @@ def main(spec_path):
 
 def assert_master_close(got, want, rtol, atol, steps, lr, what):
     """Every element of the master weights within rtol/atol, but the key
-    third of each ``c_attn`` bias: its gradient is zero in exact
+    third of each fused QKV bias (GPT-2's ``c_attn``, the BERT layer's
+    ``qkv``): its gradient is zero in exact
     arithmetic (softmax ignores a shift common to all keys), so Adam moves
     it by the sign of rounding noise, up to lr per step, and it is held to
     2 * steps * lr."""
     assert set(got) == set(want)
     for name in want:
         a, b = np.asarray(got[name]), np.asarray(want[name])
-        if name.endswith("attn.c_attn.bias"):
+        if name.endswith(("attn.c_attn.bias", "body.qkv.bias")):
             e = a.shape[0] // 3
             np.testing.assert_allclose(a[e:2 * e], b[e:2 * e], rtol=0,
                                        atol=2 * steps * lr,
