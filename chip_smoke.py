@@ -266,6 +266,33 @@ failure:
               NCCL world of one: losses and the fp32 master equal phase
               4's bit for bit (the seq route never runs at N = 1), B1-B3
               480 each, step ms and tokens/s beside phase 4's
+ 25. zero3    ZeRO stage 3 and the int8 ZeRO collectives (ROADMAP A13):
+              (a) phase 4's run asked for stage 3 in an NCCL world of one,
+              with the scheduled default and with the implicit path: at
+              dp 1 no leaf is sharded, so stage 3 disarms and both run
+              stage 0's code (the stage-3 gathers, their release and qgZ
+              run at dp > 1 only: tests/test_torch_cuda.py
+              ::test_nccl_zero3_worlds_match_one_card on four cards). 10
+              losses and the fp32 master equal phase 4's bit for bit,
+              B1-B3 480 each, the counted collectives equal
+              comm_volume_report() in every step, stage3_report() disarmed
+              and naming why; stage 0's parameter refresh skipped (a
+              planted fault) must change the losses.
+              (b) The trained bf16 parameters, each sharded leaf split over
+              4 virtual ranks along its ZeRO dim: the int8 codes and scales
+              on the card equal the CPU's bit for bit, the virtual gather
+              too, every dequantized element within half its block's
+              scale, the wire bytes the plan's; the codec's ms per gather
+              and its bytes against the bf16 dense gather's; scales from
+              the block mean (a planted fault) must break the half-scale
+              gate. (c) One forward and backward with each sharded leaf
+              read through quantized_all_gather_virtual over 4 ranks: the
+              gradients equal those of the model run on the dequantized
+              weights bit for bit, the loss within 2 % of the bf16
+              weights' (the JAX acceptance), and the quantized
+              reduce-scatter of 4 ranks' gradients within the int8 bound of
+              the dense mean; round's true derivative (a planted fault,
+              zero gradients) must fail the gradient gate
 The line before the last is the kernels JSON (the fp16 rows named
 <kernel>_fp16, their launches from phase 13); the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card and nvcc.
@@ -4543,6 +4570,375 @@ def phase_seq(env, stage0):
             "step_ms": run["step_ms"], "tokens_per_s": run["tokens_per_s"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: ZeRO stage 3 and the int8 ZeRO collectives (ROADMAP A13)
+# ---------------------------------------------------------------------------
+# the virtual ranks of the codec and gradient cases, the rows of the micro
+# batch each virtual rank's gradient reads, the JAX acceptance of the int8
+# weight wire's loss (tests/unit/test_zero_stage3.py:141-149)
+ZERO3_RANKS = 4
+ZERO3_LOSS_GATE = 0.02
+
+
+def _zero3_run(env, stage0, zero, label, steps=SLICE_STEPS, fault=None):
+    """phase 4's run at ZeRO stage 3 (``zero``: more zero_optimization
+    keys) in an NCCL world of one: its losses, the fp32 master's digest,
+    the collectives counted in each step against the report, the plan's
+    report. ``fault`` patches the engine first."""
+    import torch
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch import init_distributed, initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
+
+    saved = _world_of_one()
+    try:
+        init_distributed()
+        cfg = gpt2_config(SLICE_MODEL, n_positions=SLICE_SEQ,
+                          dtype=torch.bfloat16, remat=False)
+        config = dict(_ds_config(SLICE_MICRO, SLICE_GAS),
+                      zero_optimization=dict({"stage": 3}, **zero),
+                      mesh={"data": 1})
+        engine, _, _, _ = initialize(model=GPT2Model(cfg),
+                                     config_params=config)
+        batch = _slice_batch(cfg.vocab_size, SLICE_GAS, SLICE_MICRO,
+                             SLICE_SEQ, seed=0)
+        if fault is not None:
+            fault(engine)
+            losses = [float(engine.train_batch(batch=batch))
+                      for _ in range(steps)]
+            return {"losses": losses}
+        want = {name: cfg.n_layer * SLICE_GAS * steps
+                for name, _ in FLASH_KERNELS}
+        want.update({name: 0 for name, _ in SPARSE_KERNELS})
+        report = engine.comm_volume_report()
+        key = lambda c: (c["name"], c["op"], c["dtype"],  # noqa: E731
+                         c["elements"], c["count_per_step"],
+                         c["bytes_per_step"])
+        want_comm = sorted(key(c) for c in report["collectives"])
+        records = []
+        run = _train_steps(env, engine, batch, f"{SLICE_MODEL} {label}",
+                           SLICE_SEQ, SLICE_MICRO, SLICE_GAS, steps, want,
+                           after_step=lambda: records.append(
+                               engine.last_step_comm))
+        for step, rec in enumerate(records, 1):
+            if sorted(key(c) for c in rec["collectives"]) != want_comm:
+                raise RuntimeError(f"zero3 {label} step {step}: counted "
+                                   f"collectives differ from the report")
+        run.update(digest=_master_digest(engine), plan=engine.stage3_report(),
+                   n_comm=len(want_comm), params=engine.module,
+                   names=engine.param_names)
+        run.pop("engine")
+        return run
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, value in saved.items():
+            if value is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = value
+
+
+def _zero3_leaves(module, names):
+    """The JAX leaves of ``module`` with their ZeRO dim at dp ZERO3_RANKS
+    (runtime/zero/partition.py), and each leaf's whole tensor in the JAX
+    layout (the module's bf16 parameters)."""
+    from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartition
+
+    params = [p for _, p in module.named_parameters()]
+    part = ZeroPartition(module, names, params, ZERO3_RANKS, 0, 3)
+    leaves = [leaf for leaf in part.leaves if leaf.shard_dim is not None]
+    return part, leaves, [part.leaf_tensor(leaf, params).detach()
+                          for leaf in leaves]
+
+
+def _codec_case(env, module, names, timer=None):
+    """(b): every sharded leaf of the trained bf16 parameters split over
+    ZERO3_RANKS virtual ranks along its ZeRO dim; ``timer`` (default
+    ``cuda_ms``) times the codec's gather of them all."""
+    import torch
+
+    from deepspeed_tpu_torch.runtime import comm_accounting as ca
+    from deepspeed_tpu_torch.runtime import custom_collectives as cc
+    from deepspeed_tpu_torch.runtime import quantization as qz
+    from deepspeed_tpu_torch.runtime.zero import stage3 as s3
+
+    n = ZERO3_RANKS
+    timer = timer or cuda_ms
+    part, leaves, fulls = _zero3_leaves(module, names)
+    wire, dense, worst, fault_worst = 0, 0, 0.0, 0.0
+    for leaf, full in zip(leaves, fulls):
+        rows = cc.leaf_rows(full, leaf.shard_dim, n)
+        q, s = qz.quantize_rows(rows)
+        q_cpu, s_cpu = qz.quantize_rows(rows.cpu())
+        if not (torch.equal(q.cpu(), q_cpu) and torch.equal(s.cpu(), s_cpu)):
+            raise RuntimeError(f"zero3 (b): {leaf.name}: the codec on the "
+                               f"card differs from the CPU's")
+        shards = list(full.chunk(n, leaf.shard_dim))
+        got = cc.quantized_all_gather_virtual(shards, dim=leaf.shard_dim)
+        want = cc.quantized_all_gather_virtual([t.cpu() for t in shards],
+                                               dim=leaf.shard_dim)
+        if not torch.equal(got.cpu(), want):
+            raise RuntimeError(f"zero3 (b): {leaf.name}: the virtual gather "
+                               f"on the card differs from the CPU's")
+        # the half-scale bound, in fp32 (before the compute-dtype cast)
+        deq = qz.dequantize_rows(q, s, rows.shape[1])
+        bs, nb, npad = qz.block_layout(rows.shape[1])
+        scale = s.repeat_interleave(bs, dim=1)[:, :rows.shape[1]]
+        worst = max(worst, float(((deq - rows.float()).abs()
+                                  / scale.clamp(min=1e-30)).max()))
+        # the planted fault: each block's scale from its mean magnitude
+        xf = torch.nn.functional.pad(rows.float(), (0, npad - rows.shape[1]))
+        blocks = xf.reshape(n, nb, bs)
+        s_bad = blocks.abs().mean(-1) / 127
+        q_bad = torch.clamp(torch.round(blocks / s_bad[:, :, None]), -127,
+                            127)
+        d_bad = (q_bad * s_bad[:, :, None]).reshape(n, npad)[
+            :, :rows.shape[1]]
+        fault_worst = max(fault_worst, float(
+            ((d_bad - rows.float()).abs() / scale.clamp(min=1e-30)).max()))
+        wire += ca.all_gather_bytes(n * npad, 1, n) \
+            + ca.all_gather_bytes(n * nb, 4, n)
+        dense += ca.all_gather_bytes(full.numel(), full.element_size(), n)
+    plan = s3.build_gather_plan(
+        [leaf.name for leaf in part.leaves],
+        [leaf.shape for leaf in part.leaves],
+        [leaf.shard_dim for leaf in part.leaves], n,
+        param_dtype="bfloat16")
+    # half a code step, plus the fp32 roundings of x / scale and of code
+    # x scale: each at most 2^-24 of a value up to 127 scales
+    gate = 0.5 + 2 * 127 * 2.0 ** -24
+    if worst > gate:
+        raise RuntimeError(f"zero3 (b): a dequantized element lies "
+                           f"{worst:.6f} of its block's scale from its input, "
+                           f"beyond {gate}")
+    if not fault_worst > gate:
+        raise RuntimeError(f"zero3 (b): the planted fault (mean scales) "
+                           f"passed the half-scale gate ({fault_worst})")
+    if wire != plan.wire_bytes_per_gather:
+        raise RuntimeError(f"zero3 (b): wire bytes {wire} != the plan's "
+                           f"{plan.wire_bytes_per_gather}")
+    shards = [list(full.chunk(n, leaf.shard_dim))
+              for leaf, full in zip(leaves, fulls)]
+    ms = timer(lambda: [cc.quantized_all_gather_virtual(
+        sh, dim=leaf.shard_dim) for leaf, sh in zip(leaves, shards)])
+    log(f"zero3 (b): {len(leaves)} sharded leaves of {SLICE_MODEL}'s trained "
+        f"bf16 parameters over {n} virtual ranks: codes and scales on the "
+        f"card equal the CPU's bit for bit, the virtual gather too; worst "
+        f"|dequantized - input| {worst:.6f} of its block's scale (gate "
+        f"{gate:.7f}; the planted fault, mean scales: {fault_worst:.3f}); "
+        f"wire "
+        f"{wire} B per gather per rank = the plan's, against {dense} B "
+        f"for the bf16 dense gather ({dense / wire:.3f}x); the codec's "
+        f"{n} quantizations and one dequantization of every leaf "
+        f"{ms:.3f} ms per gather on {env['smi']}")
+    return {"wire_bytes": wire, "dense_bytes": dense, "ms": ms,
+            "worst": worst, "fault_worst": fault_worst}
+
+
+class _TrueRoundGrad:
+    """The planted fault of (c): the gather's backward as the true
+    derivative of round (zero), built on the virtual gather's
+    Function."""
+
+    @staticmethod
+    def apply(*args):
+        from deepspeed_tpu_torch.runtime import custom_collectives as cc
+
+        class Zeroed(cc._QuantizedAllGatherVirtual):
+            @staticmethod
+            def backward(ctx, grad):
+                out = cc._QuantizedAllGatherVirtual.backward(ctx, grad)
+                return out[:3] + tuple(t.mul(0) for t in out[3:])
+
+        return Zeroed.apply(*args)
+
+
+def _gradient_case(env, module, names, fault=False):
+    """(c): one forward and backward of the model with each sharded leaf
+    read through quantized_all_gather_virtual(., ZERO3_RANKS) on virtual
+    rank 0's rows, against the same model run directly on the dequantized
+    weights; then each virtual rank's gradient on its rows, reduce-
+    scattered with quantized_reduce_scatter_virtual against the dense
+    mean. Returns the gates' numbers."""
+    import torch
+    from torch.func import functional_call
+
+    from deepspeed_tpu_torch.runtime import custom_collectives as cc
+    from deepspeed_tpu_torch.runtime import quantization as qz
+
+    n = ZERO3_RANKS
+    part, leaves, fulls = _zero3_leaves(module, names)
+    batch = _slice_batch(module.config.vocab_size, 1, SLICE_MICRO, SLICE_SEQ,
+                         seed=25)
+    rows = SLICE_MICRO // n
+    dev = next(module.parameters()).device
+    micro = [{k: v[0, r * rows:(r + 1) * rows].to(dev) for k, v in
+              batch.items()} for r in range(n)]
+
+    class Loss(torch.nn.Module):
+        def __init__(self, m):
+            super().__init__()
+            self.m = m
+
+        def forward(self, b):
+            return self.m.loss(b, train=True)[0]
+
+    wrap = Loss(module)
+    base = {n_: p.detach() for n_, p in module.named_parameters()}
+    sharded = {i for leaf in leaves for i in leaf.params}
+    shards = [[t.clone().requires_grad_(True)
+               for t in full.chunk(n, leaf.shard_dim)]
+              for leaf, full in zip(leaves, fulls)]
+    gather = _TrueRoundGrad.apply if fault else \
+        cc._QuantizedAllGatherVirtual.apply
+    params = {}
+    for leaf, sh in zip(leaves, shards):
+        whole = gather(leaf.shard_dim, qz.DEFAULT_BLOCK_SIZE,
+                       torch.bfloat16, *sh)
+        for i, v in part.leaf_views(leaf, whole):
+            params[f"m.{names[i]}"] = v
+    for i, name in enumerate(names):
+        if i not in sharded:
+            params[f"m.{name}"] = base[name]
+    loss_q = functional_call(wrap, params, (micro[0],))
+    loss_q.backward()
+    # the same model on the dequantized weights, directly
+    direct = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    loss_d = functional_call(wrap, direct, (micro[0],))
+    loss_d.backward()
+    worst = 0.0
+    for leaf, sh in zip(leaves, shards):
+        got = torch.cat([t.grad for t in sh], leaf.shard_dim)
+        want = part.leaf_tensor(leaf, [direct[f"m.{x}"].grad
+                                       for x in names])
+        worst = max(worst, float((got.float() - want.float()).abs().max()))
+    spread = 0.0
+    if worst and not fault:
+        # not bit for bit: the gate is the spread of two direct runs
+        again = {k: v.detach().clone().requires_grad_(True)
+                 for k, v in params.items()}
+        functional_call(wrap, again, (micro[0],)).backward()
+        spread = max(float((again[k].grad.float()
+                            - direct[k].grad.float()).abs().max())
+                     for k in direct)
+    with torch.no_grad():
+        loss_full = float(functional_call(wrap, {f"m.{k}": v for k, v in
+                                                 base.items()},
+                                          (micro[0],)))
+    if fault:
+        return {"worst": worst}
+    # each virtual rank's gradients on its rows, on the dequantized weights
+    grads = []
+    for r in range(n):
+        w = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        functional_call(wrap, w, (micro[r],)).backward()
+        grads.append([part.leaf_tensor(
+            leaf, [w[f"m.{x}"].grad for x in names]) for leaf in leaves])
+    rs_worst = 0.0
+    for j, leaf in enumerate(leaves):
+        xs = [g[j].float() for g in grads]
+        got = cc.quantized_reduce_scatter_virtual(xs, dim=leaf.shard_dim)
+        dense = torch.stack(xs).mean(0).chunk(n, leaf.shard_dim)
+        # int8 bound: half a code step of each rank's block, over n
+        bound = sum(float(x.abs().max()) for x in xs) / 127 / 2 / n
+        for g_r, d_r in zip(got, dense):
+            rs_worst = max(rs_worst, float((g_r - d_r).abs().max()) / bound)
+    return {"worst": worst, "spread": spread, "loss_q": float(loss_q.detach()),
+            "loss_d": float(loss_d.detach()), "loss_full": loss_full,
+            "rs_worst": rs_worst}
+
+
+def phase_zero3(env, stage0):
+    """ZeRO stage 3 and the int8 collectives (ROADMAP A13): module
+    docstring, phase 25."""
+    import torch
+
+    _release_earlier_phases()
+    t0 = time.perf_counter()
+    runs = {}
+    # at dp 1 stage 3 disarms: both configurations run stage 0's code
+    for label, zero in (("ZeRO-3 asked, scheduled (dp 1: stage 0's path)",
+                         {}),
+                        ("ZeRO-3 asked, implicit (dp 1: stage 0's path)", {
+                            "stage3_scheduled_gathers": False})):
+        run = _zero3_run(env, stage0, zero, f"{label} NCCL world 1")
+        if run["losses"] != stage0["losses"] \
+                or run["digest"] != stage0["digest"]:
+            raise RuntimeError(f"zero3 (a): {label} differs from phase 4's "
+                               f"stage 0: losses {run['losses']} against "
+                               f"{stage0['losses']}")
+        plan = run["plan"]
+        if plan["armed"] or not any("data-parallel degree is 1" in b
+                                    for b in plan["disarmed_by"]):
+            raise RuntimeError(f"zero3 (a): {label}: the plan at dp 1 "
+                               f"reads armed={plan['armed']} "
+                               f"({plan['disarmed_by']})")
+        if runs:
+            run.pop("params")          # (b) and (c) read the first run's
+        runs[label] = run
+        torch.cuda.empty_cache()
+    # WarmupLR's first step has lr 0: the fault shows from step 3
+    fault = _zero3_run(env, stage0, {}, "fault", steps=3,
+                       fault=lambda e: setattr(e, "_gather_params",
+                                               lambda: None))
+    if fault["losses"] == stage0["losses"][:3]:
+        raise RuntimeError("zero3 (a): the planted fault (the parameter "
+                           "refresh skipped) passed the gate")
+    sched = runs["ZeRO-3 asked, scheduled (dp 1: stage 0's path)"]
+    log(f"zero3 (a): stage 3 asked, scheduled and implicit, at dp 1 in an "
+        f"NCCL world of one, where nothing is sharded and both run stage "
+        f"0's code: 10 losses and the fp32 master's digest equal phase "
+        f"4's bit for bit, B1-B3 launched {sched['launches']['flash_fwd']} "
+        f"times each, the counted collectives ({sched['n_comm']} leaves) "
+        f"equal comm_volume_report() in every step; the plan disarmed "
+        f"({sched['plan']['disarmed_by'][0]}); the planted fault (stage "
+        f"0's refresh skipped) loses {fault['losses']} against "
+        f"{stage0['losses'][:3]}; step ms {sched['step_ms']:.1f} against "
+        f"phase 4's {stage0['step_ms']:.1f} on {env['smi']}")
+    t_a = time.perf_counter() - t0
+    module, names = sched["params"], sched["names"]
+    codec = _codec_case(env, module, names)
+    t_b = time.perf_counter() - t0 - t_a
+    grads = _gradient_case(env, module, names)
+    planted = _gradient_case(env, module, names, fault=True)
+    rel = abs(grads["loss_q"] - grads["loss_full"]) / grads["loss_full"]
+    if grads["worst"] > grads["spread"]:
+        raise RuntimeError(f"zero3 (c): the straight-through gradients "
+                           f"differ from the dequantized weights' by "
+                           f"{grads['worst']}, beyond {grads['spread']}")
+    if not planted["worst"] > 0.0:
+        raise RuntimeError("zero3 (c): the planted fault (round's true "
+                           "derivative) passed the gradient gate")
+    if grads["loss_q"] != grads["loss_d"]:
+        raise RuntimeError(f"zero3 (c): the gathered forward's loss "
+                           f"{grads['loss_q']} != the dequantized weights' "
+                           f"{grads['loss_d']}")
+    if rel > ZERO3_LOSS_GATE:
+        raise RuntimeError(f"zero3 (c): loss with int8 weights "
+                           f"{grads['loss_q']} against {grads['loss_full']} "
+                           f"({rel:.4f} > {ZERO3_LOSS_GATE})")
+    if grads["rs_worst"] > 1.0 + 1e-6:
+        raise RuntimeError(f"zero3 (c): the quantized reduce-scatter lies "
+                           f"{grads['rs_worst']:.4f} of the int8 bound from "
+                           f"the dense mean")
+    log(f"zero3 (c): {SLICE_MODEL} forward and backward through the virtual "
+        f"int8 gather over {ZERO3_RANKS} ranks: every shard's gradient "
+        f"equals the dequantized weights' bit for bit (the planted fault, "
+        f"round's true derivative, off by {planted['worst']:.3e}); loss "
+        f"{grads['loss_q']:.6f} against {grads['loss_full']:.6f} on the "
+        f"bf16 weights ({rel:.2e}, gate {ZERO3_LOSS_GATE}); the quantized "
+        f"reduce-scatter of {ZERO3_RANKS} ranks' gradients within "
+        f"{grads['rs_worst']:.4f} of the int8 bound of the dense mean, on "
+        f"{env['smi']}")
+    log(f"zero3: (a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) "
+        f"{time.perf_counter() - t0 - t_a - t_b:.1f} s")
+    return {"codec": codec, "loss_rel": rel, "step_ms": sched["step_ms"]}
+
+
 def _master_digest(engine):
     """sha256 of the fp32 master's bytes, in parameter order."""
     import hashlib
@@ -4620,6 +5016,8 @@ def main():
     timed(phase_moe, env)
     torch.cuda.empty_cache()
     timed(phase_seq, env, stage0)
+    torch.cuda.empty_cache()
+    timed(phase_zero3, env, stage0)
     log(f"phase walls (s) on {env['smi']}: "
         f"{json.dumps(PHASE_WALLS)}; all phases "
         f"{time.perf_counter() - t_main:.3f} s")

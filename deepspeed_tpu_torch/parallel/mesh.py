@@ -181,6 +181,42 @@ class DataParallelGroup:
         dist.all_to_all_single(out, inp, group=self.group)
         return out
 
+    def quantized_all_to_all(self, out, inp, prefix, leaves, link="flat"):
+        """An all-to-all of a quantized wire (int8 codes or their fp32
+        scales), counted as ``<prefix>:<leaf>`` per entry of ``leaves``
+        [(name, elements, wire elements)]."""
+        self.counter.record("all-to-all", prefix, inp.dtype, leaves,
+                            self.size, link)
+        dist.all_to_all_single(out, inp, group=self.group)
+        return out
+
+    def quantized_all_gather(self, out, inp, prefix, leaves):
+        """An all-gather of a quantized wire into ``out`` (rank-major),
+        counted as ``<prefix>:<leaf>`` per entry of ``leaves``."""
+        self.counter.record("all-gather", prefix, inp.dtype, leaves,
+                            self.size)
+        dist.all_gather_into_tensor(out, inp, group=self.group)
+        return out
+
+    def hierarchy(self, k):
+        """(intra, inter): this rank's group of k consecutive ranks of
+        the line and its group of the ranks with its intra index, each a
+        ``DataParallelGroup`` on this group's counter (the two hops of
+        hierarchical qgZ). Built at the first call, which every rank of
+        the line makes alike."""
+        cached = getattr(self, "_hierarchy", None)
+        if cached is not None and cached[0] == k:
+            return cached[1]
+        from deepspeed_tpu_torch.utils.distributed import hierarchical_groups
+
+        ranks = [dist.get_global_rank(self.group, i)
+                 if self.group is not None else i for i in range(self.size)]
+        intra, inter = hierarchical_groups(ranks, k, dist.get_rank())
+        pair = (DataParallelGroup(intra, self.counter),
+                DataParallelGroup(inter, self.counter))
+        self._hierarchy = (k, pair)
+        return pair
+
     def all_gather_ints(self, values):
         """A host list of int64 from every rank: (size, len(values)) (a
         checkpoint's check, not counted)."""

@@ -125,13 +125,14 @@ class FlopsProfiler:
             self._duration = _time_calls(call, n_timing_runs, device)
         return self._cost
 
-    def profile_step(self, module, batch):
+    def profile_step(self, module, batch, shapes=None):
         """Count one training micro step of ``module`` on ``batch`` (its
-        loss forward and backward, telemetry/mfu.py ``loss_step_flops``);
-        the engine times the real step itself (``_maybe_profile``)."""
+        loss forward and backward, telemetry/mfu.py ``loss_step_flops``,
+        whose ``shapes`` this passes on); the engine times the real step
+        itself (``_maybe_profile``)."""
         from deepspeed_tpu_torch.telemetry.mfu import loss_step_flops
 
-        self._cost = loss_step_flops(module, batch)
+        self._cost = loss_step_flops(module, batch, shapes)
         self._flops = self._cost.get("flops")
         return self._cost
 

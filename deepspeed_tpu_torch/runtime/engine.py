@@ -1,5 +1,5 @@
 """DeepSpeedEngine: one device per process, data and sequence parallel over
-a process grid, with ZeRO stage 0, 1 or 2.
+a process grid, with ZeRO stage 0, 1, 2 or 3.
 
 Port of deepspeed_tpu/runtime/engine.py without its tensor and pipeline
 axes: the optimizer and LR scheduler from the ds_config
@@ -88,6 +88,36 @@ gradient scale, the port's C++ Adam (ops/adam/cpu_adam.py) over the
 master, and the master rounded to the compute dtype and copied back into
 the parameters (at dp > 1 this rank's shard, then one all-gather).
 
+ZeRO stage 3 (JAX ``_arm_stage3``, engine.py:687-854): the compute-dtype
+parameters of the leaves ZeRO shards hold only this rank's shard at rest
+(views of one segment, ``_ag_send``); the gradients exchange as at stage
+2. Armed (the default at dp > 1 without offload, within
+``stage3_prefetch_budget``), each micro step gathers every planned leaf
+once, in the plan's block order (runtime/zero/stage3.py), as int8 codes
+and fp32 scales (``quantized_all_gather``: the forward computes with the
+dequantized weights, and their gradients are the straight-through
+ones); the gathered weights stay live until the micro step's gradient
+exchange and are freed after it. Disarmed (``stage3_scheduled_gathers:
+false`` or a blocker, each named in a warning), the implicit path
+(runtime/zero/gathers.py): each layer's parameters gathered densely in
+the compute dtype as the layer runs and freed after it, and gathered
+again at their first use in the backward (a remat recompute's gather),
+two gathers per micro step as the JAX report prices them; the autograd
+graph keeps no gathered weight. No buffer of the whole model stays on the
+device at stage 3: the reduce-scatter's input is made for each exchange.
+Through ``forward()`` / ``backward()`` the armed halves are the programs
+``s3_fwd`` and ``s3_bwd``.
+
+Quantized collectives (JAX ``_arm_quantized_collectives``,
+engine.py:856-942): qgZ (``quantized_gradients``, stage 2, dp > 1, no
+offload, seq 1) moves the reduce-scatter of the sharded leaves' gradients
+as int8 codes and fp32 scales through all-to-alls, flat or over
+``hierarchical_intra_size`` consecutive ranks and then across them
+(runtime/custom_collectives.py); qwZ (``quantized_weights``) quantizes
+the offload push's shards on the host, so the copy up and the gather move
+int8 codes and scales, dequantized on the device; at stage 3 armed, the
+scheduled gathers are the int8 weight wire.
+
 Telemetry (``"telemetry"``, ``"flops_profiler"``, ``"tensorboard"``,
 ``"wall_clock_breakdown"``; the JAX engine's ``_arm_telemetry``,
 engine.py:1023-1145, 1205-1411): host-time spans on lanes ``train``
@@ -111,6 +141,7 @@ with the JAX engine's contract (``program_registry``). The program lint
 Configurations that need parts of the port still to come raise at
 construction, naming their ROADMAP item.
 """
+import contextlib
 import logging
 import math
 import os
@@ -140,6 +171,8 @@ from deepspeed_tpu_torch.runtime import memory_accounting
 from deepspeed_tpu_torch.runtime.config import (DeepSpeedConfig,
                                                 get_mesh_shape)
 from deepspeed_tpu_torch.runtime.config_utils import load_config_json
+from deepspeed_tpu_torch.runtime.custom_collectives import (
+    quantized_gather_rows, quantized_reduce_scatter_rows, rows_to_leaf)
 from deepspeed_tpu_torch.runtime.constants import (
     ADAM_OPTIMIZER, ADAMW_OPTIMIZER, LAMB_OPTIMIZER, ONEBIT_ADAM_OPTIMIZER,
     SGD_OPTIMIZER, TELEMETRY_ENABLED, TELEMETRY_MEMORY,
@@ -153,21 +186,31 @@ from deepspeed_tpu_torch.runtime.lr_schedules import SCHEDULER_REGISTRY
 from deepspeed_tpu_torch.runtime.progressive_layer_drop import \
     ProgressiveLayerDrop
 from deepspeed_tpu_torch.runtime.resilience import atomic
+from deepspeed_tpu_torch.runtime.quantization import (block_layout,
+                                                      dequantize_rows,
+                                                      quantize_blockwise_np)
 from deepspeed_tpu_torch.runtime.utils import (clip_grad_by_global_norm,
                                                global_norm_from_tree,
                                                has_overflow)
+from deepspeed_tpu_torch.runtime.zero import stage3 as s3
+from deepspeed_tpu_torch.runtime.zero.gathers import BlockGathers
 from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartition
 from deepspeed_tpu_torch.telemetry.programs import (NO_OBSERVER,
                                                     ProgramRegistry)
 from deepspeed_tpu_torch.utils.distributed import (grid_groups,
-                                                   init_distributed)
+                                                   init_distributed,
+                                                   local_world_size)
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
 from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
                                              ThroughputTimer)
 
+#: the bytes of a micro step's loss reduction over the group at dp > 1
+#: (``group_ratio``: the fp32 sum of the losses and of their counts)
+LOSS_REDUCTION_BYTES = 2 * 4
+
 # optimizer names and the ROADMAP item that ports them
-_LATER_OPTIMIZERS = {ONEBIT_ADAM_OPTIMIZER: "A13",
-                     ZEROONE_ADAM_OPTIMIZER: "A13"}
+_LATER_OPTIMIZERS = {ONEBIT_ADAM_OPTIMIZER: "A13b",
+                     ZEROONE_ADAM_OPTIMIZER: "A13b"}
 _OPTIMIZERS = (FusedAdam, FusedLamb, SGD)
 _M32 = 0xFFFFFFFF
 # wall_clock_breakdown's timers (the JAX engine's names)
@@ -200,21 +243,11 @@ def _refuse_unported(raw, cfg):
 
     if cfg.zero_config.cpu_offload:
         # the combinations of ZeRO-Offload this port does not run yet
-        if cfg.zero_optimization_stage >= 3:
-            no("ZeRO-Offload (cpu_offload) with ZeRO stage 3", "A13")
-        if cfg.zero_config.quantized_weights:
-            no("ZeRO-Offload with quantized_weights (the qwZ int8 push)",
-               "A13")
         if cfg.sparse_gradients_enabled:
             no("ZeRO-Offload with sparse_gradients (CSR gradients on the "
-               "device-to-host wire)", "A13")
+               "device-to-host wire)", "A13b")
         if cfg.pipeline.get("stages", 1) not in (1, None):
             no("ZeRO-Offload with pipeline parallelism", "A12")
-    if cfg.zero_optimization_stage >= 3:
-        no("ZeRO stage 3", "A13")
-    if cfg.zero_config.quantized_gradients \
-            or cfg.zero_config.quantized_weights:
-        no("quantized ZeRO collectives", "A13")
     if cfg.pipeline.get("stages", 1) not in (1, None):
         no("pipeline parallelism", "A12")
     res = cfg.resilience
@@ -331,6 +364,13 @@ class DeepSpeedEngine:
         # engine's offload regions follow the ZeRO spec from stage 1)
         stage = self.zero_optimization_stage()
         self._grad_sharded = stage >= 2 or (self._offload and stage >= 1)
+        # stage 3: the sharded leaves' parameters hold this rank's shard
+        # at rest (none are sharded at dp 1: stage 0 bit for bit)
+        self._stage3 = stage >= 3 and bool(self.partition.sharded_idx)
+        self._s3_live = False
+        self._s3_stash = None
+        self._arm_stage3(stage)
+        self._arm_quantized_collectives(stage)
         if self._offload:
             self._build_offload_state()
         else:
@@ -578,6 +618,158 @@ class DeepSpeedEngine:
         self.sp_group = SequenceParallelGroup(groups[SEQ_AXIS],
                                               self._counter)
 
+    # ------------------------------------------------------------------
+    # ZeRO stage 3 and the quantized collectives: arming (JAX
+    # engine.py:687-777, 856-942)
+    # ------------------------------------------------------------------
+    def _arm_stage3(self, stage):
+        """Decide whether stage 3 runs the scheduled int8 gathers (the
+        plan of runtime/zero/stage3.py, one quantized gather per planned
+        leaf per micro step) or the implicit dense ones, naming every
+        blocker in a warning, in the JAX engine's words."""
+        zc = self._config.zero_config
+        self._s3_sched_armed = False
+        self._s3_plan = None
+        self._s3_blockers = []
+        if stage != 3:
+            return
+        leaves = self.partition.leaves
+        plan = s3.build_gather_plan(
+            [leaf.name for leaf in leaves], [leaf.shape for leaf in leaves],
+            [leaf.shard_dim for leaf in leaves], self.dp_world_size,
+            block_size=zc.quantization_block_size,
+            param_dtype=ca.dtype_name(self.param_dtype))
+        self._s3_plan = plan
+        blockers = []
+        if not zc.stage3_scheduled_gathers:
+            blockers.append("zero_optimization.stage3_scheduled_gathers="
+                            "false")
+        if self.dp_world_size <= 1:
+            blockers.append("data-parallel degree is 1 (nothing is "
+                            "partitioned)")
+        if self._offload:
+            blockers.append("cpu_offload=true (params materialize through "
+                            "the offload push, which has its own qwZ wire)")
+        if self.sp_world_size != 1:
+            blockers.append(f"seq={self.sp_world_size}")
+        if not blockers and plan.n_gathered_leaves == 0:
+            blockers.append("no parameter leaf is partitionable over "
+                            "'data' (all too small/indivisible)")
+        budget = zc.stage3_prefetch_budget
+        if not blockers and not plan.within_budget(budget):
+            blockers.append(
+                f"gather plan needs {plan.gathered_bytes} B of gathered "
+                f"weights live fwd->bwd, over stage3_prefetch_budget="
+                f"{budget} B — raise the budget or accept the implicit "
+                f"path's per-use gathers")
+        self._s3_blockers = blockers
+        if blockers:
+            log_dist(
+                "ZeRO stage-3: scheduled quantized gathers DISARMED — "
+                f"falling back to the implicit per-use all-gathers "
+                f"({'; '.join(blockers)})", ranks=[0],
+                level=logging.WARNING)
+            return
+        self._s3_sched_armed = True
+        # the planned leaves, in the plan's block order
+        by_name = {leaf.name: leaf for leaf in leaves}
+        self._s3_leaves = [by_name[gl.name] for b in plan.blocks
+                           for gl in b.leaves]
+        log_dist(
+            f"ZeRO stage-3: scheduled quantized gathers armed — "
+            f"{plan.n_gathered_leaves} leaves in {len(plan.blocks)} "
+            f"layer blocks, {plan.wire_bytes_per_gather} B int8+scales "
+            f"wire per gather, {plan.gathered_bytes} B gathered peak "
+            f"(budget {budget or 'unbounded'})", ranks=[0])
+
+    def stage3_report(self):
+        """The gather plan's report (blocks, per-block bytes, the peak
+        gathered footprint) with its arming status (JAX
+        ``stage3_report``); None below stage 3. ``disarmed_by`` names the
+        blockers of a disarmed plan."""
+        if self._s3_plan is None:
+            return None
+        report = self._s3_plan.report()
+        report["armed"] = bool(self._s3_sched_armed)
+        report["prefetch_budget"] = \
+            self._config.zero_config.stage3_prefetch_budget
+        report["disarmed_by"] = list(self._s3_blockers)
+        return report
+
+    def _arm_quantized_collectives(self, stage):
+        """Decide whether qgZ (the int8 gradient reduce-scatter) and qwZ
+        (the int8 offload push) run, and resolve the hierarchical intra
+        size; every blocker is named in a warning, in the JAX engine's
+        words."""
+        zc = self._config.zero_config
+        dp = self.dp_world_size
+        self._qgz_armed = False
+        self._qgz_intra = 0
+        self._qwz_armed = False
+        if zc.quantized_gradients:
+            blockers = []
+            if dp <= 1:
+                blockers.append("data-parallel degree is 1")
+            if stage != 2:
+                blockers.append(
+                    f"zero_optimization.stage={stage} (qgZ quantizes the "
+                    f"stage-2 sharded-accumulator reduce-scatter)")
+            if self._offload:
+                blockers.append("cpu_offload=true (gradients stream D2H, "
+                                "no collective to quantize)")
+            if self.sp_world_size != 1:
+                blockers.append(f"seq={self.sp_world_size}")
+            if blockers:
+                log_dist(
+                    "ZeRO qgZ: quantized_gradients DISARMED — gradients "
+                    f"move dense ({', '.join(blockers)}); the quantized "
+                    "reduce-scatter requires zero stage 2, no cpu_offload, "
+                    "and pipe=seq=1", ranks=[0], level=logging.WARNING)
+            else:
+                self._qgz_armed = True
+        if zc.quantized_weights:
+            if self._offload and dp > 1:
+                self._qwz_armed = True
+            elif self._s3_sched_armed:
+                log_dist(
+                    "ZeRO qwZ: quantized_weights rides the stage-3 "
+                    "scheduled gather plan (int8 blocks + fp32 scales per "
+                    "micro-step)", ranks=[0])
+            else:
+                blocker = "cpu_offload=false (the int8 weight gather rides " \
+                          "the offload parameter push or the stage-3 " \
+                          "scheduled plan)" \
+                    if not self._offload else "data-parallel degree is 1"
+                log_dist(
+                    f"ZeRO qwZ: quantized_weights DISARMED — parameters "
+                    f"move in the compute dtype ({blocker})",
+                    ranks=[0], level=logging.WARNING)
+        if zc.hierarchical_allreduce and self._qgz_armed:
+            k = zc.hierarchical_intra_size
+            auto = k <= 0
+            if auto:
+                # co-located ranks (consecutive on the data axis) form
+                # the intra group
+                k = math.gcd(dp, local_world_size())
+            if 1 < k < dp and dp % k == 0:
+                self._qgz_intra = k
+                self.dp_group.hierarchy(k)
+            elif not auto:
+                log_dist(
+                    f"ZeRO qgZ: hierarchical_allreduce requested but "
+                    f"hierarchical_intra_size={k} cannot form >=2 groups "
+                    f"over the data axis ({dp}; needs 1 < k < {dp} with k "
+                    f"dividing it); using the flat quantized all_to_all",
+                    ranks=[0], level=logging.WARNING)
+        elif zc.hierarchical_allreduce:
+            why = "quantized_gradients is disarmed (see warning above)" \
+                if zc.quantized_gradients else \
+                "zero_optimization.quantized_gradients is not enabled"
+            log_dist(
+                f"ZeRO qgZ: hierarchical_allreduce has no effect — it "
+                f"routes the quantized gradient exchange and {why}",
+                ranks=[0], level=logging.WARNING)
+
     @torch.no_grad()
     def _build_state(self):
         """This rank's master weights, gradient accumulator and exchange
@@ -634,6 +826,9 @@ class DeepSpeedEngine:
             torch.empty(self._n_ar + (part.seg_size if stage2 else 0),
                         dtype=f32, device=dev),
             torch.empty(part.seg_size, dtype=self.param_dtype, device=dev))
+        if self._stage3:
+            self._ag_send.copy_(self._master_seg)
+            self._s3_at_rest()
 
     def _seq_leaves(self):
         """The leaves that the gradient all-reduce over the seq group
@@ -698,11 +893,15 @@ class DeepSpeedEngine:
         seg = part.seg_size if self._grad_sharded else 0
         self._ep_xchg = self._expert_views(xchg[self._n_ar + seg:]) \
             if self._offload else []
+        # stage 3 gathers block by block and reduce-scatters from a
+        # buffer made for the exchange: neither whole-model buffer stays
+        self._rs_send = torch.empty(n, dtype=f32, device=dev) \
+            if self._grad_sharded and not self._stage3 else None
         if self._grad_sharded:
-            self._rs_send = torch.empty(n, dtype=f32, device=dev)
             self._rs_recv = xchg[self._n_ar:self._n_ar + seg]
         self._ag_send = ag_send
-        self._ag_recv = torch.empty(n, dtype=self.param_dtype, device=dev)
+        self._ag_recv = None if self._stage3 else \
+            torch.empty(n, dtype=self.param_dtype, device=dev)
 
     @torch.no_grad()
     def _build_offload_state(self):
@@ -780,6 +979,112 @@ class DeepSpeedEngine:
             self._exchange_buffers(
                 torch.empty(n, dtype=f32, device=dev),
                 self._dev_flat[self._n_ar:self._n_ar + seg])
+        if self._qwz_armed:
+            # the pushed shards' int8 codes and fp32 scales: pinned host
+            # buffers and their device copies, each leaf's side by side;
+            # the other sharded leaves go up in the compute dtype and
+            # gather densely from a segment of their own
+            self._push_views = views(self._push_host)
+            self._qwz_leaves = [leaf for leaf in part.leaves
+                                if self._qwz_ok(leaf)]
+            qwz = {i for leaf in self._qwz_leaves for i in leaf.params}
+            self._qwz_dense = [leaf for leaf in part.leaves
+                               if leaf.shard_dim is not None
+                               and not self._qwz_ok(leaf)]
+            self._qwz_dense_idx = [i for i in part.sharded_idx
+                                   if i not in qwz]
+            self._qwz_dense_send = torch.empty(
+                sum(self.master[i].numel() for i in self._qwz_dense_idx),
+                dtype=self.param_dtype, device=dev)
+            block = self._config.zero_config.quantization_block_size
+            self._qwz_lay = [block_layout(leaf.elements // self.dp_world_size,
+                                          block)
+                             for leaf in self._qwz_leaves]
+            nq = sum(npad for _, _, npad in self._qwz_lay)
+            ns = sum(nb for _, nb, _ in self._qwz_lay)
+            self._qwz_host = (torch.empty(nq, dtype=torch.int8,
+                                          pin_memory=cuda),
+                              torch.empty(ns, dtype=f32, pin_memory=cuda))
+            self._qwz_dev = tuple(torch.empty_like(t, device=dev)
+                                  for t in self._qwz_host)
+        if self._stage3:
+            torch._foreach_copy_(part.segment_views(self._ag_send),
+                                 [part.narrow(self.params[i], i)
+                                  for i in part.sharded_idx])
+            self._s3_at_rest()
+
+    # ------------------------------------------------------------------
+    # ZeRO stage 3: the parameters' gathers and their release
+    # ------------------------------------------------------------------
+    def _s3_at_rest(self):
+        """Stage 3's parameters at rest (this rank's shards, views of
+        ``_ag_send``) and the implicit path's per-block gathers over them
+        (runtime/zero/gathers.py)."""
+        part = self.partition
+        self._s3_rest = part.segment_views(self._ag_send)
+        self._s3_blocks = BlockGathers(self.module, self.param_names,
+                                       self.params, part, self._ag_send,
+                                       self._s3_rest, self.dp_group)
+        self._s3_release()
+
+    def _s3_release(self):
+        """The sharded leaves' parameters back to this rank's shards at
+        rest; a gathered copy is freed when nothing else holds it."""
+        self._s3_blocks.release()
+        for i, v in zip(self.partition.sharded_idx, self._s3_rest):
+            self.params[i].data = v
+        self._s3_live = False
+        self._mark_params()
+
+    @torch.no_grad()
+    def _s3_gather(self):
+        """The scheduled gathers: the plan's leaves in its block order,
+        each through one int8 gather (``quantized_gather_rows``, counted as
+        ``qwz_ag`` and ``qwz_scales``) dequantized to the compute dtype,
+        live until the micro step's gradient exchange."""
+        part, dt = self.partition, self.param_dtype
+        leaves = self._s3_leaves
+        block = self._config.zero_config.quantization_block_size
+        rows = quantized_gather_rows(
+            [part.leaf_row(leaf, self.params) for leaf in leaves],
+            self.dp_group, [leaf.name for leaf in leaves], dt, block)
+        stash = {}
+        for leaf, r in zip(leaves, rows):
+            full = rows_to_leaf(r, leaf.shape, leaf.shard_dim)
+            for i, v in part.leaf_views(leaf, full):
+                self.params[i].data = v.contiguous()
+                stash[f"stash/{self.param_names[i]}"] = self.params[i].data
+        self._s3_stash = stash
+        self._s3_live = True
+
+    def _s3_implicit(self):
+        """Whether this micro step's weights come through the implicit
+        per-block gathers."""
+        return self._stage3 and not self._s3_sched_armed
+
+    def _s3_whole_shapes(self):
+        """{name: whole shape} of the parameters that hold a shard at rest
+        (stage 3), for the FLOP counts' replays; None below stage 3."""
+        if not self._stage3:
+            return None
+        return {self.param_names[i]: self.partition.shapes[i]
+                for i in self.partition.sharded_idx}
+
+    def _param_local(self, i):
+        """This rank's part of parameter i as the module holds it now
+        (at stage 3 the sharded ones are their shards at rest)."""
+        p = self.params[i]
+        if self._stage3 and self.partition.sharded[i] and not self._s3_live:
+            return p
+        return self.partition.local(p, i)
+
+    @staticmethod
+    def _qwz_ok(leaf):
+        """Whether the qwZ push moves ``leaf`` as int8: its offload region
+        is a pure ``data`` split, sharded by ZeRO with no dim of its
+        tensor-parallel spec (JAX ``_qwz_leaf_meta``); the other sharded
+        leaves go up and gather in the compute dtype."""
+        return leaf.shard_dim is not None and not leaf.tp_taken
 
     def deepspeed_io(self, dataset, batch_size=None, pin_memory=False,
                      data_sampler=None, collate_fn=None,
@@ -872,7 +1177,7 @@ class DeepSpeedEngine:
                            f"their {self.param_dtype} values "
                            f"(load_module_state_dict keeps the fp32 bits)")
             for i in changed:
-                self.master[i].copy_(self.partition.local(self.params[i], i))
+                self.master[i].copy_(self._param_local(i))
             self._mark_params()
 
     @torch.no_grad()
@@ -890,7 +1195,19 @@ class DeepSpeedEngine:
                 if name in state_dict:
                     state_dict[name] = part.expert_local(
                         torch.as_tensor(state_dict[name]), i)
+        if self._stage3:
+            # the sharded parameters take their whole shape for the load,
+            # then keep this rank's shard
+            for i in part.sharded_idx:
+                self.params[i].data = torch.empty(
+                    part.shapes[i], dtype=self.param_dtype,
+                    device=self.device)
         result = self.module.load_state_dict(state_dict, strict=strict)
+        if self._stage3:
+            for i, v in zip(part.sharded_idx, self._s3_rest):
+                if self.param_names[i] in state_dict:
+                    v.copy_(part.narrow(self.params[i], i))
+            self._s3_release()
         for i, (name, m) in enumerate(zip(self.param_names, self.master)):
             if name in state_dict and m is not self.params[i]:
                 m.copy_(part.local(state_dict[name], i))
@@ -931,20 +1248,36 @@ class DeepSpeedEngine:
         if self._memacct is not None:
             self._memacct.begin("micro_step")
         obs = NO_OBSERVER
-        if self._micro_name is not None:
+        gas = self.gradient_accumulation_steps()
+        split = self._s3_split()
+        if split:
+            # scheduled stage 3: the gathers and the forward are the JAX
+            # engine's s3_fwd, the backward and the exchange its s3_bwd
+            obs = self._dispatch_program("s3_fwd", self._s3_fwd_contract(),
+                                         calls_per_step=gas)
+        elif self._micro_name is not None:
             # one forward + backward: the JAX engine's micro_step
             # (micro_offload under train_batch with offload)
             obs = self._dispatch_program(
-                self._micro_name, {"host_transfer_free": True,
-                                   "donates_argnums": (0,)},
-                calls_per_step=self.gradient_accumulation_steps())
+                self._micro_name, self._micro_program_contract(),
+                calls_per_step=gas)
         obs.start()
         try:
-            loss, _ = self.module.loss(dev_batch,
-                                       generator=self._micro_generator(),
-                                       train=True)
+            if self._s3_sched_armed:
+                self._s3_gather()
+            # the implicit path gathers each block as it runs and frees
+            # it after; the backward gathers it again
+            with self._s3_blocks.forward() if self._s3_implicit() \
+                    else contextlib.nullcontext():
+                loss, _ = self.module.loss(
+                    dev_batch, generator=self._micro_generator(),
+                    train=True)
         finally:
             obs.stop()
+        if split:
+            obs.outputs(loss)
+            obs.close()
+            obs = NO_OBSERVER
         self._micro_obs = obs
         self._pending_loss = loss
         if tr is not None:
@@ -970,6 +1303,14 @@ class DeepSpeedEngine:
         pending = self._pending_loss
         self._pending_loss = None
         obs, self._micro_obs = self._micro_obs, NO_OBSERVER
+        if self._s3_split():
+            stash = self._s3_stash
+            obs = self._dispatch_program(
+                "s3_bwd", {"host_transfer_free": True,
+                           "forbid_collectives": ("all-gather",),
+                           "donates_argnums": (1,)},
+                calls_per_step=self.gradient_accumulation_steps(),
+                args=(self._program_state, lambda: stash))
         obs.start()
         try:
             self._backward_micro(pending)
@@ -991,6 +1332,10 @@ class DeepSpeedEngine:
                 tr.complete("grad_exchange_d2h", self._lane_train, _tg)
         for p in self.params:
             p.grad = None
+        if self._s3_live:
+            # the exchange is done: the gathered weights are freed
+            self._s3_release()
+            self._s3_stash = None
         self.micro_steps += 1
         if self._memacct is not None:
             self._memacct.end("micro_step")
@@ -1015,7 +1360,11 @@ class DeepSpeedEngine:
         div = self.gradient_accumulation_steps()
         if not self._loss_is_global:
             div *= self.dp_world_size
-        (scaled / div).backward()
+        # the implicit path's second gathers: each block's at its first
+        # use in the backward (a remat recompute's, where there is one)
+        with self._s3_blocks.backward() if self._s3_implicit() \
+                else contextlib.nullcontext():
+            (scaled / div).backward()
         if self._offload:
             return
         # the gradients, in the compute dtype, into the fp32 accumulator
@@ -1055,13 +1404,41 @@ class DeepSpeedEngine:
             if not self._offload:
                 self._flat_accum[:self._n_ar].add_(self._ar_buf)
         if self._grad_sharded and self.partition.seg_size:
-            self.partition.pack(self._rs_send, grads)
-            group.reduce_scatter(self._rs_recv, self._rs_send,
-                                 leaves=self._sh_leaves)
+            if self._qgz_armed:
+                self._qgz_exchange(grads)
+            else:
+                send = self._rs_send if self._rs_send is not None else \
+                    torch.empty(self.dp_world_size * self.partition.seg_size,
+                                dtype=torch.float32, device=self.device)
+                self.partition.pack(send, grads)
+                group.reduce_scatter(self._rs_recv, send,
+                                     leaves=self._sh_leaves)
+                del send
             if not self._offload:
                 seg = self.partition.seg_size
                 self._flat_accum[self._n_ar:self._n_ar + seg].add_(
                     self._rs_recv)
+
+    def _qgz_exchange(self, grads):
+        """qgZ (JAX ``_make_quantized_grad_exchange``): the sharded
+        leaves' gradients reduce-scattered as int8 codes and fp32 scales
+        (``quantized_reduce_scatter_rows``, one bucket of every leaf per
+        hop), summed over the group as the dense exchange sums them, into
+        this rank's shards in ``_rs_recv``."""
+        part, dp = self.partition, self.dp_world_size
+        leaves = [leaf for leaf in part.leaves if leaf.shard_dim is not None]
+        out = quantized_reduce_scatter_rows(
+            [part.leaf_rows(leaf, grads) for leaf in leaves], self.dp_group,
+            [leaf.name for leaf in leaves],
+            block_size=self._config.zero_config.quantization_block_size,
+            intra_size=self._qgz_intra, mean=False)
+        views = dict(zip(part.sharded_idx, part.segment_views(self._rs_recv)))
+        for leaf, row in zip(leaves, out):
+            shape = list(leaf.shape)
+            shape[leaf.shard_dim] //= dp
+            for i, v in part.leaf_views(
+                    leaf, rows_to_leaf(row, shape, leaf.shard_dim)):
+                views[i].copy_(v)
 
     # ------------------------------------------------------------------
     # ZeRO-Offload: the gradient stream and the host step
@@ -1177,17 +1554,113 @@ class DeepSpeedEngine:
         if self._h2d_done is not None:
             self._h2d_done.synchronize()
         self.optimizer.cast_into(self._host_master, self._push_host)
-        self._dev_flat.copy_(self._push_host, non_blocking=True)
+        if self._qwz_armed:
+            # the shards go up as int8 codes and fp32 scales, the rest in
+            # the compute dtype
+            self._qwz_quantize_host()
+            a, b = self._n_ar, self._n_ar + self.partition.seg_size
+            self._dev_flat[:a].copy_(self._push_host[:a], non_blocking=True)
+            self._dev_flat[b:].copy_(self._push_host[b:], non_blocking=True)
+            for i in self._qwz_dense_idx:
+                self._dev_views[i].copy_(self._push_views[i],
+                                         non_blocking=True)
+            for dev, host in zip(self._qwz_dev, self._qwz_host):
+                dev.copy_(host, non_blocking=True)
+        else:
+            self._dev_flat.copy_(self._push_host, non_blocking=True)
         if self._h2d_done is not None:
             self._h2d_done.record()
         if self._rep_idx:
             torch._foreach_copy_([self.params[i] for i in self._rep_idx],
                                  [self._dev_views[i] for i in self._rep_idx])
-        if self.partition.sharded_idx:
+        if self._qwz_armed:
+            self._qwz_dequantize()
+            self._gather_dense_shards()
+        elif self.partition.sharded_idx and not self._stage3:
             self.dp_group.all_gather(self._ag_recv, self._ag_send,
                                      leaves=self._sh_leaves)
             self.partition.unpack(self._ag_recv, self.params)
         self._mark_params()
+
+    @torch.no_grad()
+    def _gather_dense_shards(self):
+        """Under qwZ, the sharded leaves that stay dense (a tensor-
+        parallel dim): their shards all-gathered in the compute dtype
+        (``param_ag``) into the parameters; at stage 3 they stay at
+        rest."""
+        idx, part = self._qwz_dense_idx, self.partition
+        if not idx or self._stage3:
+            return
+        send = self._qwz_dense_send
+        torch._foreach_copy_(
+            list(send.split([self._dev_views[i].numel() for i in idx])),
+            [self._dev_views[i].reshape(-1) for i in idx])
+        recv = torch.empty(self.dp_world_size * send.numel(),
+                           dtype=send.dtype, device=send.device)
+        self.dp_group.all_gather(recv, send, leaves=[
+            (leaf.name, leaf.elements) for leaf in self._qwz_dense])
+        dst, src = [], []
+        for r, seg in enumerate(recv.chunk(self.dp_world_size)):
+            at = 0
+            for i in idx:
+                view = part.narrow(self.params[i], i, r)
+                dst.append(view)
+                src.append(seg[at:at + view.numel()].view(view.shape))
+                at += view.numel()
+        torch._foreach_copy_(dst, src)
+
+    @torch.no_grad()
+    def _qwz_quantize_host(self):
+        """This rank's shard of each qwZ leaf from the host master,
+        flattened as the JAX push flattens it and quantized with the host
+        twin (JAX ``_push_local_params``), into the pinned buffers."""
+        block = self._config.zero_config.quantization_block_size
+        q_host, s_host = self._qwz_host
+        qa = sa = 0
+        for leaf, (_, nb, npad) in zip(self._qwz_leaves, self._qwz_lay):
+            q, sc = quantize_blockwise_np(
+                self.partition.leaf_row(leaf, self.master), block)
+            q_host[qa:qa + npad].copy_(q)
+            s_host[sa:sa + nb].copy_(sc)
+            qa, sa = qa + npad, sa + nb
+
+    @torch.no_grad()
+    def _qwz_dequantize(self):
+        """The pushed codes into the parameters: all-gathered over the
+        group (one gather of the codes and one of the scales, counted per
+        leaf as ``qwz_ag`` / ``qwz_scales``) and dequantized into each
+        whole leaf; at stage 3 this rank's own codes dequantized into its
+        shards at rest, with no gather."""
+        part, dp = self.partition, self.dp_world_size
+        q, sc = self._qwz_dev
+        leaves = self._qwz_leaves
+        if self._stage3:
+            w, qg, sg = 1, q.view(1, -1), sc.view(1, -1)
+        else:
+            w = dp
+            qg = torch.empty(w * q.numel(), dtype=q.dtype, device=q.device)
+            sg = torch.empty(w * sc.numel(), dtype=sc.dtype,
+                             device=sc.device)
+            self.dp_group.quantized_all_gather(
+                qg, q, "qwz_ag", [(leaf.name, w * npad) for leaf, (_, _, npad)
+                                  in zip(leaves, self._qwz_lay)])
+            self.dp_group.quantized_all_gather(
+                sg, sc, "qwz_scales", [(leaf.name, w * nb) for leaf, (_, nb, _)
+                                       in zip(leaves, self._qwz_lay)])
+            qg, sg = qg.view(w, -1), sg.view(w, -1)
+        rest = dict(zip(part.sharded_idx, self._s3_rest)) \
+            if self._stage3 else None
+        qa = sa = 0
+        for leaf, (_, nb, npad) in zip(leaves, self._qwz_lay):
+            rows = dequantize_rows(qg[:, qa:qa + npad].contiguous(),
+                                   sg[:, sa:sa + nb].contiguous(),
+                                   leaf.elements // dp)
+            qa, sa = qa + npad, sa + nb
+            shape = list(leaf.shape)
+            shape[leaf.shard_dim] = shape[leaf.shard_dim] * w // dp
+            for i, v in part.leaf_views(leaf, rows_to_leaf(
+                    rows, shape, leaf.shard_dim)):
+                (rest[i] if rest is not None else self.params[i]).copy_(v)
 
     @torch.no_grad()
     def _gather_params(self):
@@ -1199,9 +1672,11 @@ class DeepSpeedEngine:
                                  [self.master[i] for i in self._rep_idx])
         if self.partition.sharded_idx:
             self._ag_send.copy_(self._master_seg)
-            self.dp_group.all_gather(self._ag_recv, self._ag_send,
-                                     leaves=self._sh_leaves)
-            self.partition.unpack(self._ag_recv, self.params)
+            if not self._stage3:
+                # stage 3 keeps the shards at rest: no gather
+                self.dp_group.all_gather(self._ag_recv, self._ag_send,
+                                         leaves=self._sh_leaves)
+                self.partition.unpack(self._ag_recv, self.params)
         self._mark_params()
 
     def is_gradient_accumulation_boundary(self):
@@ -1438,8 +1913,13 @@ class DeepSpeedEngine:
     @torch.no_grad()
     def eval_loss(self, batch):
         dev_batch = self._to_device(batch)
+        # stage 3: the implicit per-block gathers, not counted with the
+        # step's collectives (unless a scheduled gather is live)
+        gather = self._stage3 and not self._s3_live
         with self._dispatch_program(
-                "eval_loss", {"host_transfer_free": True}) as obs:
+                "eval_loss", {"host_transfer_free": True}) as obs, \
+                self._s3_blocks.forward(counted=False) if gather \
+                else contextlib.nullcontext():
             loss, _ = self.module.loss(dev_batch,
                                        generator=self._micro_generator(),
                                        train=False)
@@ -1483,11 +1963,44 @@ class DeepSpeedEngine:
         state["skipped_steps"] = self._skipped
         return state
 
-    def _dispatch_program(self, name, contract, calls_per_step=1.0):
+    def _dispatch_program(self, name, contract, calls_per_step=1.0,
+                          args=None):
         """Register program ``name`` at its first dispatch and return its
-        observer (a no-op unless the lint observes this engine)."""
+        observer (a no-op unless the lint observes this engine).
+        ``args``: the program's arguments (default: the state)."""
         return self._programs.dispatch(
-            name, (self._program_state,), contract, calls_per_step)
+            name, args or (self._program_state,), contract, calls_per_step)
+
+    def _s3_split(self):
+        """Whether forward() and backward() are the scheduled stage-3
+        programs ``s3_fwd`` and ``s3_bwd`` (outside train_batch)."""
+        return self._s3_sched_armed and self._micro_name == "micro_step"
+
+    def _s3_fwd_contract(self):
+        """The staged forward gathers each planned leaf exactly once, on
+        the s8 wire (the fp32 gathers are the per-block scales)."""
+        n = self._s3_plan.n_gathered_leaves
+        return {"host_transfer_free": True, "wire_dtype": "s8",
+                "wire_min_elements": 64,
+                "expect_op_counts": [("all-gather", "s8", n)] if n else None}
+
+    def _micro_program_contract(self):
+        """The micro step's contract: device work on the donated state;
+        under qgZ its gradient exchange rides the s8 wire within the
+        analytic per-micro budget (JAX ``_micro_program_contract``)."""
+        contract = {"host_transfer_free": True, "donates_argnums": (0,)}
+        if self._qgz_armed:
+            # beside the report's exchange, the whole micro-batch loss's
+            # one all-reduce of (sum nll, count) over the group, which the
+            # report does not price (ROADMAP C-w16)
+            loss = LOSS_REDUCTION_BYTES if self._loss_is_global else 0
+            contract.update(
+                wire_dtype="s8",
+                comm_budget_key="grad_exchange_bytes_per_step",
+                comm_budget_bytes=lambda: (
+                    self.comm_volume_report()["grad_exchange_bytes_per_step"]
+                    / max(1, self.gradient_accumulation_steps()) + loss))
+        return contract
 
     # ------------------------------------------------------------------
     # telemetry (deepspeed_tpu_torch/telemetry/; JAX engine.py:1023-1145,
@@ -1574,7 +2087,8 @@ class DeepSpeedEngine:
         from deepspeed_tpu_torch.telemetry import mfu
 
         mfu.register_loss_step(self._telemetry.mfu, "micro_step",
-                               self.module, dev_batch, calls_per_step=gas)
+                               self.module, dev_batch, calls_per_step=gas,
+                               param_shapes=self._s3_whole_shapes())
         if self._memacct is not None:
             batch_bytes = memory_accounting.tree_device_bytes(dev_batch)
             self._memacct.register("micro_step", calls_per_step=gas,
@@ -1711,9 +2225,11 @@ class DeepSpeedEngine:
             FlopsProfiler
 
         prof = FlopsProfiler(engine=self)
-        prof.profile_params(self.params)
+        prof.profile_params([torch.empty(self.partition.shapes[i],
+                                         device="meta")
+                             for i in range(len(self.params))])
         prof.profile_comm(self.comm_volume_report())
-        prof.profile_step(self.module, dev_batch)
+        prof.profile_step(self.module, dev_batch, self._s3_whole_shapes())
         if self.device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -1762,7 +2278,7 @@ class DeepSpeedEngine:
         layout = [("step", "leaf", [scalar(self.global_steps)], False),
                   ("micro_step", "leaf", [scalar(self.micro_steps % gas)],
                    False),
-                  ("params", "tree", self.params, False)]
+                  ("params", "tree", self.params, self._stage3)]
         if not self._offload:
             layout.append(("opt", "leaf", [self.optimizer.step], False))
             layout += [("opt", "tree", lst, zero)
@@ -1995,11 +2511,25 @@ class DeepSpeedEngine:
         all-gather is priced at any stage (JAX engine.py:2935-3017)."""
         dp = self.dp_world_size
         stage = self.zero_optimization_stage()
+        gas = self.gradient_accumulation_steps()
         compute = ca.dtype_name(self.param_dtype)
+        leaves = self._comm_leaf_specs()
+        s3 = stage == 3 and dp > 1
+        # stage 3: scheduled, one quantized gather per micro; implicit,
+        # the forward's and the backward's dense gathers
+        gathers = (gas if self._s3_sched_armed else 2 * gas) if s3 else 1
         report = ca.volume_report(
-            self._comm_leaf_specs(), dp,
-            gas=self.gradient_accumulation_steps(), param_dtype=compute,
-            gather_params=dp > 1 and (self._offload or stage in (1, 2)))
+            leaves, dp, gas=gas,
+            quantized_gradients=self._qgz_armed,
+            quantized_weights=self._qwz_armed or self._s3_sched_armed,
+            quantized_weights_mask=[self._qwz_ok(leaf)
+                                    for leaf in self.partition.leaves]
+            if self._qwz_armed else None,
+            block_size=self._config.zero_config.quantization_block_size,
+            intra_size=self._qgz_intra, param_dtype=compute,
+            gather_params=dp > 1 and (self._offload or stage in (1, 2, 3)),
+            param_gathers_per_step=gathers,
+            implicit_param_gathers_per_step=2 * gas if s3 else None)
         report["config"].update({"zero_stage": stage,
                                  "compute_dtype": compute})
         report["grad_path_modeled"] = True
@@ -2034,25 +2564,43 @@ class DeepSpeedEngine:
             "scaler_bytes":
                 memory_accounting.tensor_bytes(list(self.scaler or ())),
         }
-        transient = {"gathered_stage3_bytes": 0,
-                     "quantization_scratch_bytes": 0}
+        transient = {
+            # scheduled stage 3: the gathered weights live from the
+            # forward to the gradient exchange (the prefetch budget's
+            # number)
+            "gathered_stage3_bytes": self._s3_plan.gathered_bytes
+            if self._s3_sched_armed else 0,
+            "quantization_scratch_bytes":
+                memory_accounting.quantization_scratch_bytes(
+                    self._comm_leaf_specs(), self.dp_world_size,
+                    self._config.zero_config.quantization_block_size)
+                if self._qgz_armed else 0}
         persistent = sum(components.values())
+        transient_total = sum(transient.values())
         return {"components": components, "transient": transient,
-                "persistent_bytes": persistent, "transient_bytes": 0,
-                "peak_bytes": persistent}
+                "persistent_bytes": persistent,
+                "transient_bytes": transient_total,
+                "peak_bytes": persistent + transient_total}
 
     def _offload_memory_components(self):
         tb = memory_accounting.tensor_bytes
         staging = [self._dev_flat]
+        if self._stage3:
+            # the shards' region of the flat buffer is the parameters
+            a, b = self._n_ar, self._n_ar + self.partition.seg_size
+            staging = [self._dev_flat[:a], self._dev_flat[b:]]
         if self.dp_group is not None:
-            staging += [self._xchg, self._ag_recv] + (
-                [self._rs_send] if self._grad_sharded else [])
+            staging += [t for t in (self._xchg, self._ag_recv,
+                                    self._rs_send) if t is not None]
         components = {"params_bytes": tb(self.params),
                       "grad_accum_bytes": 0, "master_bytes": 0,
                       "optimizer_state_bytes": 0,
                       "scaler_bytes": tb(list(self.scaler or ())),
                       "offload_staging_bytes": tb(staging)}
-        transient = {"grad_tree_bytes": tb(self.params)}
+        transient = {"grad_tree_bytes": tb(self.params) if not self._stage3
+                     else sum(math.prod(self.partition.full_shape(i))
+                              for i in range(len(self.params)))
+                     * self.params[0].element_size()}
         host = {"master_bytes": tb([self._host_master]),
                 "optimizer_state_bytes":
                     tb(self._host_opt["m"] + self._host_opt["v"]),
@@ -2196,7 +2744,7 @@ class DeepSpeedEngine:
         if not self.mixed_precision:
             # fp32: the master shards are the restored parameters' slices
             for i in part.sharded_idx:
-                self.master[i].copy_(part.narrow(self.params[i], i))
+                self.master[i].copy_(self._param_local(i))
         self._mark_params()
 
     def _copy_tree(self, got, tensors, sharded, strict):

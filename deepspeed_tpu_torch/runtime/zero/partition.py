@@ -1,4 +1,4 @@
-"""ZeRO stages 1 and 2: which elements of each leaf a rank owns.
+"""ZeRO stages 1-3: which elements of each leaf a rank owns.
 
 The JAX engine (deepspeed_tpu/runtime/engine.py:562-685,
 ``_build_shardings``) shards each leaf of the master weights and the
@@ -24,6 +24,14 @@ segment of ``seg_size`` elements, the same size on every rank; a buffer
 of ``dp`` segments, rank-major, is what one ``reduce_scatter_tensor`` or
 ``all_gather_into_tensor`` moves for all the leaves at once, and the
 packing does not change which elements a rank owns.
+
+Stage 3 keeps only this rank's shards of the compute-dtype parameters
+at rest, packed in the same segment; the int8 collectives
+(runtime/custom_collectives.py) move each JAX leaf as the JAX package
+does, its rank-r part flattened with the shard dimension first:
+``leaf_row`` builds this rank's row from its shards, ``leaf_rows`` every
+rank's rows from full-shaped tensors, and ``leaf_views`` maps a whole
+leaf in the JAX layout back onto the port's parameters.
 """
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
@@ -48,6 +56,8 @@ class Leaf:
     transposed: bool = False
     stacked: bool = False
     expert_dim: Optional[int] = None
+    # the dims the tensor-parallel spec gives to ``model``
+    tp_taken: Tuple[int, ...] = ()
 
     @property
     def elements(self) -> int:
@@ -186,11 +196,62 @@ class ZeroPartition:
         if dst:
             torch._foreach_copy_(dst, src)
 
+    def leaf_tensor(self, leaf, tensors, local=False):
+        """The JAX-layout leaf (``local``: this rank's shard of it) from
+        the port's ``tensors`` (full-shaped, or this rank's parts); None
+        in ``tensors`` reads as zeros."""
+        ref = next(t for t in tensors if t is not None)
+        parts = []
+        for i in leaf.params:
+            if local and leaf.stacked and leaf.shard_dim == 0 \
+                    and self.slices[i][self.rank][2] == 0:
+                continue            # a whole layer another rank owns
+            t = tensors[i]
+            if t is None:
+                t = torch.zeros(self.slice_shape(i) if local
+                                else self.shapes[i], dtype=ref.dtype,
+                                device=ref.device)
+            parts.append(_reverse(t) if leaf.transposed else t)
+        return torch.stack(parts) if leaf.stacked else parts[0]
+
+    def leaf_row(self, leaf, tensors):
+        """This rank's shard of ``leaf`` from ``tensors`` (this rank's
+        parts of the parameters, e.g. the shards at rest), flattened with
+        the shard dimension first: (n / dp,)."""
+        return self.leaf_tensor(leaf, tensors, True) \
+            .movedim(leaf.shard_dim, 0).reshape(-1)
+
+    def leaf_rows(self, leaf, tensors):
+        """Every rank's shard of ``leaf`` from full-shaped ``tensors`` (a
+        gradient tree), one row each: (dp, n / dp)."""
+        return self.leaf_tensor(leaf, tensors, False) \
+            .movedim(leaf.shard_dim, 0).reshape(self.dp, -1)
+
+    def leaf_views(self, leaf, full):
+        """[(parameter index, view)] of ``full``, a tensor in the layout
+        of the JAX leaf (or of this rank's shard of it), as the port's
+        parameters."""
+        parts = full.unbind(0) if leaf.stacked else [full]
+        if leaf.stacked and leaf.shard_dim == 0 \
+                and len(parts) < len(leaf.params):
+            idx = [i for i in leaf.params
+                   if self.slices[i][self.rank][2] > 0]
+        else:
+            idx = leaf.params
+        return [(i, _reverse(t) if leaf.transposed else t)
+                for i, t in zip(idx, parts)]
+
     def leaf_elements(self, sharded):
         """[(leaf name, elements)] of the sharded (or the replicated)
         leaves: what a collective over them carries, for the counter."""
         return [(leaf.name, leaf.elements) for leaf in self.leaves
                 if (leaf.shard_dim is not None) == sharded]
+
+
+def _reverse(t):
+    """``t`` with its dims reversed: a Dense kernel's JAX layout (a
+    view)."""
+    return t.permute(*reversed(range(t.dim())))
 
 
 def _leaves(module, param_names, shapes, dp, expert, world):
@@ -225,7 +286,7 @@ def _leaves(module, param_names, shapes, dp, expert, world):
             if hasattr(module, "tp_taken") else ()
         out.append(Leaf(path, tuple(shape),
                         zero_merge_dim(shape, dp, taken), idx, transposed,
-                        stacked))
+                        stacked, tp_taken=tuple(taken)))
     covered = sorted(i for leaf in out for i in leaf.params)
     if covered != list(range(len(param_names))):
         raise ValueError("the model's reference_leaf_specs do not cover "

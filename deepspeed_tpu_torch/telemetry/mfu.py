@@ -145,16 +145,19 @@ class _LossStep(torch.nn.Module):
         return loss
 
 
-def loss_step_flops(module, batch):
+def loss_step_flops(module, batch, shapes=None):
     """FLOPs of one training micro step of ``module``:
     ``module.loss(batch)`` and its backward, replayed on meta parameters
     of the module's own shapes and dtypes (``batch`` may be meta
-    already). Dropout draws from a CPU generator in the replay."""
+    already); ``shapes`` {parameter name: shape} overrides a parameter's
+    shape (ZeRO-3's shards at rest compute at their whole shape). Dropout
+    draws from a CPU generator in the replay."""
     from torch.func import functional_call
 
     wrapper = _LossStep(module)
-    state = {n: torch.empty(p.shape, dtype=p.dtype, device="meta")
-             .requires_grad_(p.requires_grad)
+    shapes = {f"module.{n}": s for n, s in (shapes or {}).items()}
+    state = {n: torch.empty(shapes.get(n, p.shape), dtype=p.dtype,
+                            device="meta").requires_grad_(p.requires_grad)
              for n, p in wrapper.named_parameters()}
     state.update({n: meta_like(b) for n, b in wrapper.named_buffers()})
     meta_batch = meta_like(batch)
@@ -173,15 +176,17 @@ def fn_flops(fn, args):
     return count_flops(run)
 
 
-def register_loss_step(mfu, name, module, batch, calls_per_step=1.0):
+def register_loss_step(mfu, name, module, batch, calls_per_step=1.0,
+                       param_shapes=None):
     """Capture-by-shape registration of a module's micro step: the batch's
     shapes and dtypes are taken NOW (first dispatch) and the replay runs
-    lazily at report time.  No-op when ``mfu`` is None or ``name`` is
-    registered already."""
+    lazily at report time (``param_shapes``: ``loss_step_flops``'s
+    ``shapes``).  No-op when ``mfu`` is None or ``name`` is registered
+    already."""
     if mfu is None or mfu.has(name):
         return
     shapes = meta_like(batch)
-    mfu.register(name, lambda: loss_step_flops(module, shapes),
+    mfu.register(name, lambda: loss_step_flops(module, shapes, param_shapes),
                  calls_per_step)
 
 

@@ -27,6 +27,9 @@ What a dispatch is observed with (:class:`Observer`):
   ``torch.distributed`` call posts it, as the JAX HLO holds every
   collective of the program. A gather or scatter's size is its output's
   (the first tensor of ``_allgather_base_`` and ``_reduce_scatter_base_``);
+  its bytes are its elements', but an all-to-all's, which are what this
+  rank sends to the others, (w-1)/w of its buffer over a group of w
+  (runtime/comm_accounting.py's ring model);
 - the ``data_ptr()`` of every tensor of the program's state arguments
   before the dispatch and after it (read again from the live views), and
   the outputs' dtypes and whether each lives in that state's storage.
@@ -40,6 +43,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from deepspeed_tpu_torch.runtime.comm_accounting import (DTYPE_BYTES,
+                                                         all_to_all_bytes,
                                                          dtype_name)
 from deepspeed_tpu_torch.telemetry.programs import named_tensors
 
@@ -87,10 +91,33 @@ class Observation(NamedTuple):
     aliased: frozenset = frozenset()
 
 
-def collective(op, dtype, elements):
-    """A ``CollectiveOp`` from an HLO dtype name and an element count."""
-    return CollectiveOp(op=op, dtype=dtype, elements=int(elements),
-                        bytes=int(elements) * _HLO_BYTES.get(dtype, 4))
+def collective(op, dtype, elements, group_size=None):
+    """A ``CollectiveOp`` from an HLO dtype name and an element count (a
+    gather's or scatter's output), priced at the elements' bytes; an
+    all-to-all over a group of known size ``group_size`` at what this
+    rank sends, the (w-1)/w of its buffer bound for the other ranks (the
+    JAX HLO's all-to-all has one operand per peer, and the JAX lint reads
+    one of them)."""
+    es = _HLO_BYTES.get(dtype, 4)
+    n = int(elements)
+    if op == "all-to-all" and group_size:
+        return CollectiveOp(op=op, dtype=dtype, elements=n,
+                            bytes=all_to_all_bytes(n, es, group_size))
+    return CollectiveOp(op=op, dtype=dtype, elements=n, bytes=n * es)
+
+
+def _group_size(args):
+    """The size of the process group among a c10d op's arguments, or
+    None."""
+    from torch.distributed.distributed_c10d import ProcessGroup
+
+    for a in args:
+        if isinstance(a, torch.ScriptObject):
+            try:
+                return ProcessGroup.unbox(a).size()
+            except Exception:   # not a process group
+                continue
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -178,7 +205,7 @@ def _c10d_collective(func, args) -> Optional[CollectiveOp]:
         return collective(op, "f32", 0)
     t = tensors[0]
     return collective(op, HLO_DTYPE.get(dtype_name(t.dtype), "f32"),
-                      t.numel())
+                      t.numel(), _group_size(args))
 
 
 class _ObserveMode(TorchDispatchMode):

@@ -157,6 +157,39 @@ def grid_groups(grid):
     return out
 
 
+def hierarchical_groups(ranks, k, rank):
+    """(intra, inter) process groups of ``rank`` over the line ``ranks``
+    (global ranks in line order) cut into groups of k consecutive ranks:
+    its intra group, and the group of the ranks that hold its place in
+    theirs (hierarchical qgZ's two hops). Every rank of the world creates
+    every group, in the same order, as ``new_group`` requires."""
+    w = len(ranks)
+    m = w // k
+    intra = inter = None
+    for o in range(m):
+        members = ranks[o * k:(o + 1) * k]
+        group = dist.new_group(members)
+        if rank in members:
+            intra = group
+    for i in range(k):
+        members = [ranks[o * k + i] for o in range(m)]
+        group = dist.new_group(members)
+        if rank in members:
+            inter = group
+    return intra, inter
+
+
+def local_world_size() -> int:
+    """The ranks of the world on this node: ``LOCAL_WORLD_SIZE`` (as
+    torchrun sets it), else the whole world when its rendezvous address
+    is this host, else 1."""
+    if "LOCAL_WORLD_SIZE" in os.environ:
+        return int(os.environ["LOCAL_WORLD_SIZE"])
+    if os.environ.get("MASTER_ADDR", "localhost") in _LOCAL_HOSTS:
+        return get_world_size()
+    return 1
+
+
 def get_rank() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 

@@ -908,6 +908,92 @@ def check_seq_worlds(cases, device, out):
                   f"{ref['adam'].get('peak_bytes')}")
 
 
+# the four-card ZeRO-3 cases: name -> (stage, more zero_optimization keys,
+# the dp worlds that run it)
+_ZERO3_CASES = {
+    "s2": (2, {}, (2, 4)),
+    "s3_implicit": (3, {"stage3_scheduled_gathers": False}, (2, 4)),
+    "s3_scheduled": (3, {}, (2, 4)),
+    "qgz": (2, {"quantized_gradients": True}, (2, 4)),
+    "qgz_hier": (2, {"quantized_gradients": True,
+                     "hierarchical_allreduce": True,
+                     "hierarchical_intra_size": 2}, (4,)),
+}
+# the losses' gate against one card: about 7x the worst measured (1.478e-5,
+# scheduled stage 3 at dp 2, 4 x H100 80GB HBM3); every world sums the
+# same rows' gradients in another order, and the int8 weights move the
+# loss by 1.7e-5 relative at full width (chip_smoke.py phase 25 (c))
+ZERO3_LOSS_RTOL = 1e-4
+
+
+@pytest.mark.cuda
+def test_nccl_zero3_worlds_match_one_card(cuda, tmp_path):
+    """On a host with 4 cards: gpt2-350m bf16 at full width (seq 1024, the
+    flash kernels, gas 2, 10 Adam steps) over NCCL worlds of 2 and 4
+    (rank r on card r, 8 / dp rows each: phase 4's global batch of 8),
+    against one card on the same global batch: implicit stage 3 equals
+    stage 2 at the same dp bit for bit (losses, grad norms and the fp32
+    master's digest); stage 2, scheduled stage 3 and qgZ (flat, and
+    hierarchical over pairs at dp 4) within ZERO3_LOSS_RTOL of one card's
+    losses, every rank alike, each step's counted collectives the
+    report's, the scheduled plan armed.
+    Prints each rank's parameter bytes at rest, the bytes the card holds
+    between steps, its peak and the step ms.
+    Skips with fewer than 4 cards."""
+    import numpy as np
+
+    import torch_zero_worker as W
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    steps, gas, rows, seq = 10, 2, 8, 1024
+    ref = W._engine(W.ds_config(1, 0, gas, micro=rows, bf16=True), None,
+                    dtype=torch.bfloat16, device="cuda", model=_GPT2_350M)
+    batches = W.global_batches(0, steps, gas, rows,
+                               _GPT2_350M["vocab_size"], seq)
+    want = [ref.train_batch(batch=W._local(b, 0, rows)).item()
+            for b in batches]
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    for dp in (2, 4):
+        jobs = [(name, "train", dict(
+            dp=dp, stage=stage, gas=gas, steps=steps, seed=0, init=None,
+            device="cuda", model=_GPT2_350M, dtype=torch.bfloat16,
+            zero=zero, micro=rows // dp, seq=seq, master_out=False))
+            for name, (stage, zero, dps) in _ZERO3_CASES.items()
+            if dp in dps]
+        ranks = W.run_world(dp, jobs, str(tmp_path / f"z3_dp{dp}"),
+                            timeout=1500, device="cuda")
+        for name, *_ in jobs:
+            for r, rank in enumerate(ranks):
+                got, what = rank[name], f"{name} dp {dp} rank {r}"
+                assert got["losses"] == ranks[0][name]["losses"], what
+                np.testing.assert_allclose(got["losses"], want,
+                                           rtol=ZERO3_LOSS_RTOL,
+                                           err_msg=what)
+                report = sorted((c["name"], c["count_per_step"])
+                                for c in got["report"]["collectives"])
+                for step in got["comm"]:
+                    assert sorted((c["name"], c["count_per_step"])
+                                  for c in step["collectives"]) == report, \
+                        what
+                rel = max(abs(a - b) / b for a, b in zip(got["losses"],
+                                                          want))
+                ms = sorted(got["step_ms"][1:])
+                print(f"{what}: losses {got['losses']} against one card's "
+                      f"{want} (max rel {rel:.3e}); params at rest "
+                      f"{got['memory']['components']['params_bytes']} B, "
+                      f"device allocated at rest {got['rest_bytes']} B, "
+                      f"peak {got['peak_bytes']} B, step ms (median of "
+                      f"2..) {ms[len(ms) // 2]:.1f}")
+        base, implicit = ranks[0]["s2"], ranks[0]["s3_implicit"]
+        assert implicit["losses"] == base["losses"]
+        assert implicit["norms"] == base["norms"]
+        assert implicit["digest"] == base["digest"]
+        assert ranks[0]["s3_scheduled"]["stage3"]["armed"]
+
+
 def _sharded_leaves(result, sizes):
     """The JAX leaf names whose master this rank holds a shard of."""
     from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model

@@ -176,8 +176,19 @@ def test_comm_accounting_matches_jax():
                         "param_gather_bytes_per_step", "total_bytes_per_step",
                         "baseline", "grad_reduction_vs_fp32"):
                 assert ours[key] == theirs[key], key
-    with pytest.raises(NotImplementedError, match="A13"):
-        ca.volume_report([], 2, quantized_gradients=True)
+    # the quantized branches (qgZ flat and hierarchical, qwZ), ported in
+    # full: the same records, byte for byte
+    for dp, k in ((2, 0), (4, 2), (4, 0)):
+        kw = dict(gas=2, quantized_gradients=True, quantized_weights=True,
+                  block_size=32, intra_size=k, param_gathers_per_step=2,
+                  implicit_param_gathers_per_step=4)
+        ours = ca.volume_report(
+            [ca.LeafSpec(f"l{i}", s, ca.zero_shard_dim(s, dp))
+             for i, s in enumerate(shapes)], dp, **kw)
+        theirs = jca.volume_report(
+            [jca.LeafSpec(f"l{i}", s, jca.zero_shard_dim(s, dp))
+             for i, s in enumerate(shapes)], dp, **kw)
+        assert ours == theirs
     assert ca.dtype_bytes(torch.bfloat16) == 2
 
 

@@ -212,9 +212,13 @@ def test_lr_schedules_match_jax(name, params):
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"zero_optimization": {"stage": 2, "quantized_gradients": True}},
-     "A13"),
-    ({"zero_optimization": {"stage": 3}}, "A13"),
+    # ZeRO stage 3 and the quantized collectives (A13's ZeRO half) run
+    # now: the engine accepts them (item None)
+    pytest.param({"zero_optimization": {"stage": 2,
+                                        "quantized_gradients": True}},
+                 None, id="extra0-A13"),
+    pytest.param({"zero_optimization": {"stage": 3}}, None,
+                 id="extra1-A13"),
     # ZeRO-Offload (A14) and activation checkpoints in host memory (A14b)
     # both run now: the engine accepts the pair (item None)
     pytest.param({"zero_optimization": {"stage": 2, "cpu_offload": True},
@@ -222,8 +226,12 @@ def test_lr_schedules_match_jax(name, params):
                  None, id="extra2-A14"),
     pytest.param({"mesh": {"model": 2}}, "A7b", id="extra3-A7"),
     ({"mesh": {"pipe": 2}}, "A12"),
-    ({"optimizer": {"type": "OneBitAdam", "params": {"lr": 1e-3}}}, "A13"),
-    ({"optimizer": {"type": "ZeroOneAdam", "params": {"lr": 1e-3}}}, "A13"),
+    pytest.param({"optimizer": {"type": "OneBitAdam",
+                                "params": {"lr": 1e-3}}}, "A13b",
+                 id="extra5-A13"),
+    pytest.param({"optimizer": {"type": "ZeroOneAdam",
+                                "params": {"lr": 1e-3}}}, "A13b",
+                 id="extra6-A13"),
     ({"resilience": {"async_commit": True}}, "A16"),
 ])
 def test_unported_configurations_raise(extra, item):
@@ -234,8 +242,15 @@ def test_unported_configurations_raise(extra, item):
 
     if item is None:
         eng = build()
-        assert eng._offload and \
-            eng._config.activation_checkpointing_config.cpu_checkpointing
+        if eng._config.zero_config.cpu_offload:
+            assert eng._offload and \
+                eng._config.activation_checkpointing_config.cpu_checkpointing
+        else:
+            assert eng.zero_optimization_stage() == \
+                extra["zero_optimization"]["stage"]
+            # a world of one: nothing to quantize or partition, as the
+            # JAX engine disarms both at dp 1
+            assert not eng._qgz_armed and not eng._s3_sched_armed
         return
     with pytest.raises(NotImplementedError, match=item):
         build()

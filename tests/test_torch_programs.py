@@ -10,6 +10,11 @@ tools/graftlint/program_lint.py).
   ``calls_per_step``, for the base, offload and serving families.
 - **The CLI over the port's CPU corpus** comes out clean and complete in
   one subprocess.
+- **The stage-3 and qgZ families** (``stage3``: s3_fwd, s3_bwd,
+  apply_step; ``base-qgz``: micro_step on the s8 wire, apply_step,
+  eval_loss) on gloo worlds of 2 against the JAX engines at mesh data 2
+  (tests/test_torch_zero3.py's worlds): the same contracts and no finding;
+  three planted faults, one finding each.
 - **One test per rule**: each of the eleven rules fires once on its
   planted fault and stays quiet without it, on hand-registered programs
   (observed for real on CPU tensors) or on observations built by hand.
@@ -36,6 +41,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 import deepspeed_tpu_torch
 from deepspeed_tpu_torch.models.convert import params_from_jax
 from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+from deepspeed_tpu_torch.runtime.engine import LOSS_REDUCTION_BYTES
 from deepspeed_tpu_torch.serving import InferenceEngine
 from deepspeed_tpu_torch.telemetry import program_checks as pc
 from deepspeed_tpu_torch.telemetry import program_lint as pl
@@ -45,6 +51,7 @@ from deepspeed_tpu_torch.telemetry.programs import (CONTRACT_KEYS,
                                                     register_program)
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import test_torch_zero3 as Z3  # noqa: E402
 import torch_zero_worker as W  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,6 +66,13 @@ EXPECTED_PROGRAMS = {
                      "spec_verify"},
     "serving-sparse": {"sparse_decode_step", "sparse_prefill_chunk8",
                        "sparse_prefill_chunk4_final"},
+}
+# the JAX corpus's stage-3 and qgZ families (EXPECTED_PROGRAMS there),
+# which need a world of dp > 1: built in the gloo worlds of
+# tests/test_torch_zero3.py, on the tiny GPT-2 at dp 2
+WORLD_FAMILIES = {
+    "base-qgz": {"apply_step", "eval_loss", "micro_step"},
+    "stage3": {"apply_step", "s3_bwd", "s3_fwd"},
 }
 CLI_BUDGET_S = 60
 # TrainState fields that are host values in the port (its step counters
@@ -644,3 +658,52 @@ def test_the_lint_on_the_card():
     assert [(f.rule, f.path) for f in got] == [
         ("program-host-transfer", "<serving-sparse:sparse_decode_step>"),
         ("program-host-transfer", "<serving:decode_step>")]
+
+
+@pytest.fixture(scope="session")
+def zero3_world(tmp_path_factory):
+    """The worlds of tests/test_torch_zero3.py (gloo worlds of the port and
+    the JAX engines beside), shared with it."""
+    return Z3.worlds(tmp_path_factory)
+
+
+@pytest.mark.parametrize("name,family", [("s3g2", "stage3"),
+                                         ("qgz2", "base-qgz")])
+def test_zero3_families_match_the_jax_engines(zero3_world, name, family):
+    """The ``stage3`` and ``base-qgz`` families of the JAX program lint's
+    corpus (tests/unit/test_program_lint.py), on the tiny GPT-2 at dp 2:
+    the same programs with the same contracts and calls per step, the
+    same state donated (the stash at s3_bwd; the port's fp32 master
+    beside, C-w10), and no finding."""
+    got = Z3.port_result(zero3_world, name)
+    want = Z3.jax_result(zero3_world, name)
+    assert got["lint"] == []
+    assert set(got["contracts"]) == set(want["contracts"]) \
+        == WORLD_FAMILIES[family]
+    for prog, (c, calls, donated) in got["contracts"].items():
+        jc, jcalls, jdonated = want["contracts"][prog]
+        assert calls == jcalls, prog
+        # C-w10: at fp32 the port keeps its master shards apart from the
+        # parameters (the JAX TrainState has no master there)
+        assert set(donated) - {"master"} == set(jdonated) - HOST_FIELDS, \
+            prog
+        c, jc = dict(c), dict(jc)
+        c.pop("donates", None)
+        jc.pop("donates", None)
+        if "comm_budget_bytes" in jc:
+            # C-w16: the port's budget adds the loss's all-reduce over the
+            # ranks, which the JAX report leaves out
+            assert c.pop("comm_budget_bytes") == \
+                jc.pop("comm_budget_bytes") + LOSS_REDUCTION_BYTES, prog
+        assert c == jc, prog
+
+
+def test_zero3_family_faults_fire_once_each(zero3_world):
+    for rank in Z3.port_world(zero3_world, "faults"):
+        got = rank["faults"]
+        assert [(r, p) for r, p, _ in got["regather"]] == [
+            ("program-forbidden-collective", "<base:s3_bwd>")]
+        assert [(r, p) for r, p, _ in got["extra_gather"]] == [
+            ("program-op-count", "<base:s3_fwd>")]
+        assert [(r, p) for r, p, _ in got["codes_twice"]] == [
+            ("program-collective-budget", "<base:micro_step>")]

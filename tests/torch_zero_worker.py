@@ -43,7 +43,8 @@ SP_SPARSITY = dict(num_heads=4, block=16, num_local_blocks=2)
 
 
 def ds_config(dp, stage, gas, optimizer="Adam", fp16=False, lr=1e-3,
-              micro=MICRO, offload=False, weight_decay=0.01):
+              micro=MICRO, offload=False, weight_decay=0.01, zero=None,
+              bf16=False):
     cfg = {"train_batch_size": micro * gas * dp,
            "train_micro_batch_size_per_gpu": micro,
            "gradient_accumulation_steps": gas,
@@ -51,20 +52,34 @@ def ds_config(dp, stage, gas, optimizer="Adam", fp16=False, lr=1e-3,
                          "params": {"lr": lr,
                                     "weight_decay": weight_decay}},
            "gradient_clipping": 1.0,
-           "zero_optimization": {"stage": stage, "cpu_offload": offload},
+           "zero_optimization": dict({"stage": stage,
+                                      "cpu_offload": offload}, **(zero or {})),
            "steps_per_print": 10 ** 9}
+    if bf16:
+        cfg["bf16"] = {"enabled": True}
     if fp16:
         cfg["fp16"] = {"enabled": True, "loss_scale": 0,
                        "initial_scale_power": 8, "hysteresis": 1}
     return cfg
 
 
-def global_batches(seed, steps, gas, rows):
-    """(steps, gas, rows, SEQ) token ids from a numpy seed: the global
+def global_batches(seed, steps, gas, rows, vocab=TINY["vocab_size"],
+                   seq=SEQ):
+    """(steps, gas, rows, seq) token ids from a numpy seed: the global
     batch of each step (``rows`` = micro * dp); rank r of a world with
     micro-batch m feeds rows r*m:(r+1)*m."""
-    return np.random.default_rng(seed).integers(
-        0, TINY["vocab_size"], (steps, gas, rows, SEQ))
+    return np.random.default_rng(seed).integers(0, vocab,
+                                                (steps, gas, rows, seq))
+
+
+def _digest(master):
+    """sha256 of a {name: array} master's bytes, in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(master):
+        h.update(np.ascontiguousarray(master[name]).tobytes())
+    return h.hexdigest()
 
 
 # ---------------------------------------------------------------------------
@@ -123,7 +138,7 @@ def _layout(eng):
     master, optimizer state and accumulator (under offload, the host's)."""
     opt = [eng._host_m, eng._host_v] if eng._offload \
         else eng.optimizer.state_lists()
-    return {n: {"full": tuple(p.shape),
+    return {n: {"full": eng.partition.shapes[i],
                 "master": tuple(eng.master[i].shape),
                 "opt": [tuple(lst[i].shape) for lst in opt],
                 "accum": tuple(eng.accum[i].shape)}
@@ -132,30 +147,195 @@ def _layout(eng):
 
 def job_train(dp, stage, gas, steps, seed, init, optimizer="Adam",
               micro=MICRO, save=None, save_at=None, device="cpu",
-              model=None, offload=False):
+              model=None, offload=False, zero=None, dtype=torch.float32,
+              load=None, programs=None, master_out=True, seq=SEQ):
     """``steps`` train_batch steps; losses, grad norms, the final master
     and the counted collectives of each step. With ``save``, a checkpoint
-    after step ``save_at``; ``offload``: ZeRO-Offload (cpu_offload)."""
+    after step ``save_at``; ``offload``: ZeRO-Offload (cpu_offload);
+    ``zero``: more ``zero_optimization`` keys; ``load``: a tag loaded
+    first; ``programs``: then the programs of gas forward / backward /
+    step calls, linted (``_drive_programs``). At stage 3 also the gather
+    plan's report and the shapes the parameters hold at rest. The
+    master's digest always, the master itself with ``master_out``; on the
+    card each step's ms, the peak of the bytes allocated and the bytes
+    allocated between steps."""
     import torch.distributed as dist
 
     rank = dist.get_rank()
+    cuda = device == "cuda"
+    if cuda:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     eng = _engine(ds_config(dp, stage, gas, optimizer, micro=micro,
-                            offload=offload), init,
-                  device=device, model=model)
-    batches = global_batches(seed, steps, gas, micro * dp)
-    out = {"losses": [], "norms": [], "comm": [], "layout": _layout(eng)}
+                            offload=offload, zero=zero,
+                            bf16=dtype == torch.bfloat16), init,
+                  dtype=dtype, device=device, model=model)
+    if load is not None:
+        eng.load_checkpoint(load)
+    batches = global_batches(seed, steps, gas, micro * dp,
+                             (model or TINY)["vocab_size"], seq)
+    out = {"losses": [], "norms": [], "comm": [], "layout": _layout(eng),
+           "step_ms": []}
     for step in range(steps):
+        t0 = time.perf_counter()
         out["losses"].append(eng.train_batch(
             batch=_local(batches[step], rank, micro)).item())
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
         out["norms"].append(float(eng._last_metrics["grad_norm"]))
         out["comm"].append(eng.last_step_comm)
         if save is not None and step + 1 == save_at:
             eng.save_checkpoint(save)
             out["saved"] = os.path.join(save, f"global_step{save_at}")
-    out["master"] = _full_master(eng)
+    if cuda:
+        torch.cuda.synchronize()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        # what the device holds between steps: the train state at rest
+        out["rest_bytes"] = torch.cuda.memory_allocated()
+    master = _full_master(eng)
+    out["digest"] = _digest(master)
+    out["master"] = master if master_out else None
     out["report"] = eng.comm_volume_report()
     out["memory"] = eng._analytic_memory_components()
     out["skipped"] = eng.skipped_steps
+    out["stage3"] = eng.stage3_report()
+    out["rest"] = {n: tuple(p.shape)
+                   for n, p in zip(eng.param_names, eng.params)}
+    if programs is not None:
+        out["lint"], out["contracts"] = _drive_programs(
+            eng, _local(batches[0], rank, micro), programs)
+    return out
+
+
+def _drive_programs(eng, batch, names):
+    """gas forward / backward / step calls (and eval_loss when ``names``
+    has it) on one micro-batch, observed: the lint's findings and
+    {program: (contract, calls_per_step, donated state fields)} of
+    ``names`` (a donated name's field: its part before the first "/",
+    tiny tensors under the contract's floor left out)."""
+    from deepspeed_tpu_torch.telemetry.program_lint import lint_programs
+
+    reg = eng.program_registry
+    reg.observing = True
+    micro = {k: v[0] for k, v in batch.items()}
+    for _ in range(eng.gradient_accumulation_steps()):
+        eng.backward(eng(micro))
+        eng.step()
+    if "eval_loss" in names:
+        eng.eval_loss(micro)
+    reg.observing = False
+    res = lint_programs([reg], use_baseline=False)
+    paths = {f"<{reg.engine}:{name}>" for name in names}
+    summary = reg.summary()
+    contracts = {}
+    for name in names:
+        c = dict(summary[name]["contract"])
+        floor = c.get("donation_min_elements", 0)
+        donated = sorted({n.split("/")[0] for n, (_, _, size) in
+                          reg.get(name).observation.donated.items()
+                          if n in c.get("donates", ()) and size >= floor})
+        contracts[name] = (c, summary[name]["calls_per_step"], donated)
+    # the family's programs (train_batch's ran before the lint observed)
+    return [(f.rule, f.path, f.message) for f in res.new
+            if f.path in paths], contracts
+
+
+def job_zero3_faults(dp, seed, init):
+    """One planted fault per program of the stage-3 and qgZ families, each
+    on a new engine: the backward gathering again (s3_bwd forbids
+    all-gathers), one int8 gather beyond the plan's (s3_fwd's op count),
+    and qgZ's codes sent twice (micro_step's analytic budget): the
+    findings of each."""
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    batch = _local(global_batches(seed, 1, 1, MICRO * dp)[0], rank, MICRO)
+    qgz = {"quantized_gradients": True}
+
+    def regather(eng):
+        run = eng._backward_micro
+
+        def backward_micro(loss):
+            eng._s3_blocks.gather(0, counted=True)
+            run(loss)
+        eng._backward_micro = backward_micro
+
+    def extra_gather(eng):
+        run = eng._s3_gather
+
+        def gather():
+            run()
+            codes = torch.zeros(8, dtype=torch.int8)
+            eng.dp_group.quantized_all_gather(
+                torch.empty(8 * dp, dtype=torch.int8), codes, "qwz_ag",
+                [("extra", 8 * dp)])
+        eng._s3_gather = gather
+
+    def codes_twice(eng):
+        group = eng.dp_group
+        post = group.quantized_all_to_all
+
+        def all_to_all(out, inp, prefix, leaves, link="flat"):
+            if prefix == "qgz_a2a":
+                post(torch.empty_like(out), inp, prefix, leaves, link)
+            return post(out, inp, prefix, leaves, link)
+        group.quantized_all_to_all = all_to_all
+
+    out = {}
+    for name, stage, zero, plant, programs in (
+            ("regather", 3, None, regather, ["s3_bwd"]),
+            ("extra_gather", 3, None, extra_gather, ["s3_fwd"]),
+            ("codes_twice", 2, qgz, codes_twice, ["micro_step"])):
+        eng = _engine(ds_config(dp, stage, 1, zero=zero), init)
+        plant(eng)
+        out[name] = _drive_programs(eng, batch, programs)[0]
+    return out
+
+
+def job_zero3_blocks(dp, seed, init, steps, gas=2):
+    """The implicit stage-3 path under no remat and each remat policy:
+    the losses and the final master's digest, and, watched through the
+    engine's per-block gathers (runtime/zero/gathers.py), the number of
+    blocks, the most of them whole at once and, of the weights one more
+    forward gathered, how many are still alive after it."""
+    import weakref
+
+    import torch.distributed as dist
+
+    rank = dist.get_rank()
+    batches = global_batches(seed, steps, gas, MICRO * dp)
+    out = {}
+    for policy in (None, "nothing", "attn_out", "dots"):
+        model = dict(TINY, remat=policy is not None,
+                     remat_policy=policy or "nothing")
+        eng = _engine(ds_config(dp, 3, gas, zero={
+            "stage3_scheduled_gathers": False}), init, model=model)
+        blocks = eng._s3_blocks
+        most, freed = [0], []
+        gather, free = blocks.gather, blocks.free
+
+        def watched_gather(b, counted, gather=gather, blocks=blocks):
+            gather(b, counted)
+            most[0] = max(most[0], len(blocks.live))
+
+        def watched_free(b, free=free, blocks=blocks, eng=eng):
+            freed.extend(weakref.ref(eng.params[i].data)
+                         for i in blocks.blocks[b])
+            free(b)
+        blocks.gather, blocks.free = watched_gather, watched_free
+        losses = [eng.train_batch(batch=_local(b, rank, MICRO)).item()
+                  for b in batches]
+        digest = _digest(_full_master(eng))
+        freed.clear()
+        micro = _local(batches[0], rank, MICRO)
+        loss = eng.forward({k: v[0] for k, v in micro.items()})
+        alive = sum(r() is not None for r in freed)
+        n_freed = len(freed)
+        eng.backward(loss)
+        out[str(policy)] = dict(
+            losses=losses, digest=digest, blocks=len(blocks.blocks),
+            pinned=blocks.pinned is not None, most=most[0],
+            freed=n_freed, alive=alive)
     return out
 
 
@@ -184,13 +364,14 @@ def job_load(dp, stage, gas, load, model=None):
     return {"path": path, "leaves": leaves, "layout": _layout(eng)}
 
 
-def job_overflow(dp, seed, init, plant_rank, param):
-    """fp16 stage 2: a non-finite gradient planted on ``plant_rank`` only
-    (element 0 of ``param``) in the first step."""
+def job_overflow(dp, seed, init, plant_rank, param, stage=2, zero=None):
+    """fp16 at ``stage`` (default 2): a non-finite gradient planted on
+    ``plant_rank`` only (element 0 of ``param``) in the first step."""
     import torch.distributed as dist
 
     rank = dist.get_rank()
-    eng = _engine(ds_config(dp, 2, 1, fp16=True), init, torch.float16)
+    eng = _engine(ds_config(dp, stage, 1, fp16=True, zero=zero), init,
+                  torch.float16)
     i = eng.param_names.index(param)
     if rank == plant_rank:
         def plant(g):
@@ -215,6 +396,46 @@ def job_overflow(dp, seed, init, plant_rank, param):
     eng.train_batch(batch=_local(batches[1], rank, MICRO))
     out["skipped2"] = eng.skipped_steps
     return out
+
+
+def job_zero3_misc(dp, seed):
+    """The int8 collectives over the world: each rank's shard of a (4 *
+    dp, 6) leaf along dim 0 gathered (quantized_all_gather) and its
+    straight-through backward (each rank's cotangent reduce-scattered to
+    the shards); each rank's (6, 4 * dp) tensor reduce-scattered along
+    dim 1 (quantized_reduce_scatter, block 8); then a stage-3 engine's
+    forward() twice without backward()."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.runtime.custom_collectives import (
+        quantized_all_gather, quantized_reduce_scatter)
+
+    rank = dist.get_rank()
+    rng = np.random.default_rng(seed)
+    full = torch.from_numpy(rng.standard_normal((4 * dp, 6)).astype(
+        np.float32))
+    cot = torch.from_numpy(rng.standard_normal((dp, 4 * dp, 6)).astype(
+        np.float32))
+    xs = torch.from_numpy(rng.standard_normal((dp, 6, 4 * dp)).astype(
+        np.float32))
+    eng = _engine(ds_config(dp, 3, 1), None)
+    shard = full[4 * rank:4 * (rank + 1)].clone().requires_grad_(True)
+    gathered = quantized_all_gather(shard, eng.dp_group, dim=0, name="w")
+    (gathered * cot[rank]).sum().backward()
+    reduced = quantized_reduce_scatter(xs[rank], eng.dp_group, dim=1,
+                                       block_size=8, name="g")
+    comm = eng.dp_group.counter.take()
+    batch = _local(global_batches(seed, 1, 1, MICRO * dp)[0], rank, MICRO)
+    eng.forward({k: v[0] for k, v in batch.items()})
+    try:
+        eng.forward({k: v[0] for k, v in batch.items()})
+        twice = None
+    except RuntimeError as e:
+        twice = str(e)
+    return {"gathered": gathered.detach().numpy(),
+            "grad": shard.grad.numpy(), "full": full.numpy(),
+            "cot": cot.numpy(), "xs": xs.numpy(),
+            "reduced": reduced.numpy(), "comm": comm, "twice": twice}
 
 
 def job_sampler(dp, n):
@@ -638,7 +859,9 @@ def job_seq_refusals():
 JOBS = {"seq": job_seq, "seq_attention": job_seq_attention,
         "seq_load": job_seq_load, "seq_refusals": job_seq_refusals,
         "moe": job_moe, "programs": job_programs, "tag_check": job_tag_check, "train": job_train, "resume": job_resume, "load": job_load,
-        "overflow": job_overflow, "sampler": job_sampler}
+        "overflow": job_overflow, "sampler": job_sampler,
+        "zero3_misc": job_zero3_misc, "zero3_faults": job_zero3_faults,
+        "zero3_blocks": job_zero3_blocks}
 
 
 def main(spec_path):
