@@ -293,6 +293,40 @@ failure:
               reduce-scatter of 4 ranks' gradients within the int8 bound of
               the dense mean; round's true derivative (a planted fault,
               zero gradients) must fail the gradient gate
+ 26. onebit   1-bit Adam, 0/1 Adam and CSR gradients (ROADMAP A13b), on
+              phase 4's model, batch and precision with gradient clipping
+              off, each run in an NCCL world of one (their wires arm at
+              dp > 1 only: tests/test_torch_cuda.py
+              ::test_nccl_onebit_worlds_match_gloo on four cards). (a)
+              1-bit Adam, freeze_step 5, 10 steps: the wire disarmed and
+              logged ("data-parallel degree is 1"); steps 1-5 equal Adam
+              without bias correction bit for bit (losses and fp32
+              master); v unchanged bit for bit over steps 6-10; each
+              frozen step's momentum (its input and residuals captured on
+              the card) equals quantize_with_error_feedback on the CPU:
+              packed codes bit for bit, scales within 1e-6; B1-B3 480
+              each; planted faults: sign(0) -> -1 on the CPU side must
+              break the codes gate, v updated after the freeze the v gate.
+              (b) 0/1 Adam, 10 steps: disarmed (warmup for ever), losses
+              and fp32 master equal Adam without bias correction bit for
+              bit over all ten, and so (a)'s first five. (c) The trained
+              model's gradients of one micro-batch, per JAX leaf of each
+              size the model has (layer 0's, the embeddings', ln_f's), as
+              4 virtual ranks' contributions (seeded): compressed_allreduce
+              _virtual and quantized_all_reduce_virtual at bits 1 and 8,
+              flat and over intra groups of 2, 3 rounds with the residuals
+              carried: the codes, scales and outputs on the card equal
+              the CPU's bit for bit on 4 leaves; the rounds' sum within
+              1e-5 (of its largest term) of the dense means' sum less the
+              residuals (error feedback; plus the inter hop's own error
+              over groups); ms per round, one rank's wire bytes and a
+              dense fp32 all-reduce's; the server residual dropped (a
+              planted fault) must fail that gate. (d) The JAX tests'
+              embedding model at gpt2-350m's table (50304 x 1024) under
+              ZeRO-Offload stage 2, 6 steps with and without
+              sparse_gradients: losses within rtol 1e-5, the table's
+              device-to-host bytes rows x dim (8192 x 1024) against vocab
+              x dim
 The line before the last is the kernels JSON (the fp16 rows named
 <kernel>_fp16, their launches from phase 13); the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card and nvcc.
@@ -4939,6 +4973,551 @@ def phase_zero3(env, stage0):
     return {"codec": codec, "loss_rel": rel, "step_ms": sched["step_ms"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 26: 1-bit Adam, 0/1 Adam and CSR gradients (ROADMAP A13b)
+# ---------------------------------------------------------------------------
+# 1-bit Adam's freeze in (a); the virtual ranks and rounds of (c); the JAX
+# leaves whose wires (c) also runs on the CPU; the codes' scale tolerance
+# of (a) (float64 norms on both sides, rounded to fp32); the gate of the
+# error-feedback identity of (c), relative to the leaf's largest term; the
+# embedding model of (d) (gpt2-350m's table) and its steps
+ONEBIT_FREEZE = 5
+ONEBIT_RANKS = 4
+ONEBIT_ROUNDS = 3
+ONEBIT_CPU_LEAVES = ("wpe", "h_0/attn/c_proj/kernel", "h_0/ln_1/scale",
+                     "h_0/mlp/c_fc/bias")
+ONEBIT_SCALE_RTOL = 1e-6
+ONEBIT_EF_GATE = 1e-5
+CSR_VOCAB = 50304
+CSR_DIM = 1024
+CSR_CLASSES = 4
+CSR_STEPS = 6
+CSR_RTOL = 1e-5       # tests/unit/test_csr.py:119
+
+
+def _embed_model(vocab, dim, n_classes):
+    """The JAX tests' SimpleEmbedModel (tests/unit/simple_model.py:153-198,
+    its torch counterpart tests/torch_zero_worker.py ``EmbedModel``): ids
+    -> an untied embedding -> mean over the sequence -> a linear
+    classifier; the table's gradient is row-sparse."""
+    import torch
+
+    class EmbedModel(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.emb = torch.nn.Parameter(torch.zeros(vocab, dim))
+            self.w = torch.nn.Parameter(torch.zeros(dim, n_classes))
+            self.b = torch.nn.Parameter(torch.zeros(n_classes))
+
+        def init_weights(self, generator):
+            with torch.no_grad():
+                for p in (self.emb, self.w):
+                    p.copy_(torch.randn(p.shape, generator=generator) * 0.1)
+                self.b.zero_()
+
+        def loss(self, batch, generator=None, train=True):
+            x = self.emb[batch["ids"]].mean(dim=1)
+            logp = torch.log_softmax((x @ self.w + self.b).float(), dim=-1)
+            loss = -logp.gather(1, batch["y"][:, None].long()).mean()
+            return loss, {"loss": loss}
+
+        def sparse_grad_spec(self):
+            return {"emb": True, "w": False, "b": False}
+
+        def sparse_grad_tokens(self, batch):
+            return batch["ids"].numel()
+
+    return EmbedModel()
+
+
+def _onebit_run(env, optimizer, params, label, keep=(), capture=None,
+                keep_engine=False):
+    """phase 4's run (bf16, micro 8, gas 2, WarmupLR) with ``optimizer``
+    and gradient clipping off, in an NCCL world of one: 10 steps under
+    _train_steps (B1-B3 480 each); ``keep``: the steps after which the
+    fp32 master is cloned on the card; ``capture(engine, step)`` runs
+    after each step, untimed. Returns the run with ``masters`` {step:
+    [tensors]} and, with ``keep_engine``, the engine."""
+    import torch
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch import init_distributed, initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
+
+    saved = _world_of_one()
+    try:
+        init_distributed()
+        cfg = gpt2_config(SLICE_MODEL, n_positions=SLICE_SEQ,
+                          dtype=torch.bfloat16, remat=False)
+        config = dict(_ds_config(SLICE_MICRO, SLICE_GAS),
+                      optimizer={"type": optimizer,
+                                 "params": dict({"lr": 1e-4}, **params)},
+                      gradient_clipping=0.0, mesh={"data": 1})
+        engine, _, _, _ = initialize(model=GPT2Model(cfg),
+                                     config_params=config)
+        batch = _slice_batch(cfg.vocab_size, SLICE_GAS, SLICE_MICRO,
+                             SLICE_SEQ, seed=0)
+        want = {name: cfg.n_layer * SLICE_GAS * SLICE_STEPS
+                for name, _ in FLASH_KERNELS}
+        want.update({name: 0 for name, _ in SPARSE_KERNELS})
+        masters = {}
+
+        def after_step():
+            step = engine.global_steps
+            if step in keep:
+                masters[step] = [m.detach().clone() for m in engine.master]
+            if capture is not None:
+                capture(engine, step)
+
+        run = _train_steps(env, engine, batch, f"{SLICE_MODEL} {label}",
+                           SLICE_SEQ, SLICE_MICRO, SLICE_GAS, SLICE_STEPS,
+                           want, after_step=after_step, falling=False)
+        run["masters"] = masters
+        run["wire"] = engine._wire
+        if not keep_engine:
+            run.pop("engine")
+        return run
+    finally:
+        if dist.is_initialized() and not keep_engine:
+            dist.destroy_process_group()
+        for k, value in saved.items():
+            if value is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = value
+
+
+def _same(a, b):
+    """Two lists of tensors equal bit for bit."""
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _frozen_codes(capture, faulty=False):
+    """(a)'s gate on one frozen step: each leaf's momentum in (captured
+    on the card: b1 * m + (1 - b1) * g, and the residuals) through
+    quantize_with_error_feedback plain on the CPU; the card's code (the
+    sign bit of each element, what pack_signs packs) must equal the CPU's
+    bit for bit, and the scale within ONEBIT_SCALE_RTOL. ``faulty``: the
+    CPU's sign(0) is -1 (a planted fault). The leaves are checked in
+    parallel threads. Returns (leaves whose codes differ, worst scale
+    rtol, elements checked)."""
+    import torch
+
+    from deepspeed_tpu_torch.runtime import custom_collectives as cc
+
+    def sign_compress(x):
+        norm = torch.linalg.vector_norm(x, dtype=torch.float64).float()
+        scale = norm / torch.sqrt(torch.tensor(float(x.numel())))
+        signs = torch.where(x > 0, 1.0, -1.0)
+        return scale, signs, x - scale * signs
+
+    def twin(x, we, se):
+        if not faulty:
+            return cc.quantize_with_error_feedback(x, we, se)
+        ws, s, _ = sign_compress(x + we)
+        ss, s2, _ = sign_compress(ws * s + se)
+        return ss * s2, None, None
+
+    def one(item):
+        x, we, se, out = item
+        codes = (out >= 0).cpu()
+        scale = float(out.abs().max())
+        ref, _, _ = twin(x.cpu(), we.cpu(), se.cpu())
+        rs = float(ref.abs().max())
+        return (not torch.equal(ref >= 0, codes),
+                abs(scale - rs) / rs if rs else abs(scale), x.numel())
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        got = list(pool.map(one, capture))
+    return ([j for j, (b, _, _) in enumerate(got) if b],
+            max(w for _, w, _ in got), sum(n for _, _, n in got))
+
+
+def _onebit_case(env, ref):
+    """(a): 1-bit Adam with freeze_step 5 against ``ref`` (the Adam run
+    without bias correction); returns the run and its engine."""
+    import logging
+
+    import torch
+
+    from deepspeed_tpu_torch.utils.logging import logger
+
+    frozen_checks = []
+    v_at = {}
+
+    def capture(engine, step):
+        opt = engine.optimizer
+        if step == ONEBIT_FREEZE:
+            v_at["freeze"] = [v.clone() for v in opt.v]
+            # each later step's momentum through the wire, captured on the
+            # card (inputs and output), checked on the CPU after the step
+            original = opt.compress_momentum
+
+            def compress(skip=None):
+                lm = opt.leaf_map
+                ins = [(lm.gather(j, opt.m).clone(),
+                        opt.worker_error[j].clone(),
+                        opt.server_error[j].clone())
+                       for j in range(len(lm.sizes))]
+                original(skip)
+                v_at["capture"] = [
+                    ins[j] + (lm.gather(j, opt.m).clone(),)
+                    for j in range(len(lm.sizes))]
+            opt.compress_momentum = compress
+        if step > ONEBIT_FREEZE:
+            got = v_at.pop("capture")
+            frozen_checks.append(_frozen_codes(got))
+            if step == ONEBIT_FREEZE + 1:
+                v_at["fault"] = _frozen_codes(got, faulty=True)
+            del got
+
+    records = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    handler = Catch(level=logging.WARNING)
+    logger.addHandler(handler)
+    try:
+        run = _onebit_run(env, "OneBitAdam", {"freeze_step": ONEBIT_FREEZE},
+                          "1-bit Adam", keep=(ONEBIT_FREEZE,),
+                          capture=capture, keep_engine=True)
+    finally:
+        logger.removeHandler(handler)
+    engine = run["engine"]
+    if not any("OneBitAdam: wire compression DISARMED" in r
+               and "data-parallel degree is 1" in r for r in records):
+        raise RuntimeError(f"onebit (a): no disarmed warning at dp 1: "
+                           f"{records}")
+    if run["losses"][:ONEBIT_FREEZE] != ref["losses"][:ONEBIT_FREEZE] \
+            or not _same(run["masters"][ONEBIT_FREEZE],
+                         ref["masters"][ONEBIT_FREEZE]):
+        raise RuntimeError(f"onebit (a): the warmup steps differ from Adam "
+                           f"without bias correction: {run['losses']} "
+                           f"against {ref['losses']}")
+    if not _same(engine.optimizer.v, v_at["freeze"]):
+        raise RuntimeError("onebit (a): v moved after the freeze")
+    bad = [(s, b) for s, (b, _, _) in enumerate(frozen_checks, 1) if b]
+    worst = max(w for _, w, _ in frozen_checks)
+    if len(frozen_checks) != SLICE_STEPS - ONEBIT_FREEZE or bad \
+            or worst > ONEBIT_SCALE_RTOL:
+        raise RuntimeError(f"onebit (a): the frozen momentum's codes differ "
+                           f"from the CPU twin's at {bad} (scale rtol "
+                           f"{worst:.2e})")
+    fault_bad = v_at["fault"][0]
+    if not fault_bad:
+        raise RuntimeError("onebit (a): the planted fault (sign(0) -> -1) "
+                           "passed the codes gate")
+    # the second planted fault: v updated after the freeze
+    held = [v.clone() for v in engine.optimizer.v]
+    engine._onebit_frozen = lambda: False
+    engine.train_batch(batch=run["batch"])
+    del engine._onebit_frozen
+    if _same(engine.optimizer.v, held):
+        raise RuntimeError("onebit (a): the planted fault (v updated after "
+                           "the freeze) passed the v gate")
+    del held, v_at["freeze"]
+    n = frozen_checks[0][2]
+    log(f"onebit (a): {SLICE_MODEL} 1-bit Adam, freeze_step "
+        f"{ONEBIT_FREEZE}, NCCL world of one (wire disarmed: 'data-parallel "
+        f"degree is 1'): steps 1-{ONEBIT_FREEZE} equal Adam without bias "
+        f"correction bit for bit (losses and fp32 master); v unchanged bit "
+        f"for bit over steps {ONEBIT_FREEZE + 1}-{SLICE_STEPS}; each frozen "
+        f"step's momentum ({n} elements, {len(engine.optimizer.leaf_map.sizes)}"
+        f" leaves) equals quantize_with_error_feedback on the CPU: packed "
+        f"codes bit for bit, scales within {worst:.1e} (gate "
+        f"{ONEBIT_SCALE_RTOL:g}); planted faults: sign(0) -> -1 breaks "
+        f"{len(fault_bad)} leaves' codes, v updated after the freeze moves "
+        f"v; B1-B3 {run['launches']['flash_fwd']} launches each; step ms "
+        f"{run['step_ms']:.1f} (codes captured on frozen steps) against "
+        f"Adam's {ref['step_ms']:.1f} on {env['smi']}")
+    return run, engine
+
+
+def _ef_ratio(sums, means, wes, ses, stateless):
+    """How far the sum of a wire's rounds lies from the sum of the dense
+    means beyond what its residuals hold: |sum(out) - sum(mean) +
+    mean_r(we_r) + se (+ the stateless hop's error)|, over the largest of
+    those terms (0 in exact arithmetic: error feedback)."""
+    import torch
+
+    we = torch.stack([w.double() for w in wes]).mean(0)
+    se = torch.cat([s.double() for s in ses])
+    ident = sums - means + we + se + stateless
+    scale = means.abs().max() + we.abs().max() + se.abs().max()
+    return float(ident.abs().max() / scale)
+
+
+def _wire_case(env, engine, batch):
+    """(c): the trained model's gradients of one micro-batch, per JAX leaf
+    of each size gpt2-350m has (layer 0's leaves, the embeddings', the
+    final LayerNorm's: the other 23 layers repeat layer 0's sizes), split
+    into ONEBIT_RANKS virtual ranks' contributions (each element times 1
+    + N(0, 1) / 2 from a seeded card generator), through every wire for
+    ONEBIT_ROUNDS rounds with the residuals carried."""
+    import torch
+
+    from deepspeed_tpu_torch.runtime import comm_accounting as ca
+    from deepspeed_tpu_torch.runtime import custom_collectives as cc
+
+    w = ONEBIT_RANKS
+    lm = engine.optimizer.leaf_map
+    micro = {k: v[0] for k, v in batch.items()}
+    engine.forward(micro)
+    engine.backward()
+    names = [n for n in lm.names
+             if not n.startswith("h_") or n.startswith("h_0/")]
+    grads = [lm.gather(lm.names.index(n), engine.accum).float().clone()
+             for n in names]
+    engine._flat_accum.zero_()
+    engine.micro_steps = 0
+    cpu_idx = [names.index(n) for n in ONEBIT_CPU_LEAVES]
+    gen = torch.Generator(device="cuda")
+
+    def inputs(j, t):
+        g = grads[j]
+        n = g.numel()
+        pad = (-n) % (8 * w)
+        xs = []
+        for r in range(w):
+            gen.manual_seed(((t * w + r) << 20) + j)
+            noise = torch.randn(g.shape, generator=gen, device="cuda")
+            xs.append(torch.nn.functional.pad(g * (1 + 0.5 * noise),
+                                              (0, pad)))
+        return xs
+
+    wires = {"onebit": None, "b1_flat": (1, 0), "b1_k2": (1, 2),
+             "b8_flat": (8, 0), "b8_k2": (8, 2)}
+    out = {}
+
+    def run_wire(xs, state, spec, wire):
+        if spec is None:
+            return cc.compressed_allreduce_virtual(xs, state[0], state[1],
+                                                   wire=wire)
+        bits, k = spec
+        return cc.quantized_all_reduce_virtual(
+            xs, bits=bits, intra_size=k, worker_errors=state[0],
+            server_errors=state[1], wire=wire)
+
+    for label, spec in wires.items():
+        round_ms = [0.0] * ONEBIT_ROUNDS
+        wire_bytes = dense_bytes = 0
+        worst_ef = 0.0
+        cpu_diff = []
+        for j in range(len(grads)):
+            xs0 = inputs(j, 0)
+            npad = xs0[0].numel()
+            zeros = lambda n: [torch.zeros(n, device="cuda")  # noqa: E731
+                               for _ in range(w)]
+            state = [zeros(npad), zeros(npad // w)]
+            cpu_state = [[x.cpu() for x in s] for s in state] \
+                if j in cpu_idx else None
+            sums = torch.zeros(npad, dtype=torch.float64, device="cuda")
+            means = torch.zeros_like(sums)
+            stateless = torch.zeros_like(sums)
+            for t in range(ONEBIT_ROUNDS):
+                xs = xs0 if t == 0 else inputs(j, t)
+                wire = {}
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                res, nwe, nse = run_wire(xs, state, spec, wire)
+                end.record()
+                end.synchronize()
+                round_ms[t] += start.elapsed_time(end)
+                if cpu_state is not None:
+                    cwire = {}
+                    cres, cwe, cse = run_wire([x.cpu() for x in xs],
+                                              cpu_state, spec, cwire)
+                    cpu_diff.append(_wire_diff(
+                        (res, nwe, nse, wire), (cres, cwe, cse, cwire)))
+                    cpu_state = [cwe, cse]
+                state = [nwe, nse]
+                sums += res[0].double()
+                means += torch.stack([x.double() for x in xs]).mean(0)
+                if "stateless" in wire:
+                    stateless += torch.cat(wire["stateless"]).double()
+                if t == 0:
+                    wire_bytes += wire["bytes"]
+                    dense_bytes += ca.allreduce_bytes(npad, 4, w)
+            worst_ef = max(worst_ef, _ef_ratio(sums, means, state[0],
+                                               state[1], stateless))
+        differ = [d for d in cpu_diff if d]
+        if differ:
+            raise RuntimeError(f"onebit (c) {label}: the card's wire differs "
+                               f"from the CPU's: {differ[:3]}")
+        if worst_ef > ONEBIT_EF_GATE:
+            raise RuntimeError(f"onebit (c) {label}: the rounds' sum lies "
+                               f"{worst_ef:.2e} (of its largest term) beyond "
+                               f"what the residuals hold (gate "
+                               f"{ONEBIT_EF_GATE:g})")
+        out[label] = {"round_ms": round_ms, "bytes": wire_bytes,
+                      "dense_bytes": dense_bytes, "ef": worst_ef,
+                      "cpu_checks": len(cpu_diff)}
+        log(f"onebit (c) {label}: {len(grads)} leaves (each leaf size of "
+            f"{SLICE_MODEL} once) over {w} virtual "
+            f"ranks, {ONEBIT_ROUNDS} rounds: ms per round "
+            f"{[round(x, 1) for x in round_ms]}; one rank sends "
+            f"{wire_bytes} B a round against {dense_bytes} B of a dense "
+            f"fp32 all-reduce ({dense_bytes / wire_bytes:.1f}x); the card's "
+            f"codes, scales and outputs equal the CPU's bit for bit on "
+            f"{len(ONEBIT_CPU_LEAVES)} leaves x {ONEBIT_ROUNDS} rounds; "
+            f"error feedback holds to {worst_ef:.1e} of the largest term "
+            f"(gate {ONEBIT_EF_GATE:g}) on {env['smi']}")
+    # the planted fault: the server residual dropped after each round
+    j = names.index("wpe")
+    state = [[torch.zeros(grads[j].numel(), device="cuda")
+              for _ in range(w)],
+             [torch.zeros(grads[j].numel() // w, device="cuda")
+              for _ in range(w)]]
+    sums = torch.zeros(grads[j].numel(), dtype=torch.float64, device="cuda")
+    means = torch.zeros_like(sums)
+    for t in range(ONEBIT_ROUNDS):
+        xs = inputs(j, t)
+        res, nwe, nse = cc.compressed_allreduce_virtual(xs, *state)
+        state = [nwe, [torch.zeros_like(s) for s in nse]]
+        sums += res[0].double()
+        means += torch.stack([x.double() for x in xs]).mean(0)
+    fault = _ef_ratio(sums, means, state[0], state[1], torch.zeros_like(sums))
+    if not fault > ONEBIT_EF_GATE:
+        raise RuntimeError(f"onebit (c): the planted fault (the server "
+                           f"residual dropped) passed the gate ({fault:.2e})")
+    log(f"onebit (c): the planted fault (server residual dropped) reads "
+        f"{fault:.2e} against the gate {ONEBIT_EF_GATE:g}")
+    return out
+
+
+def _wire_diff(card, cpu):
+    """The names of what differs between the card's and the CPU's run of
+    one wire round: outputs, residuals and every code and scale."""
+    import torch
+
+    (res, we, se, wire), (cres, cwe, cse, cwire) = card, cpu
+    bad = []
+    for name, a, b in (("out", res, cres), ("we", we, cwe), ("se", se, cse)):
+        if not all(torch.equal(x.cpu(), y) for x, y in zip(a, b)):
+            bad.append(name)
+    for key, val in wire.items():
+        if key == "bytes":
+            continue
+        got = val if isinstance(val, list) else [val]
+        want = cwire[key] if isinstance(cwire[key], list) else [cwire[key]]
+        if not all(torch.equal(x.cpu(), y) for x, y in zip(got, want)):
+            bad.append(key)
+    return bad
+
+
+def _csr_case(env):
+    """(d): the embedding model at gpt2-350m's table under ZeRO-Offload
+    stage 2 (dp 1), sparse_gradients on and off, CSR_STEPS steps each."""
+    import torch
+
+    from deepspeed_tpu_torch import initialize
+
+    gen = torch.Generator().manual_seed(7)
+    ids = torch.randint(0, CSR_VOCAB, (SLICE_GAS, SLICE_MICRO, SLICE_SEQ),
+                        generator=gen)
+    y = torch.randint(0, CSR_CLASSES, (SLICE_GAS, SLICE_MICRO),
+                      generator=gen)
+    runs = {}
+    for sparse in (True, False):
+        config = {"train_batch_size": SLICE_MICRO * SLICE_GAS,
+                  "train_micro_batch_size_per_gpu": SLICE_MICRO,
+                  "gradient_accumulation_steps": SLICE_GAS,
+                  "optimizer": {"type": "Adam", "params": {"lr": 1e-4}},
+                  "zero_optimization": {"stage": 2, "cpu_offload": True},
+                  "sparse_gradients": sparse, "steps_per_print": 10 ** 9}
+        engine, _, _, _ = initialize(
+            model=_embed_model(CSR_VOCAB, CSR_DIM, CSR_CLASSES),
+            config_params=config)
+        losses, ms = [], []
+        for _ in range(CSR_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(engine.train_batch(batch={"ids": ids,
+                                                          "y": y})))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        runs[sparse] = {"losses": losses, "fetch": engine.last_fetch_bytes,
+                        "csr": [engine.param_names[i]
+                                for i in engine._csr_idx],
+                        "ms": sorted(ms[1:])[len(ms[1:]) // 2]}
+        del engine
+        _release_earlier_phases()
+    sparse, dense = runs[True], runs[False]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(sparse["losses"],
+                                                   dense["losses"]))
+    if sparse["csr"] != ["emb"] or rel > CSR_RTOL:
+        raise RuntimeError(f"onebit (d): CSR offload {sparse['csr']} losses "
+                           f"{sparse['losses']} against dense "
+                           f"{dense['losses']} ({rel:.2e} > {CSR_RTOL:g})")
+    cap = SLICE_MICRO * SLICE_SEQ
+    rows = sparse["fetch"]["csr"]["emb"]
+    table = sparse["fetch"]["csr_dense"]["emb"]
+    if rows != cap * CSR_DIM * 4 + cap * 8 + 8 \
+            or table != CSR_VOCAB * CSR_DIM * 4:
+        raise RuntimeError(f"onebit (d): the table's copy down is {rows} B "
+                           f"(dense {table} B)")
+    log(f"onebit (d): embedding {CSR_VOCAB} x {CSR_DIM} under ZeRO-Offload "
+        f"stage 2, {CSR_STEPS} steps: losses with and without "
+        f"sparse_gradients within {rel:.1e} (gate {CSR_RTOL:g}); the "
+        f"table's device-to-host bytes per micro step {rows} (rows x dim "
+        f"+ indices: {cap} x {CSR_DIM} fp32) against {table} (vocab x dim), "
+        f"{table / rows:.1f}x fewer; step ms {sparse['ms']:.1f} against "
+        f"{dense['ms']:.1f} on {env['smi']}")
+    return runs
+
+
+def phase_onebit(env, stage0):
+    """1-bit Adam, 0/1 Adam and CSR gradients (ROADMAP A13b): module
+    docstring, phase 26."""
+    import torch
+    import torch.distributed as dist
+
+    _release_earlier_phases()
+    t0 = time.perf_counter()
+    ref = _onebit_run(env, "Adam", {"bias_correction": False},
+                      "Adam, no bias correction",
+                      keep=(ONEBIT_FREEZE, SLICE_STEPS))
+    onebit, engine = _onebit_case(env, ref)
+    t_a = time.perf_counter() - t0
+    wires = _wire_case(env, engine, onebit["batch"])
+    del engine, onebit
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _release_earlier_phases()
+    t_c = time.perf_counter() - t0 - t_a
+    zeroone = _onebit_run(env, "ZeroOneAdam",
+                          {"var_freeze_step": ONEBIT_FREEZE,
+                           "local_steps": 2}, "0/1 Adam",
+                          keep=(ONEBIT_FREEZE, SLICE_STEPS))
+    if zeroone["wire"] is not None \
+            or zeroone["losses"] != ref["losses"] \
+            or not _same(zeroone["masters"][SLICE_STEPS],
+                         ref["masters"][SLICE_STEPS]) \
+            or not _same(zeroone["masters"][ONEBIT_FREEZE],
+                         ref["masters"][ONEBIT_FREEZE]):
+        raise RuntimeError(f"onebit (b): 0/1 Adam at dp 1 differs from Adam "
+                           f"without bias correction: {zeroone['losses']} "
+                           f"against {ref['losses']}")
+    log(f"onebit (b): {SLICE_MODEL} 0/1 Adam at dp 1 (wire disarmed, warmup "
+        f"for ever): 10 losses and the fp32 master equal Adam without bias "
+        f"correction bit for bit, so (a)'s first {ONEBIT_FREEZE} steps too; "
+        f"B1-B3 {zeroone['launches']['flash_fwd']} each; step ms "
+        f"{zeroone['step_ms']:.1f} against {ref['step_ms']:.1f} (phase 4: "
+        f"{stage0['step_ms']:.1f}) on {env['smi']}")
+    del zeroone, ref
+    _release_earlier_phases()
+    t_b = time.perf_counter() - t0 - t_a - t_c
+    csr = _csr_case(env)
+    t_d = time.perf_counter() - t0 - t_a - t_b - t_c
+    log(f"onebit: (a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) {t_c:.1f} s, (d) "
+        f"{t_d:.1f} s")
+    torch.cuda.empty_cache()
+    return {"wires": wires, "csr": csr}
+
+
 def _master_digest(engine):
     """sha256 of the fp32 master's bytes, in parameter order."""
     import hashlib
@@ -5018,6 +5597,8 @@ def main():
     timed(phase_seq, env, stage0)
     torch.cuda.empty_cache()
     timed(phase_zero3, env, stage0)
+    torch.cuda.empty_cache()
+    timed(phase_onebit, env, stage0)
     log(f"phase walls (s) on {env['smi']}: "
         f"{json.dumps(PHASE_WALLS)}; all phases "
         f"{time.perf_counter() - t_main:.3f} s")

@@ -190,11 +190,11 @@ class DataParallelGroup:
         dist.all_to_all_single(out, inp, group=self.group)
         return out
 
-    def quantized_all_gather(self, out, inp, prefix, leaves):
+    def quantized_all_gather(self, out, inp, prefix, leaves, link="flat"):
         """An all-gather of a quantized wire into ``out`` (rank-major),
         counted as ``<prefix>:<leaf>`` per entry of ``leaves``."""
         self.counter.record("all-gather", prefix, inp.dtype, leaves,
-                            self.size)
+                            self.size, link)
         dist.all_gather_into_tensor(out, inp, group=self.group)
         return out
 

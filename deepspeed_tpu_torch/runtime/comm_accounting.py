@@ -9,7 +9,9 @@ Port of deepspeed_tpu/runtime/comm_accounting.py (:39-100 dtypes,
 per collective and per optimizer step, from shapes, dtypes and the world
 size alone. The quantized payloads follow ``quantization.block_layout``,
 so the accounting is byte-exact against what the quantizers put on the
-wire. The 0/1 Adam wire (``zeroone_*``) is ROADMAP A13b.
+wire; :186-358 ``_row_wire``, ``zeroone_grad_exchange_collectives`` and
+``zeroone_volume_report``, the 0/1 Adam wire (one synced round's packed
+codes and scales, amortized over its k steps).
 
 ``CollectiveCounter`` is the measured side: the engine's process-group
 wrapper (parallel/mesh.py) records every collective it issues, leaf by
@@ -20,7 +22,8 @@ from dataclasses import asdict, dataclass
 from typing import List, Optional, Sequence, Tuple
 
 from deepspeed_tpu_torch.runtime.quantization import (DEFAULT_BLOCK_SIZE,
-                                                      block_layout)
+                                                      block_layout,
+                                                      sign_pack_layout)
 
 DTYPE_BYTES = {
     "float64": 8, "float32": 4, "float16": 2, "bfloat16": 2,
@@ -202,6 +205,180 @@ def grad_exchange_collectives(
                        link="inter"),
         ]
     return out
+
+
+def _row_wire(n_rows: int, row_len: int, block_size: int, bits: int):
+    """(payload_bytes, scale_elems) one rank PUTS INTO a collective for
+    ``n_rows`` independently-quantized rows of ``row_len`` elements —
+    pre-ring-factor.  bits=1 mirrors quantization.quantize_signs_rows
+    (packed sign bytes, sign_pack_layout); bits=8 mirrors quantize_rows
+    (one int8 byte per padded element, block_layout).  Shared by the
+    0/1 Adam wire model below so the accounting can never drift from
+    what the codec packs."""
+    if bits == 1:
+        _, nb, _, nbytes = sign_pack_layout(row_len, block_size)
+        return n_rows * nbytes, n_rows * nb
+    _, nb, npad = block_layout(row_len, block_size)
+    return n_rows * npad, n_rows * nb
+
+
+def zeroone_grad_exchange_collectives(
+        leaves: Sequence[LeafSpec], dp: int, *,
+        bits: int = 1,
+        block_size: int = DEFAULT_BLOCK_SIZE,
+        intra_size: int = 0,
+        count_per_step: int = 1) -> List[Collective]:
+    """Per-leaf collectives of ONE SYNCED ROUND of the 0/1 Adam wire
+    (custom_collectives.quantized_all_reduce): quantize -> all_to_all
+    reduce-scatter -> server requantize -> all-gather, every payload a
+    packed sub-byte (or int8) code plus fp32 per-block scales.  Every
+    leaf rides the wire regardless of shard_dim — params stay replicated
+    (stage 0) and the optimizer flattens + pads each leaf to a multiple
+    of dp, exactly as the wire does.  Local rounds move ZERO bytes and
+    have no collectives to price (the program lint holds a local round
+    to that)."""
+    wire_dtype = "uint8" if bits == 1 else "int8"
+    out: List[Collective] = []
+    k = int(intra_size or 0)
+    hier = 1 < k < dp and dp % k == 0
+    for leaf in leaves:
+        n = leaf.elements
+        if dp <= 1:
+            continue                     # quantize/dequantize twin: no wire
+        nloc = (n + (-n) % dp) // dp     # optimizer pads flat leaf to dp
+        if not hier:
+            # worker RS: dp rows of nloc each through one all_to_all
+            qb, sb = _row_wire(dp, nloc, block_size, bits)
+            # server AG: the requantized own-chunk row, gathered over dp
+            qg, sg = _row_wire(1, nloc, block_size, bits)
+            out += [
+                Collective(name=f"zeroone_a2a:{leaf.name}", op="all-to-all",
+                           dtype=wire_dtype, elements=n, axis_size=dp,
+                           bytes_per_device=all_to_all_bytes(qb, 1, dp),
+                           count_per_step=count_per_step),
+                Collective(name=f"zeroone_scales:{leaf.name}",
+                           op="all-to-all", dtype="float32", elements=n,
+                           axis_size=dp,
+                           bytes_per_device=all_to_all_bytes(sb, 4, dp),
+                           count_per_step=count_per_step),
+                Collective(name=f"zeroone_ag:{leaf.name}", op="all-gather",
+                           dtype=wire_dtype, elements=n, axis_size=dp,
+                           bytes_per_device=all_gather_bytes(dp * qg, 1, dp),
+                           count_per_step=count_per_step),
+                Collective(name=f"zeroone_ag_scales:{leaf.name}",
+                           op="all-gather", dtype="float32", elements=n,
+                           axis_size=dp,
+                           bytes_per_device=all_gather_bytes(dp * sg, 4, dp),
+                           count_per_step=count_per_step),
+            ]
+            continue
+        m = dp // k
+        # RS hop 1 (intra): k rows of m*nloc over groups of k
+        qb1, sb1 = _row_wire(k, m * nloc, block_size, bits)
+        # RS hop 2 (inter): partial sums requantized, m rows of nloc over m
+        qb2, sb2 = _row_wire(m, nloc, block_size, bits)
+        # AG hop A (inter): own requantized chunk over groups of m ...
+        qg, sg = _row_wire(1, nloc, block_size, bits)
+        # ... AG hop B (intra): the hop-A buffers (m chunks) over groups of
+        # k — the same code moves twice, never re-encoded
+        out += [
+            Collective(name=f"zeroone_a2a_intra:{leaf.name}",
+                       op="all-to-all", dtype=wire_dtype, elements=n,
+                       axis_size=k,
+                       bytes_per_device=all_to_all_bytes(qb1, 1, k),
+                       count_per_step=count_per_step, link="intra"),
+            Collective(name=f"zeroone_scales_intra:{leaf.name}",
+                       op="all-to-all", dtype="float32", elements=n,
+                       axis_size=k,
+                       bytes_per_device=all_to_all_bytes(sb1, 4, k),
+                       count_per_step=count_per_step, link="intra"),
+            Collective(name=f"zeroone_a2a_inter:{leaf.name}",
+                       op="all-to-all", dtype=wire_dtype, elements=n // k,
+                       axis_size=m,
+                       bytes_per_device=all_to_all_bytes(qb2, 1, m),
+                       count_per_step=count_per_step, link="inter"),
+            Collective(name=f"zeroone_scales_inter:{leaf.name}",
+                       op="all-to-all", dtype="float32", elements=n // k,
+                       axis_size=m,
+                       bytes_per_device=all_to_all_bytes(sb2, 4, m),
+                       count_per_step=count_per_step, link="inter"),
+            Collective(name=f"zeroone_ag_inter:{leaf.name}",
+                       op="all-gather", dtype=wire_dtype, elements=n // k,
+                       axis_size=m,
+                       bytes_per_device=all_gather_bytes(m * qg, 1, m),
+                       count_per_step=count_per_step, link="inter"),
+            Collective(name=f"zeroone_ag_scales_inter:{leaf.name}",
+                       op="all-gather", dtype="float32", elements=n // k,
+                       axis_size=m,
+                       bytes_per_device=all_gather_bytes(m * sg, 4, m),
+                       count_per_step=count_per_step, link="inter"),
+            Collective(name=f"zeroone_ag_intra:{leaf.name}",
+                       op="all-gather", dtype=wire_dtype, elements=n,
+                       axis_size=k,
+                       bytes_per_device=all_gather_bytes(k * m * qg, 1, k),
+                       count_per_step=count_per_step, link="intra"),
+            Collective(name=f"zeroone_ag_scales_intra:{leaf.name}",
+                       op="all-gather", dtype="float32", elements=n,
+                       axis_size=k,
+                       bytes_per_device=all_gather_bytes(k * m * sg, 4, k),
+                       count_per_step=count_per_step, link="intra"),
+        ]
+    return out
+
+
+def zeroone_volume_report(leaves: Sequence[LeafSpec], dp: int, *,
+                          bits: int = 1,
+                          block_size: int = DEFAULT_BLOCK_SIZE,
+                          intra_size: int = 0,
+                          local_steps_k: int = 1,
+                          gas: int = 1) -> dict:
+    """Per-step report for the 0/1 Adam optimizer wire, with the two
+    yardsticks the acceptance bound is judged against alongside: the flat
+    qgZ int8 gradient wire and the dense fp32 all-reduce.
+
+    ``local_steps_k`` is the round length: one synced round (the only
+    step that touches the wire) stands in for k optimizer steps, so the
+    honest per-step figure is ``sync_round_bytes / k`` — the skipped
+    local rounds are amortization, not free lunch, and both numbers are
+    reported.  The yardsticks price the OTHER paths' conventions (qgZ
+    exchanges per micro-step, hence x gas; the wire path syncs once per
+    optimizer step regardless of gas — the fused step accumulates micro
+    gradients device-locally)."""
+    k_round = max(1, int(local_steps_k))
+    sync = zeroone_grad_exchange_collectives(
+        leaves, dp, bits=bits, block_size=block_size, intra_size=intra_size)
+    sync_bytes = sum(c.bytes_per_step for c in sync)
+    amortized = sync_bytes // k_round + (sync_bytes % k_round > 0)
+    qgz_leaves = [LeafSpec(name=l.name, shape=l.shape,
+                           shard_dim=zero_shard_dim(l.shape, dp))
+                  for l in leaves]
+    qgz = grad_exchange_collectives(qgz_leaves, dp, quantized=True,
+                                    block_size=block_size,
+                                    count_per_step=gas)
+    qgz_bytes = sum(c.bytes_per_step for c in qgz)
+    dense = grad_exchange_collectives(leaves, dp, quantized=False,
+                                      count_per_step=1)
+    dense_bytes = sum(c.bytes_per_step for c in dense)
+    return {
+        "config": {
+            "dp": dp, "gas": gas, "bits": int(bits),
+            "quantization_block_size": int(block_size),
+            "hierarchical_intra_size": int(intra_size or 0),
+            "local_steps_k": k_round,
+        },
+        "collectives": [asdict(c) | {"bytes_per_step": c.bytes_per_step}
+                        for c in sync],
+        "sync_round_bytes": sync_bytes,
+        "local_round_bytes": 0,
+        "amortized_grad_exchange_bytes_per_step": int(amortized),
+        "warmup_grad_exchange_bytes_per_step": dense_bytes,
+        "baseline": {
+            "qgz_int8_wire_bytes_per_step": qgz_bytes,
+            "fp32_allreduce_bytes_per_step": dense_bytes,
+        },
+        "vs_qgz_ratio": (amortized / qgz_bytes) if qgz_bytes else None,
+        "vs_fp32_ratio": (amortized / dense_bytes) if dense_bytes else None,
+    }
 
 
 def param_gather_collectives(

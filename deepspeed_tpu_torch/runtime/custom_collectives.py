@@ -22,15 +22,37 @@ device, with no wire (as parallel/ring_attention.py ``ring_virtual``
 does): the CPU tests hold them against the JAX functions, and the chip
 check runs them at full width.
 
-The 1-bit wire (``compressed_allreduce``, ``quantized_all_reduce``, the
-error-feedback twins) belongs to 1-bit and 0/1 Adam, ROADMAP A13b.
+The 1-bit wire of 1-bit Adam and 0/1 Adam (JAX :20-93, :260-399,
+:466-522): the sign codes (``pack_signs``, ``unpack_signs``,
+``sign_compress``), ``compressed_allreduce`` (worker signs scattered to
+their servers by all-to-all, the servers' re-compressed chunks
+all-gathered; counted as ``onebit_a2a`` / ``onebit_scales`` /
+``onebit_ag`` / ``onebit_ag_scales``) and ``quantized_all_reduce`` (the
+0/1 Adam wire at bits 1 or 8, flat or over ``hierarchical_size``
+groups; counted under the JAX report's ``zeroone_*`` names), each with
+its ``*_virtual`` twin, and the single-device error-feedback twins
+``quantize_with_error_feedback`` and ``quantized_error_feedback``. No
+caller differentiates through these wires (the optimizers call them
+under ``no_grad``), so the JAX ``quantized_all_reduce_gspmd``'s
+straight-through vjp has no counterpart here.
+
+Their arithmetic is laid out so that the CPU and the card compute the
+same bits: a norm or a block's mean magnitude sums in float64 before it
+rounds to fp32 (order-free to within a float64 rounding), the servers
+add the ranks' decoded rows one after the other, and an int8 residual or
+sum takes its product in float64 and rounds once, as the JAX programs'
+fused multiply-adds do.
 """
 import torch
 
+from deepspeed_tpu_torch.runtime import comm_accounting as ca
 from deepspeed_tpu_torch.runtime.quantization import (DEFAULT_BLOCK_SIZE,
-                                                      block_layout,
+                                                      _pow2, block_layout,
                                                       dequantize_rows,
-                                                      quantize_rows)
+                                                      dequantize_signs_rows,
+                                                      quantize_rows,
+                                                      quantize_signs_rows,
+                                                      sign_pack_layout)
 
 
 def leaf_rows(x, dim, w):
@@ -362,3 +384,421 @@ def quantized_all_gather_virtual(shards, *, dim=0, block_size=None,
         dim, block_size or DEFAULT_BLOCK_SIZE,
         out_dtype or shards[0].dtype, *shards)
 
+
+
+# ---------------------------------------------------------------------------
+# the 1-bit wire of 1-bit Adam (JAX :20-93, :510-522)
+# ---------------------------------------------------------------------------
+def pack_signs(signs):
+    """{-1, +1} float vector (len % 8 == 0) -> uint8 bit-packed vector,
+    most significant bit first, a set bit for +1."""
+    bits = (signs > 0).to(torch.uint8).reshape(-1, 8)
+    return (bits * _pow2(signs.device)).sum(
+        -1, dtype=torch.int32).to(torch.uint8)
+
+
+def unpack_signs(packed):
+    """uint8 bit-packed vector -> {-1, +1} float32 vector."""
+    bits = (packed.reshape(-1, 1) & _pow2(packed.device)) > 0
+    return (bits.float() * 2.0 - 1.0).reshape(-1)
+
+
+def sign_compress(x):
+    """(scale, signs, residual): x ~= scale * signs, residual = x - that;
+    scale = ||x||_2 / sqrt(n) (the norm summed in float64, rounded to
+    fp32, then divided in fp32 as the JAX function divides), sign(0) =
+    +1."""
+    norm = torch.linalg.vector_norm(x, dtype=torch.float64).float()
+    # a device tensor, filled there: a CUDA division by a host scalar
+    # multiplies by its reciprocal, which rounds otherwise than the CPU's
+    # division
+    scale = norm / torch.full((), float(x.numel()), dtype=torch.float32,
+                              device=x.device).sqrt()
+    signs = torch.where(x >= 0, 1.0, -1.0).to(torch.float32)
+    return scale, signs, x - scale * signs
+
+
+def _server_sum(rows, scales):
+    """sum_j scales[j] * rows[j], added one rank after the other (each
+    product is exact: a row holds signs)."""
+    acc = rows[0] * scales[0]
+    for j in range(1, rows.shape[0]):
+        acc = acc + rows[j] * scales[j]
+    return acc
+
+
+def _onebit_server(recv_signs, scales, server_error):
+    """The server phase: the w ranks' signs of this chunk (w, chunk)
+    decoded with their scales, averaged, plus the server residual, and
+    re-compressed: (scale, packed signs, new residual)."""
+    w = recv_signs.shape[0]
+    server_m = _server_sum(recv_signs, scales) / w + server_error
+    scale, signs, new_se = sign_compress(server_m)
+    return scale, pack_signs(signs), new_se
+
+
+def _decode_chunks(packed_rows, scales, chunk):
+    """Every server's chunk decoded: (w, chunk / 8) packed + (w,) scales
+    -> the flat (w * chunk,) result."""
+    w = packed_rows.shape[0]
+    signs = unpack_signs(packed_rows.reshape(-1)).view(w, chunk)
+    return (signs * scales.view(w, 1)).reshape(-1)
+
+
+def _check_onebit(n, w):
+    if n % (8 * w):
+        raise ValueError(f"compressed_allreduce needs size % {8 * w} == 0, "
+                         f"got {n}")
+
+
+def compressed_allreduce(x, worker_error, server_error, group, name="x",
+                         elements=None):
+    """Error-compensated 1-bit average of every rank's flat fp32 ``x``
+    over ``group`` (JAX ``compressed_allreduce``, custom_collectives.py:
+    46-93). ``x.numel()`` is a multiple of 8 * w; ``worker_error`` is
+    x-sized; ``server_error`` is chunk-sized (n / w, this rank's server
+    residual) or full-sized (this rank's chunk is read and written at
+    rank * n / w). The wire: the packed worker signs by all-to-all (chunk
+    j to rank j), the worker scales, the servers' packed chunks and
+    scales by all-gather; ``name`` and ``elements`` (default n) name the
+    leaf for the counter. Returns (mean, new worker_error, new
+    server_error)."""
+    w, n = group.size, x.numel()
+    _check_onebit(n, w)
+    chunk = n // w
+    e = n if elements is None else elements
+    full = server_error.numel() == n
+    lo = group.rank * chunk
+    se = server_error[lo:lo + chunk] if full else server_error
+    wscale, signs, new_we = sign_compress(x + worker_error)
+    packed = pack_signs(signs)
+    recv = torch.empty_like(packed)
+    group.quantized_all_to_all(recv, packed, "onebit_a2a",
+                               [(name, e, n // 8)])
+    scales = torch.empty(w, dtype=torch.float32, device=x.device)
+    group.quantized_all_gather(scales, wscale.reshape(1), "onebit_scales",
+                               [(name, e, w)])
+    sscale, spacked, new_se = _onebit_server(
+        unpack_signs(recv).view(w, chunk), scales, se)
+    all_packed = torch.empty(w * spacked.numel(), dtype=torch.uint8,
+                             device=x.device)
+    group.quantized_all_gather(all_packed, spacked, "onebit_ag",
+                               [(name, e, n // 8)])
+    all_scales = torch.empty(w, dtype=torch.float32, device=x.device)
+    group.quantized_all_gather(all_scales, sscale.reshape(1),
+                               "onebit_ag_scales", [(name, e, w)])
+    out = _decode_chunks(all_packed.view(w, -1), all_scales, chunk)
+    if full:
+        whole = server_error.clone()
+        whole[lo:lo + chunk] = new_se
+        new_se = whole
+    return out, new_we, new_se
+
+
+def compressed_allreduce_virtual(xs, worker_errors, server_errors,
+                                 wire=None):
+    """What ``compressed_allreduce`` gives each of w = len(xs) virtual
+    ranks (rank r holding ``xs[r]``, its residuals at index r; server
+    residuals chunk- or full-sized): ([mean], [new worker_error], [new
+    server_error]); the exchanges are index permutations. ``wire`` (a
+    dict) receives what would cross it: ``worker_packed``,
+    ``worker_scales``, ``server_packed``, ``server_scales`` (per rank)
+    and ``bytes`` (what one rank sends)."""
+    w, n = len(xs), xs[0].numel()
+    _check_onebit(n, w)
+    chunk = n // w
+    coded = [sign_compress(x + e) for x, e in zip(xs, worker_errors)]
+    packed = [pack_signs(s).view(w, -1) for _, s, _ in coded]
+    scales = torch.stack([sc for sc, _, _ in coded])
+    sp, ss, new_se = [], [], []
+    for r in range(w):
+        se = server_errors[r]
+        full = se.numel() == n
+        mine = se[r * chunk:(r + 1) * chunk] if full else se
+        recv = torch.stack([packed[j][r] for j in range(w)])
+        scale, spacked, res = _onebit_server(
+            unpack_signs(recv).view(w, chunk), scales, mine)
+        if full:
+            whole = se.clone()
+            whole[r * chunk:(r + 1) * chunk] = res
+            res = whole
+        sp.append(spacked)
+        ss.append(scale)
+        new_se.append(res)
+    out = _decode_chunks(torch.stack(sp), torch.stack(ss), chunk)
+    if wire is not None:
+        wire.update(worker_packed=packed, worker_scales=scales,
+                    server_packed=sp, server_scales=torch.stack(ss),
+                    bytes=onebit_wire_bytes(n, w))
+    return [out] * w, [e for _, _, e in coded], new_se
+
+
+def onebit_wire_bytes(n, w):
+    """The bytes one rank sends through ``compressed_allreduce`` of n
+    elements over w ranks: the packed signs and one fp32 scale, twice
+    (to the servers, then from its server), ring-counted as the
+    counter counts them."""
+    return (ca.all_to_all_bytes(n // 8, 1, w) + ca.all_gather_bytes(w, 4, w)
+            + ca.all_gather_bytes(n // 8, 1, w)
+            + ca.all_gather_bytes(w, 4, w))
+
+
+def quantize_with_error_feedback(x, worker_error, server_error):
+    """Single-device twin of ``compressed_allreduce`` (w == 1): two
+    sign-compressions in a row with persistent residuals (JAX
+    custom_collectives.py:510-522). Returns (out, new worker_error, new
+    server_error)."""
+    wscale, signs, new_we = sign_compress(x + worker_error)
+    sscale, ssigns, new_se = sign_compress(wscale * signs + server_error)
+    return sscale * ssigns, new_we, new_se
+
+
+# ---------------------------------------------------------------------------
+# the 0/1 Adam wire (JAX :260-399, :466-508)
+# ---------------------------------------------------------------------------
+class _Codec:
+    """The wire's row codec at ``bits`` 1 (packed signs + per-block mean
+    magnitudes) or 8 (int8 + per-block scales)."""
+
+    def __init__(self, bits, block_size):
+        if bits not in (1, 8):
+            raise ValueError(f"quantized_all_reduce: bits must be 1 or 8, "
+                             f"got {bits}")
+        self.bits, self.bs = bits, block_size or DEFAULT_BLOCK_SIZE
+
+    def quant(self, rows):
+        if self.bits == 1:
+            return quantize_signs_rows(rows, self.bs)
+        return quantize_rows(rows, self.bs)
+
+    def dequant(self, q, s, n):
+        if self.bits == 1:
+            return dequantize_signs_rows(q, s, n, block_size=self.bs)
+        return dequantize_rows(q, s, n)
+
+    def residual(self, rows, q, s):
+        """rows - dequant(q, s): for int8 the product in float64, rounded
+        once (the compiled JAX function's fused multiply-add); a sign
+        code's product is exact."""
+        n = rows.shape[1]
+        if self.bits == 1:
+            return rows - self.dequant(q, s, n)
+        r, npad = q.shape
+        nb = s.shape[1]
+        prod = (q.view(r, nb, npad // nb).double()
+                * s.double()[:, :, None]).view(r, npad)[:, :n]
+        return (rows.double() - prod).float()
+
+    def sum(self, q, s, n):
+        """The sum over rows of the decoded rows, added one after the
+        other (``dequantize_sum`` for int8)."""
+        if self.bits == 8:
+            return dequantize_sum(q, s, n)
+        rows = self.dequant(q, s, n)
+        acc = rows[0]
+        for j in range(1, rows.shape[0]):
+            acc = acc + rows[j]
+        return acc
+
+    def row_bytes(self, n):
+        """(code bytes, scales) of one row of n elements."""
+        if self.bits == 1:
+            _, nb, _, nbytes = sign_pack_layout(n, self.bs)
+            return nbytes, nb
+        _, nb, npad = block_layout(n, self.bs)
+        return npad, nb
+
+
+def quantized_error_feedback(x, worker_error, server_error, *, bits=1,
+                             block_size=None):
+    """Single-device twin of ``quantized_all_reduce`` (w == 1): both
+    quantization stages run locally with persistent residuals (JAX
+    custom_collectives.py:466-508). Returns (out, new worker_error, new
+    server_error), all flat and x-sized."""
+    codec = _Codec(bits, block_size)
+    n = x.numel()
+    buf = (x.float().reshape(-1) + worker_error.reshape(-1)).reshape(1, -1)
+    q, s = codec.quant(buf)
+    stage1 = codec.dequant(q, s, n)
+    new_we = codec.residual(buf, q, s)[0]
+    m = (stage1[0] + server_error.reshape(-1)).reshape(1, -1)
+    q2, s2 = codec.quant(m)
+    return codec.dequant(q2, s2, n)[0], new_we, codec.residual(m, q2, s2)[0]
+
+
+def _zeroone_hop(group, q, s, prefix, name, e, link):
+    """One all-to-all of the codes and scales of ``q`` / ``s`` (w rows)
+    over ``group``: rank j's row for this rank in row j."""
+    qr, sr = torch.empty_like(q), torch.empty_like(s)
+    group.quantized_all_to_all(qr, q, f"zeroone_a2a{prefix}",
+                               [(name, e, q.numel())], link)
+    group.quantized_all_to_all(sr, s, f"zeroone_scales{prefix}",
+                               [(name, e, s.numel())], link)
+    return qr, sr
+
+
+def _zeroone_gather(group, q, s, prefix, name, e, link):
+    """Every rank's codes ``q`` and scales ``s`` (this rank's rows) over
+    ``group``: (w, *q.shape), (w, *s.shape), rank-major."""
+    w = group.size
+    qg = torch.empty(w * q.numel(), dtype=q.dtype, device=q.device)
+    sg = torch.empty(w * s.numel(), dtype=s.dtype, device=s.device)
+    group.quantized_all_gather(qg, q.reshape(-1), f"zeroone_ag{prefix}",
+                               [(name, e, qg.numel())], link)
+    group.quantized_all_gather(sg, s.reshape(-1),
+                               f"zeroone_ag_scales{prefix}",
+                               [(name, e, sg.numel())], link)
+    return qg.view((w,) + tuple(q.shape)), sg.view((w,) + tuple(s.shape))
+
+
+def quantized_all_reduce(x, group, *, bits=1, block_size=None,
+                         intra_size=0, worker_error=None, server_error=None,
+                         name="x", elements=None):
+    """The 0/1 Adam wire (JAX ``quantized_all_reduce``, custom_collectives
+    .py:260-399): the mean over ``group`` of every rank's flat ``x``
+    (``x.numel()`` a multiple of the group size w) by quantize ->
+    all-to-all reduce-scatter -> requantize -> all-gather, in the
+    quantized wire format throughout; ``bits`` 1 (packed signs + per-block
+    mean magnitudes) or 8 (int8 + per-block scales). ``worker_error``
+    (x-sized) is added before the first quantize, ``server_error``
+    (chunk-sized, n / w) at the reduced mean before the requantize; both
+    come back updated. Hierarchical (``intra_size`` k, 1 < k < w, k | w):
+    the reduce-scatter intra-group then inter-group on requantized
+    partial sums, the all-gather inter-group then intra-group on the same
+    codes. Non-finite inputs give non-finite scales, so the mean comes
+    back non-finite. ``name`` / ``elements`` name the leaf for the
+    counter. Returns (mean, new worker_error, new server_error)."""
+    codec = _Codec(bits, block_size)
+    w, n = group.size, x.numel()
+    e = n if elements is None else elements
+    xf = x.float().reshape(-1)
+    we = torch.zeros_like(xf) if worker_error is None \
+        else worker_error.float().reshape(-1)
+    if w == 1:
+        se = torch.zeros_like(xf) if server_error is None \
+            else server_error.float().reshape(-1)
+        return quantized_error_feedback(xf, we, se, bits=bits,
+                                        block_size=codec.bs)
+    if n % w:
+        raise ValueError(f"quantized_all_reduce needs size % {w} == 0, "
+                         f"got {n}")
+    nloc = n // w
+    rows = (xf + we).view(w, nloc)
+    k = hierarchical_size(w, intra_size)
+    if not k:
+        q, s = codec.quant(rows)
+        new_we = codec.residual(rows, q, s).reshape(-1)
+        qr, sr = _zeroone_hop(group, q, s, "", name, e, "flat")
+        total = codec.sum(qr, sr, nloc)
+    else:
+        m = w // k
+        intra, inter = group.hierarchy(k)
+        x1 = rows.view(m, k, nloc).transpose(0, 1).reshape(k, -1)
+        q1, s1 = codec.quant(x1)
+        new_we = codec.residual(x1, q1, s1).view(k, m, nloc) \
+            .transpose(0, 1).reshape(-1)
+        qr1, sr1 = _zeroone_hop(intra, q1, s1, "_intra", name, e, "intra")
+        partial = codec.sum(qr1, sr1, m * nloc)
+        q2, s2 = codec.quant(partial.view(m, nloc))
+        qr2, sr2 = _zeroone_hop(inter, q2, s2, "_inter", name, e // k,
+                                "inter")
+        total = codec.sum(qr2, sr2, nloc)
+    se = torch.zeros(nloc, dtype=torch.float32, device=xf.device) \
+        if server_error is None else server_error.float().reshape(-1)
+    mean = (total / w + se).view(1, -1)
+    qm, sm = codec.quant(mean)
+    new_se = codec.residual(mean, qm, sm)[0]
+    if not k:
+        qg, sg = _zeroone_gather(group, qm[0], sm[0], "", name, e, "flat")
+        out = codec.dequant(qg, sg, nloc).reshape(-1)
+    else:
+        qa, sa = _zeroone_gather(inter, qm[0], sm[0], "_inter", name,
+                                 e // k, "inter")
+        qb, sb = _zeroone_gather(intra, qa, sa, "_intra", name, e, "intra")
+        deq = codec.dequant(qb.view(k * m, -1), sb.view(k * m, -1), nloc)
+        # qb is [intra][outer]; chunk c = outer * k + intra
+        out = deq.view(k, m, nloc).transpose(0, 1).reshape(-1)
+    return out, new_we, new_se
+
+
+def quantized_all_reduce_virtual(xs, *, bits=1, block_size=None,
+                                 intra_size=0, worker_errors=None,
+                                 server_errors=None, wire=None):
+    """What ``quantized_all_reduce`` gives each of w = len(xs) virtual
+    ranks: ([mean], [new worker_error], [new server_error]); the hops'
+    exchanges are index permutations. ``wire`` (a dict) receives each
+    rank's codes and scales of the first quantize (``codes``,
+    ``scales``) and of the requantized mean (``mean_codes``,
+    ``mean_scales``), ``bytes``, what one rank sends, and (hierarchical)
+    ``stateless``: each rank's chunk of the inter hop's uncompensated
+    quantization error, as it reaches the mean."""
+    codec = _Codec(bits, block_size)
+    w, n = len(xs), xs[0].numel()
+    if n % w:
+        raise ValueError(f"quantized_all_reduce needs size % {w} == 0, "
+                         f"got {n}")
+    nloc = n // w
+    dev = xs[0].device
+    wes = worker_errors or [torch.zeros(n, device=dev)] * w
+    ses = server_errors or [torch.zeros(nloc, device=dev)] * w
+    rows = [(x.float().reshape(-1) + we.reshape(-1)).view(w, nloc)
+            for x, we in zip(xs, wes)]
+    k = hierarchical_size(w, intra_size)
+    if not k:
+        coded = [codec.quant(r) for r in rows]
+        new_we = [codec.residual(r, q, s).reshape(-1)
+                  for r, (q, s) in zip(rows, coded)]
+        total = [codec.sum(torch.stack([q[r] for q, _ in coded]),
+                           torch.stack([s[r] for _, s in coded]), nloc)
+                 for r in range(w)]
+    else:
+        m = w // k
+        x1 = [r.view(m, k, nloc).transpose(0, 1).reshape(k, -1)
+              for r in rows]
+        coded = [codec.quant(x) for x in x1]
+        new_we = [codec.residual(x, q, s).view(k, m, nloc).transpose(0, 1)
+                  .reshape(-1) for x, (q, s) in zip(x1, coded)]
+        partial = [None] * w
+        for o in range(m):                 # intra group o*k .. o*k+k-1
+            members = [o * k + i for i in range(k)]
+            for i in range(k):
+                partial[o * k + i] = codec.sum(
+                    torch.stack([coded[j][0][i] for j in members]),
+                    torch.stack([coded[j][1][i] for j in members]), m * nloc)
+        coded2 = [codec.quant(p.view(m, nloc)) for p in partial]
+        if wire is not None:
+            # the inter hop's requantize carries no residual: its error
+            # reaches rank r's mean uncompensated
+            err2 = [codec.residual(p.view(m, nloc), q, s)
+                    for p, (q, s) in zip(partial, coded2)]
+            wire["stateless"] = [
+                sum(err2[o2 * k + r % k][r // k] for o2 in range(m)) / w
+                for r in range(w)]
+        total = [None] * w
+        for i in range(k):                 # inter group i, k + i, ...
+            members = [o * k + i for o in range(m)]
+            for o in range(m):
+                total[o * k + i] = codec.sum(
+                    torch.stack([coded2[j][0][o] for j in members]),
+                    torch.stack([coded2[j][1][o] for j in members]), nloc)
+    means = [(t / w + se.reshape(-1)).view(1, -1)
+             for t, se in zip(total, ses)]
+    mcoded = [codec.quant(mn) for mn in means]
+    new_se = [codec.residual(mn, q, s)[0] for mn, (q, s) in zip(means, mcoded)]
+    out = torch.cat([codec.dequant(q, s, nloc)[0] for q, s in mcoded])
+    if wire is not None:
+        wire.update(codes=[q for q, _ in coded], scales=[s for _, s in coded],
+                    mean_codes=[q for q, _ in mcoded],
+                    mean_scales=[s for _, s in mcoded],
+                    bytes=zeroone_wire_bytes(n, w, codec, k))
+    return [out] * w, new_we, new_se
+
+
+def zeroone_wire_bytes(n, w, codec, k=0):
+    """The bytes one rank sends through ``quantized_all_reduce`` of n
+    elements over w ranks, as the comm report prices them
+    (comm_accounting.zeroone_grad_exchange_collectives)."""
+    return sum(c.bytes_per_step
+               for c in ca.zeroone_grad_exchange_collectives(
+                   [ca.LeafSpec("x", (n,), None)], w, bits=codec.bits,
+                   block_size=codec.bs, intra_size=k))

@@ -118,6 +118,27 @@ the offload push's shards on the host, so the copy up and the gather move
 int8 codes and scales, dequantized on the device; at stage 3 armed, the
 scheduled gathers are the int8 weight wire.
 
+1-bit Adam and 0/1 Adam (``OneBitAdam``, ``ZeroOneAdam``; the JAX
+engine's wire paths, engine.py:468-516, 2247-2579): at dp > 1 and stage 0
+the optimizer owns the gradient exchange. ``train_batch`` keeps each
+rank's gradients its own (its micro-batch's loss, no exchange); the step
+all-reduces their mean in warmup, then 1-bit Adam sends its momentum
+through ``compressed_allreduce`` and 0/1 Adam its round's gradient
+through ``quantized_all_reduce`` once per k steps (local rounds post no
+collective), each leaf flattened in the JAX tree's layout. The phase is
+a host function of the step counters (fp16 skips excluded), so a loaded
+tag goes on in the phase of a run that never stopped; the per-rank
+residuals are the rows of the JAX state's leading dp dim. At dp 1, or
+blocked, the wire is disarmed with its blockers named, and the
+optimizer steps on the exchanged mean (0/1 Adam: warmup for ever).
+
+CSR gradients (``sparse_gradients`` and a model's ``sparse_grad_spec``;
+JAX engine.py:602-652, 1662-1738, 1856-1965): the flagged (row-sparse)
+parameters' gradients move as (row indices, row values) at the
+micro-batch's token capacity: an all-gather in place of their all-reduce
+under plain data parallelism (stage <= 1), and on ZeRO-Offload's copy
+down at dp 1, scatter-added into the host accumulator.
+
 Telemetry (``"telemetry"``, ``"flops_profiler"``, ``"tensorboard"``,
 ``"wall_clock_breakdown"``; the JAX engine's ``_arm_telemetry``,
 engine.py:1023-1145, 1205-1411): host-time spans on lanes ``train``
@@ -160,6 +181,8 @@ from deepspeed_tpu_torch.ops.adam.cpu_adam import (DeepSpeedCPUAdam,
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
 from deepspeed_tpu_torch.ops.adam.sgd import SGD
 from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
+from deepspeed_tpu_torch.ops.onebit.onebit_adam import OnebitAdam
+from deepspeed_tpu_torch.ops.onebit.zeroone_adam import ZeroOneAdam
 from deepspeed_tpu_torch.parallel.mesh import (DATA_AXIS, SEQ_AXIS,
                                                DataParallelGroup,
                                                ProcessGrid,
@@ -171,6 +194,10 @@ from deepspeed_tpu_torch.runtime import memory_accounting
 from deepspeed_tpu_torch.runtime.config import (DeepSpeedConfig,
                                                 get_mesh_shape)
 from deepspeed_tpu_torch.runtime.config_utils import load_config_json
+from deepspeed_tpu_torch.runtime.csr_tensor import (CSRTensor,
+                                                   allgather_csr,
+                                                   nonzero_rows,
+                                                   scatter_add_rows)
 from deepspeed_tpu_torch.runtime.custom_collectives import (
     quantized_gather_rows, quantized_reduce_scatter_rows, rows_to_leaf)
 from deepspeed_tpu_torch.runtime.constants import (
@@ -208,10 +235,9 @@ from deepspeed_tpu_torch.utils.timer import (SynchronizedWallClockTimer,
 #: (``group_ratio``: the fp32 sum of the losses and of their counts)
 LOSS_REDUCTION_BYTES = 2 * 4
 
-# optimizer names and the ROADMAP item that ports them
-_LATER_OPTIMIZERS = {ONEBIT_ADAM_OPTIMIZER: "A13b",
-                     ZEROONE_ADAM_OPTIMIZER: "A13b"}
 _OPTIMIZERS = (FusedAdam, FusedLamb, SGD)
+#: the optimizers that own their gradient wire (1-bit Adam, 0/1 Adam)
+_WIRE_OPTIMIZERS = (OnebitAdam, ZeroOneAdam)
 _M32 = 0xFFFFFFFF
 # wall_clock_breakdown's timers (the JAX engine's names)
 FORWARD_MICRO_TIMER = "forward_microstep"
@@ -236,16 +262,15 @@ def resolve_device(device=None) -> torch.device:
 
 def _refuse_unported(raw, cfg):
     """NotImplementedError for every configuration this port cannot run
-    yet, naming its ROADMAP item; nothing is silently ignored."""
+    yet, naming its ROADMAP item (A12 pipelines, A16 resilience; the
+    optimizers' and the CSR wires' residue, A13c, at ``_arm_wire`` and
+    ``_arm_csr``); nothing is silently ignored."""
     def no(what, item):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                   f"{item})")
 
     if cfg.zero_config.cpu_offload:
         # the combinations of ZeRO-Offload this port does not run yet
-        if cfg.sparse_gradients_enabled:
-            no("ZeRO-Offload with sparse_gradients (CSR gradients on the "
-               "device-to-host wire)", "A13b")
         if cfg.pipeline.get("stages", 1) not in (1, None):
             no("ZeRO-Offload with pipeline parallelism", "A12")
     if cfg.pipeline.get("stages", 1) not in (1, None):
@@ -371,6 +396,8 @@ class DeepSpeedEngine:
         self._s3_stash = None
         self._arm_stage3(stage)
         self._arm_quantized_collectives(stage)
+        self._arm_wire(stage)
+        self._arm_csr(stage)
         if self._offload:
             self._build_offload_state()
         else:
@@ -402,6 +429,7 @@ class DeepSpeedEngine:
         self._last_grad_norm = None
         self._step_loss = None
         self._comm_metrics = None
+        self._comm_key = None
 
         # --- telemetry (JAX engine.py:195-238) --------------------------
         self._arm_telemetry()
@@ -549,9 +577,10 @@ class DeepSpeedEngine:
             return FusedLamb(**params)
         if name == SGD_OPTIMIZER:
             return SGD(**params)
-        if name in _LATER_OPTIMIZERS:
-            raise NotImplementedError(f"optimizer {name!r} is not ported yet "
-                                      f"(ROADMAP {_LATER_OPTIMIZERS[name]})")
+        if name == ONEBIT_ADAM_OPTIMIZER:
+            return OnebitAdam(**params)
+        if name == ZEROONE_ADAM_OPTIMIZER:
+            return ZeroOneAdam(**params)
         raise ValueError(f"Unknown optimizer type {name!r}")
 
     def _configure_lr_scheduler(self):
@@ -770,6 +799,165 @@ class DeepSpeedEngine:
                 f"routes the quantized gradient exchange and {why}",
                 ranks=[0], level=logging.WARNING)
 
+    def _arm_wire(self, stage):
+        """1-bit Adam and 0/1 Adam: decide whether the optimizer's own
+        compressed gradient wire runs (JAX engine.py:468-516,
+        ``_arm_zeroone`` :944-981, ``_arm_quantized_allreduce``
+        :984-1019), naming every blocker in a warning, in the JAX
+        engine's words. Armed (dp > 1, stage 0, no offload; 0/1 Adam also
+        without sparse_gradients), ``train_batch`` keeps each rank's
+        gradients local and the optimizer exchanges them: a dense mean in
+        warmup, then the 1-bit wire (``_wire_apply``). Disarmed, the
+        optimizer steps on the exchanged mean gradient, its wire the
+        local twin (0/1 Adam: warmup, dense Adam without bias correction,
+        for ever)."""
+        self._wire = None
+        self._wire_phase = None
+        self._wire_micro = False
+        self._onebit_latch = False
+        self._zeroone_latch = False
+        opt = self.optimizer
+        if not isinstance(opt, _WIRE_OPTIMIZERS):
+            return
+        dp, zc = self.dp_world_size, self._config.zero_config
+        zero_one = isinstance(opt, ZeroOneAdam)
+        what = "ZeroOneAdam" if zero_one else "OneBitAdam"
+        unported = []
+        if zc.cpu_offload:
+            unported.append("cpu_offload")
+        if dp > 1 and stage != 0:
+            unported.append(f"ZeRO stage {stage} at dp {dp} (the state "
+                            f"sharded over data)")
+        if self.sp_world_size != 1:
+            unported.append(f"seq={self.sp_world_size}")
+        if dp > 1 and self.partition.expert_idx:
+            unported.append("MoE expert parallelism")
+        if unported:
+            raise NotImplementedError(
+                f"{what} with {', '.join(unported)} is not ported yet "
+                f"(ROADMAP A13c)")
+        blockers = []
+        if opt.comm_backend_name == "none":
+            blockers.append("comm_backend_name='none'")
+        if dp <= 1:
+            blockers.append("data-parallel degree is 1")
+        if zero_one and self._config.sparse_gradients_enabled:
+            blockers.append("sparse_gradients CSR exchange owns the "
+                            "embedding-grad wire")
+        leaf_map = self.partition.leaf_map()
+        if blockers:
+            if zero_one:
+                log_dist(
+                    "ZeroOneAdam: wire compression DISARMED — gradients "
+                    f"move dense and the variance never freezes "
+                    f"({', '.join(blockers)}); the 1-bit collective path "
+                    "requires dp>1, zero stage 0, pipe=1, no cpu_offload "
+                    "and no sparse_gradients", ranks=[0],
+                    level=logging.WARNING)
+            else:
+                log_dist(
+                    "OneBitAdam: wire compression DISARMED — gradients "
+                    f"move dense ({', '.join(blockers)}); the compressed "
+                    "collective path requires zero stage 0 and pipe=1",
+                    ranks=[0], level=logging.WARNING)
+            opt.set_wire(None, leaf_map)
+            return
+        if self.gradient_clipping():
+            # JAX engine.py:2439-2449, 2668-2676
+            raise ValueError(
+                f"gradient_clipping is incompatible with the "
+                f"{'0/1' if zero_one else '1-bit'} Adam wire-compression "
+                f"path (there is no dense gradient to clip). Disable "
+                f"clipping, or set optimizer params "
+                f"comm_backend_name='none' to keep the dense path.")
+        if zero_one:
+            opt.set_wire(self.dp_group, leaf_map,
+                         self._arm_quantized_allreduce(dp, opt))
+            self._wire = "zeroone"
+        else:
+            opt.set_wire(self.dp_group, leaf_map)
+            self._wire = "onebit"
+
+    def _arm_quantized_allreduce(self, dp, opt):
+        """The intra-group size of the armed 0/1 Adam wire (0: flat): the
+        optimizer's ``intra_size``, else the config's
+        ``hierarchical_intra_size`` under ``hierarchical_allreduce`` (auto:
+        the ranks on this node)."""
+        zc = self._config.zero_config
+        k = int(opt.intra_size or 0)
+        if not k and zc.hierarchical_allreduce:
+            k = zc.hierarchical_intra_size
+            if k <= 0:
+                k = math.gcd(dp, local_world_size())
+        if 1 < k < dp and dp % k == 0:
+            self.dp_group.hierarchy(k)
+            return k
+        if k > 1:
+            log_dist(
+                f"quantized_all_reduce: hierarchical intra size {k} cannot "
+                f"form >=2 groups over the data axis ({dp}; needs 1 < k < "
+                f"{dp} with k dividing it); using the flat wire",
+                ranks=[0], level=logging.WARNING)
+        return 0
+
+    def _arm_csr(self, stage):
+        """sparse_gradients (JAX engine.py:602-625, 639-652): the
+        parameters the model flags row-sparse (``sparse_grad_spec()``:
+        {parameter name: bool}) move as CSR rows at the capacity of the
+        micro-batch's lookup tokens: under plain data parallelism (dp > 1,
+        stage <= 1, seq 1, no wire of the optimizer's own) an all-gather
+        of (indices, values) in place of their all-reduce; under
+        ZeRO-Offload the copy down."""
+        self._csr_idx = []
+        self._csr_cap = None
+        if not (self._config.sparse_gradients_enabled
+                and hasattr(self.module, "sparse_grad_spec")):
+            return
+        flags = self.module.sparse_grad_spec()
+        idx = [i for i, n in enumerate(self.param_names) if flags.get(n)]
+        dp = self.dp_world_size
+        if self._config.zero_config.cpu_offload:
+            if dp > 1:
+                raise NotImplementedError(
+                    "ZeRO-Offload with sparse_gradients at dp > 1 (CSR rows "
+                    "of the exchanged gradients on the copy down) is not "
+                    "ported yet (ROADMAP A13c)")
+            if self._offload:
+                self._csr_idx = idx
+            return
+        if dp > 1 and stage <= 1 and self.sp_world_size == 1 \
+                and self._wire is None:
+            self._csr_idx = idx
+
+    def _csr_last(self, idx):
+        """``idx`` with the CSR parameters moved to its end (the flat
+        layouts keep them out of the dense exchange and copy)."""
+        csr = set(self._csr_idx)
+        return [i for i in idx if i not in csr] + \
+            [i for i in idx if i in csr]
+
+    def _leaf_name(self, i):
+        return next(leaf.name for leaf in self.partition.leaves
+                    if i in leaf.params)
+
+    def _sparse_row_capacity(self, batch):
+        """The CSR row capacity of a micro-batch (JAX
+        ``_sparse_row_capacity``, engine.py:1662-1684): the model's
+        ``sparse_grad_tokens(batch)``, else the integer entries' sizes."""
+        if hasattr(self.module, "sparse_grad_tokens"):
+            tokens = int(self.module.sparse_grad_tokens(batch))
+        else:
+            values = batch.values() if isinstance(batch, dict) else [batch]
+            tokens = sum(int(np.prod(np.shape(v))) for v in values
+                         if _is_integer(v))
+        if tokens <= 0:
+            raise ValueError(
+                "sparse_gradients: cannot size the CSR row capacity — the "
+                "batch has no integer leaves and the model does not define "
+                "sparse_grad_tokens(batch); truncating rows would silently "
+                "corrupt gradients")
+        return tokens
+
     @torch.no_grad()
     def _build_state(self):
         """This rank's master weights, gradient accumulator and exchange
@@ -797,10 +985,13 @@ class DeepSpeedEngine:
         # step, then (stage 2) this rank's shards of the others, then this
         # rank's experts
         stage2 = self._grad_sharded
-        self._ar_idx = [i for i, s in enumerate(sharded)
-                        if not (stage2 and s) and not part.expert[i]]
+        self._ar_idx = self._csr_last(
+            [i for i, s in enumerate(sharded)
+             if not (stage2 and s) and not part.expert[i]])
         sizes = [self.params[i].numel() for i in self._ar_idx]
         self._n_ar = sum(sizes)
+        self._n_dense = self._n_ar - sum(self.params[i].numel()
+                                         for i in self._csr_idx)
         seg = part.seg_size if stage2 else 0
         self._flat_accum = torch.zeros(self._n_ar + seg + self._n_experts(),
                                        dtype=f32, device=dev)
@@ -883,11 +1074,13 @@ class DeepSpeedEngine:
         self._ar_buf = xchg[:self._n_ar]
         self._ar_views = [b.view(self.params[i].shape) for i, b in
                           zip(self._ar_idx, self._ar_buf.split(sizes))]
+        csr = {self._leaf_name(i) for i in self._csr_idx}
         self._ar_leaves = [(leaf.name, leaf.elements)
                            for leaf in part.leaves
                            if not (self._grad_sharded
                                    and leaf.shard_dim is not None)
-                           and leaf.expert_dim is None]
+                           and leaf.expert_dim is None
+                           and leaf.name not in csr]
         self._sh_leaves = part.leaf_elements(sharded=True)
         n = self.dp_world_size * part.seg_size
         seg = part.seg_size if self._grad_sharded else 0
@@ -922,9 +1115,15 @@ class DeepSpeedEngine:
         sharded = part.sharded
         self._master_separate = True
         self._rep_idx = [i for i, s in enumerate(sharded) if not s]
-        self._ar_idx = [i for i in self._rep_idx if not part.expert[i]]
+        self._ar_idx = self._csr_last(
+            [i for i in self._rep_idx if not part.expert[i]])
         sizes = [self.params[i].numel() for i in self._ar_idx]
         self._n_ar = sum(sizes)
+        self._n_dense = self._n_ar - sum(self.params[i].numel()
+                                         for i in self._csr_idx)
+        self._csr_staging = [None] * (2 if self.gradient_accumulation_steps()
+                                      > 1 else 1)
+        self.last_fetch_bytes = None
         seg = part.seg_size
         n = self._n_ar + seg + self._n_experts()
 
@@ -1240,6 +1439,8 @@ class DeepSpeedEngine:
             batch["pld_theta"] = np.float32(
                 self.progressive_layer_drop.get_theta())
         dev_batch = self._to_device(batch)
+        if self._csr_idx:
+            self._csr_cap = self._sparse_row_capacity(batch)
         self._maybe_profile(dev_batch)
         if self._telemetry is not None:
             self._register_micro_step(dev_batch)
@@ -1358,7 +1559,7 @@ class DeepSpeedEngine:
         # alike (the exchange sums its ranks' terms), another model's loss
         # is this rank's share of it
         div = self.gradient_accumulation_steps()
-        if not self._loss_is_global:
+        if not (self._loss_is_global or self._wire_micro):
             div *= self.dp_world_size
         # the implicit path's second gathers: each block's at its first
         # use in the backward (a remat recompute's, where there is one)
@@ -1369,7 +1570,7 @@ class DeepSpeedEngine:
             return
         # the gradients, in the compute dtype, into the fp32 accumulator
         grads = [p.grad for p in self.params]
-        if self.dp_group is not None:
+        if self.dp_group is not None and not self._wire_micro:
             self._exchange_grads(grads)
         else:
             got = [(a, g) for a, g in zip(self.accum, grads)
@@ -1398,11 +1599,23 @@ class DeepSpeedEngine:
                 if got:
                     torch._foreach_add_([a for a, _ in got],
                                         [g for _, g in got])
-        if self._ar_idx:
-            _copy_or_zero(self._ar_views, [grads[i] for i in self._ar_idx])
-            group.all_reduce(self._ar_buf, leaves=self._ar_leaves)
+        nd = self._n_dense
+        if nd:
+            dense = len(self._ar_idx) - len(self._csr_idx)
+            _copy_or_zero(self._ar_views[:dense],
+                          [grads[i] for i in self._ar_idx[:dense]])
+            group.all_reduce(self._ar_buf[:nd], leaves=self._ar_leaves)
             if not self._offload:
-                self._flat_accum[:self._n_ar].add_(self._ar_buf)
+                self._flat_accum[:nd].add_(self._ar_buf[:nd])
+        for i in self._csr_idx:
+            # the row-sparse gradients: (indices, values) of every rank
+            # gathered and summed (JAX engine.py:1686-1738)
+            g = grads[i]
+            if g is not None:
+                csr = CSRTensor.from_dense(
+                    g, max_rows=min(self._csr_cap, g.shape[0]))
+                self.accum[i].add_(allgather_csr(csr, group,
+                                                 self._leaf_name(i)))
         if self._grad_sharded and self.partition.seg_size:
             if self._qgz_armed:
                 self._qgz_exchange(grads)
@@ -1455,9 +1668,13 @@ class DeepSpeedEngine:
         after backward, so the next micro step's compute overlaps it."""
         if self._d2h_last is not None:
             torch.cuda.current_stream(self.device).wait_event(self._d2h_last)
+        csr = []
         if self.dp_group is None:
-            _copy_or_zero(self._dev_views, grads)
+            dense = self._ar_idx[:len(self._ar_idx) - len(self._csr_idx)]
+            _copy_or_zero([self._dev_views[i] for i in dense],
+                          [grads[i] for i in dense])
             src = self._dev_flat
+            csr = [self._csr_rows(i, grads[i]) for i in self._csr_idx]
         else:
             self._exchange_grads(grads)
             src = self._xchg
@@ -1469,26 +1686,86 @@ class DeepSpeedEngine:
             # one slot (gas 1) still holding a micro step not yet added
             self._drain_pending_fetches()
         staging = self._staging[slot]
+        # the CSR parameters lie at the end of the flat layout (dp 1):
+        # their rows go down instead of their dense region
+        nd = self._n_dense if csr else src.numel()
+        host_csr = self._csr_host(slot, csr)
+        self.last_fetch_bytes = {
+            "dense": nd * src.element_size(),
+            "csr": {self._leaf_name(i): sum(t.numel() * t.element_size()
+                                            for t in rows)
+                    for i, rows in zip(self._csr_idx, csr)},
+            "csr_dense": {self._leaf_name(i): self.params[i].numel()
+                          * src.element_size() for i in self._csr_idx}}
         if self._d2h_stream is None:
-            staging.copy_(src)
+            staging[:nd].copy_(src[:nd])
+            for dst, rows in zip(host_csr, csr):
+                torch._foreach_copy_(list(dst), list(rows))
             return slot
         ready = torch.cuda.Event()
         ready.record()
         self._d2h_stream.wait_event(ready)
         with torch.cuda.stream(self._d2h_stream):
-            staging.copy_(src, non_blocking=True)
+            staging[:nd].copy_(src[:nd], non_blocking=True)
+            for dst, rows in zip(host_csr, csr):
+                for d, r in zip(dst, rows):
+                    d.copy_(r, non_blocking=True)
+                    # made on the current stream, read on this one
+                    r.record_stream(self._d2h_stream)
         self._d2h_events[slot].record(self._d2h_stream)
         self._d2h_last = self._d2h_events[slot]
         return slot
 
+    def _csr_rows(self, i, g):
+        """(indices, values, dropped) of parameter i's gradient at the
+        micro-batch's capacity, on the device: the rows the copy down
+        carries, and how many nonzero rows the capacity left out."""
+        if g is None:
+            g = torch.zeros(self.params[i].shape, dtype=self.param_dtype,
+                            device=self.device)
+        cap = min(self._csr_cap, g.shape[0])
+        csr = CSRTensor.from_dense(g, max_rows=cap)
+        dropped = torch.clamp(nonzero_rows(g).sum() - cap, min=0)
+        return csr.indices, csr.values, dropped.reshape(1)
+
+    def _csr_host(self, slot, csr):
+        """The pinned host buffers of ``slot`` for the CSR rows ``csr``,
+        made again only when a capacity changes."""
+        if not csr:
+            return []
+        have = self._csr_staging[slot]
+        shapes = [[(tuple(t.shape), t.dtype) for t in rows] for rows in csr]
+        if have is None or have[0] != shapes:
+            pin = self.device.type == "cuda"
+            have = (shapes, [[torch.empty(sh, dtype=dt, pin_memory=pin)
+                              for sh, dt in rows] for rows in shapes])
+            self._csr_staging[slot] = have
+        return have[1]
+
     def _drain_pending_fetches(self):
         """Add each pending staging buffer into the fp32 host accumulator,
-        once its copy has completed (JAX ``_consume_grad_fetch``)."""
+        once its copy has completed (JAX ``_consume_grad_fetch``); a CSR
+        parameter's rows are scatter-added into its region."""
         for slot in self._pending_fetches:
             if self._d2h_events is not None:
                 self._d2h_events[slot].synchronize()
                 self._host_waits += 1
-            accumulate(self._host_lib, self._host_accum, self._staging[slot])
+            if not self._csr_idx:
+                accumulate(self._host_lib, self._host_accum,
+                           self._staging[slot])
+                continue
+            nd = self._n_dense
+            accumulate(self._host_lib, self._host_accum[:nd],
+                       self._staging[slot][:nd])
+            for i, (idx, vals, dropped) in zip(self._csr_idx,
+                                               self._csr_staging[slot][1]):
+                if int(dropped):
+                    raise RuntimeError(
+                        f"sparse_gradients: CSR capacity too small — "
+                        f"{int(dropped)} nonzero gradient rows were "
+                        f"dropped; fix the model's sparse_grad_tokens"
+                        f"(batch) to report the true lookup-token count")
+                scatter_add_rows(self.accum[i], idx, vals)
         self._pending_fetches = []
 
     @torch.no_grad()
@@ -1703,21 +1980,22 @@ class DeepSpeedEngine:
         the host step (``_take_model_step_offload``)."""
         if self._offload:
             return self._take_model_step_offload()
-        self._finish_step(*self._model_step("apply_step"))
+        self._finish_step(*self._model_step(*self._apply_program_spec()))
 
     @torch.no_grad()
-    def _model_step(self, program=None):
+    def _model_step(self, program=None, contract=None):
         """The optimizer step up to its bookkeeping: its device work
-        (``_apply``) dispatched as ``program`` (None: inside the caller's
-        program, ``fused_train_step``). Returns ``_finish_step``'s
-        arguments."""
+        (``_apply``, or the optimizer's own wire: ``_wire_apply``)
+        dispatched as ``program`` (None: inside the caller's program,
+        ``fused_train_step``). Returns ``_finish_step``'s arguments."""
         _t0 = self._begin_apply()
         lr = self._advance_lr()
         self._sync_master()
         obs = NO_OBSERVER if program is None else self._dispatch_program(
-            program, {"donates_argnums": (0,), "donation_min_elements": 4})
+            program, contract)
         with obs:
-            metrics = self._apply(lr)
+            metrics = self._wire_apply(lr) if self._wire is not None \
+                else self._apply(lr)
         return lr, metrics, _t0
 
     @torch.no_grad()
@@ -1743,7 +2021,8 @@ class DeepSpeedEngine:
         clip = self.gradient_clipping()
         if clip and clip > 0:
             clip_grad_by_global_norm(grads, clip, gnorm)
-        self.optimizer.update(self.master, grads, lr=lr, skip=overflow)
+        self.optimizer.update(self.master, grads, lr=lr, skip=overflow,
+                              **self._phase_kwargs())
         self._gather_params()
         self._skipped += overflow.to(torch.int32)
         if self.scaler is not None:
@@ -1751,6 +2030,179 @@ class DeepSpeedEngine:
                                             **self._scaler_hparams())
         flat.zero_()
         return {"overflow": overflow, "grad_norm": gnorm,
+                "loss_scale": 1.0 if scale is None else scale}
+
+    # ------------------------------------------------------------------
+    # 1-bit Adam and 0/1 Adam: the phases and the wire step (JAX
+    # engine.py:2247-2338, 2461-2579)
+    # ------------------------------------------------------------------
+    def _onebit_frozen(self):
+        """Whether the next step runs 1-bit Adam's frozen phase, keyed on
+        optimizer steps (engine steps less the fp16-skipped ones): the
+        skipped count is read back only once engine steps alone can reach
+        the boundary, and the phase latches."""
+        if self._onebit_latch:
+            return True
+        if self.global_steps + 1 <= self.optimizer.freeze_step:
+            return False
+        skipped = self.skipped_steps if self.fp16_enabled() else 0
+        frozen = self.global_steps - skipped + 1 > self.optimizer.freeze_step
+        self._onebit_latch = frozen
+        return frozen
+
+    def _zeroone_phase(self):
+        """(phase, k_round) of the next 0/1 Adam step: ``zeroone_cadence``
+        of the completed optimizer steps (engine steps less the
+        fp16-skipped ones), re-derived from the counters, so a resumed
+        run takes the phase an unbroken one would."""
+        opt = self.optimizer
+        if not self._zeroone_latch and \
+                self.global_steps + 1 <= opt.var_freeze_step:
+            return "warmup", 1
+        skipped = self.skipped_steps if self.fp16_enabled() else 0
+        phase, k = opt.cadence(self.global_steps - skipped)
+        if phase != "warmup":
+            self._zeroone_latch = True
+        return phase, k
+
+    def _phase_kwargs(self):
+        """The phase arguments of a disarmed wire optimizer's update in
+        the generic step: 1-bit Adam's freeze (its local twin after it);
+        0/1 Adam steps in warmup for ever (JAX ``_arm_zeroone``)."""
+        if isinstance(self.optimizer, OnebitAdam):
+            return {"frozen": self._onebit_frozen()}
+        return {}
+
+    def _next_wire_phase(self):
+        """Fix the phase of the next wire step: ("warmup" | "frozen", 1)
+        for 1-bit Adam, ``_zeroone_phase()`` for 0/1 Adam; returns the
+        program name's suffix."""
+        if self._wire == "onebit":
+            self._wire_phase = ("frozen" if self._onebit_frozen()
+                                else "warmup", 1)
+            return self._wire_phase[0]
+        self._wire_phase = self._zeroone_phase()
+        return "%s_k%d" % self._wire_phase
+
+    def _wire_contract(self, base):
+        """``base`` with the wire phase's contract (JAX
+        ``_fused_program_spec``): a local round posts no collective; a
+        frozen or sync step moves packed u8 / s8 codes, a sync round
+        within the report's ``optimizer_wire.sync_round_bytes`` (times
+        dp / (dp - 1): gathers are priced at their output)."""
+        contract = dict(base)
+        phase = self._wire_phase[0]
+        if phase == "local":
+            contract["collective_free"] = True
+        elif phase == "frozen":
+            contract["wire_dtype"] = ("u8", "s8")
+        elif phase == "sync":
+            # a gather or all-to-all is measured at its output, the
+            # report's ring bytes times g / (g - 1) for a group of g: the
+            # data axis (the JAX contract's slack), or over hierarchical
+            # groups the smaller of k and dp / k (ROADMAP C-w17)
+            dp, k = self.dp_world_size, self.optimizer.intra_size
+            g = min(k, dp // k) if k else dp
+            contract.update(
+                wire_dtype=("u8", "s8"),
+                comm_budget_key="optimizer_wire.sync_round_bytes",
+                comm_budget_bytes=lambda: (
+                    self.comm_volume_report()["optimizer_wire"]
+                    ["sync_round_bytes"] * g / max(1, g - 1) + 1),
+                comm_small_op_cutoff=8)
+        return contract
+
+    def _fused_program_spec(self):
+        """(name, contract) of the program ``train_batch`` runs next:
+        ``fused_train_step``, or the wire's phase program
+        (``onebit_fused:<phase>``, ``zeroone_fused:<phase>_k<k>``)."""
+        base = {"host_transfer_free": True, "donates_argnums": (0,),
+                "donation_min_elements": 4}
+        if self._wire is None:
+            return "fused_train_step", base
+        name = f"{self._wire}_fused:{self._next_wire_phase()}"
+        return name, self._wire_contract(base)
+
+    def _apply_program_spec(self):
+        """(name, contract) of the program ``step()`` runs next:
+        ``apply_step``, or ``onebit_apply:<phase>`` /
+        ``zeroone_apply:<phase>_k<k>``."""
+        base = {"donates_argnums": (0,), "donation_min_elements": 4}
+        if self._wire is None:
+            return "apply_step", base
+        name = f"{self._wire}_apply:{self._next_wire_phase()}"
+        return name, self._wire_contract(base)
+
+    @contextlib.contextmanager
+    def _local_micro_steps(self):
+        """Under the armed wire, ``train_batch``'s micro steps keep each
+        rank's gradients its own (the JAX engine's fused wire step runs
+        the model under shard_map): the model's loss is the rank's own
+        micro-batch's, and nothing is exchanged before the optimizer."""
+        if self._wire is None:
+            yield
+            return
+        self._wire_micro = True
+        if self._loss_is_global:
+            self.module.set_loss_group(None)
+        try:
+            yield
+        finally:
+            self._wire_micro = False
+            if self._loss_is_global:
+                self.module.set_loss_group(self._world_group)
+
+    @torch.no_grad()
+    def _wire_apply(self, lr):
+        """The optimizer step of the armed wire (JAX ``_make_onebit_tail``,
+        ``_make_zeroone_tail``): the accumulator (this rank's gradients
+        under ``train_batch``, the exchanged mean through step()) unscaled;
+        a local round adds it into the optimizer's local accumulator with
+        no collective, no overflow check and no scaler update; otherwise
+        the non-finite check over the group (at a sync the local
+        accumulator too), and the update: warmup over the all-reduced
+        mean, 1-bit Adam's frozen momentum and 0/1 Adam's sync round over
+        the compressed wire. The global norm is not computed (0)."""
+        phase, k = self._wire_phase
+        opt, flat, group = self.optimizer, self._flat_accum, self.dp_group
+        dev = self.device
+        scale = None
+        found = torch.zeros(1, device=dev)
+        ones = torch.ones(1, device=dev)
+        if self.scaler is not None:
+            scale = self.scaler.loss_scale
+        inv = (1.0 / scale).reshape(1) if scale is not None else ones
+        # one fused pass: the flag and the unscale (exact: a power of 2)
+        torch._amp_foreach_non_finite_check_and_unscale_([flat], found, inv)
+        if phase == "local":
+            opt.update(self.master, self._step_grads, lr=lr, phase="local",
+                       k_round=k)
+            overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        else:
+            if phase == "sync":
+                # local rounds never checked: what they accumulated trips
+                # the scaler here
+                torch._amp_foreach_non_finite_check_and_unscale_(
+                    opt.local_accum, found, ones)
+            group.all_reduce(found, op=dist.ReduceOp.MAX)
+            overflow = found[0] > 0
+            flat.masked_fill_(overflow, 0.0)
+            if phase == "warmup":
+                # the exact mean the warmup step takes
+                group.all_reduce(flat, leaves=self._ar_leaves)
+                flat.div_(self.dp_world_size)
+            kw = {"phase": phase, "k_round": k} if self._wire == "zeroone" \
+                else {"frozen": phase == "frozen"}
+            opt.update(self.master, self._step_grads, lr=lr, skip=overflow,
+                       **kw)
+        self._gather_params()
+        self._skipped += overflow.to(torch.int32)
+        if self.scaler is not None and phase != "local":
+            self.scaler = update_loss_scale(self.scaler, overflow,
+                                            **self._scaler_hparams())
+        flat.zero_()
+        return {"overflow": overflow,
+                "grad_norm": torch.zeros((), device=dev),
                 "loss_scale": 1.0 if scale is None else scale}
 
     def _begin_apply(self):
@@ -1802,17 +2254,32 @@ class DeepSpeedEngine:
 
     def _annotate_comm(self):
         """The step's communication figures (JAX ``_annotate_comm``,
-        engine.py:3071): the analytic report's totals, computed once."""
-        if self._comm_metrics is None:
+        engine.py:3071): the analytic report's totals where the report
+        models the active gradient path (none for the CSR rows and the
+        1-bit Adam wire), with the 0/1 Adam wire's figures; computed again
+        when the 0/1 phase changes."""
+        key = self._zeroone_phase() if self._wire == "zeroone" else None
+        if self._comm_metrics is None or self._comm_key != key:
+            self._comm_key = key
             report = self.comm_volume_report()
-            self._comm_metrics = {k: report[v] for k, v in (
-                ("comm_bytes_per_step", "total_bytes_per_step"),
-                ("param_gather_bytes_per_step",
-                 "param_gather_bytes_per_step"),
-                ("param_gather_dense_bytes_per_step",
-                 "param_gather_dense_bytes_per_step"),
-                ("param_gather_quantized_bytes_per_step",
-                 "param_gather_quantized_bytes_per_step"))}
+            self._comm_metrics = {} if not report["grad_path_modeled"] \
+                else {k: report[v] for k, v in (
+                    ("comm_bytes_per_step", "total_bytes_per_step"),
+                    ("param_gather_bytes_per_step",
+                     "param_gather_bytes_per_step"),
+                    ("param_gather_dense_bytes_per_step",
+                     "param_gather_dense_bytes_per_step"),
+                    ("param_gather_quantized_bytes_per_step",
+                     "param_gather_quantized_bytes_per_step"))}
+            ow = report.get("optimizer_wire")
+            if ow is not None:
+                m = self._comm_metrics
+                m["optimizer_wire_bytes_per_step"] = \
+                    m["comm_bytes_per_step"] \
+                    - report["param_gather_bytes_per_step"]
+                m["optimizer_wire_sync_round_bytes"] = ow["sync_round_bytes"]
+                m["optimizer_wire_k_round"] = ow["config"]["local_steps_k"]
+                m["optimizer_wire_phase"] = ow["phase"]
         return self._comm_metrics
 
     @torch.no_grad()
@@ -1876,14 +2343,12 @@ class DeepSpeedEngine:
         else:
             # the micro loop, the loss all-reduce and the optimizer step:
             # one program, the JAX engine's fused_train_step
-            obs = self._dispatch_program(
-                "fused_train_step", {"host_transfer_free": True,
-                                     "donates_argnums": (0,),
-                                     "donation_min_elements": 4})
+            obs = self._dispatch_program(*self._fused_program_spec())
             self._micro_name = None
             obs.start()
             try:
-                loss = self._micro_loop(micros)
+                with self._local_micro_steps():
+                    loss = self._micro_loop(micros)
                 step = self._model_step()
             finally:
                 obs.stop()
@@ -1904,7 +2369,12 @@ class DeepSpeedEngine:
             losses.append(self.forward(micro).detach())
             self.backward()
         loss = torch.stack(losses).float().mean()
-        if self.dp_group is not None and not self._loss_is_global:
+        if self._wire_micro:
+            # the mean of the ranks' losses, but a local round's: this
+            # rank's alone, no collective
+            if self._wire_phase[0] != "local":
+                loss = self.dp_group.all_reduce(loss) / self.dp_world_size
+        elif self.dp_group is not None and not self._loss_is_global:
             # the global batch's mean loss
             loss = self.dp_group.all_reduce(loss) / self.dp_world_size
         self._step_loss = loss
@@ -1951,6 +2421,11 @@ class DeepSpeedEngine:
             for k, lst in enumerate(self.optimizer.state_lists()):
                 state.update({f"opt_state/{k}/{n}": t
                               for n, t in zip(self.param_names, lst)})
+            if hasattr(self.optimizer, "leaf_state_lists"):
+                names = self.optimizer.leaf_map.names
+                for k, lst in enumerate(self.optimizer.leaf_state_lists()):
+                    state.update({f"opt_state/leaf{k}/{n}": t
+                                  for n, t in zip(names, lst)})
             if self._master_separate:
                 state.update({f"master/{n}": m
                               for n, m in zip(self.param_names,
@@ -2264,9 +2739,11 @@ class DeepSpeedEngine:
         opt_state (its step, then each parameter-shaped list), master
         (mixed precision only), accum, scaler (fp16 only), skipped_steps,
         rng. ``kind`` "tree" marks a parameter-shaped list in this module's
-        order, which maps through the reference's parameter tree;
-        ``sharded``, a list that holds this rank's shards of the sharded
-        parameters (ZeRO: the optimizer state and master, and at stage 2
+        order, which maps through the reference's parameter tree; "rows"
+        a list of flat tensors, one per JAX leaf, whose fourth entry is
+        their shapes (each this rank's row of a leaf with a leading
+        ``(dp,)`` dim where the optimizer's wire is armed); ``sharded``, a
+        list that holds this rank's shards of the sharded parameters (ZeRO: the optimizer state and master, and at stage 2
         the accumulator). Under offload the TrainState holds no optimizer
         state, master or accumulator (they are the host's, in
         ``offload_states.npz``)."""
@@ -2283,6 +2760,12 @@ class DeepSpeedEngine:
             layout.append(("opt", "leaf", [self.optimizer.step], False))
             layout += [("opt", "tree", lst, zero)
                        for lst in self.optimizer.state_lists()]
+            if hasattr(self.optimizer, "leaf_state_lists"):
+                # 1-bit / 0/1 Adam's per-leaf state: each rank's row of the
+                # JAX engine's leading (dp,) dim where the wire is armed
+                layout += [("opt", "rows", lst, shapes) for lst, shapes in
+                           zip(self.optimizer.leaf_state_lists(),
+                               self.optimizer.leaf_state_shapes())]
             if self.mixed_precision:
                 layout.append(("master", "tree", self.master, zero))
             layout.append(("accum", "tree", self.accum,
@@ -2373,6 +2856,9 @@ class DeepSpeedEngine:
         """The TrainState's leaves, full-shaped (sharded lists gathered)."""
         leaves = []
         for _, kind, tensors, sharded in self._state_layout():
+            if kind == "rows":
+                leaves += self._rows_leaves(tensors, sharded)
+                continue
             if sharded:
                 tensors = self._gather_full(tensors)
             if kind == "tree":
@@ -2380,6 +2866,20 @@ class DeepSpeedEngine:
             else:
                 leaves += list(tensors)
         return leaves
+
+    def _rows_leaves(self, flats, shapes):
+        """Per-leaf flat state as the JAX leaves: each reshaped to its
+        shape, or, with the wire armed, every rank's row gathered into a
+        leading (dp,) dim (every rank takes part)."""
+        if self._wire is None:
+            return [t.reshape(sh) for t, sh in zip(flats, shapes)]
+        out = []
+        for t, sh in zip(flats, shapes):
+            full = torch.empty(self.dp_world_size * t.numel(),
+                               dtype=t.dtype, device=t.device)
+            self.dp_group.all_gather(full, t.contiguous(), leaves=())
+            out.append(full.view((self.dp_world_size,) + tuple(sh)))
+        return out
 
     def _checkpoint_tag_validation(self, tag):
         """The tag must be the same on every rank (reference
@@ -2532,7 +3032,34 @@ class DeepSpeedEngine:
             implicit_param_gathers_per_step=2 * gas if s3 else None)
         report["config"].update({"zero_stage": stage,
                                  "compute_dtype": compute})
-        report["grad_path_modeled"] = True
+        # the report models the dense and quantized ZeRO exchanges; the
+        # CSR rows and the 1-bit Adam wire it does not price (JAX
+        # engine.py:3024-3032; ROADMAP C-w17)
+        report["grad_path_modeled"] = not (
+            bool(self._csr_idx) or self._wire == "onebit")
+        if self._wire == "zeroone":
+            # the 0/1 Adam wire, phase by phase (JAX engine.py:3033-3054):
+            # the dense mean in warmup, the packed sync round amortized
+            # over its k steps after
+            phase, k_round = self._zeroone_phase()
+            opt = self.optimizer
+            ow = ca.zeroone_volume_report(
+                leaves, dp, bits=opt.bits,
+                block_size=(opt.quantization_block_size
+                            or ca.DEFAULT_BLOCK_SIZE),
+                intra_size=opt.intra_size, local_steps_k=k_round, gas=gas)
+            ow["phase"] = phase
+            report["optimizer_wire"] = ow
+            report["grad_path_modeled"] = True
+            grad_bytes = ow["warmup_grad_exchange_bytes_per_step"] \
+                if phase == "warmup" \
+                else ow["amortized_grad_exchange_bytes_per_step"]
+            report["grad_exchange_bytes_per_step"] = grad_bytes
+            report["total_bytes_per_step"] = \
+                grad_bytes + report["param_gather_bytes_per_step"]
+            base = report["baseline"]["fp32_grad_exchange_bytes_per_step"]
+            report["grad_reduction_vs_fp32"] = \
+                base / grad_bytes if grad_bytes else None
         return report
 
     def _analytic_memory_components(self):
@@ -2553,7 +3080,9 @@ class DeepSpeedEngine:
             return self._offload_memory_components()
         own = {id(p) for p in self.params}
         opt = [self.optimizer.step] + [
-            t for lst in self.optimizer.state_lists() for t in lst]
+            t for lst in self.optimizer.state_lists() for t in lst] + [
+            t for lst in getattr(self.optimizer, "leaf_state_lists",
+                                 list)() for t in lst]
         components = {
             "params_bytes": memory_accounting.tensor_bytes(self.params),
             "grad_accum_bytes":
@@ -2737,6 +3266,9 @@ class DeepSpeedEngine:
                 for dst, src in zip(tensors, got):
                     dst.copy_(src)
                 continue
+            if kind == "rows":
+                self._copy_rows(got, tensors, sharded, path)
+                continue
             self._copy_tree(got, tensors, sharded, strict)
         if self._offload:
             self._mark_params()
@@ -2746,6 +3278,21 @@ class DeepSpeedEngine:
             for i in part.sharded_idx:
                 self.master[i].copy_(self._param_local(i))
         self._mark_params()
+
+    def _copy_rows(self, got, flats, shapes, path):
+        """A per-leaf state's checkpoint leaves into the flat tensors: this
+        rank's row where the wire is armed (the tag must have been written
+        at this dp with the wire armed), the leaf itself where not."""
+        armed = self._wire is not None
+        for src, dst, sh in zip(got, flats, shapes):
+            want = ((self.dp_world_size,) if armed else ()) + tuple(sh)
+            if tuple(src.shape) != want:
+                raise ValueError(
+                    f"checkpoint at {path}: an optimizer residual leaf has "
+                    f"shape {tuple(src.shape)}, this engine's is {want} "
+                    f"(written at another dp or with the wire "
+                    f"{'disarmed' if armed else 'armed'})")
+            dst.copy_((src[self.dp_rank] if armed else src).reshape(-1))
 
     def _copy_tree(self, got, tensors, sharded, strict):
         """The reference tree's leaves ``got`` (full arrays) into the
@@ -2802,6 +3349,14 @@ class DeepSpeedEngine:
 # the batch entries that shard over ``seq`` (the JAX engine shards every
 # entry's dim 1; the labels and masks stay whole here, module docstring)
 _SEQ_SHARDED = ("input_ids", "token_type_ids")
+
+
+def _is_integer(x):
+    """Whether a batch entry (a tensor or an array) holds integers."""
+    if isinstance(x, torch.Tensor):
+        return not (x.is_floating_point() or x.is_complex()
+                    or x.dtype == torch.bool)
+    return np.issubdtype(np.asarray(x).dtype, np.integer)
 
 
 def _copy_or_zero(dst, src):

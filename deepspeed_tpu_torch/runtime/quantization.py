@@ -31,7 +31,6 @@ import torch
 DEFAULT_BLOCK_SIZE = 128
 _QMAX = 127.0
 _RECIP = float(np.float32(1.0) / np.float32(_QMAX))
-_POW2 = (128, 64, 32, 16, 8, 4, 2, 1)
 
 
 def block_layout(n: int, block_size: int = DEFAULT_BLOCK_SIZE):
@@ -122,7 +121,9 @@ def sign_pack_layout(n: int, block_size: int = DEFAULT_BLOCK_SIZE):
 
 
 def _pow2(device):
-    return torch.tensor(_POW2, dtype=torch.uint8, device=device)
+    """128, 64, ..., 1 as uint8 on ``device``, made there (no copy from
+    the host: the step makes no host sync)."""
+    return (2 ** torch.arange(7, -1, -1, device=device)).to(torch.uint8)
 
 
 def quantize_signs_rows(x, block_size: int = DEFAULT_BLOCK_SIZE):
@@ -137,7 +138,10 @@ def quantize_signs_rows(x, block_size: int = DEFAULT_BLOCK_SIZE):
     xf = _as_f32(x)
     if npad != n:
         xf = torch.nn.functional.pad(xf, (0, npad - n))
-    scales = xf.reshape(r, nb, bs).abs().mean(dim=-1)
+    # the mean summed in float64: the same fp32 scale on the CPU and the
+    # card, whatever order each sums in
+    scales = (xf.reshape(r, nb, bs).abs().sum(dim=-1, dtype=torch.float64)
+              / bs).float()
     bits = (xf >= 0).to(torch.uint8)                  # nan -> sign bit 0
     if nbytes * 8 != npad:
         bits = torch.nn.functional.pad(bits, (0, nbytes * 8 - npad))

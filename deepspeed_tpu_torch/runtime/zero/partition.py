@@ -241,11 +241,40 @@ class ZeroPartition:
         return [(i, _reverse(t) if leaf.transposed else t)
                 for i, t in zip(idx, parts)]
 
+    def leaf_map(self):
+        """The JAX tree's leaves as a leaf map of the 1-bit optimizers
+        (ops/onebit): each leaf flattened in its JAX layout from the
+        port's full-shaped tensors, and written back."""
+        return LeafMap(self)
+
     def leaf_elements(self, sharded):
         """[(leaf name, elements)] of the sharded (or the replicated)
         leaves: what a collective over them carries, for the counter."""
         return [(leaf.name, leaf.elements) for leaf in self.leaves
                 if (leaf.shard_dim is not None) == sharded]
+
+
+class LeafMap:
+    """``names``, ``shapes`` and ``sizes`` of the JAX leaves; ``gather(j,
+    tensors)``: leaf j flat in its JAX layout (a copy where that differs
+    from the parameter's), ``scatter(j, tensors, flat)``: written back
+    into the port's tensors in place."""
+
+    def __init__(self, partition):
+        self.partition = partition
+        self.leaves = partition.leaves
+        self.names = [leaf.name for leaf in self.leaves]
+        self.shapes = [tuple(leaf.shape) for leaf in self.leaves]
+        self.sizes = [leaf.elements for leaf in self.leaves]
+
+    def gather(self, j, tensors):
+        return self.partition.leaf_tensor(self.leaves[j], tensors) \
+            .reshape(-1)
+
+    def scatter(self, j, tensors, flat):
+        leaf = self.leaves[j]
+        for i, v in self.partition.leaf_views(leaf, flat.view(leaf.shape)):
+            tensors[i].copy_(v)
 
 
 def _reverse(t):

@@ -403,8 +403,10 @@ def report_json(result: RunResult, registries=()) -> dict:
 
 # ---------------------------------------------------------------------------
 # corpus: tiny engines covering every program family the port builds, at
-# the JAX corpus's sizes. Left out until their modules are ported: base-qgz,
-# stage3, zeroone and onebit (ROADMAP A13), pipe and pipe-bf16 (A12).
+# the JAX corpus's sizes. The families that need a world of dp > 1
+# (base-qgz, stage3, zeroone, onebit) are linted in the tests' gloo
+# worlds (tests/test_torch_programs.py, test_torch_zeroone.py,
+# test_torch_onebit.py); pipe and pipe-bf16 wait for ROADMAP A12.
 # ---------------------------------------------------------------------------
 
 #: the tiny GPT-2 of the JAX corpus (tools/graftlint/program_lint.py)

@@ -241,8 +241,128 @@ def job_codec(shapes, seed, block_size):
     return out
 
 
+def _wire_engine(dp, gas, optimizer, opt_params, model, stage=0,
+                 sparse=False, offload=False, lr=1e-3):
+    """A JAX engine of the 1-bit / 0/1 Adam and CSR tests: the tiny GPT-2
+    or (``model="embed"``) the tests' SimpleEmbedModel, no clipping."""
+    cfg = dict(W.ds_config(dp, stage, gas, optimizer, opt_params=opt_params,
+                           clipping=0.0, sparse=sparse, offload=offload,
+                           lr=lr),
+               mesh={"data": dp, "allow_partial": True})
+    if model == "embed":
+        from unit.simple_model import SimpleEmbedModel
+
+        net = SimpleEmbedModel(**W.EMBED)
+    else:
+        net = JGPT2Model(JGPT2Config(dtype=jnp.float32, **W.TINY))
+    return deepspeed_tpu.initialize(model=net, config_params=cfg)[0]
+
+
+def _wire_batches(model, seed, steps, gas, rows):
+    if model == "embed":
+        data = W.embed_batches(seed, steps, gas, rows)
+        return [{"ids": data["ids"][s], "y": data["y"][s]}
+                for s in range(steps)]
+    return [{"input_ids": b, "labels": b}
+            for b in W.global_batches(seed, steps, gas, rows)]
+
+
+def _master_tree(eng):
+    if eng._offload:
+        tree = jax.tree_util.tree_unflatten(
+            eng._host_treedef, [np.asarray(x) for x in
+                                eng._host_master_flat])
+    else:
+        state = jax.device_get(eng.state)
+        tree = state.master if state.master is not None else state.params
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def job_wire(dp, gas, steps, seed, optimizer="Adam", opt_params=None,
+             model="gpt2", stage=0, sparse=False, offload=False,
+             save_at=None, save=None, lr=1e-3):
+    """The JAX side of torch_zero_worker.job_wire: ``steps`` train_batch
+    steps from the engine's own initial parameters, each step's loss and
+    comm report, the final master (port names for the GPT-2), the
+    registered programs' contracts; ``save``: a tag after step
+    ``save_at``."""
+    eng = _wire_engine(dp, gas, optimizer, opt_params, model, stage,
+                       sparse, offload, lr)
+    batches = _wire_batches(model, seed, steps, gas, dp * W.MICRO)
+    eng._ensure_state(_first_micro(batches[0]))
+    out = {"losses": [], "reports": []}
+    for step, b in enumerate(batches):
+        out["losses"].append(float(eng.train_batch(batch=b)))
+        out["reports"].append(eng.comm_volume_report(refresh=True))
+        if save is not None and step + 1 == save_at:
+            eng.save_checkpoint(save, backend="npz")
+            out["saved"] = os.path.join(save, f"global_step{save_at}")
+    tree = _master_tree(eng)
+    out["master"] = port_names(tree) if model != "embed" else tree
+    summary = eng.program_registry.summary()
+    out["contracts"] = {name: {k: (v() if callable(v) else v)
+                               for k, v in e["contract"].items()
+                               if k != "donates"}
+                        for name, e in summary.items()}
+    return out
+
+
+def job_wire_load(dp, gas, steps, seed, load, optimizer, opt_params,
+                  lr=1e-3):
+    """A JAX engine loads the port's tag ``load`` (the tiny GPT-2) and
+    trains on to step ``steps`` of the same batches: the losses and the
+    final master."""
+    eng = _wire_engine(dp, gas, optimizer, opt_params, "gpt2", lr=lr)
+    batches = _wire_batches("gpt2", seed, steps, gas, dp * W.MICRO)
+    eng._ensure_state(_first_micro(batches[0]))
+    eng.load_checkpoint(load)
+    losses = [float(eng.train_batch(batch=b))
+              for b in batches[eng.global_steps:]]
+    return {"losses": losses, "master": port_names(_master_tree(eng))}
+
+
+def job_wire_fns(w, seed, n, steps=3):
+    """The JAX compressed_allreduce and quantized_all_reduce (bits 1 and
+    8, flat and at w 4 intra size 2, block 32) under shard_map over w
+    virtual CPU devices, jitted, on torch_zero_worker.wire_inputs,
+    ``steps`` rounds with the residuals carried: each round's per-device
+    (mean, worker residual, server residual)."""
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+
+    from deepspeed_tpu.runtime import custom_collectives as cc
+
+    mesh = Mesh(np.array(jax.devices()[:w]), ("data",))
+    x = W.wire_inputs(seed, steps, w, n)
+
+    def rounds(fn):
+        f = jax.jit(jax.shard_map(
+            lambda a, b, c: tuple(t[None] for t in fn(a[0], b[0], c[0])),
+            mesh=mesh, in_specs=(P("data"),) * 3, out_specs=(P("data"),) * 3,
+            check_vma=False))
+        we = np.zeros((w, n), np.float32)
+        se = np.zeros((w, n // w), np.float32)
+        got = []
+        for s in range(steps):
+            mean, we, se = (np.asarray(t) for t in f(x[s], we, se))
+            got.append((mean, we, se))
+        return got
+
+    out = {"x": x, "onebit": rounds(
+        lambda a, b, c: cc.compressed_allreduce(a, b, c, "data"))}
+    for bits in (1, 8):
+        for k in ((0, 2) if w == 4 else (0,)):
+            out[f"zeroone_b{bits}_k{k}"] = rounds(
+                lambda a, b, c, bits=bits, k=k: cc.quantized_all_reduce(
+                    a, "data", bits=bits, block_size=32, intra_size=k,
+                    worker_error=b, server_error=c))
+    return out
+
+
 JOBS = {"train": job_train, "load": job_load,
-        "collectives": job_collectives, "codec": job_codec}
+        "collectives": job_collectives, "codec": job_codec,
+        "wire": job_wire, "wire_load": job_wire_load,
+        "wire_fns": job_wire_fns}
 
 
 def main(spec_path):

@@ -994,6 +994,76 @@ def test_nccl_zero3_worlds_match_one_card(cuda, tmp_path):
         assert ranks[0]["s3_scheduled"]["stage3"]["armed"]
 
 
+@pytest.mark.cuda
+def test_nccl_onebit_worlds_match_gloo(cuda, tmp_path):
+    """On a host with 4 cards: 1-bit Adam (freeze_step 2) and 0/1 Adam
+    (var_freeze_step 2, local_steps 2) on the tiny GPT-2 (n_embd 128: the
+    flash kernels' head_dim 64), 6 steps each, fp32, the wire armed, over
+    an NCCL world of 4 (rank r on card r) against the same world over
+    gloo on the CPU: losses at rtol 1e-4 (the card's fp32 flash kernels
+    against the plain attention), the master within one sign flip per
+    compressed step (tests/torch_a13b_cases.py ``assert_within_one_flip``),
+    every rank alike but a 0/1 local round's own loss, and each step's
+    counted collectives those of the report's wire: the dense mean in
+    warmup, nothing in a local round, the 1-bit Adam's four packed
+    collectives per leaf when frozen, the report's ``optimizer_wire``
+    collectives at a sync. Skips with fewer than 4 cards."""
+    import numpy as np
+
+    import torch_a13b_cases as A
+    import torch_zero_worker as W
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    model = dict(W.TINY, n_embd=128)
+    cases = {"ob": ("OneBitAdam", {"freeze_step": 2}, 4),
+             "zo": ("ZeroOneAdam", {"var_freeze_step": 2,
+                                    "local_steps": 2}, 4)}
+    worlds = {}
+    for device in ("cpu", "cuda"):
+        jobs = [(name, "wire", dict(dp=4, gas=2, steps=6, seed=0, init=None,
+                                    optimizer=opt, opt_params=params,
+                                    model=model, device=device))
+                for name, (opt, params, _) in cases.items()]
+        worlds[device] = W.run_world(4, jobs, str(tmp_path / device),
+                                     timeout=600, device=device)
+    for name, (_, _, compressed) in cases.items():
+        want = worlds["cpu"][0][name]
+        for r, rank in enumerate(worlds["cuda"]):
+            got, what = rank[name], f"{name} rank {r}"
+            assert got["wire"] == want["wire"] and got["phases"] == \
+                want["phases"], what
+            keep = [ph != "local" for ph, _ in got["phases"]]
+            if r == 0 or all(keep):
+                np.testing.assert_allclose(got["losses"], want["losses"],
+                                           rtol=1e-4, err_msg=what)
+            assert got["digest"] == worlds["cuda"][0][name]["digest"], what
+            A.assert_within_one_flip(got["master"], want["master"],
+                                     want["m"], want["v"],
+                                     compressed=compressed, what=what)
+            leaves = [c["name"].split(":", 1)[1] for c in
+                      got["reports"][0]["collectives"]
+                      if c["op"] == "all-reduce"]
+            for step, (comm, report) in enumerate(zip(got["comm"],
+                                                      got["reports"])):
+                phase = got["phases"][step][0]
+                names = sorted(c["name"] for c in comm["collectives"])
+                if phase == "warmup":
+                    assert names == sorted(f"grad_ar:{n}" for n in leaves)
+                elif phase == "local":
+                    assert names == [], what
+                elif phase == "frozen":
+                    assert names == sorted(
+                        f"{p}:{n}" for p in ("onebit_a2a", "onebit_scales",
+                                             "onebit_ag", "onebit_ag_scales")
+                        for n in leaves), what
+                else:
+                    assert A.wire_collectives(comm["collectives"]) == \
+                        A.wire_collectives(
+                            report["optimizer_wire"]["collectives"]), what
+            print(f"{what}: losses {got['losses']} against gloo's "
+                  f"{want['losses']}")
+
 def _sharded_leaves(result, sizes):
     """The JAX leaf names whose master this rank holds a shard of."""
     from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model

@@ -24,6 +24,10 @@ rank, tests/torch_zero_worker.py ``job_moe``) runs once per session.
   report does not price.
 - ZeRO-Offload (stage 2) at dp 2 against the JAX offload engine.
 - A dp-2 tag loads into the JAX engine, and a JAX dp-2 tag into the port.
+- Stage 3 beside expert parallelism at dp 2: the implicit path equals
+  stage 2 bit for bit (losses and master), the scheduled int8 gathers
+  stay within 1e-3 of stage 2's losses (measured 4.6e-5), and a stage-3
+  tag loads at stages 2 and 3 into the leaves it holds.
 - The analytic memory equals the JAX engine's; the program lint is clean.
 """
 import functools
@@ -98,11 +102,19 @@ def _world_dp2(out):
     for b in W.global_batches(SEED, 2, 2, 2 * W.MICRO):
         jeng.train_batch(batch={"input_ids": b, "labels": b})
     jeng.save_checkpoint(jtag, backend="npz")
+    s3tag = os.path.join(out, "s3_tag")
     jobs = [_job("s0", 2, 0, programs=True),
             _job("s2", 2, 2, save=os.path.join(out, "port_tag")),
             _job("offload", 2, 2, offload=True, init=_jax_offload_init()),
             ("load_jax", "load", dict(dp=2, stage=2, gas=2, load=jtag,
-                                      model=W.MOE))]
+                                      model=W.MOE)),
+            # stage 3 beside expert parallelism (ROADMAP A13's residue)
+            _job("s3_implicit", 2, 3,
+                 zero={"stage3_scheduled_gathers": False}),
+            _job("s3_scheduled", 2, 3, save=s3tag)]
+    jobs += [(f"s3_load{stage}", "load", dict(dp=2, stage=stage, gas=2,
+                                              load=s3tag, model=W.MOE))
+             for stage in (2, 3)]
     return W.run_world(2, jobs, out)
 
 
@@ -379,3 +391,22 @@ def test_program_lint_is_clean_at_dp2(world):
         assert got["lint"] == []
         ops = [op for op, _, _ in got["lint_ops"]]
         assert ops.count("all-to-all") == 2 * 4 * (W.MOE["n_layer"] // 2)
+
+
+def test_stage3_beside_expert_parallelism_at_dp2(world):
+    ranks = world("moe_dp2")
+    base, implicit = ranks[0]["s2"], ranks[0]["s3_implicit"]
+    sched = ranks[0]["s3_scheduled"]
+    assert implicit["losses"] == base["losses"]
+    for name, m in base["master"].items():
+        assert np.array_equal(implicit["master"][name], m), name
+    assert not implicit["stage3"]["armed"] and sched["stage3"]["armed"]
+    np.testing.assert_allclose(sched["losses"], base["losses"], rtol=1e-3)
+    with np.load(os.path.join(sched["saved"], "model_states.npz")) as data:
+        saved = npz_dict_to_leaves(data)
+    for stage in (2, 3):
+        got = ranks[0][f"s3_load{stage}"]["leaves"]
+        assert len(got) == len(saved)
+        for a, b in zip(got[:-1], saved[:-1]):          # not the rng
+            assert np.array_equal(np.asarray(a, np.float64),
+                                  np.asarray(b, np.float64)), stage

@@ -48,6 +48,7 @@ import pytest
 import torch
 
 import jax_zero_reference as JR
+import torch_a13b_cases as A
 import torch_zero_worker as W
 from deepspeed_tpu_torch.runtime import quantization as qz
 from deepspeed_tpu_torch.runtime.custom_collectives import (
@@ -151,12 +152,14 @@ def _world_dp2_q(out):
             ("bf16_qgz", "train", dict(dp=2, stage=2, gas=2, steps=STEPS,
                                        seed=SEED, init=init, zero=QGZ,
                                        dtype=torch.bfloat16))]
+    # the 1-bit Adam, 0/1 Adam and CSR cases (tests/torch_a13b_cases.py)
+    jobs += A.port_jobs(2, out)
     return W.run_world(2, jobs, out)
 
 
 def _world_dp4(out):
-    return W.run_world(4, [_port_job("qgz4h"), _port_job("s3g2", dp=4)],
-                       out)
+    return W.run_world(4, [_port_job("qgz4h"), _port_job("s3g2", dp=4)]
+                       + A.port_jobs(4, out), out)
 
 
 def _world_load(out):
@@ -174,7 +177,11 @@ def _world_load(out):
 
 WORLDS = dict({f"z3_jax_{name}": _jax_world(name) for name in CONFIGS},
               z3_dp2_s3=_world_dp2_s3, z3_dp2_q=_world_dp2_q,
-              z3_dp4=_world_dp4, z3_load=_world_load)
+              z3_dp4=_world_dp4, z3_load=_world_load,
+              a13b_jax_dp2=lambda out: JR.run(A.jax_jobs(2, out), out,
+                                              timeout=400),
+              a13b_jax_dp4=lambda out: JR.run(A.jax_jobs(4, out), out,
+                                              timeout=400))
 _worlds = None
 
 
@@ -489,15 +496,21 @@ def test_stage3_flop_counts_are_the_whole_models(world):
 
 
 def test_refusals_name_a13b():
+    """A13b (1-bit Adam, 0/1 Adam, CSR gradients) is ported: what the
+    port refused by that name builds and trains, and what the slice does
+    not reach names A13c."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 
-    model = GPT2Model(GPT2Config(dtype=torch.float32, **W.TINY))
-    cfg = W.ds_config(1, 0, 1, optimizer="OneBitAdam")
-    with pytest.raises(NotImplementedError, match="A13b"):
-        deepspeed_tpu_torch.initialize(model=model, config_params=cfg,
-                                       device="cpu")
-    cfg = dict(W.ds_config(1, 2, 1, offload=True), sparse_gradients=True)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        deepspeed_tpu_torch.initialize(model=model, config_params=cfg,
-                                       device="cpu")
+    def build(cfg):
+        model = GPT2Model(GPT2Config(dtype=torch.float32, **W.TINY))
+        return deepspeed_tpu_torch.initialize(model=model, config_params=cfg,
+                                              device="cpu")[0]
+
+    batch = W._local(W.global_batches(SEED, 1, 1, W.MICRO)[0], 0, W.MICRO)
+    for cfg in (W.ds_config(1, 0, 1, optimizer="OneBitAdam"),
+                dict(W.ds_config(1, 2, 1, offload=True),
+                     sparse_gradients=True)):
+        assert np.isfinite(build(cfg).train_batch(batch=batch).item())
+    with pytest.raises(NotImplementedError, match="A13c"):
+        build(W.ds_config(1, 2, 1, optimizer="OneBitAdam", offload=True))

@@ -318,10 +318,38 @@ def _engine_job(case, **kw):
                               init=jax_init(kind), **kw))
 
 
+#: ZeRO stage 3 beside the other axes (ROADMAP A13's residue), each
+#: against its stage-2 twin: name -> (kind, mesh, model, zero keys)
+S3_OFF = {"stage3_scheduled_gathers": False}
+STAGE3_CASES = {
+    "gpt2_d2s2_z3": ("gpt2", {"data": 2, "seq": 2}, {}, None),
+    "bert_d2_z2": ("bert", {"data": 2}, {}, None),
+    "bert_d2_z3i": ("bert", {"data": 2}, {}, S3_OFF),
+    "bert_d2_z3": ("bert", {"data": 2}, {}, None),
+    "bert_sparse_d2_z2": ("bert", {"data": 2}, {"sparse": True}, None),
+    "bert_sparse_d2_z3i": ("bert", {"data": 2}, {"sparse": True}, S3_OFF),
+    "bert_sparse_d2_z3": ("bert", {"data": 2}, {"sparse": True}, None),
+}
+
+
+def _stage3_jobs(world):
+    jobs = []
+    for name, (kind, mesh, model, zero) in STAGE3_CASES.items():
+        if mesh.get("data", 1) * mesh.get("seq", 1) != world:
+            continue
+        stage = 2 if name.endswith("z2") else 3
+        jobs.append((name, "seq", dict(kind=kind, mesh=mesh, stage=stage,
+                                       gas=GAS, steps=3, seed=SEED, lr=LR,
+                                       model=model, init=jax_init(kind),
+                                       zero=zero)))
+    return jobs
+
+
 def _world_w4(out):
     jobs = _attention_jobs(4)
     jobs += [_engine_job(case, programs=case == "gpt2_s4_ulysses")
              for case in ENGINE_CASES]
+    jobs += _stage3_jobs(4)
     return W.run_world(4, jobs, out, timeout=240)
 
 
@@ -353,7 +381,7 @@ def _world_w2(out):
                                 init=jax_init("gpt2"), offload=True)),
         ("load_jax", "seq_load", dict(mesh={"seq": 2}, stage=2, load=jtag)),
         ("refusals", "seq_refusals", {}),
-    ]
+    ] + _stage3_jobs(2)
     return W.run_world(2, jobs, out, timeout=240)
 
 

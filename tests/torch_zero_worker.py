@@ -44,17 +44,20 @@ SP_SPARSITY = dict(num_heads=4, block=16, num_local_blocks=2)
 
 def ds_config(dp, stage, gas, optimizer="Adam", fp16=False, lr=1e-3,
               micro=MICRO, offload=False, weight_decay=0.01, zero=None,
-              bf16=False):
+              bf16=False, opt_params=None, clipping=1.0, sparse=False):
     cfg = {"train_batch_size": micro * gas * dp,
            "train_micro_batch_size_per_gpu": micro,
            "gradient_accumulation_steps": gas,
            "optimizer": {"type": optimizer,
-                         "params": {"lr": lr,
-                                    "weight_decay": weight_decay}},
-           "gradient_clipping": 1.0,
+                         "params": dict({"lr": lr,
+                                         "weight_decay": weight_decay},
+                                        **(opt_params or {}))},
+           "gradient_clipping": clipping,
            "zero_optimization": dict({"stage": stage,
                                       "cpu_offload": offload}, **(zero or {})),
            "steps_per_print": 10 ** 9}
+    if sparse:
+        cfg["sparse_gradients"] = True
     if bf16:
         cfg["bf16"] = {"enabled": True}
     if fp16:
@@ -438,6 +441,213 @@ def job_zero3_misc(dp, seed):
             "reduced": reduced.numpy(), "comm": comm, "twice": twice}
 
 
+class EmbedModel(torch.nn.Module):
+    """The torch counterpart of the JAX tests' ``SimpleEmbedModel``
+    (tests/unit/simple_model.py:153-198): ids -> an untied embedding ->
+    mean over the sequence -> a linear classifier. Its embedding's
+    gradient is row-sparse (``sparse_grad_spec``), and the rows are the
+    looked-up ids (``sparse_grad_tokens``)."""
+
+    def __init__(self, vocab=256, dim=8, n_classes=4):
+        super().__init__()
+        self.emb = torch.nn.Parameter(torch.zeros(vocab, dim))
+        self.w = torch.nn.Parameter(torch.zeros(dim, n_classes))
+        self.b = torch.nn.Parameter(torch.zeros(n_classes))
+
+    def init_weights(self, generator):
+        with torch.no_grad():
+            for p in (self.emb, self.w):
+                p.copy_(torch.randn(p.shape, generator=generator) * 0.1)
+            self.b.zero_()
+
+    def loss(self, batch, generator=None, train=True):
+        x = self.emb[batch["ids"]].mean(dim=1)
+        logp = torch.log_softmax((x @ self.w + self.b).float(), dim=-1)
+        loss = -logp.gather(1, batch["y"][:, None].long()).mean()
+        return loss, {"loss": loss}
+
+    def sparse_grad_spec(self):
+        return {"emb": True, "w": False, "b": False}
+
+    def sparse_grad_tokens(self, batch):
+        return int(np.prod(tuple(batch["ids"].shape)))
+
+    def reference_leaf_specs(self):
+        # the JAX tree's order: the dict's keys sorted
+        return [("b", False), ("emb", False), ("w", False)]
+
+    def reference_leaf_paths(self):
+        return ["b", "emb", "w"]
+
+
+#: the embedding model of the CSR tests and its batches
+EMBED = dict(vocab=256, dim=8, n_classes=4)
+EMBED_SEQ = 6
+
+
+def embed_batches(seed, steps, gas, rows, vocab=EMBED["vocab"],
+                  seq=EMBED_SEQ, n_classes=EMBED["n_classes"]):
+    """(steps, gas, rows, seq) ids from the first ``vocab // 4`` rows of
+    the table (so that most rows get no gradient) and (steps, gas, rows)
+    labels, from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    return {"ids": rng.integers(0, vocab // 4, (steps, gas, rows, seq)),
+            "y": rng.integers(0, n_classes, (steps, gas, rows))}
+
+
+def _wire_engine(config, init, model, device="cpu"):
+    """An engine over ``EmbedModel`` (``model="embed"``), the tiny GPT-2
+    (``"gpt2"``) or a GPT-2 of the sizes ``model`` gives."""
+    import deepspeed_tpu_torch
+
+    if model == "embed":
+        eng, _, _, _ = deepspeed_tpu_torch.initialize(
+            model=EmbedModel(**EMBED), config_params=config,
+            device=None if device == "cuda" else device)
+        if init is not None:
+            eng.load_module_state_dict(
+                {k: torch.from_numpy(np.array(v)) for k, v in init.items()})
+        return eng
+    return _engine(config, init, device=device,
+                   model=None if model == "gpt2" else model)
+
+
+def job_wire(dp, gas, steps, seed, init, optimizer="Adam", opt_params=None,
+             stage=0, model="gpt2", sparse=False, offload=False, lr=1e-3,
+             save_at=None, save=None, load=None, fp16=False, device="cpu"):
+    """``steps`` train_batch steps of the tiny GPT-2 (``model="embed"``:
+    ``EmbedModel`` on ``embed_batches``) with ``optimizer`` and
+    ``opt_params``, no clipping, every program's first dispatch observed
+    by the lint: losses, the final master, each step's counted
+    collectives and the report after it, the lint's findings and the
+    contracts, the wire's arming; with ``save`` a tag after step
+    ``save_at``, with ``load`` a tag loaded first (then the steps after
+    its global step, of the same batches); under offload the last copy
+    down's bytes. ``model``: "embed", "gpt2" (the tiny one) or GPT-2
+    sizes; ``device="cuda"``: this rank's card."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.telemetry.program_lint import lint_programs
+
+    rank = dist.get_rank()
+    config = ds_config(dp, stage, gas, optimizer, opt_params=opt_params,
+                       clipping=0.0, sparse=sparse, offload=offload, lr=lr,
+                       fp16=fp16)
+    eng = _wire_engine(config, init, model, device)
+    start = 0
+    if load is not None:
+        eng.load_checkpoint(load)
+        start = eng.global_steps
+    if model == "embed":
+        data = embed_batches(seed, steps, gas, MICRO * dp)
+        rows = slice(rank * MICRO, (rank + 1) * MICRO)
+        local = [{"ids": data["ids"][s][:, rows], "y": data["y"][s][:, rows]}
+                 for s in range(steps)]
+    else:
+        vocab = (model if isinstance(model, dict) else TINY)["vocab_size"]
+        batches = global_batches(seed, steps, gas, MICRO * dp, vocab)
+        local = [_local(batches[s], rank, MICRO) for s in range(steps)]
+    reg = eng.program_registry
+    reg.observing = True
+    out = {"losses": [], "comm": [], "reports": [], "phases": [],
+           "wire": eng._wire, "csr": [eng.param_names[i]
+                                      for i in eng._csr_idx]}
+    for step in range(start, steps):
+        out["losses"].append(eng.train_batch(batch=local[step]).item())
+        out["comm"].append(eng.last_step_comm)
+        out["reports"].append(eng.comm_volume_report())
+        out["phases"].append(eng._wire_phase)
+        if save is not None and step + 1 == save_at:
+            eng.save_checkpoint(save)
+            out["saved"] = os.path.join(save, f"global_step{save_at}")
+    reg.observing = False
+    res = lint_programs([reg], use_baseline=False)
+    out["lint"] = [(f.rule, f.path, f.message) for f in res.new]
+    summary = reg.summary()
+    out["contracts"] = {name: {k: v for k, v in e["contract"].items()
+                               if k != "donates"}
+                        for name, e in summary.items()}
+    master = _full_master(eng)
+    out["master"] = master
+    out["digest"] = _digest(master)
+    if eng._wire is not None:
+        # the moments (whole at stage 0): what bounds a 1-bit step
+        out["m"], out["v"] = ({n: t.cpu().numpy().copy() for n, t in
+                               zip(eng.param_names, lst)}
+                              for lst in (eng.optimizer.m, eng.optimizer.v))
+    if offload:
+        out["fetch_bytes"] = eng.last_fetch_bytes
+    return out
+
+
+def job_wires(dp, seed, n, steps=3):
+    """The wires over the world on numpy-seeded inputs (rank r's rows
+    ``x[:, r]`` of (steps, dp, n)), ``steps`` rounds with the residuals
+    carried: ``compressed_allreduce`` (server residual chunk-sized) and
+    ``quantized_all_reduce`` at bits 1 and 8, flat and with intra size 2
+    (at dp 4): each round's mean, residuals and counted collectives."""
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.runtime import custom_collectives as cc
+
+    rank = dist.get_rank()
+    eng = _engine(ds_config(dp, 0, 1), None)
+    group = eng.dp_group
+    x = wire_inputs(seed, steps, dp, n)
+    out = {}
+    we, se = torch.zeros(n), torch.zeros(n // dp)
+    rounds = []
+    for s in range(steps):
+        mean, we, se = cc.compressed_allreduce(
+            torch.from_numpy(x[s, rank]), we, se, group, name="x")
+        rounds.append((mean.numpy(), we.numpy(), se.numpy(),
+                       group.counter.take()))
+    out["onebit"] = rounds
+    for bits in (1, 8):
+        for k in ((0, 2) if dp == 4 else (0,)):
+            we, se = torch.zeros(n), torch.zeros(n // dp)
+            rounds = []
+            for s in range(steps):
+                mean, we, se = cc.quantized_all_reduce(
+                    torch.from_numpy(x[s, rank]), group, bits=bits,
+                    block_size=32, intra_size=k, worker_error=we,
+                    server_error=se, name="x")
+                rounds.append((mean.numpy(), we.numpy(), se.numpy(),
+                               group.counter.take()))
+            out[f"zeroone_b{bits}_k{k}"] = rounds
+    return out
+
+
+def job_wire_refusals(dp):
+    """What the world refuses: 1-bit Adam's armed wire with clipping
+    (ValueError), 1-bit Adam at stage 1 (NotImplementedError); and 0/1
+    Adam beside sparse_gradients, which disarms its wire and keeps the
+    CSR exchange: (wire, CSR parameters)."""
+    out = {}
+    for key, kw in (("clipping", dict(clipping=1.0)),
+                    ("stage1", dict(stage=1, clipping=0.0))):
+        stage = kw.pop("stage", 0)
+        try:
+            _engine(ds_config(dp, stage, 1, "OneBitAdam", **kw), None)
+            out[key] = None
+        except (ValueError, NotImplementedError) as e:
+            out[key] = (type(e).__name__, str(e))
+    eng = _wire_engine(ds_config(dp, 0, 1, "ZeroOneAdam", clipping=0.0,
+                                 sparse=True), None, "embed")
+    out["zeroone_csr"] = ("armed" if eng._csr_idx else "disarmed", eng._wire,
+                          [eng.param_names[i] for i in eng._csr_idx])
+    return out
+
+
+def wire_inputs(seed, steps, dp, n):
+    """(steps, dp, n) fp32 inputs of the wire tests, from a numpy seed,
+    with a few exact zeros (sign(0) = +1)."""
+    x = np.random.default_rng(seed).standard_normal(
+        (steps, dp, n)).astype(np.float32)
+    x[:, :, ::37] = 0.0
+    return x
+
+
 def job_sampler(dp, n):
     """The dataset indices this rank's DeepSpeedDataLoader reads."""
     import torch.distributed as dist
@@ -586,25 +796,28 @@ def _moe_metrics(eng, micro):
 
 
 def job_moe(dp, stage, gas, steps, seed, init, offload=False, save=None,
-            programs=False, model=MOE, device="cpu"):
+            programs=False, model=MOE, device="cpu", zero=None):
     """``steps`` train_batch steps of an MoE GPT-2 (default ``MOE``) with
     expert parallelism over the world: before each step the model's aux
     metric and dropped fractions on the step's first micro-batch; the
     losses, the counted collectives of each step, the gathered master, the
     layout, the comm report and the analytic memory; with ``save`` a tag
     after the last step; with ``programs`` the program lint over the
-    engine."""
+    engine; ``zero``: more zero_optimization keys."""
     import torch.distributed as dist
 
     rank = dist.get_rank()
-    eng = _engine(ds_config(dp, stage, gas, offload=offload), init,
-                  model=model, device=device)
+    eng = _engine(ds_config(dp, stage, gas, offload=offload, zero=zero),
+                  init, model=model, device=device)
     batches = global_batches(seed, steps, gas, MICRO * dp)
     out = {"losses": [], "aux": [], "dropped": [], "comm": [],
            "layout": _layout(eng)}
     for step in range(steps):
         local = _local(batches[step], rank, MICRO)
-        aux, dropped = _moe_metrics(eng, {k: v[0] for k, v in local.items()})
+        # at stage 3 the module holds its shards between steps: no
+        # forward outside the engine
+        aux, dropped = (None, None) if eng._stage3 else _moe_metrics(
+            eng, {k: v[0] for k, v in local.items()})
         out["aux"].append(aux)
         out["dropped"].append(dropped)
         if programs and step == steps - 1:
@@ -623,6 +836,7 @@ def job_moe(dp, stage, gas, steps, seed, init, offload=False, save=None,
     out["report"] = eng.comm_volume_report()
     out["memory"] = eng._analytic_memory_components()
     out["norm"] = float(eng._last_metrics["grad_norm"])
+    out["stage3"] = eng.stage3_report()
     if save is not None:
         eng.save_checkpoint(save)
         out["saved"] = os.path.join(save, f"global_step{steps}")
@@ -666,7 +880,7 @@ def job_seq(kind, mesh, stage, gas, steps, seed, init=None, model=None,
             micro=MICRO, dtype=torch.float32, save=None, load=None,
             programs=False, device="cpu", lr=1e-3, seq=None,
             telemetry=False, offload=False, optimizer="Adam",
-            weight_decay=0.01, master="final"):
+            weight_decay=0.01, master="final", zero=None):
     """``steps`` train_batch steps of ``sp_model(kind, **model)`` at
     ``mesh`` ({"data": D, "seq": N}): every rank feeds its data rows of
     the global batch at full sequence. The losses, the counted collectives
@@ -677,7 +891,8 @@ def job_seq(kind, mesh, stage, gas, steps, seed, init=None, model=None,
     (``peak_bytes``, above what was allocated before); ``save``: a tag
     after the last step; ``load``: a tag loaded before the first; ``seq``:
     the batches' sequence length (the model's vocabulary); ``telemetry``:
-    armed, and its MFU report's counts; ``offload``: ZeRO-Offload."""
+    armed, and its MFU report's counts; ``offload``: ZeRO-Offload;
+    ``zero``: more zero_optimization keys."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.convert import (bert_params_from_jax,
                                                     params_from_jax)
@@ -693,7 +908,8 @@ def job_seq(kind, mesh, stage, gas, steps, seed, init=None, model=None,
     dp = mesh.get("data", 1)
     config = dict(ds_config(dp, stage, gas, micro=micro, lr=lr,
                             offload=offload, optimizer=optimizer,
-                            weight_decay=weight_decay), mesh=mesh)
+                            weight_decay=weight_decay, zero=zero),
+                  mesh=mesh)
     if dtype == torch.bfloat16:
         config["bf16"] = {"enabled": True}
     if telemetry:
@@ -738,6 +954,7 @@ def job_seq(kind, mesh, stage, gas, steps, seed, init=None, model=None,
     out["report"] = eng.comm_volume_report()
     out["memory"] = eng._analytic_memory_components()
     out["launches"] = _launches()
+    out["stage3"] = eng.stage3_report()
     if telemetry:
         mfu = eng.telemetry_report()["mfu"]
         out["mfu"] = {k: mfu[k] for k in (
@@ -861,7 +1078,8 @@ JOBS = {"seq": job_seq, "seq_attention": job_seq_attention,
         "moe": job_moe, "programs": job_programs, "tag_check": job_tag_check, "train": job_train, "resume": job_resume, "load": job_load,
         "overflow": job_overflow, "sampler": job_sampler,
         "zero3_misc": job_zero3_misc, "zero3_faults": job_zero3_faults,
-        "zero3_blocks": job_zero3_blocks}
+        "zero3_blocks": job_zero3_blocks, "wire": job_wire,
+        "wires": job_wires, "wire_refusals": job_wire_refusals}
 
 
 def main(spec_path):
