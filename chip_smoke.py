@@ -150,7 +150,7 @@ failure:
               vocab, no new dispatch signature after warmup, the pool never
               moved; TTFT p50/p95, TPOT p50, tokens/s, peak memory,
               pool.stats(); 5 decode (or verify) steps under torch.profiler
-              beside phase 16's dense decode step. Pass E: 32 requests of a
+              beside phase 16's dense decode step. Pass E: 16 requests of a
               shared 392-token prefix + tails of 16-128 (default_rng(0)),
               with and without prefix_cache: >= 2x fewer prefill tokens
               computed, hits and COW splits, the replay gate, a 97-block
@@ -158,11 +158,12 @@ failure:
               planted fault (the COW copy skipped) at >= 10x the gate.
               Pass H: sparse context with the full window on pass E's
               traffic equals the dense engine's tokens bit for bit. Pass F:
-              speculative=3 on phase 16's traffic: the replay gate, the
-              accept histogram sums to the accepted tokens, fewer verify
-              dispatches than output tokens, the planted fault (one draft
-              accepted beyond the match) at >= 10x; at 2 layers, fp32, TF32
-              off, engine tokens equal generate()'s but at near ties. Pass
+              speculative=3 on phase 16's first 16 requests: the replay
+              gate, the accept histogram sums to the accepted tokens, fewer
+              verify dispatches than output tokens, the planted fault (one
+              draft accepted beyond the match) at >= 10x; at 2 layers,
+              fp32, TF32 off, engine tokens equal generate()'s but at near
+              ties. Pass
               G: sparse context, window 16 blocks + 1 global (K = 17 of 64
               pages), 16 prompts of 600-900 tokens: the active page fraction
               equals the LUT's, window-expired frees > 0, the replay gate
@@ -327,6 +328,28 @@ failure:
               sparse_gradients: losses within rtol 1e-5, the table's
               device-to-host bytes rows x dim (8192 x 1024) against vocab
               x dim
+ 27. pipe     pipeline parallelism (ROADMAP A12) in a world of one, the
+              single-controller layout, on phase 4's config, batch and
+              initial weights carried into gpt2_pipeline_module: (a)
+              1f1b at pipe 2 with the tied head, 10 steps: losses within
+              2e-2 of phase 4's, the tied wte copies equal bit for bit
+              after every step, B1-B3 launched exactly as the schedule
+              implies; (b) interleaved at pipe 2 x 2 virtual stages (21
+              blocks: 27 layers do not split into 4 chunks) against 1f1b
+              on the same blocks, losses within 1e-3, losses and masters
+              bit for bit or within the spread of two 1f1b runs; (c)
+              ZB-H1 with the untied head, the stash armed and off (bit
+              for bit or within the spread of two stash-off runs), each
+              within 1e-3 of untied 1f1b and its losses and masters bit
+              for bit or within that run's spread, the analytic stash
+              peak beside max_memory_allocated;
+              (d) planted faults: the tied reduction skipped (the copies
+              diverge) and one micro-batch's activation gradient zeroed
+              at edge 0 (chunk 0's master leaves the spread of two
+              correct runs); (e) step ms, tokens/s and peak memory beside
+              phase 4's, the analytic bubble beside the traced replay's
+              for every run of (a)-(c), the measured p2p bytes beside the
+              analytic (phase_pipe)
 The line before the last is the kernels JSON (the fp16 rows named
 <kernel>_fp16, their launches from phase 13); the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card and nvcc.
@@ -2739,6 +2762,9 @@ def phase_offload_large(env):
 # the 25th block at 8 trusted positions), then each request's own tail
 PREFIX_LEN = 392
 PREFIX_TAILS = (16, 128)               # uniform, both ends included
+# passes E, H and F: two waves of the 8 slots (phase 16 runs four), to keep
+# the whole script within its time
+A10B_REQUESTS = 16
 PREFIX_RATIO = 2                       # the JAX package's prefill guard
 # the eviction sub-run's pool: 1 trash block + 96. Phase 16's 193 blocks
 # never evict under this traffic once the prefix is shared (the tree
@@ -2758,17 +2784,17 @@ SPARSE_PROMPT_LENS = (600, 900)        # uniform, both ends included
 
 
 def _prefix_traffic(vocab, prefix_len=PREFIX_LEN):
-    """32 prompts: one shared 392-token prefix, then tails of 16-128
+    """16 prompts: one shared 392-token prefix, then tails of 16-128
     tokens, all from numpy's default_rng(0); priority 0."""
     import numpy as np
 
     rng = np.random.default_rng(0)
     prefix = rng.integers(0, vocab, prefix_len)
     tails = rng.integers(PREFIX_TAILS[0], PREFIX_TAILS[1] + 1,
-                         SERVE_REQUESTS)
+                         A10B_REQUESTS)
     prompts = [np.concatenate([prefix, rng.integers(0, vocab, int(n))])
                .astype(np.int32) for n in tails]
-    return prompts, [0] * SERVE_REQUESTS
+    return prompts, [0] * A10B_REQUESTS
 
 
 def _long_traffic(vocab):
@@ -3055,7 +3081,7 @@ def phase_serve_a10b(env, dense):
     torch.cuda.empty_cache()
 
     # -- pass F: speculative decoding ---------------------------------------
-    prompts, prios = _serve_traffic(vocab)
+    prompts, prios = (x[:A10B_REQUESTS] for x in _serve_traffic(vocab))
     eng, rids, rep, counts = _a10b_pass(env, model, f"F (speculative="
                                         f"{SPEC_K})", prompts, prios,
                                         speculative=SPEC_K)
@@ -5518,6 +5544,414 @@ def phase_onebit(env, stage0):
     return {"wires": wires, "csr": csr}
 
 
+# ---------------------------------------------------------------------------
+# phase 27: pipeline parallelism (ROADMAP A12)
+# ---------------------------------------------------------------------------
+# (b) interleaves pipe 2 x 2 virtual stages: a chunk count that must divide
+# the layer count, which gpt2-350m's 27 layers (embedding, 24 blocks, final
+# norm, head) do not; 21 blocks make 24 layers
+PIPE_INTERLEAVED_BLOCKS = 21
+PIPE_SHORT_STEPS = 3
+PIPE_LOSS_GATE = 2e-2      # (a) against phase 4 (chunked loss vs full logits)
+PIPE_SCHEDULE_GATE = 1e-3  # (b), (c) against their 1f1b twins
+
+
+def _pipe_engine(cfg, init, schedule="1f1b", v=1, untied=False,
+                 telemetry=False, stash="auto"):
+    """A PipelineEngine over ``cfg`` at pipe 2 (the single-controller
+    layout: a world of one) with phase 4's ds_config, from ``init`` (a
+    GPT2Model state_dict, carried into the pipeline's names)."""
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.convert import pipe_params_from_gpt2
+    from deepspeed_tpu_torch.models.gpt2_pipe import gpt2_pipeline_module
+
+    module = gpt2_pipeline_module(cfg, untied_head=untied)
+    ds_config = dict(_ds_config(SLICE_MICRO, SLICE_GAS), mesh={"pipe": 2},
+                     pipeline={"schedule": schedule, "virtual_stages": v,
+                               "activation_stashing": stash})
+    if telemetry:
+        ds_config["telemetry"] = {"enabled": True, "trace": True,
+                                  "mfu": False, "memory": False}
+    engine, _, _, _ = initialize(model=module, config_params=ds_config)
+    engine.load_module_state_dict(pipe_params_from_gpt2(init, module))
+    return engine
+
+
+def _pipe_launches(engine, n_blocks, steps):
+    """The flash launches ``steps`` steps of ``engine``'s schedule make,
+    per kernel. Per block and micro-batch: 1f1b re-runs a non-last chunk's
+    forward in its backward (B1 twice) and runs the last chunk's forward
+    only inside its backward (once), each backward B2 and B3 once. ZB-H1
+    without the stash runs a non-last chunk's forward, then its dgrad and
+    its wgrad each re-run the forward and back-propagate through the
+    attention (B1 3x, B2 and B3 2x; the last chunk has no separate
+    forward: B1 2x); with the stash the forward runs once (B1 1x) and
+    dgrad and wgrad each back-propagate through its graph (B2 and B3 2x).
+    Under ZB-H1 the first chunk's dgrad has no gradient to send (its
+    input is the token ids) and runs nothing: B1 one fewer, B2 and B3
+    once."""
+    parts = engine.module_pipe.partition_layers(engine.num_chunks)
+    layers = engine.module_pipe.layers
+    blocks = [sum(1 for l in layers[parts[q]:parts[q + 1]]
+                  if l.type_name == "GPT2BlockLayer")
+              for q in range(engine.num_chunks)]
+    assert sum(blocks) == n_blocks, (blocks, n_blocks)
+    last = engine.num_chunks - 1
+    fwd = bwd = 0
+    for q, n in enumerate(blocks):
+        if engine.pipe_schedule == "zb-h1":
+            f = 1 if engine._stash_armed else (2 if q in (0, last) else 3)
+            b = 1 if q == 0 else 2
+        else:
+            f, b = (1 if q == last else 2), 1
+        fwd += f * n
+        bwd += b * n
+    per = SLICE_GAS * steps
+    want = {"flash_fwd": fwd * per, "flash_bwd_dkdv": bwd * per,
+            "flash_bwd_dq": bwd * per}
+    want.update({name: 0 for name, _ in SPARSE_KERNELS})
+    return want
+
+
+def _pipe_run(env, engine, batch, steps, label, after_step=None):
+    """``steps`` train_batch calls with the kernel counts set to 0 just
+    before and read just after: losses, launches, step ms (median of
+    steps 2..), peak bytes."""
+    import torch
+
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bsk
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    bsk.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch=batch)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if after_step is not None:
+            after_step()
+    launches = dict(fa.LAUNCHES, **bsk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(x == x and abs(x) != float("inf") for x in losses):
+        raise RuntimeError(f"pipe {label}: non-finite loss {losses}")
+    rest = step_ms[1:] or step_ms
+    steady = sorted(rest)[len(rest) // 2]
+    log(f"pipe {label}: losses {[round(x, 5) for x in losses]}; step ms "
+        f"{steady:.1f} (first {step_ms[0]:.1f}); max_memory_allocated "
+        f"{peak / 2 ** 30:.2f} GiB on {env['smi']}")
+    return {"losses": losses, "launches": launches, "step_ms": steady,
+            "peak_bytes": peak}
+
+
+def _masters(engine, chunks=None):
+    """{name: fp32 host copy} of the master of ``chunks`` (default all;
+    PipelineEngine.chunk_master; a tied leaf's copies are equal)."""
+    out = {}
+    for q in range(engine.num_chunks) if chunks is None else chunks:
+        out.update({n: t.cpu() for n, t in engine.chunk_master(q).items()})
+    return out
+
+
+def _rel(a, b):
+    num = sum(float((a[n] - b[n]).float().norm()) ** 2 for n in b)
+    den = sum(float(b[n].float().norm()) ** 2 for n in b)
+    return (num / max(den, 1e-30)) ** 0.5
+
+
+def _check_launches(label, got, want):
+    if got != want:
+        raise RuntimeError(f"pipe {label}: kernels launched {got}, the "
+                           f"schedule implies {want}")
+
+
+def _check_bubble(env, label, engine):
+    """pipeline_report()'s bubble fraction beside measured_bubble_report()'s
+    (the traced instruction spans replayed through the simulator): equal."""
+    rep = engine.pipeline_report()
+    meas = engine.measured_bubble_report()
+    log(f"pipe (e) {label}: bubble fraction analytic "
+        f"{rep['bubble_fraction']:.4f} measured (trace replay) "
+        f"{meas['measured']['bubble_fraction']:.4f}, max idle error "
+        f"{meas['max_abs_idle_error']:.2e}; pipe_p2p_bytes_per_step "
+        f"{engine._last_metrics['pipe_p2p_bytes_per_step']} vs analytic "
+        f"{rep['p2p']['analytic_bytes_per_step']} on {env['smi']}")
+    if meas["max_abs_idle_error"] > 1e-9 \
+            or engine._last_metrics["pipe_p2p_bytes_per_step"] \
+            != rep["p2p"]["analytic_bytes_per_step"]:
+        raise RuntimeError(f"pipe (e) {label}: the traced bubble or the "
+                           f"measured p2p bytes differ from the analytic")
+    return rep
+
+
+def _against_twin(label, got, twin, twin_again):
+    """``got`` (a _pipe_run with its ``master``) equal to ``twin``'s bit for
+    bit (losses and every master leaf), or else within the spread of two
+    runs of the twin: ``twin_again()`` runs it once more."""
+    import torch
+
+    if got["losses"] == twin["losses"] and all(
+            torch.equal(got["master"][n], t)
+            for n, t in twin["master"].items()):
+        log(f"pipe {label}: equal bit for bit (losses and every master "
+            f"leaf)")
+        return
+    again = twin_again()
+    spread = _rel(again["master"], twin["master"])
+    loss_spread = max(abs(x - y) for x, y in zip(again["losses"],
+                                                 twin["losses"]))
+    err = _rel(got["master"], twin["master"])
+    loss_err = max(abs(x - y) for x, y in zip(got["losses"],
+                                              twin["losses"]))
+    log(f"pipe {label}: not bit for bit: master {err:.3e} relative, losses "
+        f"{loss_err:.3e}; two runs of the twin: master {spread:.3e}, losses "
+        f"{loss_spread:.3e}")
+    if err > spread or loss_err > loss_spread:
+        raise RuntimeError(f"pipe {label}: outside the spread of two runs "
+                           f"of its twin")
+
+
+def phase_pipe(env, stage0):
+    """Pipeline parallelism (ROADMAP A12) in a world of one on one card,
+    the single-controller layout (each pipe line in one process, as the
+    JAX engine runs it): phase 4's config (gpt2-350m, seq 1024, micro 8,
+    gas 2, bf16 over the fp32 master, Adam, WarmupLR, clipping 1.0,
+    dropout 0) and batch, from phase 4's initial weights (seed 42) carried
+    into gpt2_pipeline_module by models/convert.py.
+
+    (a) 1f1b, pipe 2, tied head, 10 steps, the trace armed: losses finite
+        and falling, each within PIPE_LOSS_GATE relative of phase 4's (the
+        pipeline's loss is the full logits' cross entropy, phase 4's the
+        chunked one), the two tied copies of wte equal bit for bit after
+        every step, and B1-B3 launched exactly as ``_pipe_launches``
+        derives: per block and micro-batch B1 twice in the first chunk (its
+        forward, and again in the backward's re-run) and once in the last
+        (the last chunk runs no separate forward), B2 and B3 once.
+    (b) interleaved, pipe 2 x 2 virtual stages, tied: 21 blocks
+        (PIPE_INTERLEAVED_BLOCKS; 27 layers do not split into 4 chunks,
+        validate_chunking), 3 steps, against 1f1b on the same 21 blocks:
+        losses within PIPE_SCHEDULE_GATE relative (the norm sums four
+        chunks instead of two: both count the tied copy twice), and the
+        losses and every master leaf after step 3 equal bit for bit, or
+        else within the spread of two 1f1b runs (``_against_twin``). The
+        losses alone see little: WarmupLR's step 1 has lr 0, so only step
+        3's loss follows an update; the masters hold steps 2 and 3's.
+    (c) ZB-H1, pipe 2, untied head, the stash armed and off, 3 steps each:
+        the two equal bit for bit, or else within the spread of two
+        stash-off runs; each within PIPE_SCHEDULE_GATE of the untied 1f1b
+        run's losses, and its losses and masters equal that run's bit for
+        bit or within the spread of two of them; the analytic peak stash
+        bytes beside max_memory_allocated.
+    (d) Planted faults: (a)'s run with _reduce_tied_grads skipped (2
+        steps): the tied copies must diverge; (a)'s run with micro-batch
+        0's activation gradient zeroed at edge 0 (3 steps): chunk 0's
+        master after step 3 must differ from (a)'s by more than 10x the
+        spread of two correct runs (and by something).
+    (e) Step ms, tokens/s and peak memory beside phase 4's; for every run
+        of (a)-(c), the trace armed: pipeline_report()'s bubble fraction
+        beside measured_bubble_report()'s (a replay of the traced
+        instruction spans), which must be equal, and
+        pipe_p2p_bytes_per_step beside the analytic pipe_p2p_bytes; all
+        on the card's name and power limit.
+    """
+    import torch
+    import torch.distributed as dist
+
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _release_earlier_phases()
+    t0 = time.perf_counter()
+    cfg = gpt2_config(SLICE_MODEL, n_positions=SLICE_SEQ,
+                      dtype=torch.bfloat16, remat=False)
+    init_model = GPT2Model(cfg)
+    init_model.init_weights(torch.Generator().manual_seed(42))
+    init = {n: t.detach().clone() for n, t in
+            init_model.state_dict().items()}
+    del init_model
+    batch = _slice_batch(cfg.vocab_size, SLICE_GAS, SLICE_MICRO, SLICE_SEQ,
+                         seed=0)
+    tokens = SLICE_MICRO * SLICE_GAS * SLICE_SEQ
+
+    # (a) ------------------------------------------------------------
+    eng = _pipe_engine(cfg, init, telemetry=True)
+    tied_ok = []
+
+    def tied_equal():
+        i, j = (eng._pipe_names(q)["tied_embed.wte"] for q in (0, 1))
+        tied_ok.append(torch.equal(eng.master[i], eng.master[j])
+                       and torch.equal(eng.params[i], eng.params[j]))
+
+    snap = {}
+
+    def after_step():
+        tied_equal()
+        if len(tied_ok) == PIPE_SHORT_STEPS:
+            snap.update(_masters(eng, [0]))
+
+    a = _pipe_run(env, eng, batch, SLICE_STEPS, "(a) 1f1b tied", after_step)
+    _check_launches("(a)", a["launches"],
+                    _pipe_launches(eng, cfg.n_layer, SLICE_STEPS))
+    if not a["losses"][-1] < a["losses"][0]:
+        raise RuntimeError(f"pipe (a): loss did not fall: {a['losses']}")
+    worst = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                    stage0["losses"]))
+    if worst > PIPE_LOSS_GATE:
+        raise RuntimeError(f"pipe (a): losses {a['losses']} against phase "
+                           f"4's {stage0['losses']}: {worst:.3e} relative > "
+                           f"{PIPE_LOSS_GATE}")
+    if not all(tied_ok):
+        raise RuntimeError(f"pipe (a): the tied wte copies differ after "
+                           f"steps {[i + 1 for i, ok in enumerate(tied_ok) if not ok]}")
+    _check_bubble(env, "(a) 1f1b", eng)
+    log(f"pipe (a) gpt2-350m pipe 2 1f1b tied, {eng.num_chunks} chunks "
+        f"{eng.module_pipe.partition_layers(eng.num_chunks)}: largest loss "
+        f"difference from phase 4 {worst:.3e} relative (gate "
+        f"{PIPE_LOSS_GATE}); tied copies equal bit for bit after all "
+        f"{SLICE_STEPS} steps; launches {a['launches']} as derived")
+    log(f"pipe (e) 1f1b: step ms {a['step_ms']:.1f} vs phase 4's "
+        f"{stage0['step_ms']:.1f}; tokens/s {tokens / a['step_ms'] * 1e3:.0f}"
+        f" vs {stage0['tokens_per_s']:.0f}; peak "
+        f"{a['peak_bytes'] / 2 ** 30:.2f} GiB vs "
+        f"{stage0['peak_bytes'] / 2 ** 30:.2f} GiB on {env['smi']}")
+    log(f"pipe (e) 1f1b: wall-clock lane busy "
+        f"{json.dumps(eng.measured_bubble_report()['wall_clock'])[:200]}")
+    del eng
+    _release_earlier_phases()
+
+    # (d) planted faults, against (a)'s run -------------------------------
+    eng = _pipe_engine(cfg, init)
+    eng._reduce_tied_grads = lambda: None
+    tied_ok = []
+    _pipe_run(env, eng, batch, 2, "(d) tied reduction skipped", tied_equal)
+    if all(tied_ok):
+        raise RuntimeError("pipe (d): with _reduce_tied_grads skipped the "
+                           "tied copies stayed equal: the gate cannot see "
+                           "a lost reduction")
+    del eng
+    _release_earlier_phases()
+    eng = _pipe_engine(cfg, init)
+    _pipe_run(env, eng, batch, PIPE_SHORT_STEPS, "(d) correct rerun")
+    again = _masters(eng, [0])
+    del eng
+    _release_earlier_phases()
+    eng = _pipe_engine(cfg, init)
+    send, begin = eng.link.send, eng.link.begin_batch
+    first = []
+
+    def begin_batch():
+        first[:] = [True]
+        begin()
+
+    def zero_first_grad(tensor, src, dst, kind):
+        # each step's first gradient across edge 0: micro-batch 0's
+        if kind == "grad" and src == 1 and first[0]:
+            first[0] = False
+            tensor = torch.zeros_like(tensor)
+        send(tensor, src, dst, kind)
+
+    eng.link.begin_batch = begin_batch
+    eng.link.send = zero_first_grad
+    _pipe_run(env, eng, batch, PIPE_SHORT_STEPS, "(d) edge-0 grad zeroed")
+    fault = _masters(eng, [0])
+    del eng
+    _release_earlier_phases()
+    spread, err = _rel(again, snap), _rel(fault, snap)
+    log(f"pipe (d): chunk 0's master after {PIPE_SHORT_STEPS} steps: two "
+        f"correct runs {spread:.3e} relative apart, the edge-0 fault "
+        f"{err:.3e}; the skipped tied reduction left the copies unequal")
+    if not (err > 10 * spread and err > 0):
+        raise RuntimeError(f"pipe (d): the zeroed activation gradient moved "
+                           f"chunk 0's master by {err:.3e}, not 10x the "
+                           f"spread {spread:.3e}")
+    del snap, again, fault
+
+    # (b) --------------------------------------------------------------
+    import dataclasses
+
+    cfg21 = dataclasses.replace(cfg, n_layer=PIPE_INTERLEAVED_BLOCKS)
+    init21 = {n: t for n, t in init.items()
+              if not n.startswith("h.")
+              or int(n.split(".")[1]) < PIPE_INTERLEAVED_BLOCKS}
+
+    def run(label, c, i, sched="1f1b", v=1, untied=False, stash="auto"):
+        eng = _pipe_engine(c, i, schedule=sched, v=v, untied=untied,
+                           telemetry=True, stash=stash)
+        if eng.pipe_schedule != sched:
+            raise RuntimeError(f"pipe {label}: {sched} fell back to "
+                               f"{eng.pipe_schedule}: "
+                               f"{eng._schedule_blockers}")
+        out = _pipe_run(env, eng, batch, PIPE_SHORT_STEPS, label)
+        _check_launches(label, out["launches"],
+                        _pipe_launches(eng, c.n_layer, PIPE_SHORT_STEPS))
+        out["report"] = _check_bubble(env, label, eng)
+        out["stash"] = eng._stash_armed
+        out["master"] = _masters(eng)
+        del eng
+        _release_earlier_phases()
+        return out
+
+    inter = run("(b) interleaved v2", cfg21, init21, "interleaved", 2)
+    twin = run("(b) 1f1b", cfg21, init21)
+    worst = max(abs(x - y) / abs(y) for x, y in zip(inter["losses"],
+                                                    twin["losses"]))
+    log(f"pipe (b): interleaved {inter['losses']} against 1f1b "
+        f"{twin['losses']} at {cfg21.n_layer} blocks: {worst:.3e} relative "
+        f"(gate {PIPE_SCHEDULE_GATE}; the norm sums 4 chunks instead of 2)")
+    if worst > PIPE_SCHEDULE_GATE:
+        raise RuntimeError("pipe (b): interleaved is off 1f1b")
+    _against_twin("(b) interleaved against 1f1b", inter, twin,
+                  lambda: run("(b) 1f1b again", cfg21, init21))
+    del inter, twin
+
+    # (c) --------------------------------------------------------------
+    kinds = {"zb stash": ("zb-h1", "auto"), "zb remat": ("zb-h1", False),
+             "1f1b untied": ("1f1b", "auto")}
+    runs = {label: run(f"(c) {label}", cfg, init, sched, untied=True,
+                       stash=stash)
+            for label, (sched, stash) in kinds.items()}
+    for label, r in runs.items():
+        stash = r["report"]["stash"]
+        log(f"pipe (e) {label}: stash armed {r['stash']}; stash bytes per "
+            f"micro per chunk {stash.get('bytes_per_micro_per_chunk')}, "
+            f"analytic peak per stage {stash.get('peak_bytes_per_stage')} "
+            f"beside max_memory_allocated {r['peak_bytes']} on {env['smi']}")
+        if (label == "zb stash") != r["stash"]:
+            raise RuntimeError(f"pipe (c) {label}: stash armed {r['stash']}")
+    again = {}
+
+    def twin_again(label):
+        def go():
+            if label not in again:
+                sched, stash = kinds[label]
+                again[label] = run(f"(c) {label} again", cfg, init, sched,
+                                   untied=True, stash=stash)
+            return again[label]
+        return go
+
+    _against_twin("(c) zb stash against zb remat", runs["zb stash"],
+                  runs["zb remat"], twin_again("zb remat"))
+    base = runs["1f1b untied"]
+    for label in ("zb stash", "zb remat"):
+        worst = max(abs(x - y) / abs(y) for x, y in zip(runs[label]["losses"],
+                                                        base["losses"]))
+        log(f"pipe (c) {label}: {runs[label]['losses']} against 1f1b untied "
+            f"{base['losses']}: {worst:.3e} relative (gate "
+            f"{PIPE_SCHEDULE_GATE}); step ms {runs[label]['step_ms']:.1f} vs "
+            f"1f1b untied {base['step_ms']:.1f} on {env['smi']}")
+        if worst > PIPE_SCHEDULE_GATE:
+            raise RuntimeError(f"pipe (c): {label} is off 1f1b")
+        _against_twin(f"(c) {label} against 1f1b untied", runs[label], base,
+                      twin_again("1f1b untied"))
+    del runs, again
+    log(f"pipe: {time.perf_counter() - t0:.1f} s")
+    return {"step_ms": a["step_ms"], "launches": a["launches"]}
+
+
 def _master_digest(engine):
     """sha256 of the fp32 master's bytes, in parameter order."""
     import hashlib
@@ -5599,6 +6033,8 @@ def main():
     timed(phase_zero3, env, stage0)
     torch.cuda.empty_cache()
     timed(phase_onebit, env, stage0)
+    torch.cuda.empty_cache()
+    timed(phase_pipe, env, stage0)
     log(f"phase walls (s) on {env['smi']}: "
         f"{json.dumps(PHASE_WALLS)}; all phases "
         f"{time.perf_counter() - t_main:.3f} s")

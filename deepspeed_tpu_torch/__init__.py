@@ -18,19 +18,24 @@ def initialize(args=None, model=None, optimizer=None, model_parameters=None,
                device=None):
     """Build the engine (reference deepspeed/__init__.py:50-139).
 
-    Returns (engine, optimizer, training_dataloader, lr_scheduler).
-    ``device`` defaults to ``cuda`` and raises when CUDA is absent; pass
-    ``device="cpu"`` to run on the CPU.
+    Returns (engine, optimizer, training_dataloader, lr_scheduler). A
+    ``PipelineModule`` takes the ``PipelineEngine`` (runtime/pipe), as
+    the JAX package's ``initialize`` dispatches it. ``device`` defaults
+    to ``cuda`` and raises when CUDA is absent; pass ``device="cpu"`` to
+    run on the CPU.
     """
     from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
+    from deepspeed_tpu_torch.runtime.pipe.engine import PipelineEngine
+    from deepspeed_tpu_torch.runtime.pipe.module import PipelineModule
 
-    engine = DeepSpeedEngine(args=args, model=model, optimizer=optimizer,
-                             model_parameters=model_parameters,
-                             training_data=training_data,
-                             lr_scheduler=lr_scheduler, mpu=mpu,
-                             dist_init_required=dist_init_required,
-                             collate_fn=collate_fn,
-                             config_params=config_params, device=device)
+    cls = PipelineEngine if isinstance(model, PipelineModule) \
+        else DeepSpeedEngine
+    engine = cls(args=args, model=model, optimizer=optimizer,
+                 model_parameters=model_parameters,
+                 training_data=training_data, lr_scheduler=lr_scheduler,
+                 mpu=mpu, dist_init_required=dist_init_required,
+                 collate_fn=collate_fn, config_params=config_params,
+                 device=device)
     return (engine, engine.optimizer, engine.training_dataloader,
             engine.lr_scheduler)
 
@@ -58,6 +63,12 @@ def __getattr__(name):
     if name == "DeepSpeedEngine":
         from deepspeed_tpu_torch.runtime.engine import DeepSpeedEngine
         return DeepSpeedEngine
+    if name == "PipelineEngine":
+        from deepspeed_tpu_torch.runtime.pipe.engine import PipelineEngine
+        return PipelineEngine
+    if name == "PipelineModule":
+        from deepspeed_tpu_torch.runtime.pipe.module import PipelineModule
+        return PipelineModule
     if name == "DeepSpeedConfig":
         from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
         return DeepSpeedConfig

@@ -278,3 +278,77 @@ def bert_tp_taken(path, ndim):
     if ndim == 2 and ("attn_out" in path or "ffn_out" in path):
         return (0,)
     return ()
+
+
+# ---------------------------------------------------------------------------
+# pipeline modules (runtime/pipe/module.py): the JAX PipelineModule's tree
+# ---------------------------------------------------------------------------
+def _walk_pairs(ref, tree, fn, path=()):
+    """fn(leaf spec, the tree's node at the same path, path) over a reference
+    tree's leaves."""
+    for key in sorted(ref):
+        node = None if tree is None else tree[key]
+        if isinstance(ref[key], dict):
+            _walk_pairs(ref[key], node, fn, path + (key,))
+        else:
+            fn(ref[key], node, path + (key,))
+
+
+def pipe_params_from_jax(tree, module):
+    """state_dict for the port's PipelineModule ``module`` from the JAX
+    PipelineModule's parameter tree (nested dicts of numpy arrays keyed
+    ``layer_XX`` / ``tied_<key>``): a Dense kernel transposed into its
+    Linear weight, every other leaf as it is."""
+    out = {}
+
+    def put(spec, leaf, _):
+        name, transposed = spec
+        t = _tensor(leaf)
+        out[name] = t.t().contiguous() if transposed else t
+
+    _walk_pairs(module.reference_tree(), tree, put)
+    return out
+
+
+def pipe_params_to_jax(state_dict, module):
+    """The JAX PipelineModule's parameter tree (nested dicts of fp32 numpy
+    arrays) from the port's ``module`` state_dict: the inverse of
+    ``pipe_params_from_jax``."""
+    out = {}
+
+    def put(spec, _, path):
+        name, transposed = spec
+        t = state_dict[name].detach().float().cpu()
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = (t.t() if transposed else t).contiguous().numpy()
+
+    _walk_pairs(module.reference_tree(), None, put)
+    return out
+
+
+def pipe_params_from_gpt2(state_dict, module):
+    """state_dict for a GPT-2 PipelineModule (models/gpt2_pipe.py) from a
+    ``GPT2Model`` state_dict of the same config: the embeddings into the
+    first layer (``tied_embed`` or ``layer_00``), block i into layer i + 1,
+    ``ln_f`` into the final norm, and ``wte`` again into an untied head,
+    so that the pipeline starts from the monolithic model's weights."""
+    layers = module.layers
+    out = {}
+    embed = layers[0].param_key
+    for name in ("wte", "wpe"):
+        out[f"{embed}.{name}"] = state_dict[name]
+    n_blocks = len(layers) - 3
+    for name, t in state_dict.items():
+        if name.startswith("h."):
+            i, rest = name[2:].split(".", 1)
+            out[f"{layers[int(i) + 1].param_key}.block.{rest}"] = t
+    out[f"{layers[n_blocks + 1].param_key}.ln_f.weight"] = \
+        state_dict["ln_f.weight"]
+    out[f"{layers[n_blocks + 1].param_key}.ln_f.bias"] = \
+        state_dict["ln_f.bias"]
+    head = layers[-1].param_key
+    if head != embed:
+        out[f"{head}.wte"] = state_dict["wte"]
+    return out

@@ -8,8 +8,13 @@ mesh coordinates of JAX device r: r = ((p * D + d) * N + s) * M + m
 (``ProcessGrid``), so that it feeds the batch rows and holds the sequence
 chunk that JAX device r holds. ``resolve_grid`` holds the config's mesh
 to the world with the JAX package's ``resolve_mesh_shape``; the ``model``
-and ``pipe`` axes still raise, naming the ROADMAP item that ports each.
-utils/distributed.py builds each line's group. ``zero_merge_dim`` is
+axis still raises, naming the ROADMAP item that ports it. The ``pipe``
+axis has two layouts, which the world's size picks
+(``pipe_processes``): a world of pipe x data x seq processes runs one
+process per stage, and a world of data x seq processes runs each pipe
+line in one process on its own device (the JAX engine's single
+controller; runtime/pipe/engine.py). utils/distributed.py builds each
+line's group. ``zero_merge_dim`` is
 ``zero_merge_spec``'s rule (mesh.py:171-197): a leaf shards over
 ``data`` along its largest dimension that the tensor-parallel spec leaves
 free and the data-parallel size divides, and nothing shards over ``seq``.
@@ -38,7 +43,7 @@ MODEL_AXIS = "model"
 # sequence neighbours are its nearest ranks
 AXIS_ORDER = (PIPE_AXIS, DATA_AXIS, SEQ_AXIS, MODEL_AXIS)
 # the mesh axes still to come, and the ROADMAP item that ports each
-UNPORTED_AXES = {MODEL_AXIS: "A7b", PIPE_AXIS: "A12"}
+UNPORTED_AXES = {MODEL_AXIS: "A7b"}
 
 
 def resolve_mesh_shape(mesh_shape: dict, n_devices: int):
@@ -71,10 +76,12 @@ def resolve_mesh_shape(mesh_shape: dict, n_devices: int):
 
 def resolve_grid(mesh_shape: dict, world_size: int) -> dict:
     """The config's mesh over a world of ``world_size`` processes (one per
-    device): {axis: size}, whose product is the world. ``model`` or
-    ``pipe`` above 1 raises NotImplementedError naming its ROADMAP item;
-    ``data`` (-1: what the other axes leave) and ``seq`` must cover the
-    world exactly (a partial mesh would leave processes idle)."""
+    device): {axis: size}. ``model`` above 1 raises NotImplementedError
+    naming its ROADMAP item. With ``pipe`` P > 1 the world is either P x
+    data x seq processes (one per stage) or data x seq processes (each
+    driving its pipe line); ``data`` -1 takes what the other axes leave,
+    trying one process per stage first. Any other world raises
+    ValueError with the numbers."""
     for axis, item in UNPORTED_AXES.items():
         size = mesh_shape.get(axis, 1)
         if size not in (1, -1):
@@ -82,14 +89,46 @@ def resolve_grid(mesh_shape: dict, world_size: int) -> dict:
                 f"mesh axis {axis!r} of size {size} is not ported yet "
                 f"(ROADMAP {item})")
     data = mesh_shape.get(DATA_AXIS, -1)
-    if mesh_shape.get(SEQ_AXIS, 1) == 1 and data not in (-1, world_size):
-        raise ValueError(
-            f"mesh data={data}, but the world has {world_size} "
-            f"process(es): start {data} processes (one per device) and "
-            f"call init_distributed(), or set data to -1")
-    return resolve_mesh_shape({DATA_AXIS: data,
-                               SEQ_AXIS: mesh_shape.get(SEQ_AXIS, 1)},
-                              world_size)
+    seq = mesh_shape.get(SEQ_AXIS, 1)
+    pipe = mesh_shape.get(PIPE_AXIS, 1)
+    if pipe == 1:
+        if seq == 1 and data not in (-1, world_size):
+            raise ValueError(
+                f"mesh data={data}, but the world has {world_size} "
+                f"process(es): start {data} processes (one per device) and "
+                f"call init_distributed(), or set data to -1")
+        return resolve_mesh_shape({DATA_AXIS: data, SEQ_AXIS: seq},
+                                  world_size)
+    if not isinstance(pipe, int) or pipe < 1:
+        raise ValueError(f"mesh pipe={pipe}: give the pipeline depth as a "
+                         f"positive integer")
+    if seq != 1:
+        raise NotImplementedError(
+            f"mesh seq={seq} beside pipe={pipe} is not ported yet (ROADMAP "
+            f"A12b: the JAX engine's sequence parallelism inside a pipeline "
+            f"stage)")
+    for procs in (pipe, 1):
+        try:
+            shape = resolve_mesh_shape(
+                {PIPE_AXIS: procs, DATA_AXIS: data, SEQ_AXIS: seq},
+                world_size)
+        except ValueError:
+            continue
+        shape[PIPE_AXIS] = pipe
+        return shape
+    raise ValueError(
+        f"mesh pipe={pipe} data={data} seq={seq} over a world of "
+        f"{world_size} process(es): the world must be pipe x data x seq "
+        f"(one process per stage) or data x seq (one process per pipe "
+        f"line)")
+
+
+def pipe_processes(shape: dict, world_size: int) -> int:
+    """The processes of one pipe line under the resolved mesh ``shape``:
+    its ``pipe`` size when the world holds one process per stage, else 1
+    (each process drives its whole line)."""
+    return shape[PIPE_AXIS] if int(np.prod(list(shape.values()))) \
+        == world_size else 1
 
 
 class ProcessGrid:

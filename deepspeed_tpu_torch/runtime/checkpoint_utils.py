@@ -52,3 +52,18 @@ def npz_dict_to_leaves(data):
     n = sum(1 for name in data.files if name.startswith("leaf_"))
     return [numpy_to_tensor(data[f"leaf_{i}"], str(data[f"dtype_{i}"]))
             for i in range(n)]
+
+
+def named_leaf_entry(name, leaf):
+    """One name-keyed npz entry of a tensor (the layer-granular pipeline
+    layout) and its dtype sidecar ``dtype::<name>``."""
+    arr, dtype = tensor_to_numpy(torch.as_tensor(leaf))
+    return {name: arr, f"dtype::{name}": np.str_(dtype)}
+
+
+def named_leaf_lookup(data, name):
+    """Inverse of named_leaf_entry against an open np.load handle: a CPU
+    tensor."""
+    dkey = f"dtype::{name}"
+    dtype = str(data[dkey]) if dkey in data.files else ""
+    return numpy_to_tensor(data[name], dtype)

@@ -518,6 +518,52 @@ def volume_report(leaves: Sequence[LeafSpec], dp: int, *,
     return report
 
 
+def pipe_p2p_collectives(
+        boundary_elems: int, micro_batches: int, *, stages: int,
+        virtual_stages: int = 1,
+        act_dtype: str = "float32",
+        grad_dtype: Optional[str] = None,
+        name: str = "pipe") -> List[Collective]:
+    """Pipeline p2p traffic of one optimizer step as budgeted collectives
+    (JAX ``pipe_p2p_collectives``). Each of the ``stages*virtual_stages -
+    1`` chunk boundaries moves one activation (forward) and one gradient
+    (backward) of ``boundary_elems`` elements per micro-batch; a p2p hop
+    is a point-to-point copy, so the sender puts the FULL payload on the
+    wire (no ring discount): one Collective per boundary per direction,
+    ``bytes_per_device`` what the sending stage puts on that edge per
+    micro. Interleaved virtual stages multiply boundaries from (S-1) to
+    (S*v - 1)."""
+    chunks = stages * virtual_stages
+    grad_dtype = grad_dtype or act_dtype
+    ea, eg = DTYPE_BYTES[act_dtype], DTYPE_BYTES[grad_dtype]
+    out: List[Collective] = []
+    for edge in range(max(0, chunks - 1)):
+        out.append(Collective(
+            name=f"p2p_act:{name}:e{edge}", op="p2p", dtype=act_dtype,
+            elements=boundary_elems, axis_size=2,
+            bytes_per_device=boundary_elems * ea,
+            count_per_step=micro_batches))
+        out.append(Collective(
+            name=f"p2p_grad:{name}:e{edge}", op="p2p", dtype=grad_dtype,
+            elements=boundary_elems, axis_size=2,
+            bytes_per_device=boundary_elems * eg,
+            count_per_step=micro_batches))
+    return out
+
+
+def pipe_p2p_bytes(act_bytes_per_edge: Sequence[int],
+                   grad_bytes_per_edge: Sequence[int],
+                   micro_batches: int) -> int:
+    """Total p2p bytes per optimizer step from recorded per-boundary
+    payload sizes (JAX ``pipe_p2p_bytes``): heterogeneous boundaries are
+    summed exactly; micro-batches are shape-uniform slices of one batch,
+    to be cross-checked against the engine's measured bytes in
+    ``pipeline_report()['p2p']``."""
+    per_micro = sum(int(b) for b in act_bytes_per_edge) \
+        + sum(int(b) for b in grad_bytes_per_edge)
+    return per_micro * int(micro_batches)
+
+
 def _as_dicts(collectives):
     return [asdict(c) | {"bytes_per_step": c.bytes_per_step}
             for c in collectives]

@@ -29,8 +29,8 @@ from deepspeed_tpu_torch.utils.logging import logger
 from deepspeed_tpu_torch.version import __version__
 
 TENSOR_CORE_ALIGN_SIZE = 8
-# the pipeline schedules a config may name (the pipeline engine itself is a
-# later part of the port; initialize() refuses pipeline runs)
+# the pipeline schedules a config may name (runtime/pipe/schedule.py; a
+# PipelineModule through initialize() runs them in the PipelineEngine)
 KNOWN_SCHEDULES = ("1f1b", "interleaved", "zb-h1")
 # optimizer-name constants come from runtime/constants.py via the star import
 

@@ -1,8 +1,9 @@
 """DeepSpeedEngine: one device per process, data and sequence parallel over
 a process grid, with ZeRO stage 0, 1, 2 or 3.
 
-Port of deepspeed_tpu/runtime/engine.py without its tensor and pipeline
-axes: the optimizer and LR scheduler from the ds_config
+Port of deepspeed_tpu/runtime/engine.py without its tensor axis (the
+pipeline axis is runtime/pipe/engine.py's, whose PipelineEngine builds
+on this one): the optimizer and LR scheduler from the ds_config
 (``_configure_basic_optimizer`` :439, ``_configure_lr_scheduler`` :523),
 ``forward`` / ``backward`` / ``step`` (:3111, :3217, :3285), the optimizer
 step with the fp16 loss scale, global-norm clipping and the overflow skip
@@ -183,11 +184,11 @@ from deepspeed_tpu_torch.ops.adam.sgd import SGD
 from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
 from deepspeed_tpu_torch.ops.onebit.onebit_adam import OnebitAdam
 from deepspeed_tpu_torch.ops.onebit.zeroone_adam import ZeroOneAdam
-from deepspeed_tpu_torch.parallel.mesh import (DATA_AXIS, SEQ_AXIS,
-                                               DataParallelGroup,
+from deepspeed_tpu_torch.parallel.mesh import (DATA_AXIS, PIPE_AXIS,
+                                               SEQ_AXIS, DataParallelGroup,
                                                ProcessGrid,
                                                SequenceParallelGroup,
-                                               resolve_grid)
+                                               pipe_processes, resolve_grid)
 from deepspeed_tpu_torch.runtime import checkpoint_utils
 from deepspeed_tpu_torch.runtime import comm_accounting as ca
 from deepspeed_tpu_torch.runtime import memory_accounting
@@ -262,19 +263,17 @@ def resolve_device(device=None) -> torch.device:
 
 def _refuse_unported(raw, cfg):
     """NotImplementedError for every configuration this port cannot run
-    yet, naming its ROADMAP item (A12 pipelines, A16 resilience; the
-    optimizers' and the CSR wires' residue, A13c, at ``_arm_wire`` and
-    ``_arm_csr``); nothing is silently ignored."""
+    yet, naming its ROADMAP item (A12b the pipeline's residue, A16
+    resilience; the optimizers' and the CSR wires' residue, A13c, at
+    ``_arm_wire`` and ``_arm_csr``); nothing is silently ignored."""
     def no(what, item):
         raise NotImplementedError(f"{what} is not ported yet (ROADMAP "
                                   f"{item})")
 
-    if cfg.zero_config.cpu_offload:
-        # the combinations of ZeRO-Offload this port does not run yet
-        if cfg.pipeline.get("stages", 1) not in (1, None):
-            no("ZeRO-Offload with pipeline parallelism", "A12")
-    if cfg.pipeline.get("stages", 1) not in (1, None):
-        no("pipeline parallelism", "A12")
+    if cfg.zero_config.cpu_offload and (
+            cfg.pipeline.get("stages", 1) not in (1, None)
+            or get_mesh_shape(raw).get("pipe", 1) not in (1, -1)):
+        no("ZeRO-Offload with pipeline parallelism", "A12b")
     res = cfg.resilience
     if res.watchdog_enabled or res.integrity_enabled:
         no("the resilience watchdog and integrity monitor", "A16")
@@ -283,6 +282,10 @@ def _refuse_unported(raw, cfg):
 
 
 class DeepSpeedEngine:
+    # the pipeline engine's (runtime/pipe/engine.py): a PipelineModule over
+    # the mesh's pipe axis
+    _pipeline = False
+
     def __init__(self, args=None, model=None, optimizer=None,
                  model_parameters=None, training_data=None, lr_scheduler=None,
                  mpu=None, dist_init_required=None, collate_fn=None,
@@ -292,8 +295,8 @@ class DeepSpeedEngine:
                              "model")
         if not (hasattr(model, "loss") and hasattr(model, "init_weights")):
             raise TypeError("the model must be an nn.Module with loss() and "
-                            "init_weights() (models/api.py); pipeline "
-                            "modules are ROADMAP A12")
+                            "init_weights() (models/api.py), or a "
+                            "PipelineModule through initialize()")
         if mpu is not None:
             raise NotImplementedError("model parallelism through an mpu is "
                                       "not ported yet (ROADMAP A7b)")
@@ -319,6 +322,16 @@ class DeepSpeedEngine:
         raw = load_config_json(raw) if isinstance(raw, str) else raw
         world = dist.get_world_size() if dist.is_initialized() else 1
         self.mesh_shape = resolve_grid(get_mesh_shape(raw), world)
+        # the processes of a pipe line: pipe (one per stage) or 1 (this
+        # process drives the line), parallel/mesh.py
+        self.pipe_procs = pipe_processes(self.mesh_shape, world)
+        if self.mesh_shape[PIPE_AXIS] > 1 and not self._pipeline:
+            raise NotImplementedError(
+                f"mesh pipe={self.mesh_shape[PIPE_AXIS]} with "
+                f"{type(model).__name__}, which is not a PipelineModule "
+                f"(runtime/pipe/module.py), is not ported yet (ROADMAP A12b: "
+                f"the JAX engine replicates such a model over the pipe "
+                f"axis)")
         self.dp_world_size = self.mesh_shape[DATA_AXIS]
         self.sp_world_size = self.mesh_shape[SEQ_AXIS]
         self.mp_world_size = 1
@@ -620,14 +633,17 @@ class DeepSpeedEngine:
 
     def _process_groups(self):
         """The grid's groups (none in a single-process run): ``dp_group``,
-        this rank's ``data`` line (the world when seq is 1, at any size;
-        None when the line is this rank alone), ``sp_group``, its ``seq``
-        line (None at seq 1), both recording into one counter, and
-        ``_world_group``, every rank (the checkpoint's tag check and
-        barrier). The world's backend must be the device's: NCCL on CUDA,
-        gloo on the CPU; nothing falls back."""
-        self.dp_group = self.sp_group = self._world_group = None
+        this rank's ``data`` line (the world when it is the only axis, at
+        any size; None when the line is this rank alone), ``sp_group``,
+        its ``seq`` line (None at seq 1), ``pp_group``, its ``pipe`` line
+        when each stage is a process of its own (else None), all recording
+        into one counter, and ``_world_group``, every rank (the
+        checkpoint's tag check and barrier). The world's backend must be
+        the device's: NCCL on CUDA, gloo on the CPU; nothing falls back."""
+        self.dp_group = self.sp_group = self.pp_group = None
+        self._world_group = None
         self._counter = None
+        self._grid = None
         if not dist.is_initialized():
             return
         self._counter = ca.CollectiveCounter()
@@ -637,14 +653,21 @@ class DeepSpeedEngine:
             raise RuntimeError(f"the process group runs "
                                f"{self._world_group.backend}; a "
                                f"{self.device.type} engine needs {want}")
-        if self.sp_world_size == 1:
+        if self.sp_world_size == 1 and self.pipe_procs == 1:
             self.dp_group = self._world_group
             return
-        groups = grid_groups(ProcessGrid(self.mesh_shape, dist.get_rank()))
+        self._grid = ProcessGrid(dict(self.mesh_shape,
+                                      **{PIPE_AXIS: self.pipe_procs}),
+                                 dist.get_rank())
+        groups = grid_groups(self._grid)
         if self.dp_world_size > 1:
             self.dp_group = DataParallelGroup(groups[DATA_AXIS],
                                               self._counter)
-        self.sp_group = SequenceParallelGroup(groups[SEQ_AXIS],
+        if self.sp_world_size > 1:
+            self.sp_group = SequenceParallelGroup(groups[SEQ_AXIS],
+                                                  self._counter)
+        if self.pipe_procs > 1:
+            self.pp_group = DataParallelGroup(groups[PIPE_AXIS],
                                               self._counter)
 
     # ------------------------------------------------------------------

@@ -404,9 +404,10 @@ def report_json(result: RunResult, registries=()) -> dict:
 # ---------------------------------------------------------------------------
 # corpus: tiny engines covering every program family the port builds, at
 # the JAX corpus's sizes. The families that need a world of dp > 1
-# (base-qgz, stage3, zeroone, onebit) are linted in the tests' gloo
-# worlds (tests/test_torch_programs.py, test_torch_zeroone.py,
-# test_torch_onebit.py); pipe and pipe-bf16 wait for ROADMAP A12.
+# (base-qgz, stage3, zeroone, onebit, and pipe and pipe-bf16: pipe 2 x
+# data 2, ``pipe_family``) are linted in the tests' gloo worlds
+# (tests/test_torch_programs.py, test_torch_zeroone.py,
+# test_torch_onebit.py, test_torch_pipe.py).
 # ---------------------------------------------------------------------------
 
 #: the tiny GPT-2 of the JAX corpus (tools/graftlint/program_lint.py)
@@ -549,6 +550,45 @@ def _corpus_serving(device):
     engines = serving_engines(
         lambda **kw: InferenceEngine(model, None, device=device, **kw))
     return [e.program_registry for e in engines]
+
+
+def pipe_family(family, device="cpu"):
+    """The engine of the ``pipe`` or ``pipe-bf16`` family (JAX corpus,
+    tools/graftlint/program_lint.py:482-520) at mesh pipe 2 x data 2, its
+    registry observing, after one train_batch: ``pipe`` a ZB-H1 pipeline
+    with the stash armed (an untied tiny GPT-2, fp32: the JAX family's
+    untied stack model), ``pipe-bf16`` the tied bf16 GPT-2 pipeline (its
+    ZB-H1 request falls back to 1f1b over the tied head), whose
+    non-last forwards carry the boundary-dtype contract. Needs a world
+    of 2 (each rank drives its pipe line) or 4 processes."""
+    import numpy as np
+    import torch
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    from deepspeed_tpu_torch.models.gpt2_pipe import gpt2_pipeline_module
+
+    bf16 = family == "pipe-bf16"
+    cfg = GPT2Config(vocab_size=64, n_positions=16, n_embd=32, n_layer=2,
+                     n_head=4, dtype=torch.bfloat16 if bf16
+                     else torch.float32, loss_chunk_tokens=0)
+    module = gpt2_pipeline_module(cfg, partition_method="uniform",
+                                  untied_head=not bf16)
+    config = {"train_batch_size": 8, "train_micro_batch_size_per_gpu": 2,
+              "gradient_accumulation_steps": 2,
+              "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+              "pipeline": {"schedule": "zb-h1"},
+              "mesh": {"pipe": 2, "data": 2},
+              "steps_per_print": 10 ** 9}
+    if bf16:
+        config["bf16"] = {"enabled": True}
+    engine, _, _, _ = deepspeed_tpu_torch.initialize(
+        model=module, config_params=config, device=device)
+    engine.program_registry.observing = True
+    engine.program_registry.engine = family
+    ids = np.random.default_rng(0).integers(0, 64, (2, 2, 16))
+    engine.train_batch(batch={"input_ids": ids, "labels": ids.copy()})
+    return engine
 
 
 CORPUS_BUILDERS = {

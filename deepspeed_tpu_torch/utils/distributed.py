@@ -10,8 +10,9 @@ on the CPU. There is no fallback: on CUDA the backend is NCCL or the call
 raises, and a world larger than the node's cards raises.
 
 ``grid_groups`` then lays the mesh's process grid (parallel/mesh.py
-``ProcessGrid``) over the world: one process group per ``data`` line and
-per ``seq`` line, in the world's backend.
+``ProcessGrid``) over the world: one process group per ``pipe``, ``data``
+and ``seq`` line, in the world's backend; ``pipe_edge_groups`` and
+``tie_groups`` the groups of a pipe line's links and tied layers.
 """
 import os
 from datetime import timedelta
@@ -135,15 +136,16 @@ def mpi_discovery(distributed_port=29500, verbose=True):
 
 
 def grid_groups(grid):
-    """{axis: this rank's group along it} for the grid's ``data`` and
-    ``seq`` axes above size 1: None (the default group) where the line is
-    the whole world, else a ``dist.new_group`` of the line. Every rank
+    """{axis: this rank's group along it} for the grid's ``pipe``, ``data``
+    and ``seq`` axes above size 1: None (the default group) where the line
+    is the whole world, else a ``dist.new_group`` of the line. Every rank
     creates every line's group, in the same order, as ``new_group``
     requires."""
-    from deepspeed_tpu_torch.parallel.mesh import DATA_AXIS, SEQ_AXIS
+    from deepspeed_tpu_torch.parallel.mesh import (DATA_AXIS, PIPE_AXIS,
+                                                   SEQ_AXIS)
 
     out = {}
-    for axis in (DATA_AXIS, SEQ_AXIS):
+    for axis in (PIPE_AXIS, DATA_AXIS, SEQ_AXIS):
         size = grid.shape[axis]
         if size == 1:
             continue
@@ -154,6 +156,46 @@ def grid_groups(grid):
             group = dist.new_group(line)
             if grid.rank in line:
                 out[axis] = group
+    return out
+
+
+def pipe_edge_groups(grid, num_chunks):
+    """{(edge, kind): group} of this rank's pipe line: one two-rank group
+    per chunk boundary (edge q joins global chunks q and q + 1, chunk q
+    on stage q mod pipe) and per direction (``kind`` "act" forward,
+    "grad" backward), as runtime/pipe/p2p.py ``DistLink`` needs. Every
+    rank creates every line's groups, in the same order."""
+    from deepspeed_tpu_torch.parallel.mesh import PIPE_AXIS
+
+    P = grid.shape[PIPE_AXIS]
+    out = {}
+    for line in grid.lines(PIPE_AXIS):
+        for edge in range(num_chunks - 1):
+            pair = sorted((line[edge % P], line[(edge + 1) % P]))
+            for kind in ("act", "grad"):
+                group = dist.new_group(pair)
+                if grid.rank in line:
+                    out[(edge, kind)] = group
+    return out
+
+
+def tie_groups(grid, stage_sets):
+    """{tie key: group} of this rank's pipe line: for each tie whose
+    chunks lie on several stages (``stage_sets`` {key: sorted stages}),
+    the group of those stages' ranks, where the tied gradients are summed.
+    None for a tie this rank's stage does not hold. Every rank creates
+    every line's groups, in the same order."""
+    from deepspeed_tpu_torch.parallel.mesh import PIPE_AXIS
+
+    out = {}
+    for key in sorted(stage_sets):
+        stages = stage_sets[key]
+        out[key] = None
+        for line in grid.lines(PIPE_AXIS):
+            members = [line[s] for s in stages]
+            group = dist.new_group(members)
+            if grid.rank in members:
+                out[key] = group
     return out
 
 

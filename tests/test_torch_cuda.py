@@ -14,6 +14,7 @@ storage dtype (at most one ulp: 2**-7 of the value at bf16, 2**-10 at
 fp16) and dS values rounded on two sides of a boundary (PERF.md section 2).
 """
 import gc
+import json
 import os
 
 import pytest
@@ -1435,3 +1436,76 @@ def test_full_window_sparse_equals_dense_bit_for_bit_on_card(cuda):
         assert (dense.results[a]["tokens"]
                 == sparse.results[b]["tokens"]).all()
     assert "sparse_decode_step" in sparse.dispatch_shapes.names()
+
+
+# the pipeline worlds' model: gpt2-350m's width at 21 blocks, whose 24
+# layers (embedding, blocks, final norm, head) split into the 8 chunks of
+# pipe 4 x 2 virtual stages (27 layers would not)
+_PIPE_GPT2 = dict(_GPT2_350M, n_layer=21)
+# name -> (mesh, schedule, virtual stages, untied head, ZeRO stage)
+_PIPE_CASES = {
+    "p4_1f1b": ({"pipe": 4}, "1f1b", 1, False, 0),
+    "p4_interleaved": ({"pipe": 4}, "interleaved", 2, False, 0),
+    "p4_zb": ({"pipe": 4}, "zb-h1", 1, True, 0),
+    "p2d2_zero2": ({"pipe": 2, "data": 2}, "1f1b", 1, False, 2),
+}
+PIPE_LOSS_RTOL = 1e-3
+
+
+@pytest.mark.cuda
+def test_nccl_pipe_worlds_match_one_card(cuda, tmp_path):
+    """On a host with 4 cards: gpt2-350m's width (bf16, seq 1024, the flash
+    kernels; 21 blocks) as a pipeline over NCCL with one process per
+    stage: pipe 4 at 1f1b, interleaved (2 virtual stages) and ZB-H1 with
+    the untied head, and pipe 2 x data 2 at ZeRO 2; each against the
+    same schedule driven by one process on one card (the single-
+    controller layout) on the same global batch (gas 4 of 8 rows): every
+    rank's losses within PIPE_LOSS_RTOL. The world's own timeout (600 s)
+    makes a deadlocked link fail instead of hanging. Prints each case's
+    losses, the schedule and the stash decision, and each rank's peak
+    max_memory_allocated beside its stage's analytic peak, the full fp32
+    gradient buffer a stage keeps at dp > 1 and the most send bytes the
+    link held at once; each rank's peak is at least its stage's analytic
+    persistent bytes (parameters, master, optimizer state, accumulator).
+    Skips with fewer than 4 cards."""
+    import numpy as np
+
+    import torch_zero_worker as W
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    steps, gas, rows, seq = 3, 4, 8, 1024
+    common = dict(steps=steps, gas=gas, seed=0, init=None, seq=seq,
+                  model=_PIPE_GPT2, dtype=torch.bfloat16, master_out=False)
+    want = {}
+    for name, (mesh, sched, v, untied, stage) in _PIPE_CASES.items():
+        want[name] = W.job_pipe(
+            mesh={"pipe": mesh["pipe"]}, schedule=sched, untied=untied,
+            stage=0, micro=rows, v=v, device="cuda", **common)
+        gc.collect()
+        torch.cuda.empty_cache()
+    jobs = [(name, "pipe", dict(mesh=mesh, schedule=sched, untied=untied,
+                                stage=stage, v=v, device="cuda",
+                                micro=rows // mesh.get("data", 1), **common))
+            for name, (mesh, sched, v, untied, stage) in _PIPE_CASES.items()]
+    ranks = W.run_world(4, jobs, str(tmp_path / "pipe_w4"), timeout=600,
+                        device="cuda")
+    for name in _PIPE_CASES:
+        ref = want[name]
+        for r, rank in enumerate(ranks):
+            got = rank[name]
+            assert got["procs"] > 1 and got["schedule"] == ref["schedule"]
+            assert got["stash"] == ref["stash"]
+            np.testing.assert_allclose(got["losses"], ref["losses"],
+                                       rtol=PIPE_LOSS_RTOL,
+                                       err_msg=f"{name} rank {r}")
+        print(f"{name}: {ranks[0][name]['schedule']} stash "
+              f"{ranks[0][name]['stash']}: losses {ranks[0][name]['losses']}"
+              f" against one card's {ref['losses']}")
+        print(f"{name} one card: {json.dumps(ref['memory'])}")
+        for r, rank in enumerate(ranks):
+            mem = rank[name]["memory"]
+            print(f"{name} rank {r} stage {rank[name]['stage_id']}: "
+                  f"{json.dumps(mem)}")
+            assert mem["max_memory_allocated"] >= \
+                mem["analytic_persistent_bytes"], (name, r, mem)

@@ -49,6 +49,9 @@ ids from numpy seeds. fp32 throughout but for the overflow case.
   (it steps only its regions); the norm equals the JAX engine's, whose
   regions count a replicated leaf once; the counted collectives of each
   step are the report's, which is the JAX engine's.
+
+The dp2 and dp4 worlds also carry the pipeline's jobs
+(tests/torch_pipe_worlds.py), which tests/test_torch_pipe.py reads.
 """
 import functools
 import os
@@ -60,6 +63,7 @@ import pytest
 import torch
 
 import deepspeed_tpu
+import torch_pipe_worlds as PW
 import torch_zero_worker as W
 from deepspeed_tpu.models.gpt2 import GPT2Config as JGPT2Config
 from deepspeed_tpu.models.gpt2 import GPT2Model as JGPT2Model
@@ -128,7 +132,7 @@ def _world_dp2(out):
                                            param="h.0.mlp.c_fc.weight")),
              ("sampler", "sampler", dict(dp=2, n=21)),
              ("tag_check", "tag_check", dict(dp=2)),
-             _offload_job(2, out)]
+             _offload_job(2, out)] + PW.dp2_jobs(out)
     results = W.run_world(2, jobs, out)
     for r in results:
         r["port_tag"] = ptag
@@ -159,6 +163,7 @@ def _offload_job(dp, out):
 def _world_dp4(out):
     jobs = [_train(f"s2g{g}", 4, 2, g) for g in (1, 2)]
     jobs += [("sampler", "sampler", dict(dp=4, n=21)), _offload_job(4, out)]
+    jobs += PW.dp4_jobs()
     return W.run_world(4, jobs, out)
 
 

@@ -1073,13 +1073,142 @@ def job_seq_refusals():
     return out
 
 
+def pipe_config(mesh, schedule, stage, gas, micro, dp, v=1, bf16=False):
+    """The ds_config of the pipeline jobs (tests/torch_pipe_worlds.py)."""
+    cfg = {"train_batch_size": micro * gas * dp,
+           "train_micro_batch_size_per_gpu": micro,
+           "gradient_accumulation_steps": gas,
+           "optimizer": {"type": "Adam",
+                         "params": {"lr": 1e-3, "weight_decay": 0.01}},
+           "gradient_clipping": 1.0,
+           "zero_optimization": {"stage": stage},
+           "steps_per_print": 10 ** 9,
+           "mesh": dict(mesh),
+           "pipeline": {"schedule": schedule, "virtual_stages": v}}
+    if bf16:
+        cfg["bf16"] = {"enabled": True}
+    return cfg
+
+
+def job_pipe(mesh, schedule, untied, stage, steps, gas, seed, micro, init,
+             model=None, v=1, dtype=torch.float32, device="cpu", seq=SEQ,
+             master_out=True, save=None):
+    """A GPT-2 PipelineEngine over ``mesh`` (the world picks the layout):
+    ``steps`` steps over ``global_batches(seed)`` (this rank's data rows),
+    from ``init`` (pipeline names). Its losses, each owned chunk's final
+    master (full-shaped numpy; with ``master_out``), its stage, data rank
+    and layout, and the collectives it counted per step; with ``save``, a
+    checkpoint after the last step (tag "last")."""
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config
+    from deepspeed_tpu_torch.models.gpt2_pipe import gpt2_pipeline_module
+
+    mcfg = dict(model or dict(TINY, n_layer=4))
+    mod = gpt2_pipeline_module(GPT2Config(dtype=dtype, **mcfg),
+                               untied_head=untied)
+    dp = mesh.get("data", 1)
+    eng = deepspeed_tpu_torch.initialize(
+        model=mod, config_params=pipe_config(
+            mesh, schedule, stage, gas, micro, dp, v,
+            bf16=dtype == torch.bfloat16),
+        device=None if device == "cuda" else device)[0]
+    if init is not None:
+        eng.load_module_state_dict(init)
+    batches = global_batches(seed, steps, gas, micro * dp,
+                             mcfg["vocab_size"], seq)
+    out = {"losses": [], "comm": [], "stage_id": eng.stage_id,
+           "dp_rank": eng.dp_rank, "procs": eng.pipe_procs,
+           "schedule": eng.pipe_schedule, "stash": eng._stash_armed}
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    held = 0
+    for step in range(steps):
+        ids = batches[step][:, eng.dp_rank * micro:(eng.dp_rank + 1) * micro]
+        out["losses"].append(eng.train_batch(batch={"input_ids": ids,
+                                                    "labels": ids}))
+        out["comm"].append(eng.last_step_comm)
+        held = max(held, getattr(eng.link, "peak_held_bytes", 0))
+    if device == "cuda":
+        # the card's peak beside the analytic one of the stages this rank
+        # holds (every stage in the one-process layout) and what that
+        # leaves out: the full fp32 gradient buffer a stage keeps at dp > 1
+        # and the sends in flight
+        stages = eng._analytic_memory_components()["per_stage"]
+        if eng.stage_id is not None:
+            stages = [stages[eng.stage_id]]
+        local = eng._local_flat
+        out["memory"] = {
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "analytic_persistent_bytes": sum(st["persistent_bytes"]
+                                             for st in stages),
+            "analytic_peak_bytes": sum(st["peak_bytes"] for st in stages),
+            "local_grad_buffer_bytes": 0 if local is None
+            else local.numel() * local.element_size(),
+            "peak_held_send_bytes": held}
+    out["masters"] = {q: {n: t.cpu().numpy()
+                          for n, t in eng.chunk_master(q).items()}
+                      for q in eng.owned_chunks} if master_out else None
+    out["stash"] = eng._stash_armed
+    out["p2p"] = eng.pipeline_report()["p2p"]
+    if save is not None:
+        eng.save_checkpoint(save, tag="last")
+    return out
+
+
+def job_pipe_lint(family):
+    """The program lint over a pipe family's engine
+    (telemetry/program_lint.py ``pipe_family``): its programs and the
+    clean findings, then two planted faults: the non-last forward's
+    boundary leaving in fp32 (pipe-bf16), and the accumulator replaced by
+    a copy in each backward (pipe)."""
+    from deepspeed_tpu_torch.runtime.pipe import engine as pipe_engine
+    from deepspeed_tpu_torch.telemetry.program_lint import (lint_programs,
+                                                            pipe_family)
+
+    def lint(eng):
+        return [(f.rule, f.path) for f in lint_programs(
+            [eng.program_registry], use_baseline=False).new]
+
+    eng = pipe_family(family)
+    out = {"clean": lint(eng), "names": eng.program_registry.names(),
+           "schedule": eng.pipe_schedule, "stash": eng._stash_armed}
+    if family == "pipe-bf16":
+        forward = pipe_engine.PipelineEngine._forward
+
+        def fp32_boundary(self, q, x, micro, train=True):
+            y, aux = forward(self, q, x, micro, train)
+            return (y.float() if q < self.num_chunks - 1 else y), aux
+
+        pipe_engine.PipelineEngine._forward = fp32_boundary
+        try:
+            out["fault"] = lint(pipe_family(family))
+        finally:
+            pipe_engine.PipelineEngine._forward = forward
+    else:
+        add = pipe_engine.PipelineEngine._accum_add
+
+        def copying_add(self, q):
+            add(self, q)
+            for i in self._chunk_idx[q]:
+                self._local[i] = self._local[i].clone()
+
+        pipe_engine.PipelineEngine._accum_add = copying_add
+        try:
+            out["fault"] = lint(pipe_family(family))
+        finally:
+            pipe_engine.PipelineEngine._accum_add = add
+    return out
+
+
 JOBS = {"seq": job_seq, "seq_attention": job_seq_attention,
         "seq_load": job_seq_load, "seq_refusals": job_seq_refusals,
         "moe": job_moe, "programs": job_programs, "tag_check": job_tag_check, "train": job_train, "resume": job_resume, "load": job_load,
         "overflow": job_overflow, "sampler": job_sampler,
         "zero3_misc": job_zero3_misc, "zero3_faults": job_zero3_faults,
         "zero3_blocks": job_zero3_blocks, "wire": job_wire,
-        "wires": job_wires, "wire_refusals": job_wire_refusals}
+        "wires": job_wires, "wire_refusals": job_wire_refusals,
+        "pipe": job_pipe, "pipe_lint": job_pipe_lint}
 
 
 def main(spec_path):
