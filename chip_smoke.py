@@ -350,6 +350,19 @@ failure:
               phase 4's, the analytic bubble beside the traced replay's
               for every run of (a)-(c), the measured p2p bytes beside the
               analytic (phase_pipe)
+ 28. tp       tensor parallelism (ROADMAP A7b): gpt2-350m bf16 at full
+              width and depth at {"model": 2}, two processes sharing the
+              card over gloo (NCCL refuses two ranks on one device), micro
+              2 and gas 1 (cut from phase 4's 8 and 2: gloo moves every
+              all-reduce through host memory), 5 steps against one card at
+              the same cuts from the same weights: losses within 2e-4 (the
+              drift printed), both ranks alike; B1-B3 launched per block
+              and micro-batch as one card launches them, every call on 8
+              of the 16 heads at the rank's offset; the counted tp_*
+              collectives of every step the closed form's; a planted fault
+              (the row-parallel all-reduces skipped) must move the loss
+              past that gate and 10x the correct run's drift;
+              each rank's peak beside phase 4's (phase_tp)
 The line before the last is the kernels JSON (the fp16 rows named
 <kernel>_fp16, their launches from phase 13); the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card and nvcc.
@@ -5952,6 +5965,284 @@ def phase_pipe(env, stage0):
     return {"step_ms": a["step_ms"], "launches": a["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 28: tensor parallelism over the model axis (ROADMAP A7b)
+# ---------------------------------------------------------------------------
+TP_WORLD = 2
+TP_STEPS = 5
+# cut from phase 4's micro 8, gas 2: two processes share the card over
+# gloo, which carries every all-reduce through host memory (32 MiB of fp32
+# in about 71 ms on the H100's host); at micro 2, gas 1 a step moves 96
+# fp32 activations of 8 MiB each way
+TP_MICRO = 2
+TP_GAS = 1
+TP_FAULT_STEPS = 2
+# relative to one card's losses: between the sound runs' largest drift
+# (3.4e-5 here, 1.6e-5 over four cards) and the planted fault's after one
+# update (7.5e-4: 8.3e-3 on a loss of 11.03)
+TP_LOSS_GATE = 2e-4
+TP_TIMEOUT = 600
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _tp_snapshot(engine):
+    """Copies of every tensor of the engine's train state (its checkpoint
+    layout), the step counters and the scheduler's state."""
+    tensors = [[t.detach().clone() if hasattr(t, "clone") else t
+                for t in lst] for _, _, lst, _ in engine._state_layout()]
+    return (tensors, engine.global_steps, engine.micro_steps,
+            engine.lr_scheduler.state_dict())
+
+
+def _tp_restore(engine, snap):
+    import torch
+
+    tensors, engine.global_steps, engine.micro_steps, sched = snap
+    with torch.no_grad():
+        for (_, _, lst, _), saved in zip(engine._state_layout(), tensors):
+            for dst, src in zip(lst, saved):
+                if hasattr(dst, "copy_"):
+                    dst.copy_(src)
+    engine.lr_scheduler.load_state_dict(sched)
+    # the restored parameters are the engine's own (not a write from
+    # outside, which the master would take)
+    engine._mark_params()
+
+
+def _tp_worker(rank, port, out_dir):
+    """One rank of phase 28's world: gpt2-350m bf16 at {"model": 2} on the
+    one card, gloo over CUDA tensors (NCCL refuses two ranks on one
+    device). TP_STEPS steps with the kernel counts set to 0 just before
+    and read just after, each step's counted collectives and the heads of
+    every flash call; then, from the same initial state, TP_FAULT_STEPS
+    steps with the row-parallel all-reduces skipped (the planted fault).
+    Writes rank<R>.json into ``out_dir``."""
+    import torch
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                      RANK=str(rank), WORLD_SIZE=str(TP_WORLD),
+                      LOCAL_RANK=str(rank))
+    sys.path.insert(0, HERE)
+    from deepspeed_tpu_torch import init_distributed, initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bsk
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    from deepspeed_tpu_torch.ops.transformer import functional
+    from deepspeed_tpu_torch.parallel import tensor_parallel as tp
+
+    init_distributed(dist_backend="gloo", device="cuda", verbose=False,
+                     timeout=TP_TIMEOUT)
+    cfg = gpt2_config(SLICE_MODEL, n_positions=SLICE_SEQ,
+                      dtype=torch.bfloat16, remat=False)
+    batch = _slice_batch(cfg.vocab_size, TP_GAS, TP_MICRO, SLICE_SEQ,
+                         seed=0)
+    engine, _, _, _ = initialize(
+        model=GPT2Model(cfg), config_params=dict(
+            _ds_config(TP_MICRO, TP_GAS), mesh={"model": TP_WORLD}))
+    snap = _tp_snapshot(engine)
+    heads = set()
+    launch = functional.flash_attention
+
+    def seen(q, k, v, **kw):
+        heads.add((q.shape[1], kw.get("head_offset", 0),
+                   kw.get("total_heads")))
+        return launch(q, k, v, **kw)
+
+    functional.flash_attention = seen
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()
+    bsk.reset_launch_counts()
+    losses, comm, step_ms = [], [], []
+    for _ in range(TP_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(engine.train_batch(batch=batch)))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        comm.append(engine.last_step_comm)
+    launches = dict(fa.LAUNCHES, **bsk.LAUNCHES)
+    functional.flash_attention = launch
+    out = {"losses": losses, "comm": comm, "step_ms": step_ms,
+           "launches": launches, "heads": sorted(heads),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "rest_bytes": torch.cuda.memory_allocated(),
+           "local_params": sum(p.numel() for p in engine.params)}
+    # the planted fault: the row-parallel all-reduces skipped (each rank
+    # keeps its own heads' and columns' part of c_proj's output)
+    _tp_restore(engine, snap)
+    whole = tp.reduce_from_model
+    tp.reduce_from_model = lambda x, group, name, prefix="tp_ar": \
+        x if prefix == "tp_ar" else whole(x, group, name, prefix)
+    out["fault"] = [float(engine.train_batch(batch=batch))
+                    for _ in range(TP_FAULT_STEPS)]
+    tp.reduce_from_model = whole
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+def _tp_collectives(cfg):
+    """{name: (elements, dtype, count per step)} of phase 28's model-axis
+    all-reduces in closed form: per micro step the vocabulary-parallel
+    lookup (bf16, one nonzero term per element), per block the two
+    row-parallel outputs and the two column-parallel input gradients, the
+    tied head's input gradient (fp32 partial sums), the loss's row max
+    and (sum of exponentials, target logit) over the micro-batch's next-
+    token positions (fp32)."""
+    act = TP_MICRO * SLICE_SEQ * cfg.n_embd
+    tokens = TP_MICRO * (SLICE_SEQ - 1)
+    out = {"tp_vocab:wte": (act, "bfloat16")}
+    for i in range(cfg.n_layer):
+        for site in ("attn/c_proj", "mlp/c_proj", "attn/c_attn_bwd",
+                     "mlp/c_fc_bwd"):
+            out[f"tp_ar:h_{i}/{site}"] = (act, "float32")
+    out["tp_ar:head_bwd"] = (tokens * cfg.n_embd, "float32")
+    out["tp_vocab:loss/max"] = (tokens, "float32")
+    out["tp_vocab:loss/sum"] = (2 * tokens, "float32")
+    return {k: (n, dt, TP_GAS) for k, (n, dt) in out.items()}
+
+
+def phase_tp(env, stage0):
+    """Tensor parallelism (ROADMAP A7b): gpt2-350m bf16 at full width and
+    depth (24 blocks, E 1024, 16 heads, seq 1024, phase 4's Adam, WarmupLR
+    and clipping) at {"model": 2}, two processes sharing the card over
+    gloo, against one card (this process) at the same cuts (micro
+    TP_MICRO, gas TP_GAS, from phase 4's micro 8, gas 2) on the same batch
+    from the same initial weights (seed 42).
+
+    Gates: both ranks' TP_STEPS losses alike and each within TP_LOSS_GATE
+    relative of one card's (the drift printed: the row-parallel partial
+    sums are fp32, rounded once); B1-B3 launched exactly as one card
+    launches them, per block and micro-batch once each, every call on 8 of
+    the 16 heads at the rank's offset; each step's counted model-axis
+    collectives (``tp_*``) the closed form's names, elements, dtypes,
+    counts and ring bytes; the planted fault (the row-parallel all-reduces
+    skipped) moves the loss after one update past TP_LOSS_GATE and by more
+    than 10x the correct run's drift. Each rank's peak and resident bytes are printed beside
+    phase 4's peak."""
+    import shutil
+
+    import torch
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
+    from deepspeed_tpu_torch.runtime import comm_accounting as ca
+
+    _release_earlier_phases()
+    t0 = time.perf_counter()
+    out_dir = os.path.join(HERE, "build", "phase_tp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--tp-rank", str(r), str(port), out_dir])
+             for r in range(TP_WORLD)]
+    try:
+        cfg = gpt2_config(SLICE_MODEL, n_positions=SLICE_SEQ,
+                          dtype=torch.bfloat16, remat=False)
+        engine, _, _, _ = initialize(model=GPT2Model(cfg),
+                                     config_params=_ds_config(TP_MICRO,
+                                                              TP_GAS))
+        batch = _slice_batch(cfg.vocab_size, TP_GAS, TP_MICRO, SLICE_SEQ,
+                             seed=0)
+        per = cfg.n_layer * TP_GAS * TP_STEPS
+        want = {name: per for name, _ in FLASH_KERNELS}
+        want.update({name: 0 for name, _ in SPARSE_KERNELS})
+        one = _train_steps(env, engine, batch, f"{SLICE_MODEL} (one card, "
+                           f"phase 28's cuts)", SLICE_SEQ, TP_MICRO, TP_GAS,
+                           TP_STEPS, want, falling=False)
+        one.pop("engine")
+        del engine
+        _release_earlier_phases()
+        codes = [p.wait(timeout=TP_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if codes != [0] * TP_WORLD:
+        raise RuntimeError(f"phase 28: the ranks exited with {codes}")
+    ranks = []
+    for r in range(TP_WORLD):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    closed = _tp_collectives(cfg)
+    local_heads = cfg.n_head // TP_WORLD
+    for r, got in enumerate(ranks):
+        if got["losses"] != ranks[0]["losses"]:
+            raise RuntimeError(f"tp: rank {r}'s losses {got['losses']} are "
+                               f"not rank 0's {ranks[0]['losses']}")
+        if got["launches"] != want:
+            raise RuntimeError(f"tp rank {r}: kernels launched "
+                               f"{got['launches']}, one card's {want}")
+        if got["heads"] != [[local_heads, r * local_heads, cfg.n_head]]:
+            raise RuntimeError(f"tp rank {r}: flash calls on (heads, "
+                               f"offset, total) {got['heads']}")
+        for s, step in enumerate(got["comm"]):
+            counted = {c["name"]: c for c in step["collectives"]
+                       if c["name"].startswith("tp_")}
+            if set(counted) != set(closed):
+                raise RuntimeError(f"tp rank {r} step {s + 1}: counted "
+                                   f"{sorted(set(counted) ^ set(closed))} "
+                                   f"against the closed form")
+            for name, (n, dt, count) in closed.items():
+                c = counted[name]
+                es = 4 if dt == "float32" else 2
+                ring = ca._RING_BYTES["all-reduce"](n, es, TP_WORLD)
+                if (c["elements"], c["dtype"], c["count_per_step"],
+                        c["bytes_per_device"]) != (n, dt, count, ring):
+                    raise RuntimeError(f"tp rank {r} step {s + 1}: {name} "
+                                       f"counted {c}, closed form {n} "
+                                       f"{dt} x{count} {ring} B")
+    tp_bytes = sum(c["bytes_per_step"] for c in ranks[0]["comm"][-1]
+                   ["collectives"] if c["name"].startswith("tp_"))
+    drift = [abs(x - y) / abs(y) for x, y in zip(ranks[0]["losses"],
+                                                 one["losses"])]
+    log(f"tp gpt2-350m bf16 model 2 (2 processes, gloo, one card): losses "
+        f"{ranks[0]['losses']} against one card's {one['losses']}: drift "
+        f"per step {[f'{d:.2e}' for d in drift]} (gate {TP_LOSS_GATE}); "
+        f"launches per rank {ranks[0]['launches']} as one card's, every "
+        f"flash call on {local_heads} of {cfg.n_head} heads; model-axis "
+        f"bytes per step and rank {tp_bytes} (closed form, ring)")
+    if max(drift) > TP_LOSS_GATE:
+        raise RuntimeError(f"tp: losses off one card's by {max(drift):.3e} "
+                           f"relative > {TP_LOSS_GATE}")
+    # the planted fault against the correct run after one update
+    k = TP_FAULT_STEPS - 1
+    ok = abs(ranks[0]["losses"][k] - one["losses"][k])
+    bad = abs(ranks[0]["fault"][k] - one["losses"][k])
+    log(f"tp (fault) row-parallel all-reduces skipped: loss after "
+        f"{TP_FAULT_STEPS} steps {ranks[0]['fault'][k]:.6f} against one "
+        f"card's {one['losses'][k]:.6f} ({bad:.3e}); the correct run "
+        f"{ok:.3e}")
+    if not (bad > 10 * ok and bad > TP_LOSS_GATE * abs(one["losses"][k])):
+        raise RuntimeError("tp (fault): the skipped all-reduce did not move "
+                           "the loss past TP_LOSS_GATE and 10x the correct "
+                           "run's drift")
+    for r, got in enumerate(ranks):
+        ms = sorted(got["step_ms"][1:])
+        log(f"tp rank {r}: {got['local_params'] / 1e6:.1f}M parameters; "
+            f"max_memory_allocated {got['peak_bytes'] / 2 ** 30:.2f} GiB, "
+            f"allocated between steps {got['rest_bytes'] / 2 ** 30:.2f} GiB "
+            f"(phase 4 at micro 8, gas 2: {stage0['peak_bytes'] / 2 ** 30:.2f}"
+            f" GiB); step ms (median of 2..) {ms[len(ms) // 2]:.1f} against "
+            f"one card's {one['step_ms']:.1f} at the same cuts, on "
+            f"{env['smi']}")
+    log(f"tp: {time.perf_counter() - t0:.1f} s")
+    return {"losses": ranks[0]["losses"], "launches": ranks[0]["launches"]}
+
+
 def _master_digest(engine):
     """sha256 of the fp32 master's bytes, in parameter order."""
     import hashlib
@@ -5972,6 +6263,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--tp-rank"]:
+        # one rank of phase 28's world, started by phase_tp
+        return _tp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])
     sys.path.insert(0, HERE)
     t_main = time.perf_counter()
     env = timed(phase_env)
@@ -6035,6 +6329,8 @@ def main():
     timed(phase_onebit, env, stage0)
     torch.cuda.empty_cache()
     timed(phase_pipe, env, stage0)
+    torch.cuda.empty_cache()
+    timed(phase_tp, env, stage0)
     log(f"phase walls (s) on {env['smi']}: "
         f"{json.dumps(PHASE_WALLS)}; all phases "
         f"{time.perf_counter() - t_main:.3f} s")

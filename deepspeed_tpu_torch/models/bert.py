@@ -19,6 +19,16 @@ rows of the layout), and the NSP head reads [CLS] from seq rank 0, whose
 copy alone takes the NSP loss's gradient. In a world of several ranks the
 losses are the whole micro-batch's (``set_loss_group``, models/api.py):
 MLM Σnll / Σcount, NSP the mean over every row.
+
+Tensor parallelism (``set_tensor_parallel``, called by the engine at mesh
+``model`` M > 1): the JAX model's ``param_partition_spec``. The encoder
+layers hold their rank's heads (ops/transformer/transformer.py), the word
+embeddings their rank's vocabulary rows (a vocabulary-parallel lookup),
+and the MLM decoder, tied to them, computes the rank's vocabulary columns
+into a vocabulary-parallel loss. ``mlm_bias``, replicated as the JAX spec
+has it, is whole on every rank, which adds its columns' part; its
+gradient, like the ``qkv`` and ``ffn_inter`` biases', is summed over the
+model line (``tp_grad_ar``).
 """
 import dataclasses
 from typing import Any, Optional
@@ -29,9 +39,13 @@ from torch import nn
 
 from deepspeed_tpu_torch.models.api import pad_to_multiple
 from deepspeed_tpu_torch.parallel.mesh import from_first_rank, group_ratio
+from deepspeed_tpu_torch.parallel.tensor_parallel import (
+    column_linear, copy_to_model, shard_module, vocab_parallel_embedding,
+    vocab_parallel_logz_gold)
 from deepspeed_tpu_torch.models.convert import (bert_reference_tree,
-                                                leaf_paths, leaf_specs,
-                                                bert_tp_taken)
+                                                fused_local, leaf_paths,
+                                                leaf_specs, bert_tp_taken,
+                                                tp_param_specs)
 from deepspeed_tpu_torch.ops.transformer.functional import gelu, seq_dropout
 from deepspeed_tpu_torch.ops.transformer.transformer import (
     Dense, DeepSpeedTransformerConfig, DeepSpeedTransformerLayer, LayerNorm)
@@ -98,6 +112,7 @@ def _layer_config(cfg: BertConfig) -> DeepSpeedTransformerConfig:
 
 class BertEmbeddings(nn.Module):
     sp_group = None
+    tp_group = None
 
     def __init__(self, config: BertConfig):
         super().__init__()
@@ -124,7 +139,9 @@ class BertEmbeddings(nn.Module):
         dt = cfg.dtype
         s = input_ids.shape[1]
         off = 0 if self.sp_group is None else self.sp_group.offset(s)
-        x = F.embedding(input_ids, self.word_embeddings).to(dt) \
+        x = vocab_parallel_embedding(input_ids, self.word_embeddings,
+                                     self.tp_group, dt,
+                                     "embeddings/word_embeddings") \
             + self.position_embeddings[off:off + s].to(dt)[None] \
             + F.embedding(token_type_ids, self.token_type_embeddings).to(dt)
         x = self.ln(x)
@@ -139,8 +156,10 @@ class BertEncoder(nn.Module):
         super().__init__()
         self.config = config
         layer_cfg = _layer_config(config)
-        self.layers = nn.ModuleList(DeepSpeedTransformerLayer(layer_cfg)
-                                    for _ in range(config.num_hidden_layers))
+        self.layers = nn.ModuleList(
+            DeepSpeedTransformerLayer(layer_cfg,
+                                      name=f"encoder/layer_{i}/body")
+            for i in range(config.num_hidden_layers))
         self.final_ln = LayerNorm(config.hidden_size,
                                   eps=config.layer_norm_eps) \
             if config.pre_layer_norm else None
@@ -164,6 +183,8 @@ class BertForPreTraining(nn.Module):
     """
     sp_group = None
     loss_group = None
+    # the model line under tensor parallelism (set_tensor_parallel)
+    tp_group = None
 
     def __init__(self, config: BertConfig,
                  generator: Optional[torch.Generator] = None):
@@ -215,6 +236,24 @@ class BertForPreTraining(nn.Module):
         """The whole micro-batch's losses over ``group`` (models/api.py)."""
         self.loss_group = group
 
+    def set_tensor_parallel(self, group):
+        """Keep this model rank's shards of the whole model's parameters
+        and run tensor parallel over ``group`` (the engine's model line),
+        module docstring. Call it once, on the whole model."""
+        if group is None or group.size == 1:
+            return
+        cfg = self.config
+        if cfg.num_attention_heads % group.size \
+                or cfg.padded_vocab_size % group.size \
+                or cfg.intermediate_size % group.size:
+            raise ValueError(
+                f"model={group.size} must divide the heads "
+                f"({cfg.num_attention_heads}), the intermediate size "
+                f"({cfg.intermediate_size}) and the padded vocabulary "
+                f"({cfg.padded_vocab_size})")
+        shard_module(self, group, tp_param_specs(self))
+        self.embeddings.tp_group = self.tp_group = group
+
     def reference_leaf_specs(self):
         """This model's parameters in the JAX package's tree order, the
         layout of the engine's checkpoints (models/convert.py)."""
@@ -233,7 +272,8 @@ class BertForPreTraining(nn.Module):
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 train=False, generator=None):
         """(MLM logits (B, S, vocab_size), NSP logits (B, 2)) in the
-        compute dtype."""
+        compute dtype. Under tensor parallelism the MLM logits are this
+        model rank's columns of the padded vocabulary (B, S, V_pad / M)."""
         cfg = self.config
         if token_type_ids is None:
             token_type_ids = torch.zeros_like(input_ids)
@@ -247,10 +287,22 @@ class BertForPreTraining(nn.Module):
 
         h = gelu(self.mlm_transform(x), approximate=False)
         h = self.mlm_ln(h)
-        logits = h @ self.embeddings.word_embeddings.to(h.dtype).t() \
-            + self.mlm_bias.to(h.dtype)
-        # drop the alignment pad columns before the loss/softmax
-        logits = logits[..., :cfg.vocab_size]
+        tp = self.tp_group
+        bias = self.mlm_bias
+        if tp is not None:
+            # this rank's vocabulary columns; the whole bias's gradient
+            # is a partial on each rank, summed over the model line
+            bias = fused_local(copy_to_model(bias, tp, "mlm_bias",
+                                             "tp_grad_ar"),
+                               (0, 1), tp.rank, tp.size)
+            logits = column_linear(
+                h, self.embeddings.word_embeddings.to(h.dtype),
+                bias.to(h.dtype), tp, "mlm_head_bwd")
+        else:
+            logits = h @ self.embeddings.word_embeddings.to(h.dtype).t() \
+                + bias.to(h.dtype)
+            # drop the alignment pad columns before the loss/softmax
+            logits = logits[..., :cfg.vocab_size]
 
         cls = x[:, 0]
         if self.sp_group is not None:
@@ -271,9 +323,14 @@ class BertForPreTraining(nn.Module):
             # this rank's chunk of the whole row's labels
             labels = sp.chunk(labels, 1)
         logits = logits.float()
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1,
-                            labels.clamp(min=0)[..., None].long())[..., 0]
+        if self.tp_group is not None:
+            logz, gold = vocab_parallel_logz_gold(
+                logits, labels.clamp(min=0), self.tp_group, "mlm",
+                valid_vocab=self.config.vocab_size)
+        else:
+            logz = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1,
+                                labels.clamp(min=0)[..., None].long())[..., 0]
         mask = (labels >= 0).float()
         num = ((logz - gold) * mask).sum()
         group = self.loss_group

@@ -12,7 +12,9 @@ models/bert.py) maps the same way onto ``BertForPreTraining``
 (``bert_params_from_jax``). An MoE block (``h_{i}/moe``) holds the
 router's ``kernel`` (M, E), which becomes ``moe.router.weight`` (E, M)
 like any Dense kernel, and the expert stacks ``experts/{w_in, b_in, w_out,
-b_out}``, which keep the JAX layout.
+b_out}``, which keep the JAX layout. Under tensor parallelism a model
+rank holds its shard of each (``model_rank_shard``, whose inverse is
+``model_rank_join``).
 """
 import numpy as np
 import torch
@@ -278,6 +280,74 @@ def bert_tp_taken(path, ndim):
     if ndim == 2 and ("attn_out" in path or "ffn_out" in path):
         return (0,)
     return ()
+
+
+def tp_param_specs(module):
+    """{port parameter name: (dim, fused blocks)} of every parameter of
+    ``module`` that tensor parallelism splits, derived from the JAX spec
+    the module states (``tp_taken``) through its reference leaves: a JAX
+    kernel is the transpose of the port's weight, and a scanned stack's
+    leading dim belongs to no parameter. The fused QKV projection
+    (GPT-2's ``c_attn``, BERT's ``qkv``) splits each of its [q|k|v]
+    blocks alike: a rank holds its heads' columns of each, where the JAX
+    spec's contiguous third of [q|k|v] would hand it other columns of the
+    same size (parallel/tensor_parallel.py). A module without
+    ``tp_taken`` splits nothing."""
+    if not hasattr(module, "tp_taken"):
+        return {}
+    ndims = {n: p.dim() for n, p in module.named_parameters()}
+    out = {}
+    for path, (names, transposed) in zip(module.reference_leaf_paths(),
+                                         module.reference_leaf_specs()):
+        stacked = isinstance(names, tuple)
+        for name in names if stacked else (names,):
+            ndim = ndims[name]
+            for d in module.tp_taken(path, ndim + int(stacked), stacked):
+                d -= int(stacked)
+                fused = 3 if name.split(".")[-2:-1] in (["c_attn"],
+                                                        ["qkv"]) else 1
+                out[name] = (ndim - 1 - d if transposed else d, fused)
+    return out
+
+
+def fused_local(t, spec, rank, size):
+    """Model rank ``rank``'s part of the whole tensor ``t`` that ``spec``
+    (dim, fused blocks) splits over ``size`` ranks: the rank's columns of
+    each block along dim, concatenated."""
+    dim, fused = spec
+    per = t.shape[dim] // fused
+    if per % size:
+        raise ValueError(f"a dim of {per} does not split over model={size}")
+    n = per // size
+    return torch.cat([t.narrow(dim, b * per + rank * n, n)
+                      for b in range(fused)], dim)
+
+
+def fused_join(parts, spec):
+    """The inverse of ``fused_local``: every rank's part (rank order) ->
+    the whole tensor, each block's columns back in rank order."""
+    dim, fused = spec
+    n = parts[0].shape[dim] // fused
+    return torch.cat([p.narrow(dim, b * n, n) for b in range(fused)
+                      for p in parts], dim)
+
+
+def model_rank_shard(state, specs, rank, size):
+    """Model rank ``rank``'s part of a whole state_dict (as
+    ``params_from_jax`` or ``bert_params_from_jax`` give it) under tensor
+    parallelism over ``size`` ranks: each parameter that ``specs``
+    (``tp_param_specs``) splits as ``fused_local`` takes it, the others
+    as they are."""
+    return {name: fused_local(t, specs[name], rank, size)
+            if name in specs else t for name, t in state.items()}
+
+
+def model_rank_join(shards, specs):
+    """The inverse of ``model_rank_shard``: every rank's state_dict (rank
+    order) -> the whole state_dict, ``c_attn`` / ``qkv`` back in [q|k|v]
+    column order."""
+    return {name: fused_join([sh[name] for sh in shards], specs[name])
+            if name in specs else t for name, t in shards[0].items()}
 
 
 # ---------------------------------------------------------------------------

@@ -347,6 +347,10 @@ def generate(model, params, input_ids, max_new_tokens: int,
     ``return_logits`` also the fp32 logits that chose each new token,
     (B, max_new_tokens, vocab_size)."""
     cfg = model.config
+    if getattr(model, "tp_group", None) is not None:
+        raise NotImplementedError("generation with a tensor-parallel model "
+                                  "(mesh model > 1) is not ported yet "
+                                  "(ROADMAP A7c)")
     ids_np = np.asarray(input_ids, np.int32)
     if max_new_tokens <= 0:
         return ids_np

@@ -27,6 +27,19 @@ rank's final position has none). At N = 1 nothing of this runs, whatever
 the mode, as in the JAX model. In a world of several ranks the loss is the
 whole micro-batch's (``set_loss_group``, models/api.py).
 
+Tensor parallelism (``set_tensor_parallel``, called by the engine at mesh
+``model`` M > 1; parallel/tensor_parallel.py): the layout of the JAX
+model's ``param_partition_spec`` (``gpt2_tp_leaf_spec``), with the
+collectives GSPMD would insert. Model rank m holds heads [m*H/M,
+(m+1)*H/M): ``c_attn`` split by output (its heads' q, k and v columns),
+``c_proj`` by input with its bias added after the all-reduce, ``c_fc``
+by output and the MLP's ``c_proj`` by input, ``wte`` by vocabulary rows
+(a vocabulary-parallel lookup, and the tied head's logits of the rank's
+rows only, into a vocabulary-parallel loss); ``wpe`` and the LayerNorms
+are replicated. The attention runs on the rank's heads with their offset
+among all H, so the flash kernels' dropout hash draws the masks one
+process draws over all heads.
+
 Size table mirrors the reference perf harness configs
 (tests/model/Megatron_GPT2/run_perf_test.py:18-84).
 """
@@ -34,7 +47,6 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
@@ -45,12 +57,16 @@ from deepspeed_tpu_torch.models.api import (chunked_lm_cross_entropy,
 from deepspeed_tpu_torch.models.convert import (gpt2_moe_block,
                                                 gpt2_reference_tree,
                                                 leaf_paths, leaf_specs,
-                                                gpt2_tp_taken)
+                                                gpt2_tp_taken,
+                                                tp_param_specs)
 from deepspeed_tpu_torch.moe.sharded_moe import (MoE, moe_leaf_spec,
                                                  sum_moe_losses)
 from deepspeed_tpu_torch.ops.transformer.functional import (
     gelu, scaled_dot_product_attention, seq_dropout)
 from deepspeed_tpu_torch.parallel.ring_attention import ring_attention
+from deepspeed_tpu_torch.parallel.tensor_parallel import (
+    ColumnParallelDense, RowParallelDense, column_linear, shard_module,
+    vocab_parallel_embedding)
 from deepspeed_tpu_torch.parallel.ulysses import ulysses_attention
 from deepspeed_tpu_torch.ops.transformer.transformer import (Dense,
                                                             LayerNorm,
@@ -174,12 +190,13 @@ class CausalSelfAttention(nn.Module):
     # the seq group under sequence parallelism (set_sequence_parallel)
     sp_group = None
 
-    def __init__(self, config: GPT2Config):
+    def __init__(self, config: GPT2Config, name: str = "attn"):
         super().__init__()
         self.config = config
         e = config.n_embd
-        self.c_attn = Dense(e, 3 * e)
-        self.c_proj = Dense(e, e)
+        self.c_attn = ColumnParallelDense(e, 3 * e, fused=3,
+                                          name=f"{name}/c_attn")
+        self.c_proj = RowParallelDense(e, e, name=f"{name}/c_proj")
 
     def forward(self, x, train, generator):
         return self.project(self.attend(x, train, generator), train,
@@ -189,16 +206,23 @@ class CausalSelfAttention(nn.Module):
         """Attention of the LayerNorm output x: (B, S, E) before c_proj,
         the tensor the JAX model names 'attn_out'."""
         cfg = self.config
-        B, S, E = x.shape
-        q, k, v = self.c_attn(x).split(E, dim=-1)
+        B, S, _ = x.shape
+        qkv = self.c_attn(x)
+        # this model rank's heads (all of them at model 1)
+        E = qkv.shape[-1] // 3
+        H = E // cfg.head_dim
+        q, k, v = qkv.split(E, dim=-1)
 
         def heads(t):
-            return t.reshape(B, S, cfg.n_head, cfg.head_dim).transpose(1, 2)
+            return t.reshape(B, S, H, cfg.head_dim).transpose(1, 2)
 
         drop = train and cfg.dropout > 0
         kw = dict(causal=True, dropout_rng=generator if drop else None,
                   dropout_rate=cfg.dropout if drop else 0.0,
                   use_pallas=cfg.use_pallas_attention)
+        tp = self.c_attn.group
+        if tp is not None:
+            kw.update(head_offset=tp.rank * H, total_heads=cfg.n_head)
         sp = self.sp_group
         if sp is None:
             y = scaled_dot_product_attention(heads(q), heads(k), heads(v),
@@ -228,11 +252,13 @@ class CausalSelfAttention(nn.Module):
 class MLP(nn.Module):
     sp_group = None
 
-    def __init__(self, config: GPT2Config):
+    def __init__(self, config: GPT2Config, name: str = "mlp"):
         super().__init__()
         self.config = config
-        self.c_fc = Dense(config.n_embd, 4 * config.n_embd)
-        self.c_proj = Dense(4 * config.n_embd, config.n_embd)
+        self.c_fc = ColumnParallelDense(config.n_embd, 4 * config.n_embd,
+                                        name=f"{name}/c_fc")
+        self.c_proj = RowParallelDense(4 * config.n_embd, config.n_embd,
+                                       name=f"{name}/c_proj")
 
     def forward(self, x, train, generator):
         h = self.c_proj(gelu(self.c_fc(x), approximate=True))
@@ -252,7 +278,7 @@ class Block(nn.Module):
         eps = config.layer_norm_epsilon
         self.use_moe = use_moe
         self.ln_1 = LayerNorm(config.n_embd, eps=eps)
-        self.attn = CausalSelfAttention(config)
+        self.attn = CausalSelfAttention(config, name=f"h_{index}/attn")
         self.ln_2 = LayerNorm(config.n_embd, eps=eps)
         if use_moe:
             self.moe = MoE(config.n_embd, num_experts=config.moe_num_experts,
@@ -261,7 +287,7 @@ class Block(nn.Module):
                            aux_loss_coef=config.moe_aux_loss_coef,
                            dtype=config.dtype, name=f"h_{index}/moe")
         else:
-            self.mlp = MLP(config)
+            self.mlp = MLP(config, name=f"h_{index}/mlp")
 
     def forward(self, x, train, generator):
         return self.rest(x, self.attend(x, train, generator), train,
@@ -312,6 +338,8 @@ class GPT2Model(nn.Module):
     """
     sp_group = None
     loss_group = None
+    # the model line under tensor parallelism (set_tensor_parallel)
+    tp_group = None
 
     def __init__(self, config: GPT2Config,
                  generator: Optional[torch.Generator] = None, device=None):
@@ -365,6 +393,25 @@ class GPT2Model(nn.Module):
         """The whole micro-batch's loss over ``group`` (models/api.py)."""
         self.loss_group = group
 
+    def set_tensor_parallel(self, group):
+        """Keep this model rank's shards of the whole model's parameters
+        and run tensor parallel over ``group`` (the engine's model line,
+        parallel/mesh.py ``ModelParallelGroup``), module docstring. Call
+        it once, on the whole model; MoE blocks raise (ROADMAP A7c)."""
+        if group is None or group.size == 1:
+            return
+        cfg = self.config
+        if cfg.moe_num_experts:
+            raise NotImplementedError(
+                "MoE blocks under tensor parallelism (mesh model > 1) are "
+                "not ported yet (ROADMAP A7c)")
+        if cfg.n_head % group.size or cfg.padded_vocab_size % group.size:
+            raise ValueError(
+                f"model={group.size} must divide n_head={cfg.n_head} and "
+                f"the padded vocabulary {cfg.padded_vocab_size}")
+        shard_module(self, group, tp_param_specs(self))
+        self.tp_group = group
+
     def reference_leaf_specs(self):
         """This model's parameters in the JAX package's tree order, the
         layout of the engine's checkpoints (models/convert.py)."""
@@ -397,7 +444,7 @@ class GPT2Model(nn.Module):
         S = input_ids.shape[1]
         sp = self.sp_group
         off = 0 if sp is None else sp.offset(S)
-        x = F.embedding(input_ids, self.wte).to(dt) \
+        x = vocab_parallel_embedding(input_ids, self.wte, self.tp_group, dt) \
             + self.wpe[off:off + S].to(dt)[None]
         if train and cfg.dropout > 0:
             x = seq_dropout(x, generator, cfg.dropout, sp)
@@ -417,8 +464,12 @@ class GPT2Model(nn.Module):
 
     def forward(self, input_ids, train=False, generator=None):
         """Logits (B, S, vocab_size): the tied head at the padded width,
-        pad columns sliced off."""
+        pad columns sliced off. Under tensor parallelism, this model
+        rank's columns of the padded vocabulary (B, S, V_pad / M)."""
         x = self.hidden(input_ids, train, generator)
+        if self.tp_group is not None:
+            return column_linear(x, self.wte.to(x.dtype), None,
+                                 self.tp_group, "head_bwd")
         logits = x @ self.wte.to(x.dtype).t()
         return logits[..., :self.config.vocab_size]
 
@@ -439,16 +490,22 @@ class GPT2Model(nn.Module):
             # the whole row; the sequence's last position has none
             labels = sp.chunk(labels, 1, shift=1)
             x = x[:, :labels.shape[1]]
+        # under tensor parallelism the head is the rank's vocabulary rows
+        tp = self.tp_group
         if cfg.loss_chunk_tokens:
             loss, metrics = chunked_lm_cross_entropy(
                 x, self.wte, labels, chunk_tokens=cfg.loss_chunk_tokens,
                 ignore_index=-100, valid_vocab=cfg.vocab_size,
-                group=self.loss_group)
+                group=self.loss_group, model_group=tp)
         else:
-            logits = (x @ self.wte.to(x.dtype).t())[..., :cfg.vocab_size]
-            loss, metrics = cross_entropy_loss(logits, labels,
-                                               ignore_index=-100,
-                                               group=self.loss_group)
+            if tp is None:
+                logits = (x @ self.wte.to(x.dtype).t())[..., :cfg.vocab_size]
+            else:
+                logits = column_linear(x, self.wte.to(x.dtype), None, tp,
+                                       "head_bwd")
+            loss, metrics = cross_entropy_loss(
+                logits, labels, ignore_index=-100, group=self.loss_group,
+                model_group=tp, valid_vocab=cfg.vocab_size)
         if aux is not None and train:
             loss = loss + aux
             metrics = dict(metrics, moe_aux_loss=aux, loss=loss)

@@ -17,6 +17,13 @@ chunk of the sequence, and the attention core, dense or block-sparse,
 runs on the rank's heads over the whole sequence between Ulysses's
 all-to-alls (parallel/ulysses.py), as the JAX layer's sharding flip does;
 the (B, 1, 1, S) key mask is the whole row's, which every rank holds.
+Under tensor parallelism (the model's ``set_tensor_parallel``) the
+body holds its model rank's heads: ``qkv`` and ``ffn_inter`` split by
+output (their biases whole, as the JAX spec replicates them, each rank
+adding its part), ``attn_out`` and ``ffn_out`` by input, all-reduced
+before their biases (parallel/tensor_parallel.py); the attention core,
+dense or block-sparse, runs on the rank's heads at their offset among
+all of them.
 
 Also home to the building blocks the port's models share: ``Dense`` and
 ``LayerNorm`` (computing in the input's dtype from parameters of any
@@ -190,16 +197,24 @@ class _EncoderBody(nn.Module):
     # the seq group under sequence parallelism (the model sets it)
     sp_group = None
 
-    def __init__(self, config: DeepSpeedTransformerConfig):
+    def __init__(self, config: DeepSpeedTransformerConfig, name="body"):
         super().__init__()
+        from deepspeed_tpu_torch.parallel.tensor_parallel import (
+            ColumnParallelDense, RowParallelDense)
+
         self.config = config
         e, eps = config.hidden_size, config.layer_norm_eps
         self.attn_ln = LayerNorm(e, eps=eps)
-        self.qkv = Dense(e, 3 * e)
-        self.attn_out = Dense(e, e)
+        self.qkv = ColumnParallelDense(e, 3 * e, fused=3,
+                                       bias_replicated=True,
+                                       name=f"{name}/qkv")
+        self.attn_out = RowParallelDense(e, e, name=f"{name}/attn_out")
         self.ffn_ln = LayerNorm(e, eps=eps)
-        self.ffn_inter = Dense(e, config.intermediate_size)
-        self.ffn_out = Dense(config.intermediate_size, e)
+        self.ffn_inter = ColumnParallelDense(e, config.intermediate_size,
+                                             bias_replicated=True,
+                                             name=f"{name}/ffn_inter")
+        self.ffn_out = RowParallelDense(config.intermediate_size, e,
+                                        name=f"{name}/ffn_out")
         # no parameters; keeps the layout of each sequence length
         self.sparse_attn = None if config.sparsity_config is None else \
             SparseSelfAttention(config.sparsity_config,
@@ -218,6 +233,11 @@ class _EncoderBody(nn.Module):
         self.ffn_out.reset_with(generator, out_std)
 
     def _attention(self, qh, kh, vh, attention_mask, train, generator):
+        tp = self.qkv.group
+        if tp is not None:
+            return self._core(qh, kh, vh, attention_mask, train, generator,
+                              head_offset=tp.rank * qh.shape[1],
+                              total_heads=self.config.heads)
         if self.sp_group is None:
             return self._core(qh, kh, vh, attention_mask, train, generator)
         return ulysses_attention(
@@ -260,21 +280,24 @@ class _EncoderBody(nn.Module):
     def forward(self, hidden_states, attention_mask, train, generator=None):
         cfg = self.config
         b, s, e = hidden_states.shape
-        heads = cfg.heads
         x = hidden_states.to(cfg.compute_dtype)
         hidden_drop = train and cfg.hidden_dropout_ratio > 0
 
         # --- attention ---------------------------------------------------
         residual = x
         attn_in = self.attn_ln(x) if cfg.pre_layer_norm else x
-        q, k, v = self.qkv(attn_in).split(e, dim=-1)
+        qkv = self.qkv(attn_in)
+        # this model rank's heads (all of them at model 1)
+        el = qkv.shape[-1] // 3
+        head_dim = e // cfg.heads
+        q, k, v = qkv.split(el, dim=-1)
 
         def split_heads(t):
-            return t.reshape(b, s, heads, e // heads).transpose(1, 2)
+            return t.reshape(b, s, el // head_dim, head_dim).transpose(1, 2)
 
         ctx = self._attention(split_heads(q), split_heads(k), split_heads(v),
                               attention_mask, train, generator)
-        attn_out = self.attn_out(ctx.transpose(1, 2).reshape(b, s, e))
+        attn_out = self.attn_out(ctx.transpose(1, 2).reshape(b, s, el))
         if hidden_drop:
             attn_out = seq_dropout(attn_out, generator,
                                    cfg.hidden_dropout_ratio, self.sp_group)
@@ -304,10 +327,10 @@ class DeepSpeedTransformerLayer(nn.Module):
     (HF-style extended mask) or None; ``generator`` draws the dropout.
     """
 
-    def __init__(self, config: DeepSpeedTransformerConfig):
+    def __init__(self, config: DeepSpeedTransformerConfig, name="layer"):
         super().__init__()
         self.config = config
-        self.body = _EncoderBody(config)
+        self.body = _EncoderBody(config, name=name)
         self.reset_with(torch.Generator().manual_seed(0))
 
     def reset_with(self, generator):

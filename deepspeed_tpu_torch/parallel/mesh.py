@@ -8,7 +8,9 @@ mesh coordinates of JAX device r: r = ((p * D + d) * N + s) * M + m
 (``ProcessGrid``), so that it feeds the batch rows and holds the sequence
 chunk that JAX device r holds. ``resolve_grid`` holds the config's mesh
 to the world with the JAX package's ``resolve_mesh_shape``; the ``model``
-axis still raises, naming the ROADMAP item that ports it. The ``pipe``
+axis runs beside ``data`` alone (tensor parallelism,
+parallel/tensor_parallel.py), and beside ``seq`` or ``pipe`` it raises,
+naming the ROADMAP item that ports it (A7c). The ``pipe``
 axis has two layouts, which the world's size picks
 (``pipe_processes``): a world of pipe x data x seq processes runs one
 process per stage, and a world of data x seq processes runs each pipe
@@ -19,10 +21,10 @@ line's group. ``zero_merge_dim`` is
 ``data`` along its largest dimension that the tensor-parallel spec leaves
 free and the data-parallel size divides, and nothing shards over ``seq``.
 
-``DataParallelGroup`` (a ``data`` line) and ``SequenceParallelGroup``
-(a ``seq`` line) issue the engine's and the model's collectives on the
-current stream (no host sync) and record each in one
-``CollectiveCounter``. ``expert_exchange`` is the MoE layer's token
+``DataParallelGroup`` (a ``data`` line), ``SequenceParallelGroup`` (a
+``seq`` line) and ``ModelParallelGroup`` (a ``model`` line) issue the
+engine's and the model's collectives on the current stream (no host sync)
+and record each in one ``CollectiveCounter``. ``expert_exchange`` is the MoE layer's token
 exchange over the data group (the all-to-all GSPMD inserts where the JAX
 layer's dispatched activations flip from batch-sharded to
 expert-sharded), ``global_mean`` the mean of a rank's statistics over a
@@ -42,8 +44,8 @@ MODEL_AXIS = "model"
 # seq sits between data and model (the JAX package's order): a rank's
 # sequence neighbours are its nearest ranks
 AXIS_ORDER = (PIPE_AXIS, DATA_AXIS, SEQ_AXIS, MODEL_AXIS)
-# the mesh axes still to come, and the ROADMAP item that ports each
-UNPORTED_AXES = {MODEL_AXIS: "A7b"}
+# the ROADMAP item that ports the model axis beside seq or pipe
+MODEL_BESIDE = "A7c"
 
 
 def resolve_mesh_shape(mesh_shape: dict, n_devices: int):
@@ -76,29 +78,33 @@ def resolve_mesh_shape(mesh_shape: dict, n_devices: int):
 
 def resolve_grid(mesh_shape: dict, world_size: int) -> dict:
     """The config's mesh over a world of ``world_size`` processes (one per
-    device): {axis: size}. ``model`` above 1 raises NotImplementedError
-    naming its ROADMAP item. With ``pipe`` P > 1 the world is either P x
-    data x seq processes (one per stage) or data x seq processes (each
-    driving its pipe line); ``data`` -1 takes what the other axes leave,
-    trying one process per stage first. Any other world raises
-    ValueError with the numbers."""
-    for axis, item in UNPORTED_AXES.items():
-        size = mesh_shape.get(axis, 1)
-        if size not in (1, -1):
-            raise NotImplementedError(
-                f"mesh axis {axis!r} of size {size} is not ported yet "
-                f"(ROADMAP {item})")
+    device): {axis: size}. ``model`` M > 1 runs beside ``data`` alone (a
+    world of data x M processes); beside ``seq`` or ``pipe`` above 1 it
+    raises NotImplementedError naming ROADMAP A7c. With ``pipe`` P > 1
+    the world is either P x data x seq processes (one per stage) or data
+    x seq processes (each driving its pipe line); ``data`` -1 takes what
+    the other axes leave, trying one process per stage first. Any other
+    world raises ValueError with the numbers."""
     data = mesh_shape.get(DATA_AXIS, -1)
     seq = mesh_shape.get(SEQ_AXIS, 1)
     pipe = mesh_shape.get(PIPE_AXIS, 1)
+    model = mesh_shape.get(MODEL_AXIS, 1)
+    if model not in (1, -1):
+        for axis, size in ((SEQ_AXIS, seq), (PIPE_AXIS, pipe)):
+            if size not in (1, None):
+                raise NotImplementedError(
+                    f"mesh model={model} beside {axis}={size} is not "
+                    f"ported yet (ROADMAP {MODEL_BESIDE}: tensor "
+                    f"parallelism beside sequence or pipeline "
+                    f"parallelism)")
     if pipe == 1:
-        if seq == 1 and data not in (-1, world_size):
+        if seq == 1 and model == 1 and data not in (-1, world_size):
             raise ValueError(
                 f"mesh data={data}, but the world has {world_size} "
                 f"process(es): start {data} processes (one per device) and "
                 f"call init_distributed(), or set data to -1")
-        return resolve_mesh_shape({DATA_AXIS: data, SEQ_AXIS: seq},
-                                  world_size)
+        return resolve_mesh_shape({DATA_AXIS: data, SEQ_AXIS: seq,
+                                   MODEL_AXIS: model}, world_size)
     if not isinstance(pipe, int) or pipe < 1:
         raise ValueError(f"mesh pipe={pipe}: give the pipeline depth as a "
                          f"positive integer")
@@ -342,6 +348,35 @@ class SequenceParallelGroup(DataParallelGroup):
             ops.append(dist.P2POp(dist.isend, t, nxt, self.group))
         ops += [dist.P2POp(dist.irecv, t, prv, self.group) for t in recvs]
         return dist.batch_isend_irecv(ops)
+
+
+class ModelParallelGroup(DataParallelGroup):
+    """A ``model`` line's process group (None: the world): its size, this
+    process's model rank (the heads, columns and vocabulary rows it holds,
+    parallel/tensor_parallel.py) and the collectives of tensor
+    parallelism, recorded in ``counter`` under their own names: the
+    activation all-reduces of the row-parallel layers and their conjugates
+    (``tp_ar:<site>``), the vocabulary-parallel lookup and loss
+    (``tp_vocab:<site>``) and the gradient sum of a replicated leaf that a
+    rank uses in part (``tp_grad_ar:<leaf>``). Every call enqueues on the
+    current stream."""
+
+    def __init__(self, group=None, counter=None):
+        super().__init__(group, counter)
+        self.ranks = [dist.get_global_rank(group, i) if group is not None
+                      else i for i in range(self.size)]
+
+    def all_reduce(self, tensor, name=None, prefix="tp_ar",
+                   op=dist.ReduceOp.SUM):
+        """In place over the line; ``name`` (with ``prefix``) names what
+        the call carries for the counter (None: a scalar reduction)."""
+        if name is not None:
+            self.counter.record("all-reduce", prefix, tensor.dtype,
+                                [(name, tensor.numel())], self.size)
+        else:
+            self.counter.record_scalar()
+        dist.all_reduce(tensor, op=op, group=self.group)
+        return tensor
 
 
 def _exchange(x, group, name, to_experts):

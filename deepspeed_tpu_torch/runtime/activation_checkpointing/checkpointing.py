@@ -263,6 +263,24 @@ def get_rng_tracker():
 get_cuda_rng_tracker = get_rng_tracker
 
 
+def model_parallel_rng(generator, group=None):
+    """The dropout generator of this model-parallel shard (JAX
+    ``model_parallel_rng``: the key folded with 2718 + the ``model``
+    coordinate, the reference tracker's seed + 2718 + rank): a new
+    generator on ``generator``'s device, seeded from its initial seed and
+    ``group``'s rank (the engine's ``ModelParallelGroup``), so each shard
+    draws its own masks; ``generator`` itself (not advanced) outside
+    tensor parallelism. The port's GPT-2 and BERT do not use it: every
+    model rank draws the replicated activations' masks alike and the
+    attention's through the kernels' head-offset hash, as one process
+    does."""
+    if group is None or group.size == 1:
+        return generator
+    seed = (generator.initial_seed() * 1000003 + 2718 + group.rank) \
+        % (2 ** 63)
+    return torch.Generator(device=generator.device).manual_seed(seed)
+
+
 def model_parallel_seed(seed, model_parallel_rank=0, device="cpu"):
     """Seed the default and model-parallel streams (reference
     model_parallel_cuda_manual_seed :224-263: the model-parallel stream's

@@ -16,7 +16,13 @@ codes and scales, amortized over its k steps).
 ``CollectiveCounter`` is the measured side: the engine's process-group
 wrapper (parallel/mesh.py) records every collective it issues, leaf by
 leaf, in the same ``Collective`` records, so that a step's count can be
-held against the report.
+held against the report. Under tensor parallelism (``ModelParallelGroup``)
+it also records the model axis, which the report (the JAX engine's) does
+not price (ROADMAP C-w19): ``tp_ar:<site>`` for the row-parallel outputs
+and the column-parallel input gradients (fp32 partial sums),
+``tp_vocab:<site>`` for the vocabulary-parallel lookup and loss, and
+``tp_grad_ar:<leaf>`` for the gradient of a replicated leaf a rank uses
+in part.
 """
 from dataclasses import asdict, dataclass
 from typing import List, Optional, Sequence, Tuple

@@ -1,9 +1,9 @@
-"""DeepSpeedEngine: one device per process, data and sequence parallel over
-a process grid, with ZeRO stage 0, 1, 2 or 3.
+"""DeepSpeedEngine: one device per process, data, sequence and tensor
+parallel over a process grid, with ZeRO stage 0, 1, 2 or 3.
 
-Port of deepspeed_tpu/runtime/engine.py without its tensor axis (the
-pipeline axis is runtime/pipe/engine.py's, whose PipelineEngine builds
-on this one): the optimizer and LR scheduler from the ds_config
+Port of deepspeed_tpu/runtime/engine.py (the pipeline axis is
+runtime/pipe/engine.py's, whose PipelineEngine builds on this one): the
+optimizer and LR scheduler from the ds_config
 (``_configure_basic_optimizer`` :439, ``_configure_lr_scheduler`` :523),
 ``forward`` / ``backward`` / ``step`` (:3111, :3217, :3285), the optimizer
 step with the fp16 loss scale, global-norm clipping and the overflow skip
@@ -64,6 +64,24 @@ or under offload each micro step's buffer before its copy down. So no
 buffer is added, and the loss scale, the norm, the overflow flag and
 ZeRO's shards are the data axis's alone, as under ``zero_merge_spec``.
 Rank 0 writes checkpoints.
+
+Tensor parallelism (``"mesh": {"data": D, "model": M}``, a world of D*M
+processes, rank r = d*M + m; the JAX engine's GSPMD layout of the model's
+``param_partition_spec``): the engine hands the model its ``model`` line
+(``set_tensor_parallel``), and the model keeps its rank's shards and runs
+the collectives of parallel/tensor_parallel.py. Every rank of a model
+line feeds the same batch rows (its data line's, ``dp_rank``). The
+parameters, master, optimizer state and accumulator are this rank's
+shards; ZeRO shards them over the data line by the JAX rule (the largest
+dim the tensor-parallel spec leaves free). The data-parallel exchange is
+each model rank's own; the global norm sums the squares of the split
+leaves over the model line and counts a replicated leaf once, the
+overflow flag is a MAX over the world, and the loss is the data line's
+(``set_loss_group``). Checkpoints hold whole leaves in the JAX layout
+(``c_attn`` in [q|k|v] order), gathered over the model line: any
+``model`` size, 1 included, and the JAX engine load them. An ``mpu``
+whose sizes agree with the mesh is accepted. What tensor parallelism
+does not run beside yet raises NotImplementedError naming ROADMAP A7c.
 
 Expert parallelism (a model with MoE layers; the JAX engine's placement of
 the expert stacks over ``data`` by ``moe_leaf_spec``, at every ZeRO
@@ -184,11 +202,15 @@ from deepspeed_tpu_torch.ops.adam.sgd import SGD
 from deepspeed_tpu_torch.ops.lamb.fused_lamb import FusedLamb
 from deepspeed_tpu_torch.ops.onebit.onebit_adam import OnebitAdam
 from deepspeed_tpu_torch.ops.onebit.zeroone_adam import ZeroOneAdam
-from deepspeed_tpu_torch.parallel.mesh import (DATA_AXIS, PIPE_AXIS,
-                                               SEQ_AXIS, DataParallelGroup,
+from deepspeed_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                               PIPE_AXIS, SEQ_AXIS,
+                                               DataParallelGroup,
+                                               ModelParallelGroup,
                                                ProcessGrid,
                                                SequenceParallelGroup,
                                                pipe_processes, resolve_grid)
+from deepspeed_tpu_torch.parallel.tensor_parallel import \
+    TensorParallelLayout
 from deepspeed_tpu_torch.runtime import checkpoint_utils
 from deepspeed_tpu_torch.runtime import comm_accounting as ca
 from deepspeed_tpu_torch.runtime import memory_accounting
@@ -225,7 +247,8 @@ from deepspeed_tpu_torch.runtime.zero.gathers import BlockGathers
 from deepspeed_tpu_torch.runtime.zero.partition import ZeroPartition
 from deepspeed_tpu_torch.telemetry.programs import (NO_OBSERVER,
                                                     ProgramRegistry)
-from deepspeed_tpu_torch.utils.distributed import (grid_groups,
+from deepspeed_tpu_torch.utils.distributed import (cards_shared,
+                                                   grid_groups,
                                                    init_distributed,
                                                    local_world_size)
 from deepspeed_tpu_torch.utils.logging import log_dist, logger
@@ -281,6 +304,52 @@ def _refuse_unported(raw, cfg):
         no("asynchronous checkpoint commits", "A16")
 
 
+def _check_mpu(mpu, shape):
+    """An ``mpu`` (runtime/pipe/topology.py ``PipelineParallelGrid``'s
+    interface) is accepted when its sizes are the mesh's, as the JAX engine
+    stores it (engine.py:92); the grid's own groups do the work."""
+    for axis, getter in ((MODEL_AXIS, "get_model_parallel_world_size"),
+                         (DATA_AXIS, "get_data_parallel_world_size")):
+        if not hasattr(mpu, getter):
+            raise ValueError(f"the mpu has no {getter}() (the interface of "
+                             f"runtime/pipe/topology.py PipelineParallelGrid)")
+        size = int(getattr(mpu, getter)())
+        if size != shape[axis]:
+            raise ValueError(f"the mpu's {getter}() is {size}, the mesh's "
+                             f"{axis} axis {shape[axis]}: give the mesh the "
+                             f"mpu's sizes")
+
+
+def _refuse_beside_model(raw, cfg, model, optimizer=None):
+    """NotImplementedError, naming ROADMAP A7c, for what tensor parallelism
+    (mesh ``model`` > 1) does not run beside yet; nothing falls back to
+    model 1. The mesh's seq and pipe axes raise in ``resolve_grid``, MoE
+    blocks in the model's ``set_tensor_parallel``. ``optimizer``: the
+    client's, if any."""
+    def no(what):
+        raise NotImplementedError(f"{what} beside tensor parallelism (mesh "
+                                  f"model > 1) is not ported yet (ROADMAP "
+                                  f"A7c)")
+
+    zc = cfg.zero_config
+    if not hasattr(model, "set_tensor_parallel"):
+        no(f"{type(model).__name__}, which has no set_tensor_parallel(),")
+    if zc.stage >= 3:
+        no("ZeRO stage 3")
+    if zc.quantized_weights or zc.quantized_gradients:
+        no("the int8 ZeRO collectives (qwZ, qgZ)")
+    if zc.cpu_offload:
+        no("ZeRO-Offload (cpu_offload)")
+    if cfg.optimizer_name in (ONEBIT_ADAM_OPTIMIZER, ZEROONE_ADAM_OPTIMIZER) \
+            or isinstance(optimizer, _WIRE_OPTIMIZERS):
+        no("the 1-bit and 0/1 Adam wires")
+    if raw.get("sparse_gradients"):
+        no("sparse_gradients (CSR)")
+    ac = getattr(cfg, "activation_checkpointing_config", None)
+    if ac is not None and ac.cpu_checkpointing:
+        no("checkpoint_in_cpu (activation_checkpointing.cpu_checkpointing)")
+
+
 class DeepSpeedEngine:
     # the pipeline engine's (runtime/pipe/engine.py): a PipelineModule over
     # the mesh's pipe axis
@@ -297,9 +366,6 @@ class DeepSpeedEngine:
             raise TypeError("the model must be an nn.Module with loss() and "
                             "init_weights() (models/api.py), or a "
                             "PipelineModule through initialize()")
-        if mpu is not None:
-            raise NotImplementedError("model parallelism through an mpu is "
-                                      "not ported yet (ROADMAP A7b)")
         if dist_init_required or (dist_init_required is None
                                   and not dist.is_initialized()):
             # joins the world the environment names; a no-op without one
@@ -334,12 +400,18 @@ class DeepSpeedEngine:
                 f"axis)")
         self.dp_world_size = self.mesh_shape[DATA_AXIS]
         self.sp_world_size = self.mesh_shape[SEQ_AXIS]
-        self.mp_world_size = 1
+        self.mp_world_size = self.mesh_shape[MODEL_AXIS]
+        if mpu is not None:
+            _check_mpu(mpu, self.mesh_shape)
+        self.mpu = mpu
         self._process_groups()
         self.dp_rank = 0 if self.dp_group is None else self.dp_group.rank
         self.sp_rank = 0 if self.sp_group is None else self.sp_group.rank
+        self.mp_rank = 0 if self.mp_group is None else self.mp_group.rank
         self._config = DeepSpeedConfig(raw, world_size=self.dp_world_size)
         _refuse_unported(raw, self._config)
+        if self.mp_world_size > 1:
+            _refuse_beside_model(raw, self._config, model, optimizer)
         # the dispatched-program registry is ALWAYS on: one dict insert at
         # each program's first dispatch; the lint
         # (telemetry/program_lint.py) arms it to observe one dispatch each
@@ -369,12 +441,19 @@ class DeepSpeedEngine:
         self._seed = int(raw.get("seed", 42))
         self.module = model.to(self.device)
         self.module.init_weights(torch.Generator().manual_seed(self._seed))
-        # the whole micro-batch's loss, over every rank (models/api.py)
-        self._loss_is_global = self._world_group is not None \
-            and self._world_group.size > 1 \
+        if self.mp_group is not None:
+            # this model rank's shards of the whole model just drawn
+            self.module.set_tensor_parallel(self.mp_group)
+        # the whole micro-batch's loss, over every rank holding its rows
+        # (models/api.py): the world, or under tensor parallelism the
+        # data line (the model line's ranks compute the same loss)
+        self._loss_group = self._world_group if self.mp_group is None \
+            else self.dp_group
+        self._loss_is_global = self._loss_group is not None \
+            and self._loss_group.size > 1 \
             and hasattr(self.module, "set_loss_group")
         if self._loss_is_global:
-            self.module.set_loss_group(self._world_group)
+            self.module.set_loss_group(self._loss_group)
         if self.sp_group is not None:
             if not hasattr(self.module, "set_sequence_parallel"):
                 raise NotImplementedError(
@@ -390,6 +469,14 @@ class DeepSpeedEngine:
                  if p.requires_grad]
         self.param_names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        self._tp = TensorParallelLayout(self.module, self.param_names,
+                                        self.mp_group)
+        # the overflow flag's group (a MAX over every rank that holds a
+        # part of the gradients) and the leaves split over the model line
+        self._flag_group = self.dp_group if self.mp_group is None \
+            else self._world_group
+        self._tp_split = self._tp.split() if self.mp_group is not None \
+            else None
         self.partition = ZeroPartition(
             self.module, self.param_names, self.params, self.dp_world_size,
             self.dp_rank, self.zero_optimization_stage(), experts)
@@ -457,7 +544,8 @@ class DeepSpeedEngine:
         self._profiled = False
         self._profile_window = None
         self.summary_writer = None
-        if self.tensorboard_enabled() and self.dp_rank == self.sp_rank == 0:
+        if self.tensorboard_enabled() \
+                and self.dp_rank == self.sp_rank == self.mp_rank == 0:
             from deepspeed_tpu_torch.utils.tb_writer import SummaryWriter
 
             # the TensorBoard event-file format, written natively
@@ -467,7 +555,7 @@ class DeepSpeedEngine:
         n = sum(p.numel() for p in self.params)
         log_dist(f"DeepSpeedEngine: device={self.device} "
                  f"dtype={self.param_dtype} params={n / 1e6:.1f}M "
-                 f"dp={self.dp_world_size} "
+                 f"dp={self.dp_world_size} mp={self.mp_world_size} "
                  f"zero_stage={self.zero_optimization_stage()} "
                  f"micro_batch={self.train_micro_batch_size_per_gpu()} "
                  f"gas={self.gradient_accumulation_steps()}", ranks=[0])
@@ -639,8 +727,11 @@ class DeepSpeedEngine:
         when each stage is a process of its own (else None), all recording
         into one counter, and ``_world_group``, every rank (the
         checkpoint's tag check and barrier). The world's backend must be
-        the device's: NCCL on CUDA, gloo on the CPU; nothing falls back."""
+        the device's: NCCL on CUDA (gloo where the node's ranks share a
+        card, ``init_distributed``), gloo on the CPU; nothing falls
+        back."""
         self.dp_group = self.sp_group = self.pp_group = None
+        self.mp_group = None
         self._world_group = None
         self._counter = None
         self._grid = None
@@ -649,11 +740,16 @@ class DeepSpeedEngine:
         self._counter = ca.CollectiveCounter()
         self._world_group = DataParallelGroup(None, self._counter)
         want = "nccl" if self.device.type == "cuda" else "gloo"
+        if want == "nccl" and self._world_group.backend == "gloo" \
+                and cards_shared():
+            # ranks that share a card (init_distributed)
+            want = "gloo"
         if self._world_group.backend != want:
             raise RuntimeError(f"the process group runs "
                                f"{self._world_group.backend}; a "
                                f"{self.device.type} engine needs {want}")
-        if self.sp_world_size == 1 and self.pipe_procs == 1:
+        if self.sp_world_size == 1 and self.pipe_procs == 1 \
+                and self.mp_world_size == 1:
             self.dp_group = self._world_group
             return
         self._grid = ProcessGrid(dict(self.mesh_shape,
@@ -669,6 +765,9 @@ class DeepSpeedEngine:
         if self.pipe_procs > 1:
             self.pp_group = DataParallelGroup(groups[PIPE_AXIS],
                                               self._counter)
+        if self.mp_world_size > 1:
+            self.mp_group = ModelParallelGroup(groups[MODEL_AXIS],
+                                               self._counter)
 
     # ------------------------------------------------------------------
     # ZeRO stage 3 and the quantized collectives: arming (JAX
@@ -1409,6 +1508,13 @@ class DeepSpeedEngine:
         precision (the module's parameters take the compute-dtype copy).
         Returns what ``module.load_state_dict`` returns."""
         part = self.partition
+        if self.mp_group is not None:
+            # whole parameters: this model rank's shards of each
+            state_dict = dict(state_dict)
+            for i, name in enumerate(self.param_names):
+                t = state_dict.get(name)
+                if t is not None and tuple(t.shape) != part.shapes[i]:
+                    state_dict[name] = self._tp.local(torch.as_tensor(t), i)
         if part.expert_idx:
             # the whole expert stacks: this rank's experts of each
             state_dict = dict(state_dict)
@@ -2034,13 +2140,14 @@ class DeepSpeedEngine:
         # one fused pass over this rank's accumulator: inf or nan, and every
         # element times 1 / scale (exact: the scale is a power of 2); the
         # flag is a MAX over the group, so every rank skips alike
-        overflow = has_overflow([flat], self.dp_group, inv_scale)
+        overflow = has_overflow([flat], self._flag_group, inv_scale)
         # an overflowed step: a zero gradient (norm 0, clip factor 1), and
         # the optimizer's update with skip=overflow is the identity
         flat.masked_fill_(overflow, 0.0)
         grads = self._step_grads
         gnorm = global_norm_from_tree(grads, self.dp_group,
-                                      self._partitioned)
+                                      self._partitioned, self.mp_group,
+                                      self._tp_split)
         clip = self.gradient_clipping()
         if clip and clip > 0:
             clip_grad_by_global_norm(grads, clip, gnorm)
@@ -2173,7 +2280,7 @@ class DeepSpeedEngine:
         finally:
             self._wire_micro = False
             if self._loss_is_global:
-                self.module.set_loss_group(self._world_group)
+                self.module.set_loss_group(self._loss_group)
 
     @torch.no_grad()
     def _wire_apply(self, lr):
@@ -2531,7 +2638,7 @@ class DeepSpeedEngine:
             trace=tc[TELEMETRY_TRACE],
             trace_capacity=tc[TELEMETRY_TRACE_CAPACITY],
             metrics_jsonl=tc[TELEMETRY_METRICS_JSONL]
-            if self.dp_rank == self.sp_rank == 0 else None,
+            if self.dp_rank == self.sp_rank == self.mp_rank == 0 else None,
             metrics_fsync=tc[TELEMETRY_METRICS_FSYNC],
             mfu=tc[TELEMETRY_MFU],
             peak_tflops_per_device=tc[TELEMETRY_PEAK_TFLOPS])
@@ -2598,8 +2705,9 @@ class DeepSpeedEngine:
         one optimizer step (the largest integer leaf of a micro-batch times
         gas, over every rank of the data-parallel group)."""
         part = self.partition
-        self._mfu_n_params = sum(math.prod(part.full_shape(i))
-                                 for i in range(len(self.params)))
+        self._mfu_n_params = sum(
+            math.prod(self._tp.full_shape(i, part.full_shape(i)))
+            for i in range(len(self.params)))
         tokens = 0
         leaves = batch.values() if isinstance(batch, dict) else [batch]
         for leaf in leaves:
@@ -2618,7 +2726,8 @@ class DeepSpeedEngine:
                                                    self._mfu_tokens_per_step)
         rep = tel.mfu.report(
             step_time_s=tel.step_time_s(),
-            n_devices=self.dp_world_size * self.sp_world_size,
+            n_devices=self.dp_world_size * self.sp_world_size
+            * self.mp_world_size,
             model_flops=model_flops, device_kind=mfu.device_kind(self.device))
         rep["n_params"] = self._mfu_n_params
         rep["tokens_per_step"] = self._mfu_tokens_per_step
@@ -2832,6 +2941,15 @@ class DeepSpeedEngine:
             out[i] = full
         return out
 
+    @torch.no_grad()
+    def _tp_whole(self, tensors):
+        """A parameter-shaped list with each leaf split over the model line
+        whole, in the JAX layout's column order: one all-gather per split
+        parameter (every rank of the line takes part; not counted)."""
+        if self.mp_group is None:
+            return tensors
+        return [self._tp.gather(t, i) for i, t in enumerate(tensors)]
+
     def _host_full(self, tensors):
         """Full-shaped host copies of a host parameter-shaped list that
         holds this rank's regions (the offload state): gathered over the
@@ -2885,7 +3003,8 @@ class DeepSpeedEngine:
             if sharded:
                 tensors = self._gather_full(tensors)
             if kind == "tree":
-                leaves += self._tree_leaves(self._gather_experts(tensors))
+                leaves += self._tree_leaves(self._tp_whole(
+                    self._gather_experts(tensors)))
             else:
                 leaves += list(tensors)
         return leaves
@@ -2961,7 +3080,8 @@ class DeepSpeedEngine:
         }
         manifest = {"tag": str(tag), "global_steps": self.global_steps,
                     "micro_steps": self.micro_steps,
-                    "world": {"dp": self.dp_world_size, "mp": 1,
+                    "world": {"dp": self.dp_world_size,
+                              "mp": self.mp_world_size,
                               "sp": self.sp_world_size},
                     "topology": meta["topology"],
                     "data_position": meta["data_position"],
@@ -2987,7 +3107,8 @@ class DeepSpeedEngine:
             with open(os.path.join(path, "metadata.pkl"), "wb") as f:
                 pickle.dump(meta, f)
 
-        writer = self.dp_rank == 0 and self.sp_rank == 0
+        writer = self.dp_rank == 0 and self.sp_rank == 0 \
+            and self.mp_rank == 0
         if writer and res.atomic_checkpoints:
             with atomic.atomic_tag(save_dir, tag, meta=manifest,
                                    update_latest=save_latest,
@@ -3016,8 +3137,14 @@ class DeepSpeedEngine:
         """A LeafSpec of every JAX leaf: its name, shape and the dimension
         the accumulator's layout shards over ``data`` (ZeRO's at stage 2;
         an expert stack's E at every stage, as the JAX engine's
-        accumulator places it)."""
-        return [ca.LeafSpec(leaf.name, leaf.shape,
+        accumulator places it). Under tensor parallelism the shape is the
+        whole leaf's, as the JAX engine reads its global shapes (ROADMAP
+        C-w19: its report prices each data-axis exchange at the whole
+        leaf and has no entry for the model axis)."""
+        mp = self.mp_world_size
+        return [ca.LeafSpec(leaf.name,
+                            tuple(s * mp if d in leaf.tp_taken else s
+                                  for d, s in enumerate(leaf.shape)),
                             leaf.expert_dim if leaf.expert_dim is not None
                             else leaf.shard_dim if self._grad_sharded
                             else None)
@@ -3169,10 +3296,11 @@ class DeepSpeedEngine:
     def _topology(self):
         """The writing mesh's identity card (resilience/reshard.py
         topology_manifest)."""
-        dp, sp = self.dp_world_size, self.sp_world_size
+        dp, sp, mp = self.dp_world_size, self.sp_world_size, \
+            self.mp_world_size
         return {"engine": type(self).__name__,
-                "mesh": {"pipe": 1, "data": dp, "seq": sp, "model": 1},
-                "dp": dp, "mp": 1,
+                "mesh": {"pipe": 1, "data": dp, "seq": sp, "model": mp},
+                "dp": dp, "mp": mp,
                 "sp": sp, "zero_stage": int(self.zero_optimization_stage()),
                 "global_batch": {
                     "train_batch_size": int(self.train_batch_size()),
@@ -3329,16 +3457,16 @@ class DeepSpeedEngine:
             for name, full in zip(group, parts):
                 i = index[name]
                 full = full.t() if transposed else full
-                if tuple(full.shape) != part.full_shape(i):
+                want = self._tp.full_shape(i, part.full_shape(i))
+                if tuple(full.shape) != want:
                     if strict:
                         raise ValueError(
                             f"checkpoint leaf for {name} has shape "
-                            f"{tuple(full.shape)}, the model's is "
-                            f"{part.full_shape(i)}")
+                            f"{tuple(full.shape)}, the model's is {want}")
                     logger.warning(f"load_checkpoint: {name} skipped "
                                    f"(shape {tuple(full.shape)})")
                     continue
-                full = part.expert_local(full, i)
+                full = part.expert_local(self._tp.local(full, i), i)
                 tensors[i].copy_(part.local(full, i) if sharded else full)
 
     @torch.no_grad()

@@ -142,13 +142,21 @@ class PartitionedTensor:
         return flat[:self.orig_size].reshape(self.orig_shape)
 
 
-def global_norm_from_tree(grads, group=None, partitioned=None):
+def global_norm_from_tree(grads, group=None, partitioned=None,
+                          model_group=None, model_split=None):
     """The L2 norm over the list ``grads`` (fp32 device scalar): the
     per-tensor norms' norm, with the squared norms of the ``partitioned``
     shards summed over ``group`` (one SUM all-reduce) and each replicated
-    tensor counted once. Without shards, no collective."""
+    tensor counted once. Without shards, no collective. Under tensor
+    parallelism, ``model_split[i]`` says whether ``grads[i]`` is this
+    rank's part of a leaf split over ``model_group`` (the model line):
+    those squares are summed over it too (a second all-reduce), so a leaf
+    split over both lines counts every element once."""
     if not grads:
         return torch.zeros(())
+    if model_split is not None and any(model_split):
+        return _norm_over_data_and_model(grads, group, partitioned,
+                                         model_group, model_split)
     if partitioned is None or not any(partitioned):
         return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
     shards = [g for g, p in zip(grads, partitioned) if p]
@@ -159,6 +167,39 @@ def global_norm_from_tree(grads, group=None, partitioned=None):
         sq = sq + torch.linalg.vector_norm(
             torch.stack(torch._foreach_norm(whole))).square()
     return sq.sqrt().reshape(())
+
+
+_NORM_MASKS = {}
+
+
+def _norm_masks(partitioned, model_split, device):
+    """(4, n) fp32 rows selecting the tensors split over data only, over
+    both lines, over model only and over neither; built once per layout
+    and device, so a step moves nothing from the host."""
+    key = (tuple(partitioned), tuple(model_split), str(device))
+    if key not in _NORM_MASKS:
+        d = np.asarray(partitioned, bool)
+        m = np.asarray(model_split, bool)
+        rows = np.stack([d & ~m, d & m, ~d & m, ~d & ~m]).astype(np.float32)
+        _NORM_MASKS[key] = torch.from_numpy(rows).to(device)
+    return _NORM_MASKS[key]
+
+
+def _norm_over_data_and_model(grads, group, partitioned, model_group,
+                              model_split):
+    """``global_norm_from_tree`` under tensor parallelism: the squares of
+    the data-split parts (and of the parts split over both lines) summed
+    over ``group``, then those of the model-split parts over
+    ``model_group``; a replicated tensor counted once."""
+    partitioned = partitioned or [False] * len(grads)
+    sq = torch.stack(torch._foreach_norm(grads)).square()
+    # (data only, both, model only, neither)
+    parts = _norm_masks(partitioned, model_split, sq.device) @ sq
+    if group is not None and any(partitioned):
+        group.all_reduce(parts[:2])
+    by_model = parts[1:3].sum().reshape(1)
+    model_group.all_reduce(by_model)
+    return (parts[0] + by_model[0] + parts[3]).sqrt().reshape(())
 
 
 def has_overflow(grads, group=None, inv_scale=None):

@@ -398,6 +398,9 @@ class InferenceEngine:
         if shards != 1 or mesh is not None:
             raise _not_ported("serving over pools split into shards "
                               "(shards > 1, mesh)", "A10c")
+        if getattr(model, "tp_group", None) is not None:
+            raise _not_ported("serving a tensor-parallel model (mesh model "
+                              "> 1)", "A7c")
         assert prefill_chunk >= _MIN_BUCKET \
             and (prefill_chunk & (prefill_chunk - 1)) == 0, \
             f"prefill_chunk must be a power of two >= {_MIN_BUCKET}"

@@ -33,8 +33,11 @@ def init_distributed(dist_backend=None, auto_mpi_discovery=True,
 
     ``device`` is the engine's device (default ``cuda``): CUDA takes NCCL
     and sets the current card to ``LOCAL_RANK``; ``cpu`` takes gloo.
-    ``dist_backend``, when given, must be that backend. ``timeout`` in
-    seconds bounds the rendezvous and every collective."""
+    ``dist_backend``, when given, must be that backend, but for gloo over
+    CUDA tensors where the node's ranks outnumber its cards (NCCL refuses
+    two ranks on one device; each rank then takes card ``LOCAL_RANK``
+    modulo the cards). ``timeout`` in seconds bounds the rendezvous and
+    every collective."""
     if dist.is_initialized():
         return
     env = ("MASTER_ADDR", "RANK", "WORLD_SIZE")
@@ -67,18 +70,25 @@ def _backend(dist_backend, device, world, local_rank, addr):
     the world cannot run as asked."""
     device = torch.device("cuda" if device is None else device)
     want = "nccl" if device.type == "cuda" else "gloo"
+    if dist_backend == "gloo" and want == "nccl" \
+            and torch.cuda.is_available() \
+            and (_local_world(world, addr) or 1) \
+            > torch.cuda.device_count():
+        # ranks that share a card: gloo carries the CUDA tensors
+        torch.cuda.set_device(local_rank % torch.cuda.device_count())
+        return "gloo"
     if dist_backend is not None and dist_backend != want:
         raise ValueError(f"dist_backend {dist_backend!r} on a {device.type} "
-                         f"engine: the port runs {want} there")
+                         f"engine: the port runs {want} there (gloo on "
+                         f"CUDA only where the node's ranks share its "
+                         f"cards)")
     if want == "gloo":
         return want
     if not torch.cuda.is_available():
         raise RuntimeError("init_distributed on CUDA: CUDA is not available "
                            "(pass device='cpu' for a gloo world on the CPU)")
     cards = torch.cuda.device_count()
-    local_world = os.environ.get("LOCAL_WORLD_SIZE")
-    local_world = int(local_world) if local_world is not None \
-        else (world if addr in _LOCAL_HOSTS else None)
+    local_world = _local_world(world, addr)
     if (local_world is not None and local_world > cards) \
             or local_rank >= cards:
         raise RuntimeError(
@@ -87,6 +97,21 @@ def _backend(dist_backend, device, world, local_rank, addr):
             f"(LOCAL_RANK {local_rank})")
     torch.cuda.set_device(local_rank)
     return want
+
+
+def _local_world(world, addr):
+    """The ranks on this node: ``LOCAL_WORLD_SIZE``, else the world when
+    its rendezvous address is this host, else None (unknown)."""
+    local_world = os.environ.get("LOCAL_WORLD_SIZE")
+    return int(local_world) if local_world is not None \
+        else (world if addr in _LOCAL_HOSTS else None)
+
+
+def cards_shared() -> bool:
+    """Whether this node's ranks outnumber its CUDA cards (a gloo world
+    over CUDA tensors, ``init_distributed``)."""
+    return torch.cuda.is_available() \
+        and local_world_size() > torch.cuda.device_count()
 
 
 def in_mpi_environment() -> bool:
@@ -136,16 +161,16 @@ def mpi_discovery(distributed_port=29500, verbose=True):
 
 
 def grid_groups(grid):
-    """{axis: this rank's group along it} for the grid's ``pipe``, ``data``
-    and ``seq`` axes above size 1: None (the default group) where the line
-    is the whole world, else a ``dist.new_group`` of the line. Every rank
-    creates every line's group, in the same order, as ``new_group``
-    requires."""
-    from deepspeed_tpu_torch.parallel.mesh import (DATA_AXIS, PIPE_AXIS,
-                                                   SEQ_AXIS)
+    """{axis: this rank's group along it} for the grid's ``pipe``,
+    ``data``, ``seq`` and ``model`` axes above size 1: None (the default
+    group) where the line is the whole world, else a ``dist.new_group`` of
+    the line. Every rank creates every line's group, in the same order,
+    as ``new_group`` requires."""
+    from deepspeed_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                                   PIPE_AXIS, SEQ_AXIS)
 
     out = {}
-    for axis in (PIPE_AXIS, DATA_AXIS, SEQ_AXIS):
+    for axis in (PIPE_AXIS, DATA_AXIS, SEQ_AXIS, MODEL_AXIS):
         size = grid.shape[axis]
         if size == 1:
             continue

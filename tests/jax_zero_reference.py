@@ -1,5 +1,6 @@
-"""The JAX engine's side of the ZeRO-3 and int8-collective tests of the
-PyTorch port (tests/test_torch_zero3.py), run in a process of its own.
+"""The JAX engine's side of the ZeRO-3, int8-collective and tensor-parallel
+tests of the PyTorch port (tests/test_torch_zero3.py, tests/test_torch_tp.py
+and the 1-bit Adam, 0/1 Adam and CSR tests), run in a process of its own.
 
     python tests/jax_zero_reference.py SPEC
 
@@ -359,7 +360,102 @@ def job_wire_fns(w, seed, n, steps=3):
     return out
 
 
-JOBS = {"train": job_train, "load": job_load,
+def _tp_model(kind, sparse=False, bf16=False, fp16=False):
+    """The JAX twin of torch_zero_worker.sp_model (the tensor-parallel
+    tests' GPT-2 and BERT)."""
+    dtype = jnp.bfloat16 if bf16 else jnp.float16 if fp16 else jnp.float32
+    if kind == "gpt2":
+        return JGPT2Model(JGPT2Config(dtype=dtype, **W.SP_GPT2))
+    from deepspeed_tpu.models.bert import BertConfig, BertForPreTraining
+    from deepspeed_tpu.ops import sparse_attention as jsa
+
+    return BertForPreTraining(BertConfig(
+        dtype=dtype, sparsity_config=jsa.FixedSparsityConfig(
+            **W.SP_SPARSITY) if sparse else None, **W.SP_BERT))
+
+
+def _tp_engine(kind, mesh, stage, gas, sparse=False, bf16=False,
+               fp16=False):
+    cfg = dict(W.ds_config(mesh.get("data", 1), stage, gas, bf16=bf16,
+                           fp16=fp16),
+               mesh=dict({"data": 1}, **mesh, allow_partial=True))
+    return deepspeed_tpu.initialize(model=_tp_model(kind, sparse, bf16, fp16),
+                                    config_params=cfg)[0]
+
+
+def _tp_batch(kind, seed, steps, gas, rows, step):
+    return {k: v[step] for k, v in
+            W.sp_batches(kind, seed, steps, gas, rows).items()}
+
+
+def job_tp_init(kind, path):
+    """The JAX engine's initial parameters (seed 42, data 1) of ``kind``
+    pickled to ``path`` (atomically: the port's ranks wait for it)."""
+    eng = _tp_engine(kind, {"data": 1}, 0, 1)
+    eng._ensure_state(_first_micro(_tp_batch(kind, 0, 1, 1, W.MICRO, 0)))
+    tree = jax.tree_util.tree_map(np.asarray,
+                                  jax.device_get(eng.state.params))
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(tree, f)
+    os.replace(path + ".tmp", path)
+    return {"path": path}
+
+
+def _port_names(kind, tree):
+    import torch
+
+    from deepspeed_tpu_torch.models.convert import (bert_params_from_jax,
+                                                    params_from_jax)
+
+    module = W.sp_model(kind)
+    convert = params_from_jax if kind == "gpt2" else bert_params_from_jax
+    return {n: t.numpy() for n, t in convert(tree, module.config).items()}
+
+
+def job_tp_train(kind, mesh, stage, gas, steps, seed, sparse=False,
+                 bf16=False, fp16=False):
+    """The JAX engine at ``mesh`` (``model`` M as GSPMD lays it out) over
+    the tensor-parallel tests' global batches: losses, the final master
+    (port names, whole), the comm report and the analytic memory."""
+    eng = _tp_engine(kind, mesh, stage, gas, sparse, bf16, fp16)
+    rows = W.MICRO * mesh.get("data", 1)
+    eng._ensure_state(_first_micro(_tp_batch(kind, seed, steps, gas, rows,
+                                             0)))
+    losses = [float(eng.train_batch(batch=_tp_batch(kind, seed, steps, gas,
+                                                    rows, s)))
+              for s in range(steps)]
+    state = jax.device_get(eng.state)
+    tree = state.master if state.master is not None else state.params
+    return {"losses": losses,
+            "master": _port_names(kind, jax.tree_util.tree_map(np.asarray,
+                                                               tree)),
+            "report": eng.comm_volume_report(),
+            "memory": eng._analytic_memory_components()}
+
+
+def job_tp_load(load, kind, mesh, stage, gas, seed, steps, step):
+    """A JAX engine at ``mesh`` loads the port's latest tag in ``load``
+    (waited for: another process writes it): the state leaves it holds
+    against the npz's, and the loss of global batch ``step``."""
+    W.wait_for(os.path.join(load, "latest"))
+    eng = _tp_engine(kind, mesh, stage, gas)
+    rows = W.MICRO * mesh.get("data", 1)
+    eng._ensure_state(_first_micro(_tp_batch(kind, seed, steps, gas, rows,
+                                             0)))
+    path, _ = eng.load_checkpoint(load)
+    with np.load(os.path.join(path, "model_states.npz")) as data:
+        saved = npz_dict_to_leaves(data)
+    got = jax.tree_util.tree_leaves(jax.device_get(eng.state))
+    same = len(got) == len(saved) and all(
+        np.array_equal(np.asarray(x), np.asarray(y))
+        for x, y in zip(got[:-1], saved[:-1]))           # not the rng
+    loss = float(eng.train_batch(batch=_tp_batch(kind, seed, steps, gas,
+                                                 rows, step)))
+    return {"global_steps": eng.global_steps, "same": same, "loss": loss}
+
+
+JOBS = {"train": job_train, "load": job_load, "tp_init": job_tp_init,
+        "tp_train": job_tp_train, "tp_load": job_tp_load,
         "collectives": job_collectives, "codec": job_codec,
         "wire": job_wire, "wire_load": job_wire_load,
         "wire_fns": job_wire_fns}
@@ -378,14 +474,16 @@ def main(spec_path):
     os.replace(tmp, spec["out"])
 
 
-def run(jobs, out_dir, timeout=240):
+def run(jobs, out_dir, timeout=240, name="jax"):
     """Run ``jobs`` in a new process; its results by name. Raises with
-    the process's output when it fails (an abort included)."""
+    the process's output when it fails (an abort included). ``name``
+    tells the spec and result files of several processes in one
+    directory apart."""
     import subprocess
 
     os.makedirs(out_dir, exist_ok=True)
-    spec = os.path.join(out_dir, "jax_spec.pkl")
-    out = os.path.join(out_dir, "jax_results.pkl")
+    spec = os.path.join(out_dir, f"{name}_spec.pkl")
+    out = os.path.join(out_dir, f"{name}_results.pkl")
     with open(spec, "wb") as f:
         pickle.dump({"out": out, "jobs": jobs}, f)
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}

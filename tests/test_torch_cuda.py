@@ -995,6 +995,58 @@ def test_nccl_zero3_worlds_match_one_card(cuda, tmp_path):
         assert ranks[0]["s3_scheduled"]["stage3"]["armed"]
 
 
+# the model axis's worlds against one card: phase 28's gate (chip_smoke.py
+# TP_LOSS_GATE), which a skipped row-parallel all-reduce exceeds
+TP_LOSS_RTOL = 2e-4
+
+
+@pytest.mark.cuda
+def test_nccl_tensor_parallel_worlds_match_one_card(cuda, tmp_path):
+    """On a host with 4 cards: gpt2-350m bf16 at full width (seq 1024, the
+    flash kernels on each rank's heads, gas 2, 10 Adam steps, ZeRO 2) over
+    NCCL worlds at {"model": 4} and {"data": 2, "model": 2} (rank r on card
+    r; every rank of a model line feeds its data line's rows of the global
+    batch of 8), against one card on the same global batch: losses within
+    TP_LOSS_RTOL of one card's, every rank alike; each rank's peak bytes
+    and bytes held between steps printed beside the analytic state bytes
+    (its shards), which they must cover. Skips with fewer than 4 cards."""
+    import numpy as np
+
+    import torch_zero_worker as W
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    steps, gas, rows, seq = 10, 2, 8, 1024
+    kw = dict(kind="gpt2", stage=2, gas=gas, steps=steps, seed=0,
+              model=_GPT2_350M, dtype=torch.bfloat16, device="cuda",
+              seq=seq, master=None)
+    ref = W.run_world(1, [("one", "seq", dict(kw, mesh={"data": 1},
+                                              micro=rows))],
+                      str(tmp_path / "one"), timeout=1500, device="cuda")
+    want = ref[0]["one"]["losses"]
+    print(f"one card: losses {want}, peak {ref[0]['one']['peak_bytes']} B, "
+          f"held between steps {ref[0]['one']['rest_bytes']} B")
+    for mesh in ({"model": 4}, {"data": 2, "model": 2}):
+        dp = mesh.get("data", 1)
+        ranks = W.run_world(4, [("tp", "seq", dict(kw, mesh=mesh,
+                                                   micro=rows // dp))],
+                            str(tmp_path / f"tp_{dp}"), timeout=1500,
+                            device="cuda")
+        for r, rank in enumerate(ranks):
+            got, what = rank["tp"], f"{mesh} rank {r}"
+            assert got["losses"] == ranks[0]["tp"]["losses"], what
+            np.testing.assert_allclose(got["losses"], want,
+                                       rtol=TP_LOSS_RTOL, err_msg=what)
+            state = got["memory"]["persistent_bytes"]
+            rel = max(abs(a - b) / b for a, b in zip(got["losses"], want))
+            ms = sorted(got["step_ms"][1:])
+            print(f"{what}: losses {got['losses']} (max rel {rel:.3e} to "
+                  f"one card); analytic state {state} B, held between "
+                  f"steps {got['rest_bytes']} B, peak {got['peak_bytes']} "
+                  f"B; step ms (median of 2..) {ms[len(ms) // 2]:.1f}")
+            assert got["rest_bytes"] >= state and got["peak_bytes"] >= state
+
+
 @pytest.mark.cuda
 def test_nccl_onebit_worlds_match_gloo(cuda, tmp_path):
     """On a host with 4 cards: 1-bit Adam (freeze_step 2) and 0/1 Adam

@@ -140,10 +140,16 @@ def test_the_mesh_must_cover_the_world(shape, world, match):
 ])
 def test_unported_parallelism_names_its_item(clean_env, extra, item):
     """The axes still to come raise naming their item; ``seq``, ported by
-    A15, is the grid's now: seq 2 in a world of one raises the JAX mesh's
-    message."""
+    A15, and ``model``, ported by A7b, are the grid's now: seq 2 or model
+    2 in a world of one raises the JAX mesh's message, and an ``mpu``
+    without the topology's interface raises ValueError."""
     kw = {"mpu": extra.pop("mpu")} if "mpu" in extra else {}
-    if item == "A15":
+    if kw:
+        with pytest.raises(ValueError, match="the mpu has no "
+                           "get_model_parallel_world_size"):
+            _initialize(_config(**extra), **kw)
+        return
+    if item in ("A15", "A7b"):
         with pytest.raises(ValueError, match="1 devices not divisible by "
                            "fixed axes product 2"):
             _initialize(_config(**extra), **kw)

@@ -97,17 +97,27 @@ def _job(name, dp, stage, gas=2, **kw):
 
 
 def _world_dp2(out):
+    """The port's dp-2 jobs, and beside them (a thread of this process)
+    the JAX engine that writes the tag the port's last job loads (it waits
+    for the marker the thread writes after the save returns)."""
+    import threading
+
     jtag = os.path.join(out, "jax_tag")
-    jeng = _jax_engine(2, 2, 2)
-    for b in W.global_batches(SEED, 2, 2, 2 * W.MICRO):
-        jeng.train_batch(batch={"input_ids": b, "labels": b})
-    jeng.save_checkpoint(jtag, backend="npz")
+    offload_init = _jax_offload_init()
+
+    def jax_tag():
+        jeng = _jax_engine(2, 2, 2)
+        for b in W.global_batches(SEED, 2, 2, 2 * W.MICRO):
+            jeng.train_batch(batch={"input_ids": b, "labels": b})
+        jeng.save_checkpoint(jtag, backend="npz")
+        with open(done, "w"):
+            pass
+
+    done = jtag + ".done"
     s3tag = os.path.join(out, "s3_tag")
     jobs = [_job("s0", 2, 0, programs=True),
             _job("s2", 2, 2, save=os.path.join(out, "port_tag")),
-            _job("offload", 2, 2, offload=True, init=_jax_offload_init()),
-            ("load_jax", "load", dict(dp=2, stage=2, gas=2, load=jtag,
-                                      model=W.MOE)),
+            _job("offload", 2, 2, offload=True, init=offload_init),
             # stage 3 beside expert parallelism (ROADMAP A13's residue)
             _job("s3_implicit", 2, 3,
                  zero={"stage3_scheduled_gathers": False}),
@@ -115,7 +125,24 @@ def _world_dp2(out):
     jobs += [(f"s3_load{stage}", "load", dict(dp=2, stage=stage, gas=2,
                                               load=s3tag, model=W.MOE))
              for stage in (2, 3)]
-    return W.run_world(2, jobs, out)
+    jobs.append(("load_jax", "load", dict(dp=2, stage=2, gas=2, load=jtag,
+                                          model=W.MOE, wait=done)))
+    errors = []
+
+    def guarded():
+        try:
+            jax_tag()
+        except Exception as e:      # raised below, after the world
+            errors.append(e)
+
+    writer = threading.Thread(target=guarded)
+    writer.start()
+    try:
+        return W.run_world(2, jobs, out)
+    finally:
+        writer.join()
+        if errors:
+            raise errors[0]
 
 
 def _world_dp4(out):

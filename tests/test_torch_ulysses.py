@@ -312,7 +312,9 @@ def test_seq_refusals(world, case, exc, match):
 
 
 @pytest.mark.parametrize("mesh,item", [
-    ({"seq": 2, "model": 2}, "A7b"), ({"seq": 2, "pipe": 2}, "A12")])
+    # tensor parallelism (A7b) runs beside data alone; beside seq: A7c
+    pytest.param({"seq": 2, "model": 2}, "A7c", id="mesh0-A7b"),
+    ({"seq": 2, "pipe": 2}, "A12")])
 def test_seq_beside_model_or_pipe_names_its_item(mesh, item):
     from deepspeed_tpu_torch.parallel.mesh import resolve_grid
 

@@ -182,6 +182,10 @@ WORLDS = dict({f"z3_jax_{name}": _jax_world(name) for name in CONFIGS},
                                               timeout=400),
               a13b_jax_dp4=lambda out: JR.run(A.jax_jobs(4, out), out,
                                               timeout=400))
+# each port world beside the JAX reference process of its 1-bit Adam, 0/1
+# Adam and CSR cases: built side by side, whichever a test asks for first
+COMPANIONS = {"z3_dp2_q": ["a13b_jax_dp2"], "a13b_jax_dp2": ["z3_dp2_q"],
+              "z3_dp4": ["a13b_jax_dp4"], "a13b_jax_dp4": ["z3_dp4"]}
 _worlds = None
 
 
@@ -190,7 +194,7 @@ def worlds(tmp_path_factory):
     per session (tests/test_torch_programs.py reads them too)."""
     global _worlds
     if _worlds is None:
-        _worlds = W.session_worlds(tmp_path_factory, WORLDS)
+        _worlds = W.session_worlds(tmp_path_factory, WORLDS, COMPANIONS)
     return _worlds
 
 

@@ -1,8 +1,8 @@
-"""One rank of a gloo world for the data- and sequence-parallel tests of
-the PyTorch port (tests/test_torch_zero.py, tests/test_torch_distributed.py,
-tests/test_torch_moe_ep.py, tests/test_torch_ulysses.py,
-tests/test_torch_ring_attention.py), and the launcher that starts a world
-of them.
+"""One rank of a gloo world for the data-, sequence- and tensor-parallel
+tests of the PyTorch port (tests/test_torch_zero.py,
+tests/test_torch_distributed.py, tests/test_torch_moe_ep.py,
+tests/test_torch_ulysses.py, tests/test_torch_ring_attention.py,
+tests/test_torch_tp.py), and the launcher that starts a world of them.
 
     python tests/torch_zero_worker.py SPEC
 
@@ -128,10 +128,11 @@ def _local(batch, rank, micro):
 
 def _full_master(eng):
     """The master weights, gathered to full arrays (the whole expert
-    stacks too), by parameter name."""
+    stacks and the leaves split over the model line too), by parameter
+    name."""
     master = eng._gather_full(eng.master) if eng.partition.sharded_idx \
         else eng.master
-    master = eng._gather_experts(master)
+    master = eng._tp_whole(eng._gather_experts(master))
     return {n: m.detach().float().cpu().numpy().copy()
             for n, m in zip(eng.param_names, master)}
 
@@ -357,9 +358,12 @@ def job_resume(dp, stage, gas, steps, seed, load, start):
             "global_steps": eng.global_steps}
 
 
-def job_load(dp, stage, gas, load, model=None):
+def job_load(dp, stage, gas, load, model=None, wait=None):
     """Load a tag (e.g. the JAX engine's) and return the full state
-    leaves it restored, in the npz's order."""
+    leaves it restored, in the npz's order. ``wait``: a file that another
+    process writes once the tag is complete, waited for first."""
+    if wait is not None:
+        wait_for(wait, timeout=600)
     eng = _engine(ds_config(dp, stage, gas), None, model=model)
     path, _ = eng.load_checkpoint(load)
     leaves = [t.detach().float().cpu().numpy() if torch.is_tensor(t)
@@ -876,11 +880,29 @@ def sp_batches(kind, seed, steps, gas, rows, seq=None, vocab=None):
                         vocab or SP_BERT["vocab_size"])
 
 
+def wait_for(path, timeout=300):
+    """Block until ``path`` exists (a file another process of the test
+    session writes: a JAX reference's initial parameters, a tag)."""
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear in {timeout} s")
+        time.sleep(0.2)
+    return path
+
+
+def load_init(path):
+    """The pickled JAX parameter tree at ``path``, once it exists."""
+    with open(wait_for(path), "rb") as f:
+        return pickle.load(f)
+
+
 def job_seq(kind, mesh, stage, gas, steps, seed, init=None, model=None,
             micro=MICRO, dtype=torch.float32, save=None, load=None,
             programs=False, device="cpu", lr=1e-3, seq=None,
             telemetry=False, offload=False, optimizer="Adam",
-            weight_decay=0.01, master="final", zero=None):
+            weight_decay=0.01, master="final", zero=None, init_path=None,
+            plant=None):
     """``steps`` train_batch steps of ``sp_model(kind, **model)`` at
     ``mesh`` ({"data": D, "seq": N}): every rank feeds its data rows of
     the global batch at full sequence. The losses, the counted collectives
@@ -888,11 +910,20 @@ def job_seq(kind, mesh, stage, gas, steps, seed, init=None, model=None,
     change from the initial one, or None: left out), the comm report, the
     analytic memory, the program registry's contracts and (``programs``)
     the lint of the last step; on the card the peak of the bytes allocated
-    (``peak_bytes``, above what was allocated before); ``save``: a tag
+    (``peak_bytes``, above what was allocated before), the bytes held
+    between steps (``rest_bytes``) and the step ms; ``dtype`` float16: fp16 with
+    the dynamic loss scale of ``ds_config``; ``save``: a tag
     after the last step; ``load``: a tag loaded before the first; ``seq``:
     the batches' sequence length (the model's vocabulary); ``telemetry``:
     armed, and its MFU report's counts; ``offload``: ZeRO-Offload;
-    ``zero``: more zero_optimization keys."""
+    ``zero``: more zero_optimization keys; ``init_path``: ``init`` read
+    from a pickle another process writes (waited for); ``plant`` (world
+    rank, parameter name): an inf planted in element 0 of that
+    parameter's gradient on that rank alone in the first step, and after
+    each step the skipped steps, the loss scale and whether this rank's
+    master moved (``skipped``, ``scales``, ``moved``). Any mesh of
+    ``data``, ``seq`` and ``model`` (each rank of a model line feeds its
+    data line's rows; the master is gathered whole)."""
     import deepspeed_tpu_torch
     from deepspeed_tpu_torch.models.convert import (bert_params_from_jax,
                                                     params_from_jax)
@@ -908,7 +939,8 @@ def job_seq(kind, mesh, stage, gas, steps, seed, init=None, model=None,
     dp = mesh.get("data", 1)
     config = dict(ds_config(dp, stage, gas, micro=micro, lr=lr,
                             offload=offload, optimizer=optimizer,
-                            weight_decay=weight_decay, zero=zero),
+                            weight_decay=weight_decay, zero=zero,
+                            fp16=dtype == torch.float16),
                   mesh=mesh)
     if dtype == torch.bfloat16:
         config["bf16"] = {"enabled": True}
@@ -917,6 +949,8 @@ def job_seq(kind, mesh, stage, gas, steps, seed, init=None, model=None,
     eng, _, _, _ = deepspeed_tpu_torch.initialize(
         model=module, config_params=config,
         device=None if device == "cuda" else device)
+    if init_path is not None:
+        init = load_init(init_path)
     if init is not None:
         convert = params_from_jax if kind == "gpt2" else bert_params_from_jax
         eng.load_module_state_dict(convert(init, module.config))
@@ -926,16 +960,40 @@ def job_seq(kind, mesh, stage, gas, steps, seed, init=None, model=None,
                          module.config.vocab_size)
     rows = slice(eng.dp_rank * micro, (eng.dp_rank + 1) * micro)
     out = {"losses": [], "comm": [], "norms": [],
-           "grid": (eng.dp_rank, eng.sp_rank)}
+           "grid": (eng.dp_rank, eng.sp_rank, eng.mp_rank)}
     init_master = _full_master(eng) if master == "delta" else None
+    hook = None
+    if plant is not None:
+        import torch.distributed as dist
+
+        out.update(skipped=[], scales=[], moved=[])
+        if dist.get_rank() == plant[0]:
+            def inf_at_0(g):
+                g = g.clone()
+                g.view(-1)[0] = float("inf")
+                return g
+            hook = eng.params[eng.param_names.index(plant[1])] \
+                .register_hook(inf_at_0)
     _launches(reset=True)
+    out["step_ms"] = []
     for step in range(steps):
         if programs and step == steps - 1:
             eng.program_registry.observing = True
         local = {k: v[step][:, rows] for k, v in batches.items()}
+        before = [m.clone() for m in eng.master] if plant else None
+        t0 = time.perf_counter()
         out["losses"].append(eng.train_batch(batch=local).item())
+        out["step_ms"].append((time.perf_counter() - t0) * 1e3)
         out["norms"].append(float(eng._last_metrics["grad_norm"]))
         out["comm"].append(eng.last_step_comm)
+        if plant is not None:
+            if hook is not None:
+                hook.remove()
+                hook = None
+            out["skipped"].append(int(eng.skipped_steps))
+            out["scales"].append(float(eng.loss_scale()))
+            out["moved"].append(any(not torch.equal(b, m) for b, m in
+                                    zip(before, eng.master)))
     if programs:
         from deepspeed_tpu_torch.telemetry.program_lint import lint_programs
 
@@ -946,6 +1004,7 @@ def job_seq(kind, mesh, stage, gas, steps, seed, init=None, model=None,
     if cuda:
         torch.cuda.synchronize()
         out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+        out["rest_bytes"] = torch.cuda.memory_allocated() - base
     if master is not None:
         out["master"] = _full_master(eng)
     if init_master is not None:
@@ -1019,11 +1078,14 @@ def job_seq_attention(mode, q, k, v, do, causal=True, dtype=torch.float32,
             "comm": group.counter.take()}
 
 
-def job_seq_load(mesh, stage, load, gas=2):
+def job_seq_load(mesh, stage, load, gas=2, wait=False):
     """The sequence-parallel GPT-2 at ``mesh`` loads ``load``; the full
-    state leaves it restored, in the npz's order."""
+    state leaves it restored, in the npz's order. ``wait``: the tag is
+    another world's, waited for."""
     import deepspeed_tpu_torch
 
+    if wait:
+        wait_for(os.path.join(load, "latest"))
     config = dict(ds_config(mesh.get("data", 1), stage, gas), mesh=mesh)
     eng, _, _, _ = deepspeed_tpu_torch.initialize(
         model=sp_model("gpt2"), config_params=config, device="cpu")
@@ -1233,13 +1295,19 @@ def main(spec_path):
     os.replace(tmp, os.path.join(spec["out"], f"rank{rank}.pkl"))
 
 
-def assert_master_close(got, want, rtol, atol, steps, lr, what):
+def assert_master_close(got, want, rtol, atol, steps, lr, what,
+                        flip_share=0.0):
     """Every element of the master weights within rtol/atol, but the key
     third of each fused QKV bias (GPT-2's ``c_attn``, the BERT layer's
     ``qkv``): its gradient is zero in exact
     arithmetic (softmax ignores a shift common to all keys), so Adam moves
     it by the sign of rounding noise, up to lr per step, and it is held to
-    2 * steps * lr."""
+    2 * steps * lr. ``flip_share`` (below fp32): at most that share of a
+    leaf's elements may lie beyond rtol/atol, each within 2 * steps * lr
+    (a gradient's rounding can flip the sign of a near-zero element's
+    update; tests/test_torch_pipe.py FLIP_SHARE). A dropped gradient
+    leaves nearly every element of its leaf beyond, since Adam moves an
+    element by about lr a step."""
     assert set(got) == set(want)
     for name in want:
         a, b = np.asarray(got[name]), np.asarray(want[name])
@@ -1249,19 +1317,30 @@ def assert_master_close(got, want, rtol, atol, steps, lr, what):
                                        atol=2 * steps * lr,
                                        err_msg=f"{what}: {name} keys")
             a, b = np.delete(a, range(e, 2 * e)), np.delete(b, range(e, 2 * e))
-        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol,
-                                   err_msg=f"{what}: {name}")
+        if not flip_share:
+            np.testing.assert_allclose(a, b, rtol=rtol, atol=atol,
+                                       err_msg=f"{what}: {name}")
+            continue
+        d = np.abs(a.astype(np.float64) - b)
+        beyond = int((d > atol + rtol * np.abs(b)).sum())
+        assert beyond <= flip_share * d.size and d.max() <= 2 * steps * lr, \
+            (what, name, beyond, d.size, float(d.max()))
 
 
 # ---------------------------------------------------------------------------
 # the launcher's side
 # ---------------------------------------------------------------------------
-def session_worlds(tmp_path_factory, worlds):
+def session_worlds(tmp_path_factory, worlds, companions=None):
     """get(key) -> one result dict per rank of the world ``worlds[key](out
     directory)`` builds; each world runs once per test session, shared
     across xdist workers through a lock file (keys are unique across the
-    test modules that share the directory)."""
+    test modules that share the directory). ``companions`` {key: [keys]}:
+    the worlds built side by side with ``key`` (each in a thread of its
+    own, under its own lock) when ``key`` is asked for: its JAX reference
+    process beside the port's world, whose processes wait on each other
+    only where one reads what the other writes."""
     import fcntl
+    import threading
 
     run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
     root = (tmp_path_factory.getbasetemp().parent / f"worlds-{run}") if run \
@@ -1269,7 +1348,29 @@ def session_worlds(tmp_path_factory, worlds):
     root.mkdir(parents=True, exist_ok=True)
     cache = {}
 
+    started, failures = set(), {}
+
+    def background(key):
+        try:
+            build(key)
+        except Exception as e:   # the test that asks raises it again
+            failures[key] = e
+
     def get(key):
+        if key in cache:
+            return cache[key]
+        for other in (companions or {}).get(key, ()):
+            # each companion once per process, and not from another's
+            # thread
+            if other not in started and other not in cache \
+                    and not (root / f"{other}.pkl").exists():
+                started.add(other)
+                threading.Thread(target=background, args=(other,),
+                                 daemon=True).start()
+        started.add(key)
+        return build(key)
+
+    def build(key):
         if key in cache:
             return cache[key]
         with open(root / f"{key}.lock", "w") as lock:
