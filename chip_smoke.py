@@ -99,7 +99,7 @@ failure:
               falling
  16. serve    generation and the continuous-batching InferenceEngine on
               gpt2-350m (full depth and width, bf16 over fp32 weights,
-              seed 42): 32 greedy requests (prompts 16-512 tokens from
+              seed 42): 16 greedy requests (prompts 16-512 tokens from
               default_rng(0), 64 new tokens, every 8th at priority 1; 8
               submitted, then one per step), 8 slots, KV blocks of 16,
               prefill chunks of 128, after warmup(). Pass A: every
@@ -165,7 +165,7 @@ failure:
               fp32, TF32 off, engine tokens equal generate()'s but at near
               ties. Pass
               G: sparse context, window 16 blocks + 1 global (K = 17 of 64
-              pages), 16 prompts of 600-900 tokens: the active page fraction
+              pages), 8 prompts of 600-900 tokens: the active page fraction
               equals the LUT's, window-expired frees > 0, the replay gate
               against a plain forward masked by the policy's token mask and
               the planted fault (view bases shifted one block) at >= 10x
@@ -334,7 +334,7 @@ failure:
               1f1b at pipe 2 with the tied head, 10 steps: losses within
               2e-2 of phase 4's, the tied wte copies equal bit for bit
               after every step, B1-B3 launched exactly as the schedule
-              implies; (b) interleaved at pipe 2 x 2 virtual stages (21
+              implies; (b) interleaved at pipe 2 x 2 virtual stages (9
               blocks: 27 layers do not split into 4 chunks) against 1f1b
               on the same blocks, losses within 1e-3, losses and masters
               bit for bit or within the spread of two 1f1b runs; (c)
@@ -363,6 +363,40 @@ failure:
               (the row-parallel all-reduces skipped) must move the loss
               past that gate and 10x the correct run's drift;
               each rank's peak beside phase 4's (phase_tp)
+ 29. resilience
+              resilience in one process (ROADMAP A16): phase 4's run
+              (gpt2-350m bf16, seq 1024, micro 8, gas 2, Adam, WarmupLR,
+              clipping 1.0, phase 4's batch every step) under the port's
+              TrainingSupervisor with the watchdog (overflow streak 2),
+              the integrity sentinels (EMA window 4, verdict after 2
+              anomalous steps) and async commits armed, B1-B3 counted
+              over every step of it. (a) The committed steps 1-10 equal
+              phase 4's losses bit for bit, each armed step makes exactly
+              one host sync (set_sync_debug_mode("warn"), steps 2-8); step
+              ms and peak memory beside phase 4's. (b) The supervisor's
+              one cadence commit after step 4, asynchronous, with a
+              synchronous save of the same state beside it: the
+              manifests' model_states.npz sha256 equal; steps 5-8 run
+              while it is in flight (the commit's bytes, the thread's
+              wall, the foreground ms, the step ms printed); planted
+              fault: a snapshot holding the live tensors that writes
+              after the next step's update must fail the sha256 gate.
+              (c) A transient fault at wall step 2 retried in place; NaN
+              gradients at steps 9-10: the watchdog's abort, its
+              emergency tag, a rollback to step 4, losses 5-10 phase 4's
+              bit for bit; Adam's step count multiplied by 2**16 after
+              step 12 (a flipped exponent bit: a 6x update): the
+              sentinels' anomaly, the corrupt verdict, a rollback to the
+              clean tag and a skip of the window, losses 5-10 phase 4's
+              bit for bit; MTTR and goodput; planted fault: the corrupt
+              rung rolled back onto the emergency tag must fail the
+              rollback gate. (d) Beside a torn .tmp- write, a newer tag
+              with one corrupted payload byte and the emergency tag,
+              load_checkpoint(auto_resume=True) picks
+              select_resume_tag's tag and resumes bit for bit. Four tags
+              written (~6.4 GB each) and four loaded, under /dev/shm
+              where it has room (else the temp dir), removed after; the
+              phase's wall is logged against its 90 s budget
 The line before the last is the kernels JSON (the fp16 rows named
 <kernel>_fp16, their launches from phase 13); the last line is
 {"ok": true, "device": {...}}. Needs one CUDA card and nvcc.
@@ -1973,7 +2007,9 @@ def phase_optimizers(env):
 # ---------------------------------------------------------------------------
 # phase 16: serving (generation and the continuous-batching engine)
 # ---------------------------------------------------------------------------
-SERVE_REQUESTS = 32
+# two waves of the 8 slots (cut from four to keep the whole script within
+# its time)
+SERVE_REQUESTS = 16
 SERVE_PROMPT_LENS = (16, 512)          # uniform, both ends included
 SERVE_MAX_NEW = 64
 SERVE_SLOTS = 8
@@ -2792,7 +2828,9 @@ SPEC_K = 3
 # pass G: K = 1 + 16 = 17 of W = 64 pages; prefill_K(128) = 26
 SPARSE_NARROW = {"num_sliding_window_blocks": 16, "num_global_blocks": 1}
 SPARSE_FULL = {"num_sliding_window_blocks": 64, "num_global_blocks": 0}
-SPARSE_REQUESTS = 16
+# one wave of the 8 slots (cut from two to keep the whole script within
+# its time)
+SPARSE_REQUESTS = 8
 SPARSE_PROMPT_LENS = (600, 900)        # uniform, both ends included
 
 
@@ -2811,7 +2849,8 @@ def _prefix_traffic(vocab, prefix_len=PREFIX_LEN):
 
 
 def _long_traffic(vocab):
-    """16 prompts of 600-900 tokens from numpy's default_rng(0)."""
+    """SPARSE_REQUESTS prompts of 600-900 tokens from numpy's
+    default_rng(0)."""
     import numpy as np
 
     rng = np.random.default_rng(0)
@@ -5562,8 +5601,9 @@ def phase_onebit(env, stage0):
 # ---------------------------------------------------------------------------
 # (b) interleaves pipe 2 x 2 virtual stages: a chunk count that must divide
 # the layer count, which gpt2-350m's 27 layers (embedding, 24 blocks, final
-# norm, head) do not; 21 blocks make 24 layers
-PIPE_INTERLEAVED_BLOCKS = 21
+# norm, head) do not; 9 blocks make 12 layers (cut from 21 to keep the
+# whole script within its time)
+PIPE_INTERLEAVED_BLOCKS = 9
 PIPE_SHORT_STEPS = 3
 PIPE_LOSS_GATE = 2e-2      # (a) against phase 4 (chunked loss vs full logits)
 PIPE_SCHEDULE_GATE = 1e-3  # (b), (c) against their 1f1b twins
@@ -5743,9 +5783,9 @@ def phase_pipe(env, stage0):
         derives: per block and micro-batch B1 twice in the first chunk (its
         forward, and again in the backward's re-run) and once in the last
         (the last chunk runs no separate forward), B2 and B3 once.
-    (b) interleaved, pipe 2 x 2 virtual stages, tied: 21 blocks
+    (b) interleaved, pipe 2 x 2 virtual stages, tied: 9 blocks
         (PIPE_INTERLEAVED_BLOCKS; 27 layers do not split into 4 chunks,
-        validate_chunking), 3 steps, against 1f1b on the same 21 blocks:
+        validate_chunking), 3 steps, against 1f1b on the same blocks:
         losses within PIPE_SCHEDULE_GATE relative (the norm sums four
         chunks instead of two: both count the tied copy twice), and the
         losses and every master leaf after step 3 equal bit for bit, or
@@ -6243,6 +6283,379 @@ def phase_tp(env, stage0):
     return {"losses": ranks[0]["losses"], "launches": ranks[0]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 29: resilience in one process (ROADMAP A16)
+# ---------------------------------------------------------------------------
+# the supervisor's one cadence commit, after this step (async, with a
+# synchronous save of the same state beside it for the sha256 gate)
+RES_COMMIT_STEP = 4
+# Adam's step count multiplied by 2**16 (bit 27 of its fp32 word) after
+# this step: a 6x larger update, finite, every step after
+RES_FLIP_STEP = 12
+RES_FLIP_BIT = 27
+RES_STEPS = 14
+# the sentinels: a 4-step EMA window, 4 steps of history, a verdict after
+# 2 anomalous steps
+RES_INTEGRITY = {"enabled": True, "window": 4, "min_history": 4,
+                 "confirm_steps": 2}
+# the phase's time budget (logged against its wall)
+RES_WALL_BUDGET = 90.0
+# the room the phase's four tags and their temporary files need
+RES_ROOM = 48 << 30
+
+
+def _res_stream(batch):
+    """The supervisor's data factory: phase 4's micro-batches in its order
+    (batch[0], batch[1], batch[0], ...) from sample 0, so that every step
+    sees phase 4's data."""
+    def factory(_engine):
+        def gen():
+            while True:
+                for i in range(SLICE_GAS):
+                    yield {k: v[i] for k, v in batch.items()}
+        return gen()
+    return factory
+
+
+def _manifest_sha(tag_dir, name="model_states.npz"):
+    from deepspeed_tpu_torch.runtime.resilience import atomic
+
+    return atomic.load_manifest(tag_dir)["files"][name]["sha256"]
+
+
+def _tag_bytes(tag_dir):
+    from deepspeed_tpu_torch.runtime.resilience import atomic
+
+    return sum(f["bytes"] for f in
+               atomic.load_manifest(tag_dir)["files"].values())
+
+
+def _newer_corrupt_tag(save_dir, src, name, step):
+    """A tag newer than ``src`` whose payload is ``src``'s but one byte of
+    its metadata.pkl (the model states hard-linked, no copy)."""
+    from deepspeed_tpu_torch.runtime.resilience import atomic
+
+    a, b = os.path.join(save_dir, src), os.path.join(save_dir, name)
+    os.makedirs(b)
+    os.link(os.path.join(a, "model_states.npz"),
+            os.path.join(b, "model_states.npz"))
+    with open(os.path.join(a, "metadata.pkl"), "rb") as f:
+        meta = bytearray(f.read())
+    meta[len(meta) // 2] ^= 0x01
+    with open(os.path.join(b, "metadata.pkl"), "wb") as f:
+        f.write(bytes(meta))
+    manifest = atomic.load_manifest(a)
+    manifest.update(tag=name, global_steps=step)
+    with open(os.path.join(b, atomic.MANIFEST_NAME), "w") as f:
+        json.dump(manifest, f)
+
+
+def _ladder_ok(incident, tag, got, want):
+    """The rollback gate: the incident landed on ``tag`` and the losses
+    after it are ``want`` bit for bit."""
+    return incident.get("tag") == tag and list(got) == list(want)
+
+
+def phase_resilience(env, stage0):
+    """Phase 29 (module docstring): phase 4's run under the supervisor with
+    the watchdog, the sentinels and async commits armed."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import threading
+    import warnings
+
+    import torch
+
+    from deepspeed_tpu_torch import initialize
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Model, gpt2_config
+    from deepspeed_tpu_torch.ops.sparse_attention import \
+        block_sparse_kernel as bsk
+    from deepspeed_tpu_torch.ops.transformer import flash_attention as fa
+    from deepspeed_tpu_torch.runtime.resilience import atomic, chaos
+    from deepspeed_tpu_torch.runtime.resilience import supervisor as sv
+
+    t_phase = time.perf_counter()
+    # the fastest local filesystem with room for the four tags: the
+    # machine's memory filesystem where it has one, else the temp dir
+    shm = "/dev/shm"
+    fast = os.path.isdir(shm) and os.access(shm, os.W_OK) \
+        and shutil.disk_usage(shm).free >= RES_ROOM
+    root = tempfile.mkdtemp(prefix="ds_resilience_",
+                            dir=shm if fast else None)
+    usage = shutil.disk_usage(root)
+    log(f"resilience: tags under {root} ({usage.free / 2 ** 30:.0f} GiB "
+        f"free)")
+    save_dir, sync_dir, fault_dir = (os.path.join(root, d) for d in
+                                     ("run", "sync", "fault"))
+    cfg = gpt2_config(SLICE_MODEL, n_positions=SLICE_SEQ,
+                      dtype=torch.bfloat16, remat=False)
+    ds = dict(_ds_config(SLICE_MICRO, SLICE_GAS), resilience={
+        "async_commit": True, "integrity": RES_INTEGRITY,
+        "watchdog": {"enabled": True, "max_skipped_steps": 2,
+                     "stall_timeout": 300,
+                     "emergency_checkpoint_dir": save_dir}})
+    eng = initialize(model=GPT2Model(cfg), config_params=ds)[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    batch = _slice_batch(cfg.vocab_size, SLICE_GAS, SLICE_MICRO, SLICE_SEQ,
+                         seed=0)
+    ref = stage0["losses"]
+    rec = {"calls": 0, "ms": {}, "syncs": {}, "in_flight": {},
+           "commits": [], "loads": [], "rollback_s": [], "fault": None}
+    orig_train, orig_save = eng.train_batch, eng.save_checkpoint
+    orig_load = eng.load_checkpoint
+
+    def train_batch(*a, **k):
+        step = eng.global_steps + 1
+        rec["in_flight"].setdefault(step, eng.pending_commit())
+        count = step not in rec["syncs"] and 2 <= step <= 8
+        with warnings.catch_warnings(record=True) as caught:
+            if count:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            rec["calls"] += 1
+            try:
+                loss = orig_train(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        rec["ms"].setdefault(step, (time.perf_counter() - t0) * 1e3)
+        if count:
+            rec["syncs"][step] = sum(
+                "called a synchronizing" in str(w.message) for w in caught)
+        fault = rec["fault"]
+        if fault is not None and not fault["released"]:
+            # the planted fault's writer goes after this step's update
+            fault["released"] = True
+            fault["gate"].set()
+        return loss
+
+    def save_checkpoint(save_dir_, *a, **k):
+        if eng.global_steps == RES_COMMIT_STEP and not rec["commits"]:
+            # the same state saved synchronously: the sha256 gate's side
+            t0 = time.perf_counter()
+            orig_save(sync_dir, async_commit=False)
+            rec["sync_s"] = time.perf_counter() - t0
+            rec["commits"].append(time.perf_counter())
+            out = orig_save(save_dir_, *a, **k)
+            rec["foreground_ms"] = eng._ckpt_foreground_ms
+            # one cadence commit in this phase: four tags at most
+            sup.config = dataclasses.replace(sup.config,
+                                             checkpoint_every_steps=0)
+            return out
+        return orig_save(save_dir_, *a, **k)
+
+    def load_checkpoint(*a, **k):
+        t0 = time.perf_counter()
+        out = orig_load(*a, **k)
+        rec["loads"].append((out[0], time.perf_counter() - t0))
+        if len(rec["loads"]) == 1:
+            # planted fault (b): an async snapshot that holds the live
+            # tensors (no copy) and writes after the next step's update
+            gate, entered = threading.Event(), threading.Event()
+            write = eng._write_snapshot_files
+
+            def late_write(path, snap):
+                entered.set()
+                gate.wait()
+                write(path, snap)
+
+            eng._host_copies = lambda leaves: list(leaves)
+            eng._write_snapshot_files = late_write
+            try:
+                orig_save(fault_dir, tag=f"global_step{eng.global_steps}",
+                          async_commit=True)
+                entered.wait()
+            finally:
+                del eng._host_copies, eng._write_snapshot_files
+            rec["fault"] = {"gate": gate, "released": False}
+        return out
+
+    seal = {}
+    orig_run = atomic.PendingCommit._run
+
+    def timed_run(self):
+        t0 = time.perf_counter()
+        try:
+            orig_run(self)
+        finally:
+            seal.setdefault(self.commit.save_dir, time.perf_counter() - t0)
+
+    eng.train_batch, eng.save_checkpoint = train_batch, save_checkpoint
+    eng.load_checkpoint = load_checkpoint
+    atomic.PendingCommit._run = timed_run
+    sup = sv.TrainingSupervisor(lambda w: eng, _res_stream(batch),
+                                save_dir=save_dir, world_size=1,
+                                config={"checkpoint_every_steps":
+                                        RES_COMMIT_STEP,
+                                        "max_transient_retries": 2})
+    orig_rollback = sup._rollback
+
+    def rollback(*a, **k):
+        t0 = time.perf_counter()
+        out = orig_rollback(*a, **k)
+        rec["rollback_s"].append(time.perf_counter() - t0)
+        return out
+
+    sup._rollback = rollback
+    try:
+        fa.reset_launch_counts()
+        bsk.reset_launch_counts()
+        # (a), (b): a transient fault at wall step 2, the async commit at
+        # step 4, steps 5-8 while it is in flight
+        chaos.arm(fail_step_transient=2)
+        sup.run(8)
+        chaos.disarm()
+        eng.wait_pending_commit()
+        peak = torch.cuda.max_memory_allocated()
+        tag4 = f"global_step{RES_COMMIT_STEP}"
+        sha_async = _manifest_sha(os.path.join(save_dir, tag4))
+        sha_sync = _manifest_sha(os.path.join(sync_dir, tag4))
+        commit_bytes = _tag_bytes(os.path.join(save_dir, tag4))
+        # (c) NaN gradients at steps 9-10: the watchdog's overflow streak,
+        # its emergency tag, a rollback to the committed tag (the planted
+        # fault (b) rides the rollback's load)
+        chaos.arm(nan_grad_steps=2)
+        sup.run(10)
+        chaos.disarm()
+        after_nan = sup.committed_losses()
+        eng.wait_pending_commit()
+        sha_fault = _manifest_sha(os.path.join(fault_dir, tag4))
+        # Adam's step count flipped after step 12: the sentinels' anomaly
+        # at 13, the corrupt verdict at 14, a rollback to the clean tag
+        # and a skip of the window
+        chaos.arm()
+        chaos.corrupt_opt_state(rank=0, step=RES_FLIP_STEP, leaf=0,
+                                element=0, bit=RES_FLIP_BIT)
+        sup.run(RES_STEPS)
+        chaos.disarm()
+        report = sup.report()
+        after_corrupt = sup.committed_losses()
+        # planted fault (c): the corrupt rung rolled back onto the wrong
+        # (emergency) tag
+        wrong = "emergency_step10"
+        sup.last_clean_tag = wrong
+        sup._open(sv.KIND_CORRUPT, sup.wall_step)
+        inc_fault = sup._open_incident
+        sup._rollback(reason=sv.KIND_CORRUPT, skip_data=True)
+        fault_loss = float(orig_train(data_iter=sup.data_iter))
+        # (d) auto-resume past a torn write, a newer tag with one corrupted
+        # payload byte and the watchdog's emergency tag
+        os.makedirs(os.path.join(save_dir, ".tmp-global_step20"))
+        with open(os.path.join(save_dir, ".tmp-global_step20",
+                               "model_states.npz"), "wb") as f:
+            f.write(b"torn")
+        _newer_corrupt_tag(save_dir, tag4, "global_step16", 16)
+        pick = atomic.select_resume_tag(save_dir)
+        t0 = time.perf_counter()
+        path, _client = orig_load(save_dir, auto_resume=True)
+        load_s = time.perf_counter() - t0
+        resumed = [float(orig_train(batch=batch)) for _ in range(2)]
+        rec["calls"] += 3
+        launches = dict(fa.LAUNCHES, **bsk.LAUNCHES)
+    finally:
+        chaos.disarm()
+        atomic.PendingCommit._run = orig_run
+        shutil.rmtree(root, ignore_errors=True)
+
+    smi = env["smi"]
+    steps_ms = rec["ms"]
+    armed = sorted(steps_ms[s] for s in (2, 3, 4))[1]
+    flying = sorted(steps_ms[s] for s in (5, 6, 7, 8))
+    log(f"resilience (a): armed steps 1-10 (committed) "
+        f"{[round(x, 4) for _, x in after_nan]}")
+    log(f"  step ms armed (median of steps 2-4) {armed:.1f} against phase "
+        f"4's {stage0['step_ms']:.1f} on {smi}; peak "
+        f"{peak / 2 ** 30:.2f} GiB armed against phase 4's "
+        f"{stage0['peak_bytes'] / 2 ** 30:.2f} GiB on {smi}; host syncs "
+        f"per step {rec['syncs']}")
+    log(f"resilience (b): async commit of step {RES_COMMIT_STEP}: "
+        f"{commit_bytes / 1e9:.3f} GB, foreground "
+        f"{rec['foreground_ms']:.1f} ms, thread (write + hash + fsync) "
+        f"{seal.get(save_dir, float('nan')):.2f} s, a synchronous save of "
+        f"the same state {rec['sync_s']:.2f} s; step ms while in flight "
+        f"{[round(x, 1) for x in flying]} (in flight at the start of steps "
+        f"{[s for s in (5, 6, 7, 8) if rec['in_flight'].get(s)]}) on {smi}")
+    log(f"  sha256 async {sha_async[:16]} sync {sha_sync[:16]}; planted "
+        f"fault (snapshot after step {RES_COMMIT_STEP + 1}'s update) "
+        f"{sha_fault[:16]}")
+    incs = report["incidents"]
+    log(f"resilience (c): incidents "
+        f"{[(i['kind'], i.get('recovery'), i.get('tag'), i.get('mttr_steps')) for i in incs]}; "
+        f"MTTR {report['mttr_steps']['mean']} wall steps (max "
+        f"{report['mttr_steps']['max']}), rollback wall "
+        f"{[round(x, 2) for x in rec['rollback_s']]} s, goodput "
+        f"{report['goodput_samples_per_wall_step']:.3f} samples per wall "
+        f"step ({report['committed_samples']} samples over "
+        f"{report['wall_steps']} wall steps; {report['skipped_samples']} "
+        f"skipped) on {smi}")
+    log(f"  loads {[(os.path.basename(p or ''), round(s, 2)) for p, s in rec['loads']]} s; "
+        f"planted fault (rollback onto {wrong}): loss {fault_loss:.6f} "
+        f"against {ref[RES_COMMIT_STEP]:.6f}")
+    log(f"resilience (d): auto-resume picked {os.path.basename(path)} "
+        f"(select_resume_tag: {pick}) in {load_s:.2f} s; steps "
+        f"{resumed}; launches {launches} over {rec['calls']} steps; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+    # the gates
+    if [x for _, x in after_nan] != ref[:10]:
+        raise RuntimeError(f"resilience: the armed run's losses "
+                           f"{after_nan} are not phase 4's {ref}")
+    if any(n != 1 for n in rec["syncs"].values()) or not rec["syncs"]:
+        raise RuntimeError(f"resilience: an armed step must make one host "
+                           f"sync: {rec['syncs']}")
+    if not rec["in_flight"].get(RES_COMMIT_STEP + 1):
+        raise RuntimeError("resilience: the commit was not in flight during "
+                           "the next step")
+    if sha_async != sha_sync:
+        raise RuntimeError(f"resilience: the async commit's model_states "
+                           f"sha256 {sha_async} != the synchronous save's "
+                           f"{sha_sync}")
+    if sha_fault == sha_sync:
+        raise RuntimeError("resilience: the planted fault (a snapshot after "
+                           "the next update) passed the sha256 gate")
+    kinds = [(i["kind"], i.get("recovery")) for i in incs]
+    if kinds != [("transient", "retry-in-place"), ("watchdog", "rollback"),
+                 ("corrupt", "rollback-and-skip")]:
+        raise RuntimeError(f"resilience: incidents {incs}")
+    if incs[0].get("mttr_steps") != 1 or report["transient_retries"] != 1:
+        raise RuntimeError(f"resilience: the transient retry: {incs[0]}")
+    n_after = 10 - RES_COMMIT_STEP
+    if not _ladder_ok(incs[1], tag4, [x for _, x in after_nan][
+            RES_COMMIT_STEP:], ref[RES_COMMIT_STEP:10]):
+        raise RuntimeError(f"resilience: the NaN rollback: {incs[1]}")
+    corrupt_after = [x for g, x in after_corrupt
+                     if RES_COMMIT_STEP < g <= 10]
+    if incs[2].get("culprits") != [] or incs[2].get("source") != "sentinel":
+        raise RuntimeError(f"resilience: the corrupt verdict: {incs[2]}")
+    if not _ladder_ok(incs[2], tag4, corrupt_after, ref[RES_COMMIT_STEP:10]) \
+            or report["skipped_samples"] <= 0 \
+            or len(corrupt_after) != n_after:
+        raise RuntimeError(f"resilience: the rollback-and-skip: {incs[2]}, "
+                           f"losses {corrupt_after}")
+    if _ladder_ok(inc_fault, tag4, [fault_loss], ref[RES_COMMIT_STEP:
+                                                     RES_COMMIT_STEP + 1]):
+        raise RuntimeError("resilience: the planted fault (a rollback onto "
+                           "the wrong tag) passed the ladder's gate")
+    if pick != tag4 or not path.endswith(tag4) \
+            or resumed != ref[RES_COMMIT_STEP:RES_COMMIT_STEP + 2]:
+        raise RuntimeError(f"resilience: auto-resume picked {path} "
+                           f"(select_resume_tag {pick}), losses {resumed}")
+    want = {name: cfg.n_layer * SLICE_GAS * rec["calls"]
+            for name, _ in FLASH_KERNELS}
+    want.update({name: 0 for name, _ in SPARSE_KERNELS})
+    if launches != want:
+        raise RuntimeError(f"resilience: launches {launches}, expected "
+                           f"{want}")
+    wall = time.perf_counter() - t_phase
+    log(f"resilience: phase wall {wall:.1f} s "
+        f"({'within' if wall <= RES_WALL_BUDGET else 'OVER'} its "
+        f"{RES_WALL_BUDGET:g} s budget) on {smi}")
+    eng.close_telemetry()
+    return {"launches": launches}
+
+
 def _master_digest(engine):
     """sha256 of the fp32 master's bytes, in parameter order."""
     import hashlib
@@ -6331,6 +6744,8 @@ def main():
     timed(phase_pipe, env, stage0)
     torch.cuda.empty_cache()
     timed(phase_tp, env, stage0)
+    torch.cuda.empty_cache()
+    timed(phase_resilience, env, stage0)
     log(f"phase walls (s) on {env['smi']}: "
         f"{json.dumps(PHASE_WALLS)}; all phases "
         f"{time.perf_counter() - t_main:.3f} s")

@@ -7,6 +7,12 @@ stored as a 2-byte void view of its bits with the name "bfloat16", the
 convention the JAX package uses for ml_dtypes arrays; fp16, fp32 and the
 integer types are numpy's own. Every round trip is bit-exact.
 """
+import io
+import mmap
+import struct
+import warnings
+import zipfile
+
 import numpy as np
 import torch
 
@@ -14,8 +20,13 @@ _VOID = {"bfloat16": torch.bfloat16}
 
 
 def tensor_to_numpy(t):
-    """(numpy array, dtype name) of a tensor, bf16 as a void view."""
-    t = t.detach().cpu()
+    """(numpy array, dtype name) of a tensor in C order, bf16 as a void
+    view."""
+    t = t.detach()
+    if t.device.type != "cpu":
+        # a transposed leaf's copy in C order is made on its device
+        t = t.contiguous()
+    t = t.cpu().contiguous()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.dtype("V2")), "bfloat16"
     arr = t.numpy()
@@ -23,14 +34,96 @@ def tensor_to_numpy(t):
 
 
 def numpy_to_tensor(arr, name):
-    """Inverse of tensor_to_numpy: a CPU tensor."""
-    if arr.dtype.kind == "V":
+    """Inverse of tensor_to_numpy: a CPU tensor. A read-only array (one
+    mapped by ``load_npz``) gives a tensor over its memory, not a copy:
+    read it, never write it."""
+    void = arr.dtype.kind == "V"
+    if void:
         if name not in _VOID:
             raise ValueError(f"checkpoint leaf of dtype {name!r} is not "
                              f"supported")
-        return torch.from_numpy(np.array(arr).view(np.int16)).view(
-            _VOID[name])
-    return torch.from_numpy(np.array(arr))
+        arr = arr.view(np.int16)
+    if arr.flags.writeable:
+        t = torch.from_numpy(np.array(arr))
+    else:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            t = torch.from_numpy(arr)
+    return t.view(_VOID[name]) if void else t
+
+
+class _MappedNpz:
+    """The members of an npz file, each stored member an array over the
+    file's memory map (no copy, no per-read CRC: the manifest's sha256
+    covers the bytes); any other member through np.load. ``files`` and
+    ``[name]`` as np.load's NpzFile; a context manager."""
+
+    def __init__(self, path):
+        self._path = path
+        self._arrays = {}
+        self._loaded = None
+        with zipfile.ZipFile(path) as zf:
+            infos = zf.infolist()
+        with open(path, "rb") as f:
+            # the whole map faulted in at once: a copy out of it then
+            # runs at memory speed, not one page fault per page
+            self._mm = mmap.mmap(
+                f.fileno(), 0, prot=mmap.PROT_READ,
+                flags=mmap.MAP_SHARED | getattr(mmap, "MAP_POPULATE", 0)) \
+                if infos else None
+        self.files = []
+        for info in infos:
+            name = info.filename[:-4] if info.filename.endswith(".npy") \
+                else info.filename
+            self.files.append(name)
+            arr = self._mapped(info)
+            if arr is not None:
+                self._arrays[name] = arr
+
+    def _mapped(self, info):
+        if info.compress_type != zipfile.ZIP_STORED:
+            return None
+        off = info.header_offset
+        n_name, n_extra = struct.unpack("<HH", self._mm[off + 26:off + 30])
+        start = off + 30 + n_name + n_extra
+        head = io.BytesIO(self._mm[start:start + min(info.file_size, 1 << 16)])
+        version = np.lib.format.read_magic(head)
+        read = {(1, 0): np.lib.format.read_array_header_1_0,
+                (2, 0): np.lib.format.read_array_header_2_0}.get(version)
+        if read is None:
+            return None
+        shape, fortran, dtype = read(head)
+        if dtype.hasobject:
+            return None
+        count = int(np.prod(shape, dtype=np.int64))
+        arr = np.frombuffer(self._mm, dtype=dtype, count=count,
+                            offset=start + head.tell())
+        return arr.reshape(shape, order="F" if fortran else "C")
+
+    def __getitem__(self, name):
+        if name in self._arrays:
+            return self._arrays[name]
+        if self._loaded is None:
+            self._loaded = np.load(self._path)
+        return self._loaded[name]
+
+    def close(self):
+        # the arrays keep the map alive until they are dropped
+        self._arrays = {}
+        if self._loaded is not None:
+            self._loaded.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+
+def load_npz(path):
+    """An npz file's members, mapped (``_MappedNpz``)."""
+    return _MappedNpz(path)
 
 
 def leaves_to_npz_dict(flat_leaves):

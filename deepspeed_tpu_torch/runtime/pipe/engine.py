@@ -40,14 +40,18 @@ buffer, exchanged over the data line once at the end of the schedule.
 
 Checkpoints are the JAX engine's layer-granular ``npz-layer`` layout, one
 file per layer key, entries keyed by the leaf's path in the JAX chunk
-state, so either engine reads the other's tags at any stage count.
+state, so either engine reads the other's tags at any stage count. They
+take the base engine's commit path (``_ckpt_host_snapshot`` and
+``_write_snapshot_files`` give the layout): async commits, auto-resume,
+and elastic loads whose plan remaps the chunks and warns the dropped
+schedule features DISARMED, in the single-controller layout (one
+process per stage is ROADMAP A16b).
 """
 import copy
 import logging
 import math
 import os
 import pickle
-import time
 
 import numpy as np
 import torch
@@ -72,11 +76,11 @@ from deepspeed_tpu_torch.runtime.pipe.module import PipelineModule
 from deepspeed_tpu_torch.runtime.pipe.p2p import DistLink, LocalLink
 from deepspeed_tpu_torch.runtime.pipe.topology import (
     PipelineParallelGrid, PipeModelDataParallelTopology)
-from deepspeed_tpu_torch.runtime.resilience import atomic
+from deepspeed_tpu_torch.runtime.resilience import atomic, chaos, reshard
 from deepspeed_tpu_torch.utils.distributed import (init_distributed,
                                                    pipe_edge_groups,
                                                    tie_groups)
-from deepspeed_tpu_torch.utils.logging import log_dist, logger
+from deepspeed_tpu_torch.utils.logging import log_dist
 
 
 class _OwnedChunks(nn.Module):
@@ -920,6 +924,7 @@ class PipelineEngine(DeepSpeedEngine):
         if self._local_flat is not None:
             self._exchange_grads(self._local)
             self._local_flat.zero_()
+        self._chaos_poison_accum()
         self._reduce_tied_grads()
         lr = self._advance_lr()
         self._sync_master()
@@ -1192,14 +1197,6 @@ class PipelineEngine(DeepSpeedEngine):
             report["pipeline"]["measured"] = self.measured_bubble_report()
         return report
 
-    def _topology(self):
-        topo = super()._topology()
-        topo["mesh"]["pipe"] = self.num_stages
-        topo.update({"pipe": self.num_stages,
-                     "virtual_stages": self.virtual_stages,
-                     "schedule": self.pipe_schedule})
-        return topo
-
     # ------------------------------------------------------------------
     # weights in the pipeline module's names
     # ------------------------------------------------------------------
@@ -1283,25 +1280,25 @@ class PipelineEngine(DeepSpeedEngine):
             entries.update(self._leaf_entries(q, (params, master, states)))
         return entries
 
-    def save_checkpoint(self, save_dir, tag=None, client_state=None,
-                        save_latest=True, backend=None, manifest_meta=None,
-                        async_commit=None):
-        """Write ``save_dir/<tag>`` in the JAX pipeline engine's
-        layer-granular layout: ``<layer key>-states.npz`` per layer (its
-        parameters, master and optimizer state by leaf path, the same file
-        whichever stage holds the layer), ``globals-states.npz`` (the
-        optimizer's step) and ``metadata.pkl``, committed atomically by
-        global rank 0, to which every stage's entries are gathered."""
+    def _ckpt_writer(self):
+        """Global rank 0 writes, every stage's entries gathered to it."""
+        return (dist.get_rank() if dist.is_initialized() else 0) == 0
+
+    def _ckpt_backend(self, backend):
+        """The layer-granular ``npz-layer`` layout, the only one."""
+        if backend == "orbax":
+            super()._ckpt_backend(backend)
         if backend not in (None, "auto", "npz", "npz-layer"):
             raise ValueError(
                 f"pipeline checkpoints only support the layer-granular npz "
                 f"backend; got backend={backend!r}")
-        if async_commit:
-            raise NotImplementedError("asynchronous checkpoint commits are "
-                                      "not ported yet (ROADMAP A16)")
-        tag = f"global_step{self.global_steps}" if tag is None else tag
-        _t0 = time.perf_counter()
-        self._checkpoint_tag_validation(tag)
+        return "npz-layer"
+
+    def _ckpt_host_snapshot(self, client_state, backend, copy_host=False):
+        """The JAX pipeline engine's layer-granular payload in host memory:
+        each owned chunk's leaves (host copies, whatever ``copy_host``
+        asks), every stage's gathered to global rank 0, and the
+        metadata."""
         entries = self._host_state_entries() if self.dp_rank == 0 else {}
         if self.pipe_procs > 1:
             gathered = [None] * dist.get_world_size()
@@ -1323,55 +1320,37 @@ class PipelineEngine(DeepSpeedEngine):
             "format": "layer-granular",
             "lr_scheduler": self.lr_scheduler.state_dict()
             if self.lr_scheduler is not None else None,
-            "client_state": client_state or {},
+            "client_state": client_state,
             "dp_world_size": self.dp_world_size,
-            "topology": self._topology(),
-            "data_position": self._data_position(),
+            reshard.TOPOLOGY_KEY: reshard.topology_manifest(self),
+            reshard.DATA_POSITION_KEY: reshard.data_position(self),
         }
-        manifest = {"tag": str(tag), "global_steps": self.global_steps,
-                    "micro_steps": self.micro_steps,
-                    "world": {"dp": self.dp_world_size, "mp": 1, "sp": 1},
-                    "topology": meta["topology"],
-                    "data_position": meta["data_position"],
-                    "backend": "npz-layer"}
-        manifest.update(manifest_meta or {})
+        return {"entries": entries, "meta": meta,
+                "writer": self._ckpt_writer()}
 
-        def write(path):
-            per_layer, global_leaves = {}, {}
-            for (layer, name), arr in entries.items():
-                entry = checkpoint_utils.named_leaf_entry(name, arr)
-                (global_leaves if layer is None else
-                 per_layer.setdefault(layer, {})).update(entry)
-            for k, e in per_layer.items():
-                atomic.savez_hashed(os.path.join(path, f"{k}-states.npz"),
-                                    **e)
-            atomic.savez_hashed(os.path.join(path, "globals-states.npz"),
-                                **global_leaves)
-            with open(os.path.join(path, "metadata.pkl"), "wb") as f:
-                pickle.dump(meta, f)
-
-        rank = dist.get_rank() if dist.is_initialized() else 0
-        if rank == 0:
-            res = self._config.resilience
-            if res.atomic_checkpoints:
-                with atomic.atomic_tag(save_dir, tag, meta=manifest,
-                                       update_latest=save_latest,
-                                       fsync=res.fsync) as tmp:
-                    write(tmp)
-            else:
-                path = os.path.join(save_dir, str(tag))
-                os.makedirs(path, exist_ok=True)
-                write(path)
-                if save_latest:
-                    atomic.write_latest(save_dir, tag, fsync=False)
-        if self._world_group is not None:
-            self._world_group.barrier()
-        log_dist(f"Saved pipeline checkpoint {os.path.join(save_dir, str(tag))}",
-                 ranks=[0])
-        if self._tracer is not None:
-            self._tracer.complete("ckpt_sync_commit", self._lane_ckpt, _t0,
-                                  a0=self.global_steps)
-        return True
+    def _write_snapshot_files(self, path, snap):
+        """``<layer key>-states.npz`` per layer (its parameters, master and
+        optimizer state by leaf path: the same file whichever stage holds
+        the layer), ``globals-states.npz`` (the optimizer's step) and
+        ``metadata.pkl``; each file a chaos point."""
+        if not snap["writer"]:
+            return
+        per_layer, global_leaves = {}, {}
+        for (layer, name), arr in snap["entries"].items():
+            entry = checkpoint_utils.named_leaf_entry(name, arr)
+            (global_leaves if layer is None else
+             per_layer.setdefault(layer, {})).update(entry)
+        for k, e in per_layer.items():
+            fname = os.path.join(path, f"{k}-states.npz")
+            atomic.savez_hashed(fname, **e)
+            chaos.file_written(fname)
+        fname = os.path.join(path, "globals-states.npz")
+        atomic.savez_hashed(fname, **global_leaves)
+        chaos.file_written(fname)
+        fname = os.path.join(path, "metadata.pkl")
+        with open(fname, "wb") as f:
+            pickle.dump(snap["meta"], f)
+        chaos.file_written(fname)
 
     def _layer_key_set(self):
         """The stage-count-independent universe of layer keys the files
@@ -1380,34 +1359,14 @@ class PipelineEngine(DeepSpeedEngine):
                 if l.param_key is not None}
 
     @torch.no_grad()
-    def load_checkpoint(self, load_dir, tag=None, load_module_strict=True,
-                        load_optimizer_states=True,
-                        load_lr_scheduler_states=True, auto_resume=None,
-                        elastic=None):
+    def _load_checkpoint_tag(self, load_dir, tag, load_module_strict=True,
+                             load_optimizer_states=True,
+                             load_lr_scheduler_states=True, elastic=False):
         """Restore a layer-granular tag, written by this engine or the JAX
         one at any stage or virtual-stage count: every leaf of this
-        process's chunks is looked up by (layer key, leaf path)."""
-        res = self._config.resilience
-        if auto_resume or (auto_resume is None and tag is None
-                           and res.auto_resume):
-            raise NotImplementedError("auto_resume (newest intact tag) is "
-                                      "not ported yet (ROADMAP A16)")
-        if elastic:
-            raise NotImplementedError("elastic checkpoint loads are not "
-                                      "ported yet (ROADMAP A16)")
-        if tag is None:
-            tag = atomic.read_latest(load_dir)
-            if tag is None:
-                logger.warning(f"No 'latest' file at {load_dir}; nothing "
-                               f"loaded")
-                return None, {}
+        process's chunks is looked up by (layer key, leaf path), all of
+        them before any is written."""
         path = os.path.join(load_dir, str(tag))
-        if res.verify_on_load:
-            ok, reason = atomic.verify_tag(path)
-            if not ok:
-                raise atomic.CheckpointCorrupt(
-                    f"checkpoint tag {tag!r} under {load_dir} failed "
-                    f"verification: {reason}")
         with open(os.path.join(path, "metadata.pkl"), "rb") as f:
             meta = pickle.load(f)
         if meta.get("format") != "layer-granular":
@@ -1437,6 +1396,7 @@ class PipelineEngine(DeepSpeedEngine):
                                   self.optimizer.state_lists()):
                 lists[f"['opt_state'].{label}"] = (lst, sharded)
         index = {n: i for i, n in enumerate(self.param_names)}
+        copies = []
         for q in self.owned_chunks:
             tree = self.module.reference_tree()[f"chunk{q}"]
 
@@ -1452,12 +1412,22 @@ class PipelineEngine(DeepSpeedEngine):
                     for prefix, (lst, shard) in lists.items():
                         arr = lookup(layer, prefix + leaf_path).float()
                         arr = arr.t() if transposed else arr
-                        lst[i].copy_(part.local(arr, i) if shard else arr)
+                        src = part.local(arr, i) if shard else arr
+                        if tuple(src.shape) != tuple(lst[i].shape):
+                            raise ValueError(
+                                f"checkpoint leaf {prefix}{leaf_path} has "
+                                f"shape {tuple(src.shape)}, the model's is "
+                                f"{tuple(lst[i].shape)}")
+                        copies.append((lst[i], src))
 
             walk(tree, "")
-        if load_optimizer_states:
-            self.optimizer.step.fill_(
-                int(lookup(None, "['opt_state'].step")))
+        step = int(lookup(None, "['opt_state'].step")) \
+            if load_optimizer_states else None
+        self._discard_staged_micro()
+        for dst, src in copies:
+            dst.copy_(src)
+        if step is not None:
+            self.optimizer.step.fill_(step)
         if not self.mixed_precision:
             for i in part.sharded_idx:
                 self.master[i].copy_(self._param_local(i))
@@ -1466,6 +1436,9 @@ class PipelineEngine(DeepSpeedEngine):
             f.close()
         self.global_steps = meta["global_steps"]
         self.micro_steps = meta["micro_steps"]
+        self.samples_skipped = int(
+            (meta.get(reshard.DATA_POSITION_KEY) or {})
+            .get("samples_skipped", 0))
         self._host_skipped = meta["skipped_steps"]
         self._pipe_scaler.cur_scale = meta["cur_scale"]
         for k, v in meta.get("scaler_state", {}).items():
@@ -1479,5 +1452,7 @@ class PipelineEngine(DeepSpeedEngine):
                  f"chunks/{meta.get('schedule')}, now "
                  f"{self.num_stages}x{self.virtual_stages}/"
                  f"{self.pipe_schedule})", ranks=[0])
-        return path, dict(meta.get("client_state") or {})
+        if self._watchdog is not None:
+            self._watchdog.heartbeat()
+        return path, self._elastic_client_state(meta, elastic)
 

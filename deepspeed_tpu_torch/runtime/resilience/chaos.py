@@ -503,7 +503,8 @@ def flip_bit(rank, step, leaf=0, element=0, bit=30, target="params"):
     NaN/overflow machinery fires: only the integrity sentinels (z-score
     on loss/grad-norm/update-ratio) and the cross-replica checksum vote
     can see it.  ``leaf`` indexes ``state.params`` (or ``state.
-    opt_state`` with ``target="opt"``) in flatten order; ``element`` is
+    opt_state`` with ``target="opt"``, the fp32 master with
+    ``target="master"``) in flatten order; ``element`` is
     the flat element, ``bit`` the fp32 word bit (default 30, the top
     exponent bit — clear on any weight with |w| < 1, so the flip
     inflates it by ~2^124: loud but finite).  Composes with an already-armed plan, or

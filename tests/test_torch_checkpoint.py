@@ -17,6 +17,7 @@ metadata.pkl, the manifest and the ``latest`` pointer).
 - A torn write (a payload file truncated) fails verify_tag and the load.
 """
 import io
+import pickle
 import os
 
 import jax
@@ -207,11 +208,26 @@ def test_torn_write_fails_verification(tmp_path):
 
 
 def test_unported_checkpoint_options_raise(tmp_path):
+    """Orbax, the JAX package's own checkpoint library, is neither written
+    nor read, with the reason; auto_resume runs now (nothing to resume
+    from: nothing loaded)."""
     eng = _port("fp32")
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(NotImplementedError, match="orbax is the JAX "
+                       "package's checkpoint library"):
         eng.save_checkpoint(str(tmp_path), backend="orbax")
-    with pytest.raises(NotImplementedError, match="A16"):
-        eng.load_checkpoint(str(tmp_path), auto_resume=True)
+    eng.save_checkpoint(str(tmp_path), tag="t")
+    meta_path = os.path.join(tmp_path, "t", "metadata.pkl")
+    with open(meta_path, "rb") as f:
+        meta = pickle.load(f)
+    with open(meta_path, "wb") as f:
+        pickle.dump(dict(meta, backend="orbax"), f)
+    manifest = atomic.load_manifest(os.path.join(tmp_path, "t"))
+    atomic.write_manifest(os.path.join(tmp_path, "t"), {
+        k: v for k, v in manifest.items() if k not in ("files", "version")})
+    with pytest.raises(NotImplementedError, match="does not read"):
+        eng.load_checkpoint(str(tmp_path), tag="t")
+    assert eng.load_checkpoint(str(tmp_path / "none"),
+                               auto_resume=True) == (None, {})
 
 
 @pytest.mark.parametrize("model", ["gpt2", "gpt2_scan", "bert"])

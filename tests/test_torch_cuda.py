@@ -497,6 +497,61 @@ def test_the_metrics_stream_costs_one_fetch_per_step(cuda, tmp_path):
 
 
 @pytest.mark.cuda
+def test_armed_watchdog_and_sentinels_fetch_once_per_step(cuda, tmp_path):
+    """The watchdog and the integrity sentinels armed: a step's loss,
+    overflow flag, gradient norm and update ratio reach the host in ONE
+    synchronizing copy (torch.cuda.set_sync_debug_mode("warn")); the same
+    engine disarmed runs its step under set_sync_debug_mode("error")."""
+    import warnings
+
+    import deepspeed_tpu_torch
+    from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+
+    def engine(resilience):
+        cfg = GPT2Config(vocab_size=256, n_positions=128, n_embd=128,
+                         n_layer=2, n_head=2, dtype=torch.bfloat16)
+        ds = {"train_batch_size": 4, "train_micro_batch_size_per_gpu": 2,
+              "gradient_accumulation_steps": 2, "gradient_clipping": 1.0,
+              "optimizer": {"type": "Adam", "params": {"lr": 1e-3}},
+              "steps_per_print": 10 ** 9, "bf16": {"enabled": True},
+              "resilience": resilience}
+        return deepspeed_tpu_torch.initialize(model=GPT2Model(cfg),
+                                              config_params=ds)[0]
+
+    ids = torch.randint(0, 256, (2, 2, 128), device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(0))
+    batch = {"input_ids": ids, "labels": ids}
+    armed = engine({"watchdog": {"enabled": True, "max_skipped_steps": 3,
+                                 "stall_timeout": 600},
+                    "integrity": {"enabled": True, "min_history": 2}})
+    armed.train_batch(batch=batch)        # builds and loads the library
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                armed.train_batch(batch=batch)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        assert len(syncs) == 1, [str(w.message) for w in syncs]
+    # every step reached the sentinels (an anomalous one is not folded
+    # into their statistics, so their counts may be lower)
+    assert armed._integrity.last_observed_step == armed.global_steps == 4
+    assert "integrity" in armed.telemetry_report()
+    plain = engine({})
+    plain.train_batch(batch=batch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        plain.train_batch(batch=batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
 def test_peak_counter_disarmed_untouched_armed_kept(cuda, tmp_path):
     """A disarmed engine leaves the allocator's peak counter as it found
     it; an armed one resets it for its windows, and its report's device

@@ -10,8 +10,10 @@ summation orders, and three Adam steps keep the drift around 1e-6.
 """
 import ast
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,6 +33,7 @@ from deepspeed_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 from deepspeed_tpu_torch.ops.adam.fused_adam import FusedAdam
 from deepspeed_tpu_torch.runtime.config import DeepSpeedConfig
 from deepspeed_tpu_torch.runtime.lr_schedules import SCHEDULER_REGISTRY
+from deepspeed_tpu_torch.runtime.resilience import atomic
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "deepspeed_tpu_torch")
@@ -236,7 +239,10 @@ def test_lr_schedules_match_jax(name, params):
     pytest.param({"optimizer": {"type": "ZeroOneAdam",
                                 "params": {"lr": 1e-3}}}, None,
                  id="extra6-A13"),
-    ({"resilience": {"async_commit": True}}, "A16"),
+    # asynchronous commits (A16) run now in one process: the commit is in
+    # flight after save_checkpoint and published by wait_pending_commit
+    pytest.param({"resilience": {"async_commit": True}}, None,
+                 id="extra7-A16"),
 ])
 def test_unported_configurations_raise(extra, item):
     def build():
@@ -246,6 +252,18 @@ def test_unported_configurations_raise(extra, item):
 
     if item is None:
         eng = build()
+        if "resilience" in extra:
+            ids = np.random.default_rng(3).integers(0, 256, (2, 2, 64))
+            eng.train_batch(batch={"input_ids": ids, "labels": ids})
+            save_dir = tempfile.mkdtemp()
+            eng.save_checkpoint(save_dir)
+            assert eng.pending_commit()
+            assert eng.wait_pending_commit() and not eng.pending_commit()
+            assert atomic.read_latest(save_dir) == "global_step1"
+            assert atomic.verify_tag(os.path.join(save_dir,
+                                                  "global_step1"))[0]
+            shutil.rmtree(save_dir)
+            return
         if "optimizer" in extra:
             assert eng.optimizer.name == extra["optimizer"]["type"].lower()
             assert eng._wire is None and eng.optimizer.group is None

@@ -17,6 +17,7 @@ tests/test_torch_zero.py.
 import functools
 import logging
 import os
+import types
 
 import jax
 import jax.numpy as jnp
@@ -647,9 +648,21 @@ def test_seq_beside_pipe_and_moe_at_dp_2_name_a12b():
 
 
 def test_elastic_and_auto_resume_loads_name_a16(tmp_path):
+    """In the single-controller layout both loads run (A16): auto-resume
+    of an empty directory loads nothing, an elastic load of the engine's
+    own tag returns its plan and data position. With one process per
+    stage (a world of several processes) both raise naming A16b."""
     eng = port_engine()
+    assert eng.load_checkpoint(str(tmp_path), auto_resume=True) == (None,
+                                                                    {})
+    eng.save_checkpoint(str(tmp_path))
+    path, client = eng.load_checkpoint(str(tmp_path), elastic=True)
+    assert path.endswith("global_step0")
+    assert client["elastic_reshard"]["changed"] == {}
+    assert client["data_position"]["samples_consumed"] == 0
+    eng._world_group = types.SimpleNamespace(size=2)
     for kw in ({"elastic": True}, {"auto_resume": True}):
-        with pytest.raises(NotImplementedError, match="A16"):
+        with pytest.raises(NotImplementedError, match="A16b"):
             eng.load_checkpoint(str(tmp_path), **kw)
 
 

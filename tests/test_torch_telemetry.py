@@ -374,9 +374,9 @@ def _spans(tracer):
 def test_training_spans_equal_jax(both_engines):
     jeng, eng, _ = both_engines
     got, want = _spans(eng.telemetry.tracer), _spans(jeng.telemetry.tracer)
-    # the JAX engine's chaos observer marks each chaos point of the commit
-    # (chaos_point_*); the port's chaos callbacks are ROADMAP A16
-    want = [s for s in want if not s[1].startswith("chaos_")]
+    # the chaos observers mark each chaos point of the commit
+    # (chaos_point_*) in both engines
+    assert any(s[1].startswith("chaos_point_") for s in want)
     assert got == want
     assert [s[1] for s in got].count("optimizer_step") == 3
     assert ("ckpt", "ckpt_sync_commit", 3, -1) in got
@@ -437,9 +437,27 @@ def test_disarmed_stream_warns(tmp_path, caplog):
 
 
 def test_watchdog_still_names_a16():
-    with pytest.raises(NotImplementedError, match="A16"):
-        _port_engine(dict(DS, telemetry={"enabled": True},
-                          resilience={"watchdog": {"enabled": True}}))
+    """The watchdog is wired (A16): armed beside the tracer, an overflow
+    streak (NaN gradients from the chaos plan) fires its event, traced as
+    the JAX engine's ``watchdog_*`` instant; action "continue" keeps
+    training."""
+    from deepspeed_tpu_torch.runtime.resilience import chaos
+
+    eng = _port_engine(dict(DS, telemetry={"enabled": True},
+                            resilience={"watchdog": {
+                                "enabled": True, "max_skipped_steps": 2,
+                                "action": "continue"}}))
+    ids = np.random.default_rng(0).integers(0, 256, (2, 2, 32))
+    chaos.arm(nan_grad_steps=2)
+    try:
+        for _ in range(3):
+            eng.train_batch(batch={"input_ids": ids, "labels": ids})
+    finally:
+        chaos.disarm()
+    assert [e.kind for e in eng.watchdog.events] == ["overflow_streak"]
+    names = [e["name"] for e in eng.telemetry.tracer.events()]
+    assert "watchdog_overflow_streak" in names
+    assert eng.consecutive_skipped_steps() == 0
 
 
 # ---------------------------------------------------------------------------
